@@ -39,16 +39,15 @@ class AutoencoderInference:
   removes the room reverb.
 
   Call with {'f0_hz': [n_frames], 'loudness_db': [n_frames]}-style features
-  (1-D inputs are taken as one unbatched request). The filtered-noise
-  source is a generator seeded with `seed` on every call, so a request
-  renders the same audio each time, as the JAX class's fixed noise key does.
+  (1-D inputs are taken as one unbatched request). With no `noise`,
+  FilteredNoise draws from its fixed-seed generator, so a request renders
+  the same audio each time, as the JAX class's fixed noise key does.
   """
 
   def __init__(self, save_dir: str, length_seconds: float = 4,
                remove_reverb: bool = True, device: DeviceLike = None,
-               seed: int = 0, **overrides):
+               **overrides):
     self.device = resolve_device(device)
-    self.seed = seed
     kwargs = registry.load_spec(save_dir)['kwargs']
     self.sample_rate = kwargs.get('sample_rate', 16000)
     n_samples_train = kwargs.get('n_samples', 64000)
@@ -90,8 +89,7 @@ class AutoencoderInference:
       if v.ndim == 1:
         v = v[None, :, None]
       batched[k] = v
-    generator = torch.Generator(self.device).manual_seed(self.seed)
-    return self.model(batched, noise=noise, generator=generator)
+    return self.model(batched, noise=noise)
 
   def get_audio(self, features: Dict[str, Any]) -> torch.Tensor:
     return self(features)['audio_synth']

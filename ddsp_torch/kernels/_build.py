@@ -3,8 +3,8 @@
 Each source has a plain C interface (pointers and the stream as void*), so
 it compiles with nvcc alone in seconds, without PyTorch's headers. Libraries
 are built at first use into build/ddsp_torch_kernels/ at the repository
-root, named by a hash of their source, so an edited source is rebuilt and a
-stale library is never loaded.
+root, named by a hash of their source, the nvcc flags and the nvcc binary,
+so a change to any of them rebuilds and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'ddsp_torch_kernels'
@@ -34,9 +34,13 @@ def _nvcc() -> str:
                      'built from csrc/ on a machine with the CUDA toolkit.')
 
 
-def library_path(name: str) -> Path:
-  digest = hashlib.sha1((CSRC_DIR / f'{name}.cu').read_bytes()).hexdigest()
-  return BUILD_DIR / f'lib{name}_{digest[:12]}.so'
+def library_path(name: str, nvcc: str) -> Path:
+  """Where csrc/<name>.cu builds with `nvcc` and NVCC_FLAGS."""
+  sha = hashlib.sha1((CSRC_DIR / f'{name}.cu').read_bytes())
+  stat = os.stat(nvcc)
+  sha.update(f'{" ".join(NVCC_FLAGS)}|{os.path.realpath(nvcc)}|'
+             f'{stat.st_size}|{stat.st_mtime_ns}'.encode())
+  return BUILD_DIR / f'lib{name}_{sha.hexdigest()[:12]}.so'
 
 
 def build(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:
@@ -46,15 +50,16 @@ def build(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:
   ptxas's register and shared-memory report. Raises if any build fails.
   """
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  nvcc = _nvcc()
   procs = {}
   done = {}
   for name in names:
-    out = library_path(name)
+    out = library_path(name, nvcc)
     if out.exists():
       done[name] = (out, '')
       continue
     tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC_DIR / f'{name}.cu')]
+    cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(CSRC_DIR / f'{name}.cu')]
     procs[name] = (out, tmp, subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
   failed = []
@@ -70,11 +75,20 @@ def build(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:
   return done
 
 
-def load(name: str) -> ctypes.CDLL:
-  """The loaded library for csrc/<name>.cu, built first if needed."""
+def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+  """The loaded library for csrc/<name>.cu, built first if needed.
+
+  `signatures` maps each C entry point to its argtypes; every entry returns
+  a cudaError_t as int. They are set once, when the library is loaded.
+  """
   if name not in _LIBS:
     path, _ = build([name])[name]
-    _LIBS[name] = ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(str(path))
+    for fn_name, argtypes in signatures.items():
+      fn = getattr(lib, fn_name)
+      fn.argtypes = list(argtypes)
+      fn.restype = ctypes.c_int
+    _LIBS[name] = lib
   return _LIBS[name]
 
 

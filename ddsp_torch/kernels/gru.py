@@ -10,6 +10,7 @@ kernel against it.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -69,23 +70,34 @@ def _check(xp, wh, bn, h0):
       raise ValueError(f'{name} is on {t.device}, xp on {xp.device}.')
 
 
+_SIGNATURES = {
+    'ddsp_gru_occupancy': [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)] * 2,
+    'ddsp_gru_fwd': [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p],
+}
+
+# Chosen u per (device index, H, B, bf16): it depends on nothing else.
+_UNITS_PER_BLOCK: Dict[Tuple[int, int, int, bool], int] = {}
+
+
 def _lib():
-  lib = _build.load('gru')
-  lib.ddsp_gru_occupancy.argtypes = [ctypes.c_int] * 4 + [
-      ctypes.POINTER(ctypes.c_int)] * 2
-  lib.ddsp_gru_occupancy.restype = ctypes.c_int
-  lib.ddsp_gru_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-      ctypes.c_void_p]
-  lib.ddsp_gru_fwd.restype = ctypes.c_int
-  return lib
+  return _build.load('gru', _SIGNATURES)
 
 
-def pick_units_per_block(lib, hidden: int, batch: int, bf16: bool) -> int:
+def pick_units_per_block(device: torch.device, hidden: int, batch: int,
+                         bf16: bool) -> int:
   """Smallest u dividing H whose H/u blocks fit one per SM, co-resident.
 
   One block per SM gives each block the whole SM and keeps the number of
   barrier arrivals per step low. Raises if no u gives a co-resident grid.
+  The occupancy queries run once per (device, H, B, dtype); call it with
+  `device` current.
   """
+  key = (device.index, hidden, batch, bf16)
+  if key in _UNITS_PER_BLOCK:
+    return _UNITS_PER_BLOCK[key]
+  lib = _lib()
   for u in range(1, hidden + 1):
     if hidden % u:
       continue
@@ -96,6 +108,7 @@ def pick_units_per_block(lib, hidden: int, batch: int, bf16: bool) -> int:
                  'ddsp_gru_occupancy')
     n_blocks = hidden // u
     if n_blocks <= n_sms.value and per_sm.value >= 1:
+      _UNITS_PER_BLOCK[key] = u
       return u
   raise RuntimeError(f'K2 cannot make a co-resident grid for H={hidden}, '
                      f'B={batch}: the shared-memory slice does not fit.')
@@ -112,7 +125,7 @@ def _launch(xp, wh, bn, h0):
   bn = bn.float().contiguous()
   h0 = h0.float().contiguous()
   with torch.cuda.device(xp.device):
-    u = pick_units_per_block(lib, h_dim, batch, bf16)
+    u = pick_units_per_block(xp.device, h_dim, batch, bf16)
     ys = torch.empty((seq_len, batch, h_dim), dtype=torch.float32,
                      device=xp.device)
     barrier = torch.zeros(1, dtype=torch.int32, device=xp.device)

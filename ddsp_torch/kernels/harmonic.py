@@ -63,13 +63,15 @@ def _check(phase0, f0_env, ham, amp_resample_method):
       raise ValueError(f'{name} is on {t.device}, phase0 on {phase0.device}.')
 
 
+_SIGNATURES = {
+    'ddsp_harmonic_fwd': [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+}
+
+
 def _launch(phase0, f0_env, ham, sample_rate, amp_resample_method):
   global launches
-  lib = _build.load('harmonic')
-  fn = lib.ddsp_harmonic_fwd
-  fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-      ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-  fn.restype = ctypes.c_int
+  fn = _build.load('harmonic', _SIGNATURES).ddsp_harmonic_fwd
   phase0, f0_env, ham = (t.contiguous() for t in (phase0, f0_env, ham))
   batch, n_samples = phase0.shape
   out = torch.empty_like(phase0)

@@ -147,7 +147,8 @@ def test_autoencoder_inference_serves_params_export(tmp_path, remove_reverb):
   assert ('reverb' in out_t) == (not remove_reverb)
   np.testing.assert_allclose(out_t['audio_synth'].numpy(),
                              np.asarray(out_j['audio_synth']), atol=4e-3)
-  # Without explicit noise the generator draws it, the same on every call.
+  # Without explicit noise FilteredNoise's fixed-seed generator draws it,
+  # the same on every call.
   audio = port.get_audio(features)
   assert audio.shape == (1, 8000) and torch.isfinite(audio).all()
   torch.testing.assert_close(audio, port.get_audio(features), rtol=0, atol=0)
@@ -197,8 +198,8 @@ def test_port_sources_import_no_jax():
         assert name.split('.')[0] not in forbidden, (path, name)
 
 
-def test_entry_points_refuse_the_cpu_by_default(tmp_path):
-  assert not torch.cuda.is_available()
+def test_entry_points_refuse_the_cpu_by_default(tmp_path, monkeypatch):
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
   with pytest.raises(RuntimeError, match='CUDA'):
     build_model('tiny')
   _, params = _jax_model_and_params('tiny', dict(compute_dtype='float32'),
