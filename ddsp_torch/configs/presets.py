@@ -1,11 +1,13 @@
 """Model presets (port of solo_instrument and tiny, ddsp_tpu/configs/presets.py).
 
 Each preset builds its modules on the CPU; utils.build_model moves them to
-the device. Losses belong to the training slice and are not built here.
+the device. SpectralLoss has no parameters, so a JAX parameter tree loads
+into a preset's model as it is.
 """
 
 from __future__ import annotations
 
+from ddsp_torch import losses as losses_lib
 from ddsp_torch import nn, proc
 from ddsp_torch.models import Autoencoder
 from ddsp_torch.utils.registry import register_preset
@@ -50,7 +52,10 @@ def solo_instrument(n_samples: int = 64000,
           output_splits=(('amps', 1),
                          ('harmonic_distribution', n_harmonics),
                          ('noise_magnitudes', n_noise_magnitudes))),
-      processor_group=proc.ProcessorGroup(dag))
+      processor_group=proc.ProcessorGroup(dag),
+      losses=(losses_lib.SpectralLoss(loss_type='L1', mag_weight=1.0,
+                                      logmag_weight=1.0,
+                                      compute_dtype=compute_dtype),))
 
 
 @register_preset('tiny')

@@ -89,7 +89,7 @@ class AutoencoderInference:
       if v.ndim == 1:
         v = v[None, :, None]
       batched[k] = v
-    return self.model(batched, noise=noise)
+    return self.model(batched, training=False, noise=noise)
 
   def get_audio(self, features: Dict[str, Any]) -> torch.Tensor:
     return self(features)['audio_synth']

@@ -187,7 +187,8 @@ class FastGRU(nn.Module):
 
   Reset-after convention (flax GRUCell): n = tanh(x W_in + b_in +
   r * (h W_hn + b_hn)). All T input projections are one GEMM (plain
-  torch.matmul); the recurrence is kernel K2 on a CUDA tensor. In bf16 mode
+  torch.matmul, differentiated by autograd); the recurrence is kernel K2f
+  on a CUDA tensor and its backward kernel K2b. In bf16 mode
   the GEMM takes bf16 operands with float32 accumulation, and xp and wh
   enter the recurrence as bf16 (the Pallas path's numerics,
   ddsp_tpu/nn/layers.py:217-237).

@@ -10,9 +10,10 @@ import torch
 
 from ddsp_torch.nn.layers import DictModule
 from ddsp_torch.ops import core as ops_core
+from ddsp_torch.ops import spectral
 from ddsp_torch.ops.resample import resample
 
-F0_RANGE = 127.0  # MIDI
+F0_RANGE = spectral.F0_RANGE  # 127.0 MIDI
 DB_RANGE = ops_core.DB_RANGE  # 80.0 dB
 
 
@@ -41,11 +42,15 @@ def scale_f0_hz(f0_hz: torch.Tensor) -> torch.Tensor:
 class F0LoudnessPreprocessor(DictModule):
   """Resamples and scales 'f0_hz' and 'loudness_db' to `time_steps` frames.
 
-  compute_loudness_fresh=True (loudness recomputed from the audio) needs
-  ops/spectral.compute_loudness, which belongs to the training slice of the
-  port; serving always passes False.
+  Attributes:
+    time_steps: Resample features to this many frames.
+    frame_rate: Frame rate of the loudness computed from the audio.
+    sample_rate: Audio sample rate.
+    compute_loudness_fresh: Recompute loudness from 'audio' instead of
+      using the dataset's 'loudness_db' (which may then be absent).
   """
 
+  input_keys = ('loudness_db', 'f0_hz', 'audio')
   output_keys = ('f0_hz', 'loudness_db', 'f0_scaled', 'ld_scaled')
 
   def __init__(self, time_steps: int = 1000, frame_rate: int = 250,
@@ -55,16 +60,25 @@ class F0LoudnessPreprocessor(DictModule):
     self.frame_rate = frame_rate
     self.sample_rate = sample_rate
     self.compute_loudness_fresh = compute_loudness_fresh
-    self.input_keys = ('f0_hz', 'audio') if compute_loudness_fresh else (
-        'loudness_db', 'f0_hz')
 
-  def compute(self, *inputs):
+  def forward(self, *args):
+    if len(args) == 1 and isinstance(args[0], dict):
+      features = args[0]
+      args = (features.get('loudness_db'), features['f0_hz'],
+              features.get('audio'))
+    return super().forward(*args)
+
+  def compute(self, loudness_db, f0_hz, audio=None):
     if self.compute_loudness_fresh:
-      raise NotImplementedError(
-          'F0LoudnessPreprocessor(compute_loudness_fresh=True) needs '
-          'ops/spectral.compute_loudness, which the training slice of '
-          'ddsp_torch ports; serving uses compute_loudness_fresh=False.')
-    loudness_db, f0_hz = inputs
+      if audio is None:
+        raise ValueError(
+            'F0LoudnessPreprocessor(compute_loudness_fresh=True) requires '
+            "'audio' in the features.")
+      loudness_db = spectral.compute_loudness(
+          audio, sample_rate=self.sample_rate, frame_rate=self.frame_rate)
+    elif loudness_db is None:
+      raise ValueError("F0LoudnessPreprocessor requires 'loudness_db' when "
+                       'compute_loudness_fresh=False.')
     f0_hz = self.resample(f0_hz)
     loudness_db = self.resample(loudness_db)
     return f0_hz, loudness_db, scale_f0_hz(f0_hz), scale_db(loudness_db)

@@ -1,6 +1,6 @@
 """Core helpers, unit conversions and the control nonlinearity.
 
-Port of ddsp_tpu/ops/core.py: the subset the serving path uses.
+Port of ddsp_tpu/ops/core.py: the subset the serving and training paths use.
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ def torch_float32(x: Any, device=None) -> torch.Tensor:
   if isinstance(x, torch.Tensor):
     return x.to(torch.float32)
   return torch.as_tensor(np.asarray(x, np.float32), device=device)
-
 
 
 def make_iterable(x: Any) -> Sequence[Any]:
@@ -93,6 +92,16 @@ def pad_axis(x: torch.Tensor, padding=(0, 0), axis: int = 0) -> torch.Tensor:
   return torch.nn.functional.pad(x, pads)
 
 
+def diff(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+  """First-order difference x[i+1] - x[i] along an axis (length shrinks by 1)."""
+  if axis >= x.ndim:
+    raise ValueError(f'Invalid axis index: {axis} for tensor with only '
+                     f'{x.ndim} axes.')
+  axis = axis % x.ndim
+  size = x.shape[axis]
+  return x.narrow(axis, 1, size - 1) - x.narrow(axis, 0, size - 1)
+
+
 def safe_divide(numerator: torch.Tensor, denominator: torch.Tensor,
                 eps: float = 1e-7) -> torch.Tensor:
   """Division that swaps exact-zero denominators for eps first."""
@@ -111,6 +120,27 @@ def logb(x: torch.Tensor, base: float = 2.0, eps: float = 1e-5):
   """log_base(x) via the ratio of two safe_logs."""
   base_t = torch.full_like(x, base)
   return safe_divide(safe_log(x, eps), safe_log(base_t, eps), eps)
+
+
+def log10(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+  """Base-10 logarithm (safe at zero)."""
+  return logb(x, base=10.0, eps=eps)
+
+
+def amplitude_to_db(amplitude, ref_db: float = 0.0,
+                    range_db: float = DB_RANGE) -> torch.Tensor:
+  """Converts amplitude in linear scale to power in decibels."""
+  power = torch_float32(amplitude)**2.0
+  return power_to_db(power, ref_db=ref_db, range_db=range_db)
+
+
+def power_to_db(power, ref_db: float = 0.0,
+                range_db: float = DB_RANGE) -> torch.Tensor:
+  """Converts power from linear scale to decibels."""
+  pmin = 10**-(range_db / 10.0)
+  power = torch.clamp(torch_float32(power), min=pmin)
+  db = 10.0 * log10(power) - ref_db
+  return torch.clamp(db, min=-range_db)
 
 
 def midi_to_hz(notes, midi_zero_silence: bool = False) -> torch.Tensor:

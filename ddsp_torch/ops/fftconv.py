@@ -1,6 +1,7 @@
 """Time-varying FFT convolution and FIR filter design, on torch.fft.
 
-Port of the parts of ddsp_tpu/ops/fftconv.py the serving path uses. The
+Port of the parts of ddsp_tpu/ops/fftconv.py the serving and training
+paths use. The
 parity target is the JAX package's jnp.fft branch (its off-TPU route); the
 DFT-as-GEMM routes of ddsp_tpu/ops/fft_matmul.py are XLA routing for the
 TPU and have no counterpart here.
@@ -26,18 +27,22 @@ def get_fft_size(frame_size: int, ir_size: int) -> int:
   return int(2**np.ceil(np.log2(ir_size + frame_size - 1)))
 
 
-def frame(signal: torch.Tensor, frame_length: int,
-          frame_step: int) -> torch.Tensor:
+def frame(signal: torch.Tensor, frame_length: int, frame_step: int,
+          pad_end: bool = True) -> torch.Tensor:
   """Overlapping frames of the last axis, [..., n_frames, frame_length].
 
-  tf.signal.frame with pad_end=True: the end is zero-padded so that
-  n_frames = ceil(T / frame_step).
+  tf.signal.frame: with pad_end=True the end is zero-padded so that
+  n_frames = ceil(T / frame_step); with pad_end=False
+  n_frames = 1 + (T - frame_length) // frame_step.
   """
   n = signal.shape[-1]
-  n_frames = -(-n // frame_step)
-  pad_len = max(0, (n_frames - 1) * frame_step + frame_length - n)
-  if pad_len:
-    signal = torch.nn.functional.pad(signal, (0, pad_len))
+  if pad_end:
+    n_frames = -(-n // frame_step)
+    pad_len = max(0, (n_frames - 1) * frame_step + frame_length - n)
+    if pad_len:
+      signal = torch.nn.functional.pad(signal, (0, pad_len))
+  elif n < frame_length:
+    return signal.new_zeros(tuple(signal.shape[:-1]) + (0, frame_length))
   return signal.unfold(-1, frame_length, frame_step)
 
 

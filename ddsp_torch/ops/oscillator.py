@@ -3,7 +3,8 @@
 Port of ddsp_tpu/ops/oscillator.py: angular_cumsum, remove_above_nyquist,
 normalize_harmonics, get_harmonic_frequencies, oscillator_bank and
 harmonic_synthesis. The factored-phase path of harmonic_synthesis calls
-kernel K1 (ddsp_torch/kernels/harmonic.py) when its shapes allow it.
+kernel family K1 (ddsp_torch/kernels/harmonic.py, forward and backward)
+when its shapes allow it.
 """
 
 from __future__ import annotations

@@ -25,6 +25,11 @@ def is_processor(v) -> bool:
   return hasattr(v, 'get_signal') and hasattr(v, 'get_controls')
 
 
+def is_loss(v) -> bool:
+  """Duck typing for loss modules."""
+  return hasattr(v, 'get_losses_dict')
+
+
 def snake_case(name: str) -> str:
   s1 = re.sub('(.)([A-Z][a-z]+)', r'\1_\2', name)
   return re.sub('([a-z0-9])([A-Z])', r'\1_\2', s1).lower()
@@ -34,6 +39,11 @@ def default_module_name(module) -> str:
   """The module's explicit `name` if it has one, else its snake_case class."""
   name = getattr(module, 'name', None)
   return name if name else snake_case(type(module).__name__)
+
+
+def loss_module_name(loss_obj) -> str:
+  """Dict key for a loss module: its `name`, else its snake_case class."""
+  return default_module_name(loss_obj)
 
 
 class DAGModule(nn.Module):
@@ -72,6 +82,8 @@ class DAGModule(nn.Module):
       if is_processor(module):
         module_outputs = module(*node_inputs, return_outputs_dict=True,
                                 **kwargs)
+      elif is_loss(module):
+        module_outputs = module.get_losses_dict(*node_inputs, **kwargs)
       else:
         module_outputs = module(*node_inputs)
       if not isinstance(module_outputs, dict):
