@@ -11,6 +11,10 @@ Phases (any failed check exits non-zero before the result lines):
   1. build the kernels of ddsp_torch/csrc with nvcc (all sources at once);
   2. K1: the fused harmonic synth (K1f) and its backward kernels (K1t
      amplitude taps, K1p phase) against their plain PyTorch versions;
+  2c. K3: the halo shift against its plain version, bit for bit, on (1, 4),
+     (2, 4) and (1, 8) meshes of one card, both directions, values and
+     gradients, at the main path's three blocks; the (2 data x 2 time)
+     row rule through the time-sharded fft_convolve;
   3. K2: the fused GRU sequence (K2f) and its backward (K2b) against their
      plain PyTorch versions; gradients through FastGRU and
      harmonic_synthesis on the card against the port on the CPU;
@@ -24,6 +28,11 @@ Phases (any failed check exits non-zero before the result lines):
      synthetic batch of 16 x 4 s through Trainer and train(); check the
      losses, the gradients, the kernels' launch counts, a step against the
      port on the CPU, and a checkpoint round trip;
+  6b. train the same model sequence-parallel: Trainer on a (1 data x 4 time)
+     mesh whose shards share the card, halo_impl='pallas'; check the losses,
+     the kernels' launches per step (K3 as counted from the code, K1 none),
+     the first step against the dense step, the sharded loss against the
+     dense SpectralLoss, and a step against the same SP step on the CPU;
   7. report per-request and per-step times, the kernels line and the device
      line.
 
@@ -74,6 +83,19 @@ E2E_REL_L2 = 5e-2
 # sum in another order, and the logmag term amplifies both.
 STEP_LOSS_RTOL = 5e-3
 STEP_GRAD_NORM_RTOL = 5e-2
+# Sequence-parallel training (phase 6b): a (1 data x 4 time) mesh on the
+# card, 2 warm-up steps and 8 measured ones.
+SP_MESH = (1, 4)
+SP_WARMUP, SP_STEPS = 2, 8
+# The first SP step against the dense step at the same parameters and
+# noise (the JAX package's tier, tests/test_sp_model.py:84-85): the shards'
+# phase carries and the logmag term's 1/|bin| in near-silent bins.
+SP_DENSE_RTOL = 0.1
+# The sharded mag-only loss against a float32 SpectralLoss on the gathered
+# audio: the same FFTs of the same frames, summed per shard and then over
+# shards; two float32 sums of ~10^6 terms in another order (the JAX package
+# holds its CPU version to 2e-5).
+SP_MAG_LOSS_RTOL = 1e-4
 
 
 class CheckFailed(Exception):
@@ -137,6 +159,27 @@ def device_ms(torch, fn, iters, warmup=2):
   print('  note: three empty profiler sessions; timing with CUDA events',
         flush=True)
   return cuda_ms(torch, fn, iters, warmup=0)
+
+
+def kernel_ms(torch, fn, iters, name, before=None):
+  """Mean device ms per fn() of the kernels whose name holds `name`
+  (torch.profiler); `before()` runs ahead of each call, uncounted. None
+  after three sessions without such a kernel."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  for _ in range(3):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(iters):
+        if before is not None:
+          before()
+        fn()
+      torch.cuda.synchronize()
+    rows = [r for r in device_rows(prof) if name in r[2]]
+    if rows:
+      return sum(r[0] for r in rows) / iters
+    print(f'  note: no {name} kernel in the profile; repeating', flush=True)
+  return None
 
 
 def k1_inputs(torch, batch, n_frames, seed, dev):
@@ -224,7 +267,7 @@ def phase_build():
   from ddsp_torch.kernels import _build
   print('[1] build', flush=True)
   t0 = time.time()
-  built = _build.build(['harmonic', 'gru'])
+  built = _build.build(['harmonic', 'gru', 'halo'])
   seconds = time.time() - t0
   for name, (path, log) in built.items():
     print(f'  {name}: {path}')
@@ -284,6 +327,90 @@ def phase_k1(torch, dev):
             f'(rtol {K1_BWD_RTOL})')
       check(torch.isfinite(got).all().item() and err <= K1_BWD_RTOL,
             f'{name} {method} hop {hop} within {K1_BWD_RTOL}')
+
+
+def k3_blocks(torch, n_shards, dtype, dev, seed):
+  """The main path's three K3 blocks per shard, as (name, leaves, shards,
+  embed): the reverb's tail carry [16, 64000]; the STFT halo, a strided
+  [16, 2047] view of a [16, 16000] shard; the delta-time boundary frame, slot
+  31 of [16, 32, 1025] magnitudes. embed(adj) puts a block's cotangent where
+  its leaf holds the block."""
+  gen = torch.Generator(dev).manual_seed(seed)
+  rand = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+  def zeros_but(leaf, where):
+    def embed(adj):
+      out = torch.zeros_like(leaf)
+      out[where] = adj
+      return out
+    return embed
+
+  carry = [rand(BATCH, 4 * SR).requires_grad_() for _ in range(n_shards)]
+  audio = [rand(BATCH, SR).requires_grad_() for _ in range(n_shards)]
+  mags = [rand(BATCH, 32, 1025).requires_grad_() for _ in range(n_shards)]
+  halo_cols = (slice(None), slice(0, 2047))
+  slot = (slice(None), slice(31, 32))
+  return [('reverb carry', carry, carry, lambda adj: adj),
+          ('STFT halo view', audio, [a[halo_cols] for a in audio],
+           zeros_but(audio[0], halo_cols)),
+          ('boundary frame', mags, [m[slot] for m in mags],
+           zeros_but(mags[0], slot))]
+
+
+def phase_k3(torch, dev):
+  """K3 against its plain version on meshes of one card: the results and
+  the gradients (the adjoint shift) must be equal bit for bit, a copy has
+  no rounding; the boundary shards get zeros. Then the data-row rule
+  through the whole time-sharded fft_convolve on a (2 x 2) mesh."""
+  from ddsp_torch.kernels import halo as kk
+  from ddsp_torch.ops.fftconv import fft_convolve
+  from ddsp_torch.parallel import create_mesh, halo, time_shard
+  print('[2c] K3 halo shift vs plain: meshes (1, 4), (2, 4), (1, 8), both '
+        'directions, values and gradients', flush=True)
+  cases = [(shape, torch.float32) for shape in ((1, 4), (2, 4), (1, 8))]
+  cases.append(((1, 4), torch.bfloat16))
+  for shape, dtype in cases:
+    mesh = create_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+    for name, leaves, shards, embed in k3_blocks(torch, mesh.size, dtype, dev,
+                                                 17):
+      for direction in (+1, -1):
+        what = f'K3 {shape} {str(dtype)[6:]} {name} {direction:+d}'
+        kk.reset_launches()
+        out = halo.neighbor_shift(shards, mesh, direction, impl='pallas')
+        want = kk.halo_shift_plain([x.detach() for x in shards], mesh,
+                                   direction)
+        torch.cuda.synchronize()
+        check(kk.launches['shift'] == 1 and all(
+            torch.equal(o, w) for o, w in zip(out, want)),
+              f'{what}: one launch, bit-equal to the plain version')
+        edge = [o for i, o in enumerate(out)
+                if not 0 <= mesh.coords(i)[1] - direction < mesh.n_time]
+        check(len(edge) == mesh.n_data and all(
+            torch.count_nonzero(o).item() == 0 for o in edge),
+              f'{what}: the boundary shards receive zeros')
+        cot = [torch.randn(o.shape, device=dev).to(dtype) for o in out]
+        grads = torch.autograd.grad(out, leaves, cot)
+        adj = kk.halo_shift_plain(cot, mesh, -direction)
+        torch.cuda.synchronize()
+        check(kk.launches['shift'] == 2 and all(
+            torch.equal(g, embed(a)) for g, a in zip(grads, adj)),
+              f'{what}: the gradient is the plain adjoint, bit for bit')
+
+  # tests/test_time_shard.py's test_pallas_halo_dp_stays_in_data_row on the
+  # card: distinct rows catch a halo that leaks between data rows.
+  gen = torch.Generator(dev).manual_seed(18)
+  audio = torch.randn((2, 4000), generator=gen, device=dev)
+  ir = (torch.randn((2, 1, 500), generator=gen, device=dev) *
+        torch.exp(-torch.arange(500, device=dev) / 100.0))
+  mesh = create_mesh(2, 2, devices=[dev] * 4)
+  kk.reset_launches()
+  got = time_shard.time_sharded_fft_convolve(mesh, audio, ir,
+                                             halo_impl='pallas')
+  err = (got - fft_convolve(audio, ir, padding='same')).abs().max().item()
+  print(f'  (2 x 2) time-sharded fft_convolve vs dense: max |err| {err:.3e}, '
+        f'K3 launches {kk.launches["shift"]}')
+  check(err <= 2e-4 and kk.launches['shift'] > 0,
+        'the (2 x 2) sharded fft_convolve through K3 within 2e-4 of dense')
 
 
 def k2_backward(torch, xp, wh, bn, h0, g):
@@ -378,18 +505,22 @@ def phase_gradients_reach_parameters(torch, dev):
 
 def reset_launches():
   from ddsp_torch.kernels import gru as kg
+  from ddsp_torch.kernels import halo as kk
   from ddsp_torch.kernels import harmonic as kh
   kh.reset_launches()
   kg.reset_launches()
+  kk.reset_launches()
 
 
 def read_launches():
-  """{'K1f': n, 'K1t': n, 'K1p': n, 'K2f': n, 'K2b': n} since the reset."""
+  """{'K1f': n, 'K1t': n, 'K1p': n, 'K2f': n, 'K2b': n, 'K3': n} since the
+  reset."""
   from ddsp_torch.kernels import gru as kg
+  from ddsp_torch.kernels import halo as kk
   from ddsp_torch.kernels import harmonic as kh
   return {'K1f': kh.launches['fwd'], 'K1t': kh.launches['bwd_taps'],
           'K1p': kh.launches['bwd_phase'], 'K2f': kg.launches['fwd'],
-          'K2b': kg.launches['bwd']}
+          'K2b': kg.launches['bwd'], 'K3': kk.launches['shift']}
 
 
 def requests():
@@ -624,6 +755,7 @@ def phase_train(torch, dev, work_dir, profile):
         f'global gradient norm within {STEP_GRAD_NORM_RTOL} of the CPU port')
 
   # Step time: whole steps between CUDA events, host included.
+  torch.cuda.reset_peak_memory_stats()
   times = []
   for _ in range(12):
     start = torch.cuda.Event(enable_timing=True)
@@ -641,7 +773,167 @@ def phase_train(torch, dev, work_dir, profile):
   if profile:
     profile_steps(torch, lambda: trainer.train_step(state, batch), 3,
                   median_ms, 'training step')
-  return launches
+  return launches, median_ms
+
+
+def sp_k3_launches_per_step(t_local, noise_ir_size, fft_sizes):
+  """K3 launches in one SP training step of solo_instrument, counted from
+  the code of parallel/time_shard.py.
+
+  local_fft_convolve_same shifts its tail right ceil(tail / t_local) times
+  and its head left ceil(delay / t_local) times; every one of those carries
+  a gradient back (the IR, and the reverb's audio, need one), so each runs
+  again in the backward. local_stft_mag shifts one right halo left per FFT
+  size and signal; only the synthesized audio's needs a gradient.
+  """
+  def fft_convolve(frame, ir_size, delay):
+    fft_size = int(2**np.ceil(np.log2(frame + ir_size - 1)))
+    tail = (t_local // frame - 1) * frame + fft_size - delay - t_local
+    return -(-tail // t_local) + -(-delay // t_local)
+  reverb = fft_convolve(t_local, REVERB_LENGTH, 0)  # sub-frame = shard
+  noise = fft_convolve(N_SAMPLES // N_FRAMES, noise_ir_size,
+                       (noise_ir_size - 1) // 2 - 1)
+  return 2 * (reverb + noise) + 3 * len(fft_sizes)
+
+
+def sp_step_gradients(torch, model, batch, noise, mesh):
+  """(total_loss, {name: grad}) of one SP step's forward and backward."""
+  from ddsp_torch.parallel import sp_forward_with_losses
+  _, losses = sp_forward_with_losses(model, batch, mesh, halo_impl='pallas',
+                                     noise=noise)
+  names = [k for k, _ in model.named_parameters()]
+  grads = torch.autograd.grad(losses['total_loss'],
+                              [p for _, p in model.named_parameters()])
+  return losses['total_loss'].item(), dict(zip(names, grads))
+
+
+def phase_sp_train(torch, dev, dense_ms, profile):
+  """Sequence-parallel training of full-width solo_instrument on a (1 x 4)
+  mesh whose shards share the card: the path of K3."""
+  from ddsp_torch.losses import SpectralLoss
+  from ddsp_torch.parallel import (create_mesh, sp_forward_with_losses,
+                                   time_shard)
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import build_model
+  print(f'[6b] SP-train solo_instrument on a {SP_MESH} mesh of one card '
+        f"(bf16, batch {BATCH} x 4 s, halo_impl='pallas', {SP_WARMUP} + "
+        f'{SP_STEPS} steps)', flush=True)
+  mesh = create_mesh(*SP_MESH, devices=[dev] * (SP_MESH[0] * SP_MESH[1]))
+  batch = training_batch()
+  model = build_model('solo_instrument', seed=0)
+  fft_sizes = model.losses[0].fft_sizes
+  noise_ir = 2 * (N_NOISE - 1)
+  expected_k3 = sp_k3_launches_per_step(N_SAMPLES // SP_MESH[1], noise_ir,
+                                        fft_sizes)
+
+  # The first step's loss against the dense step: same parameters, noise.
+  on_dev = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+  noise = torch.rand((BATCH, N_SAMPLES), device=dev,
+                     generator=torch.Generator(dev).manual_seed(31)) * 2 - 1
+  with torch.no_grad():
+    _, dense = model(on_dev, training=True, return_losses=True, noise=noise)
+    outputs, sp = sp_forward_with_losses(model, on_dev, mesh,
+                                         halo_impl='pallas', noise=noise)
+    a, b = sp['total_loss'].item(), dense['total_loss'].item()
+    print(f'  first step: SP total_loss {a:.5f}, dense {b:.5f}')
+    check(abs(a - b) <= SP_DENSE_RTOL * abs(b),
+          f'the SP loss within {SP_DENSE_RTOL} of the dense loss')
+    audio = outputs['audio_synth']
+    got = time_shard.time_sharded_spectral_loss(
+        mesh, on_dev['audio'], audio, fft_sizes=fft_sizes, mag_weight=1.0,
+        halo_impl='pallas').item()
+    want = SpectralLoss(fft_sizes=fft_sizes, mag_weight=1.0)(
+        on_dev['audio'], audio).item()
+    print(f'  mag-only loss on the synthesized batch: sharded {got:.7f}, '
+          f'dense float32 SpectralLoss {want:.7f}')
+    check(abs(got - want) <= SP_MAG_LOSS_RTOL * abs(want),
+          f'the sharded loss within {SP_MAG_LOSS_RTOL} of SpectralLoss')
+  del outputs, audio
+
+  trainer = Trainer(model, mesh=mesh, halo_impl='pallas', seed=0)
+  state = trainer.init()
+  for _ in range(SP_WARMUP):
+    state, _ = trainer.train_step(state, batch)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches()
+  times, losses = [], []
+  for _ in range(SP_STEPS):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, step = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    times.append(start.elapsed_time(end))
+    losses.append(step['total_loss'].item())
+  launches = read_launches()
+  peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  print(f'  launches over {SP_STEPS} steps: {launches}; K3 counted from the '
+        f'code: {expected_k3} per step')
+  print(f'  total_loss per step: {[round(l, 3) for l in losses]}')
+  check(all(np.isfinite(losses)), 'every SP loss is finite')
+  first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+  print(f'  mean loss, first three steps {first:.4f}, last three {last:.4f}')
+  check(last < first, 'the SP loss falls: last three below the first three')
+  check(launches['K3'] == expected_k3 * SP_STEPS > 0,
+        f'K3 launched {expected_k3} times per SP step')
+  check(launches['K2f'] == launches['K2b'] == SP_STEPS,
+        'K2f and K2b each launched once per SP step')
+  check(launches['K1f'] == launches['K1t'] == launches['K1p'] == 0,
+        'the SP path launches no K1 (the shards synthesize in plain torch)')
+  median_ms = float(np.median(times))
+  print(f'  step ms: {[round(t, 2) for t in times]}')
+  print(f'  median ms per SP training step: {median_ms:.3f} (dense step, '
+        f'phase 6: {dense_ms:.3f}); audio samples/s trained: '
+        f'{BATCH * N_SAMPLES / (median_ms / 1e3):.4e}; peak device memory '
+        f'{peak_gib:.2f} GiB')
+  if profile:
+    profile_steps(torch, lambda: trainer.train_step(state, batch), 3,
+                  median_ms, 'SP training step')
+
+  # One B = 2 SP step on the card against the same SP step on the CPU
+  # (plain K3 and K2), same parameters and noise.
+  small = {k: torch.as_tensor(v[:2]) for k, v in batch.items()}
+  noise = torch.rand((2, N_SAMPLES),
+                     generator=torch.Generator().manual_seed(32)) * 2 - 1
+  gpu_model = build_model('solo_instrument', seed=1)
+  cpu_model = build_model('solo_instrument', seed=1, device='cpu')
+  with torch.no_grad():  # an audible reverb, so its halos carry signal
+    ir = 0.02 * torch.randn(REVERB_LENGTH,
+                            generator=torch.Generator().manual_seed(6))
+    ir *= torch.exp(-torch.arange(REVERB_LENGTH) / 8000.0)
+    cpu_model.processor_group.reverb.ir.copy_(ir)
+    gpu_model.processor_group.reverb.ir.copy_(ir)
+  loss_gpu, grads_gpu = sp_step_gradients(
+      torch, gpu_model, {k: v.to(dev) for k, v in small.items()},
+      noise.to(dev), mesh)
+  t0 = time.time()
+  loss_cpu, grads_cpu = sp_step_gradients(
+      torch, cpu_model, small, noise,
+      create_mesh(*SP_MESH, devices=['cpu'] * mesh.size))
+  print(f'  the CPU SP step took {time.time() - t0:.1f} s')
+  for name, g in grads_gpu.items():
+    check(torch.isfinite(g).all().item(), f'SP {name}.grad finite')
+  # The decoder's gradient norm is held to the CPU's; the reverb IR's is
+  # printed only. Each IR entry is a 64000-sample correlation of the loss's
+  # cotangent that mostly cancels, and the logmag term's 1/|bin| in
+  # near-silent bins dominates it, so the float differences between two
+  # devices' forwards move it far more than the decoder's.
+  norm = lambda grads, part: float(torch.sqrt(sum(
+      g.double().pow(2).sum() for k, g in grads.items() if part in k)))
+  norm_gpu, norm_cpu = norm(grads_gpu, 'decoder.'), norm(grads_cpu,
+                                                         'decoder.')
+  print(f'  one SP step, B = 2: total_loss GPU {loss_gpu:.5f} CPU '
+        f'{loss_cpu:.5f}; decoder gradient norm GPU {norm_gpu:.5f} CPU '
+        f'{norm_cpu:.5f}; reverb IR gradient norm GPU '
+        f'{norm(grads_gpu, "reverb."):.5f} CPU {norm(grads_cpu, "reverb."):.5f}')
+  check(abs(loss_gpu - loss_cpu) <= STEP_LOSS_RTOL * abs(loss_cpu),
+        f'SP total_loss within {STEP_LOSS_RTOL} of the CPU port')
+  check(abs(norm_gpu - norm_cpu) <= STEP_GRAD_NORM_RTOL * norm_cpu,
+        f'SP decoder gradient norm within {STEP_GRAD_NORM_RTOL} of the CPU '
+        'port')
+  return launches, expected_k3, mesh
 
 
 def profile_steps(torch, fn, n, median_ms, what):
@@ -660,6 +952,9 @@ def profile_steps(torch, fn, n, median_ms, what):
         f'{sum(r[1] for r in rows) // n} device activities')
   for ms, count, key in rows[:18]:
     print(f'    {ms / n:8.4f} ms/{what}  x{count // n:<4d} {key[:80]}')
+  for ms, count, key in rows[18:]:
+    if 'halo_shift' in key:  # K3's launches are short; show them anyway
+      print(f'    {ms / n:8.4f} ms/{what}  x{count // n:<4d} {key[:80]}')
 
 
 def kernel_entry(torch, name, source_line, replaces, launches, err, fn,
@@ -786,17 +1081,57 @@ def phase_report(torch, port, reqs, launches, dev, profile):
   kernels[4]['max_rel_err'] = max(errs)
   for k, key in zip(kernels, ('K1f', 'K1t', 'K1p', 'K2f', 'K2b')):
     k['launches_by_path'] = {path: run[key] for path, run in launches.items()}
-    print(f"  {k['name']}: device {k['ms']:.4f} ms (per call with host "
-          f"{k['call_ms']:.4f}), plain {k['plain_ms']:.4f} ms (per call "
-          f"{k['plain_call_ms']:.4f}), bound {k['bound_ms']:.5f} ms "
-          f"({k['bound_by']}), library {k['library_ms']}, launches "
-          f"{k['launches']} {k['launches_by_path']}, max |err| "
-          f"{k['max_abs_err']:.3e}"
-          + (f" (relative {k['max_rel_err']:.3e})"
-             if 'max_rel_err' in k else '')
-          + (f", serving shape {k['serving_ms']:.4f} ms"
-             if 'serving_ms' in k else ''))
+    print_entry(k)
   return kernels
+
+
+def print_entry(k):
+  print(f"  {k['name']}: device {k['ms']:.4f} ms (per call with host "
+        f"{k['call_ms']:.4f}), plain {k['plain_ms']:.4f} ms (per call "
+        f"{k['plain_call_ms']:.4f}), bound {k['bound_ms']:.5f} ms "
+        f"({k['bound_by']}), library {k['library_ms']}, launches "
+        f"{k['launches']} {k['launches_by_path']}, max |err| "
+        f"{k['max_abs_err']:.3e}"
+        + (f" (relative {k['max_rel_err']:.3e})"
+           if 'max_rel_err' in k else '')
+        + (f", serving shape {k['serving_ms']:.4f} ms"
+           if 'serving_ms' in k else '')
+        + (f", L2 flushed {k['cold_ms']} ms" if 'cold_ms' in k else ''),
+        flush=True)
+
+
+def k3_entry(torch, launches, k3_per_step, mesh, dev):
+  """K3 at the reverb carry of the SP path: [16, 64000] float32 per shard
+  on the (1 x 4) mesh. Bound: the blocks that have a destination are read
+  once (n_time - 1 of each row's n_time) and every block is written once;
+  no arithmetic. No single PyTorch call shifts a list of tensors with zero
+  fill, so there is no library time."""
+  from ddsp_torch.kernels import halo as kk
+  gen = torch.Generator(dev).manual_seed(19)
+  shards = [torch.randn((BATCH, N_SAMPLES), generator=gen, device=dev)
+            for _ in range(mesh.size)]
+  out = kk._launch(shards, mesh, +1)
+  want = kk.halo_shift_plain(shards, mesh, +1)
+  err = max((o - w).abs().max().item() for o, w in zip(out, want))
+  check(err == 0.0, 'K3 at the reverb-carry shape equals its plain version')
+  block = shards[0].numel() * shards[0].element_size()
+  n_read = mesh.n_data * (mesh.n_time - 1)
+  entry = kernel_entry(
+      torch, 'halo_shift (K3)', 'ddsp_torch/csrc/halo.cu',
+      'ddsp_tpu/parallel/pallas_halo.py:88', launches['sp_train']['K3'], err,
+      lambda: kk._launch(shards, mesh, +1),
+      lambda: kk.halo_shift_plain(shards, mesh, +1),
+      *bound((n_read + mesh.size) * block, 0, 'float32'), None, 200, 50)
+  entry['launches_per_sp_step'] = k3_per_step
+  # Repeated launches find the shards in the 50 MB L2; with L2 flushed
+  # before each launch (a 256 MiB fill, not counted) K3 reads HBM.
+  flush = torch.empty(2**26, dtype=torch.int32, device=dev)
+  entry['cold_ms'] = kernel_ms(torch, lambda: kk._launch(shards, mesh, +1),
+                               50, 'halo_shift', before=flush.zero_)
+  entry['launches_by_path'] = {path: run['K3']
+                               for path, run in launches.items()}
+  print_entry(entry)
+  return entry
 
 
 def library_gru_ms(torch, dev):
@@ -858,14 +1193,19 @@ def main(argv=None):
   try:
     phase_build()
     phase_k1(torch, dev)
+    phase_k3(torch, dev)
     phase_k2(torch, dev)
     phase_gradients_reach_parameters(torch, dev)
     with tempfile.TemporaryDirectory() as work_dir:
       write_export(torch, work_dir)
       port, reqs, launches['serve'] = phase_serve(torch, work_dir)
       launches['chain'], _ = phase_chain(torch, dev)
-      launches['train'] = phase_train(torch, dev, work_dir, args.profile)
+      launches['train'], dense_ms = phase_train(torch, dev, work_dir,
+                                                args.profile)
+    launches['sp_train'], k3_per_step, sp_mesh = phase_sp_train(
+        torch, dev, dense_ms, args.profile)
     kernels = phase_report(torch, port, reqs, launches, dev, args.profile)
+    kernels.append(k3_entry(torch, launches, k3_per_step, sp_mesh, dev))
   except CheckFailed as e:
     print(f'chip_smoke: check failed: {e}', file=sys.stderr)
     return 1

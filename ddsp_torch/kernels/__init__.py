@@ -10,8 +10,9 @@ loaded at import: the first launch builds the library with nvcc.
   K1p   its backward, phase              <- harmonic.py:_bwd_phase_kernel
   K2f gru.gru_sequence                   <- ddsp_tpu gru.py:_fwd_kernel
   K2b   its backward                     <- gru.py:_bwd_kernel
+  K3  halo.HaloShift (both directions)   <- ddsp_tpu pallas_halo.py:_shift_kernel
 """
 
-from ddsp_torch.kernels import gru, harmonic
+from ddsp_torch.kernels import gru, halo, harmonic
 
-__all__ = ['gru', 'harmonic']
+__all__ = ['gru', 'halo', 'harmonic']

@@ -88,17 +88,23 @@ class FilteredNoise(Processor):
   def render(self, controls: TensorDict, noise=None, generator=None):
     return self.get_signal(**controls, noise=noise, generator=generator)
 
+  def draw_noise(self, batch_size: int, device,
+                 noise: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None):
+    """The white noise [batch, n_samples] on `device` (the rule above)."""
+    shape = (batch_size, self.n_samples)
+    if noise is None:
+      if generator is None:
+        generator = torch.Generator(device).manual_seed(0)
+      return torch.rand(shape, generator=generator, device=device) * 2.0 - 1.0
+    if tuple(noise.shape) != shape:
+      raise ValueError(f'noise has shape {tuple(noise.shape)}, expected '
+                       f'{shape}.')
+    return noise.to(device)
+
   def get_signal(self, magnitudes, noise: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None):
     """Filtered noise [batch, n_samples]."""
-    shape = (int(magnitudes.shape[0]), self.n_samples)
-    if noise is None:
-      if generator is None:
-        generator = torch.Generator(magnitudes.device).manual_seed(0)
-      noise = torch.rand(shape, generator=generator,
-                         device=magnitudes.device) * 2.0 - 1.0
-    elif tuple(noise.shape) != shape:
-      raise ValueError(f'noise has shape {tuple(noise.shape)}, expected '
-                       f'{shape}.')
-    return frequency_filter(noise.to(magnitudes.device), magnitudes,
-                            window_size=self.window_size)
+    noise = self.draw_noise(int(magnitudes.shape[0]), magnitudes.device,
+                            noise, generator)
+    return frequency_filter(noise, magnitudes, window_size=self.window_size)

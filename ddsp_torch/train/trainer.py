@@ -1,6 +1,8 @@
 """Trainer: optimizer, train step, checkpointing.
 
-Port of ddsp_tpu/train/trainer.py for one device. The optimizer has optax's
+Port of ddsp_tpu/train/trainer.py for one device, or for a mesh whose
+'time' shards share one device (sequence-parallel training,
+parallel/sp_model.py). The optimizer has optax's
 semantics, written out: clip the gradients to a global norm, then Adam
 (bias-corrected, eps outside the root) at an exponentially decaying,
 non-staircased learning rate whose count starts at 0. Parameters and
@@ -22,6 +24,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ddsp_torch.parallel import sp_model
+from ddsp_torch.parallel.halo import check_halo_impl
+from ddsp_torch.parallel.mesh import normalize_device
 from ddsp_torch.utils.device import DeviceLike, resolve_device
 
 ADAM_B1 = 0.9
@@ -63,6 +68,14 @@ class Trainer:
   Attributes:
     model: A ddsp_torch Model; it is moved to `device` (CUDA unless the
       caller passes device='cpu'; raises without a GPU).
+    mesh: Optional parallel.Mesh. A mesh that shards 'time' routes the
+      step's forward through parallel.sp_model.sp_forward_with_losses; the
+      frame-rate network runs on the mesh's first device, which is the
+      trainer's device. No mesh, or one that does not shard time: the
+      dense step.
+    halo_impl: 'xla' or 'pallas', the JAX Trainer's names for its halo
+      collectives. The port has one: kernel K3 on a CUDA mesh, its plain
+      version on a CPU mesh, whichever name is given. Others raise.
     learning_rate / lr_decay_steps / lr_decay_rate: Adam with exponential
       decay (defaults 3e-4, 10k, 0.98).
     grad_clip_norm: Global-norm gradient clipping (3.0).
@@ -71,11 +84,21 @@ class Trainer:
       seed + 2 + s, so a restored run continues with the same noise.
   """
 
-  def __init__(self, model, learning_rate: float = 3e-4,
+  def __init__(self, model, mesh=None, learning_rate: float = 3e-4,
                lr_decay_steps: int = 10000, lr_decay_rate: float = 0.98,
                grad_clip_norm: float = 3.0, checkpoints_to_keep: int = 100,
-               seed: int = 0, device: DeviceLike = None):
+               seed: int = 0, device: DeviceLike = None,
+               halo_impl: str = 'xla'):
+    check_halo_impl(halo_impl)
+    if mesh is not None and device is None:
+      device = mesh.first_device
     self.device = resolve_device(device)
+    if mesh is not None and mesh.first_device != normalize_device(
+        self.device):
+      raise ValueError(f'The mesh lies on {mesh.first_device}, the trainer '
+                       f'on {self.device}.')
+    self.mesh = mesh
+    self.halo_impl = halo_impl
     self.model = model.to(self.device)
     self.learning_rate = learning_rate
     self.lr_decay_steps = lr_decay_steps
@@ -134,8 +157,13 @@ class Trainer:
     """
     batch = self.to_device(batch)
     self._generator.manual_seed(self.seed + 2 + state.step)
-    _, losses = self.model(batch, training=True, return_losses=True,
-                           noise=noise, generator=self._generator)
+    if sp_model.has_time_sharding(self.mesh):
+      _, losses = sp_model.sp_forward_with_losses(
+          self.model, batch, self.mesh, halo_impl=self.halo_impl,
+          training=True, noise=noise, generator=self._generator)
+    else:
+      _, losses = self.model(batch, training=True, return_losses=True,
+                             noise=noise, generator=self._generator)
     params = [p for p in state.params.values() if p.requires_grad]
     grads = torch.autograd.grad(losses['total_loss'], params,
                                 allow_unused=True)
