@@ -16,8 +16,12 @@ Phases (any failed check exits non-zero before the result lines):
      gradients, at the main path's three blocks; the (2 data x 2 time)
      row rule through the time-sharded fft_convolve;
   3. K2: the fused GRU sequence (K2f) and its backward (K2b) against their
-     plain PyTorch versions; gradients through FastGRU and
-     harmonic_synthesis on the card against the port on the CPU;
+     plain PyTorch versions, both dtypes, at H = 512, T = 1000 and B in
+     {1, 4, 16, 40, 128} (a ragged tile, and past the old kernels' batch
+     limit) and at H = 64, T = 24; with bf16 streams K2b's two passes, the
+     serial reverse-time kernel and the weight-gradient kernel, each against
+     its own plain version; the clusters chosen; gradients through FastGRU
+     and harmonic_synthesis on the card against the port on the CPU;
   4. serve 4 requests of 4 s through the full-width solo_instrument
      autoencoder (AutoencoderInference on a params-format export), check the
      audio, and check that K1f and K2f carried the path;
@@ -77,6 +81,11 @@ K2_ATOL = {'float32': 1e-4, 'bfloat16': 5e-2}
 # (3 significant digits) where the two versions' float32 values differ in
 # the last bits.
 K2_BWD_RTOL = {'float32': 1e-4, 'bfloat16': 2e-2}
+# K2b's weight-gradient pass against its plain version (one float32
+# matmul) on the same bf16 streams: exact products, float32 sums of up to
+# T * B = 128000 rows in another order (the kernel adds each output's rows
+# in sequence, 32 at a time); 1.6e-4 at B = 128 on an H100.
+K2_WGRAD_RTOL = 1e-3
 E2E_REL_L2 = 5e-2
 # One training step on the card against the port on the CPU (plain
 # versions), B = 2: bf16 activations round at the same places, the kernels
@@ -226,40 +235,48 @@ def k1_bound(torch, kernel, f0_env, ham):
   return bound(n_bytes, ops, 'float32')
 
 
-def k2_inputs(torch, batch, dtype, seed, dev):
+def k2_inputs(torch, batch, dtype, seed, dev, hidden=HIDDEN,
+              seq_len=N_FRAMES):
   g = torch.Generator(dev).manual_seed(seed)
-  xp = 0.5 * torch.randn((N_FRAMES, batch, 3 * HIDDEN), generator=g,
+  xp = 0.5 * torch.randn((seq_len, batch, 3 * hidden), generator=g,
                          device=dev)
-  wh = torch.randn((HIDDEN, 3 * HIDDEN), generator=g, device=dev) / np.sqrt(
-      HIDDEN)
-  bn = 0.1 * torch.randn((HIDDEN,), generator=g, device=dev)
-  h0 = 0.1 * torch.randn((batch, HIDDEN), generator=g, device=dev)
+  wh = torch.randn((hidden, 3 * hidden), generator=g, device=dev) / np.sqrt(
+      hidden)
+  bn = 0.1 * torch.randn((hidden,), generator=g, device=dev)
+  h0 = 0.1 * torch.randn((batch, hidden), generator=g, device=dev)
   return xp.to(dtype), wh.to(dtype), bn, h0
 
 
-def k2_bound(xp, wh, dtype_name, backward=False):
-  """Least time for K2's work: bytes vs operations at the peak rate of the
-  operands' type.
+def k2_bound(xp, wh, dtype_name, part='fwd'):
+  """Least time for a K2 kernel's work: bytes vs operations at the peak
+  rate of the operands' type.
 
-  Forward: xp, wh, bn, h0 in, ys out; one recurrent product and ~12 gate
-  operations per unit per step. Backward: g, xp, h_prev, wh, bn in, dxp,
-  dwh, dbn, dh0 out; three products per step (the recomputed h @ wh,
-  dhp @ wh^T and h^T dhp) and ~30 gate operations per unit.
+  'fwd': xp, wh, bn, h0 in, ys out; one recurrent product and ~12 gate
+  operations per unit per step. 'serial' (K2b's reverse-time pass): g, xp,
+  h_prev, wh, bn in, dxp, the dhn stream, dh0 and the tiles' dbn out; two
+  products per step (the recomputed h @ wh and dhp @ wh^T) and ~30 gate
+  operations per unit. 'wgrad' (its weight-gradient pass): h_prev, two
+  thirds of dxp, dhn and the tiles' dbn in, dwh and dbn out; h^T dhp over
+  T * B rows.
   """
   seq_len, batch, three_h = xp.shape
   hidden = three_h // 3
   item = xp.element_size()
+  rows = seq_len * batch
   weights = wh.numel() * wh.element_size()
   small = 4 * (hidden + batch * hidden)
-  if backward:
-    n_bytes = (seq_len * batch * (4 * hidden + 2 * three_h * item +
-                                  hidden * item) + weights + 4 * wh.numel() +
-               2 * small)
-    ops = seq_len * batch * (3 * 2.0 * hidden * three_h + 30.0 * hidden)
+  tiles = 4 * hidden * -(-batch // 16)
+  if part == 'serial':
+    n_bytes = (rows * (4 * hidden + 2 * three_h * item + 2 * hidden * item) +
+               weights + 2 * small + tiles)
+    ops = rows * (2 * 2.0 * hidden * three_h + 30.0 * hidden)
+  elif part == 'wgrad':
+    n_bytes = (rows * item * (hidden + 2 * hidden + hidden) + tiles +
+               4 * (wh.numel() + hidden))
+    ops = rows * 2.0 * hidden * three_h
   else:
-    n_bytes = (xp.numel() * item + weights + small +
-               4 * seq_len * batch * hidden)
-    ops = seq_len * batch * (2.0 * hidden * three_h + 12.0 * hidden)
+    n_bytes = (xp.numel() * item + weights + small + 4 * rows * hidden)
+    ops = rows * (2.0 * hidden * three_h + 12.0 * hidden)
   return bound(n_bytes, ops, dtype_name)
 
 
@@ -272,7 +289,8 @@ def phase_build():
   for name, (path, log) in built.items():
     print(f'  {name}: {path}')
     for line in log.splitlines():
-      if 'registers' in line or 'spill' in line or 'smem' in line:
+      if any(k in line for k in ('entry function', 'registers', 'spill',
+                                 'smem')):
         print(f'    {line.strip()}')
   print(f'  build seconds: {seconds:.1f}', flush=True)
 
@@ -423,32 +441,76 @@ def k2_backward(torch, xp, wh, bn, h0, g):
   return got, kg.gru_bwd_plain(g, xp, h_prev, wh, bn)
 
 
+def k2_passes(torch, xp, wh, bn, h0, g):
+  """bf16 K2b's two kernels, each against its plain version on the same
+  inputs: {name: relative max err}. The serial pass takes the plain
+  forward's h_prev stream; the weight-gradient pass takes the serial
+  kernel's outputs."""
+  from ddsp_torch.kernels import gru as kg
+  bn32, h032 = bn.float().contiguous(), h0.float().contiguous()
+  ys = kg.gru_sequence_plain(xp, wh, bn, h0)
+  h_prev = kg.h_prev_stream(h032, ys, torch.bfloat16)
+  got = kg._launch_bwd_serial(g, xp, h_prev, wh, bn32)
+  want = kg.gru_bwd_serial_plain(g, xp, h_prev, wh, bn)
+  errs = {f'serial {k}': rel_err(a, b) for k, a, b in
+          zip(('dxp', 'dhn', 'dbn tiles', 'dh0'), got, want)}
+  dwh, dbn = kg._launch_wgrad(h_prev, *got[:3])
+  want_w = kg.gru_wgrad_plain(h_prev, *got[:3])
+  errs.update({f'wgrad {k}': rel_err(a, b) for k, a, b in
+               zip(('dwh', 'dbn'), (dwh, dbn), want_w)})
+  return errs
+
+
 def phase_k2(torch, dev):
   from ddsp_torch.kernels import gru as kg
-  print('[3] K2 fused GRU vs plain: forward and backward', flush=True)
+  print('[3] K2 fused GRU vs plain: forward and backward, both dtypes, '
+        'B in {1, 4, 16, 40, 128}', flush=True)
+  for hidden in (HIDDEN, 64):
+    for backward in (False, True):
+      c = kg.pick_cluster(dev, hidden, backward)
+      print(f"  bf16 {'K2b serial' if backward else 'K2f'} H={hidden}: "
+            f"cluster of {c['cluster']} CTAs x u = {c['units']} units, "
+            f"{c['smem_bytes']} B shared memory per CTA, at most "
+            f"{c['max_active_clusters']} clusters resident", flush=True)
   for name, dtype in (('float32', torch.float32),
                       ('bfloat16', torch.bfloat16)):
-    xp, wh, bn, h0 = k2_inputs(torch, 4, dtype, 2, dev)
-    ys = kg.gru_sequence(xp, wh, bn, h0)
-    ref = kg.gru_sequence_plain(xp, wh, bn, h0)
-    torch.cuda.synchronize()
-    err = (ys - ref).abs().max().item()
-    print(f'  K2f {name}: max |err| {err:.3e} (atol {K2_ATOL[name]})')
-    check(torch.isfinite(ys).all().item() and err <= K2_ATOL[name],
-          f'K2f {name} within {K2_ATOL[name]}')
-    g = torch.randn(ys.shape, device=dev,
-                    generator=torch.Generator(dev).manual_seed(8)) / 30.0
-    got, want = k2_backward(torch, xp, wh, bn, h0, g)
-    torch.cuda.synchronize()
-    check(got[0].dtype == xp.dtype and all(
-        t.dtype == torch.float32 for t in got[1:]),
-          f'K2b {name}: dxp at the stream dtype, dwh/dbn/dh0 float32')
-    for what, a, b in zip(('dxp', 'dwh', 'dbn', 'dh0'), got, want):
-      err = rel_err(a, b)
-      print(f'  K2b {name} {what}: relative max err {err:.3e} '
-            f'(rtol {K2_BWD_RTOL[name]})')
-      check(torch.isfinite(a).all().item() and err <= K2_BWD_RTOL[name],
-            f'K2b {name} {what} within {K2_BWD_RTOL[name]}')
+    for hidden, seq_len in ((HIDDEN, N_FRAMES), (64, 24)):
+      for batch in (1, 4, 16, 40, 128):
+        what = f'{name} H={hidden} T={seq_len} B={batch}'
+        xp, wh, bn, h0 = k2_inputs(torch, batch, dtype, 2, dev, hidden,
+                                   seq_len)
+        ys = kg.gru_sequence(xp, wh, bn, h0)
+        ref = kg.gru_sequence_plain(xp, wh, bn, h0)
+        torch.cuda.synchronize()
+        err = (ys - ref).abs().max().item()
+        g = torch.randn(ys.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(8)) / 30.0
+        got, want = k2_backward(torch, xp, wh, bn, h0, g)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        print(f'  K2f {what}: max |err| {err:.3e} (atol {K2_ATOL[name]}); '
+              f'K2b relative max err dxp {errs[0]:.3e} dwh {errs[1]:.3e} '
+              f'dbn {errs[2]:.3e} dh0 {errs[3]:.3e} (rtol '
+              f'{K2_BWD_RTOL[name]})', flush=True)
+        check(torch.isfinite(ys).all().item() and err <= K2_ATOL[name],
+              f'K2f {what} within {K2_ATOL[name]}')
+        check(got[0].dtype == xp.dtype and all(
+            t.dtype == torch.float32 for t in got[1:]),
+              f'K2b {what}: dxp at the stream dtype, dwh/dbn/dh0 float32')
+        check(all(torch.isfinite(a).all().item() for a in got) and
+              max(errs) <= K2_BWD_RTOL[name],
+              f'K2b {what} within {K2_BWD_RTOL[name]}')
+        if dtype == torch.bfloat16:
+          passes = k2_passes(torch, xp, wh, bn, h0, g)
+          print('  K2b passes ' + ', '.join(f'{k} {v:.3e}'
+                                            for k, v in passes.items()))
+          check(max(v for k, v in passes.items() if k.startswith('serial'))
+                <= K2_BWD_RTOL['bfloat16'] and
+                max(v for k, v in passes.items() if k.startswith('wgrad'))
+                <= K2_WGRAD_RTOL,
+                f'K2b {what}: the serial pass within '
+                f"{K2_BWD_RTOL['bfloat16']} and the weight-gradient pass "
+                f'within {K2_WGRAD_RTOL} of their plain versions')
 
 
 def phase_gradients_reach_parameters(torch, dev):
@@ -513,14 +575,15 @@ def reset_launches():
 
 
 def read_launches():
-  """{'K1f': n, 'K1t': n, 'K1p': n, 'K2f': n, 'K2b': n, 'K3': n} since the
-  reset."""
+  """{'K1f': n, 'K1t': n, 'K1p': n, 'K2f': n, 'K2b': n, 'K2b_w': n, 'K3': n}
+  since the reset; K2b_w is K2b's weight-gradient pass."""
   from ddsp_torch.kernels import gru as kg
   from ddsp_torch.kernels import halo as kk
   from ddsp_torch.kernels import harmonic as kh
   return {'K1f': kh.launches['fwd'], 'K1t': kh.launches['bwd_taps'],
           'K1p': kh.launches['bwd_phase'], 'K2f': kg.launches['fwd'],
-          'K2b': kg.launches['bwd'], 'K3': kk.launches['shift']}
+          'K2b': kg.launches['bwd'], 'K2b_w': kg.launches['wgrad'],
+          'K3': kk.launches['shift']}
 
 
 def requests():
@@ -580,8 +643,8 @@ def phase_serve(torch, export_dir):
   check(abs(peak_hz - 440.0) <= SR / N_SAMPLES, 'peak within one bin of 440')
   check(launches['K1f'] >= 4 and launches['K2f'] >= 4,
         'K1f and K2f each launched >= 4 times on the serving path')
-  check(launches['K1t'] == launches['K1p'] == launches['K2b'] == 0,
-        'serving launches no backward kernel')
+  check(launches['K1t'] == launches['K1p'] == launches['K2b'] ==
+        launches['K2b_w'] == 0, 'serving launches no backward kernel')
 
   # The same request through the port on the CPU (plain versions, same
   # noise): the kernels' path agrees with the reference path end to end.
@@ -704,8 +767,10 @@ def phase_train(torch, dev, work_dir, profile):
   first, last = np.mean(losses[:5]), np.mean(losses[-5:])
   print(f'  mean loss, first five steps {first:.4f}, last five {last:.4f}')
   check(last < first, 'the loss falls: last five steps below the first five')
-  check(all(launches[k] == TRAIN_STEPS for k in ('K1f', 'K1t', 'K2f', 'K2b')),
-        'K1f, K1t, K2f, K2b each launched once per training step')
+  check(all(launches[k] == TRAIN_STEPS
+            for k in ('K1f', 'K1t', 'K2f', 'K2b', 'K2b_w')),
+        'K1f, K1t, K2f, K2b and its weight-gradient pass each launched once '
+        'per training step')
   check(launches['K1p'] == 0, 'K1p launched no time (f0 is data)')
 
   # Checkpoint round trip: another trainer restores the final checkpoint
@@ -878,8 +943,9 @@ def phase_sp_train(torch, dev, dense_ms, profile):
   check(last < first, 'the SP loss falls: last three below the first three')
   check(launches['K3'] == expected_k3 * SP_STEPS > 0,
         f'K3 launched {expected_k3} times per SP step')
-  check(launches['K2f'] == launches['K2b'] == SP_STEPS,
-        'K2f and K2b each launched once per SP step')
+  check(launches['K2f'] == launches['K2b'] == launches['K2b_w'] == SP_STEPS,
+        'K2f, K2b and its weight-gradient pass each launched once per SP '
+        'step')
   check(launches['K1f'] == launches['K1t'] == launches['K1p'] == 0,
         'the SP path launches no K1 (the shards synthesize in plain torch)')
   median_ms = float(np.median(times))
@@ -972,7 +1038,6 @@ def kernel_entry(torch, name, source_line, replaces, launches, err, fn,
 
 def phase_report(torch, port, reqs, launches, dev, profile):
   """launches: {'serve': {...}, 'chain': {...}, 'train': {...}}."""
-  from ddsp_torch.kernels import gru as kg
   from ddsp_torch.kernels import harmonic as kh
   print('[7] report', flush=True)
   times = []
@@ -1035,6 +1100,28 @@ def phase_report(torch, port, reqs, launches, dev, profile):
       lambda: kh.harmonic_bwd_phase_plain(phase0, f0_env, ham, g, SR),
       *k1_bound(torch, 'bwd_phase', f0_env, ham), None, 50, 5))
 
+  # The serving shape (one request: B = 1) beside the training shape.
+  p1, f1, a1 = k1_inputs(torch, 1, N_FRAMES, 5, dev)
+  o1 = torch.empty_like(p1)
+  kernels[0]['serving_ms'] = device_ms(
+      torch, lambda: kh._launch('fwd', (p1, f1, a1), o1, *shape), 100)
+  # The backward kernels are held to a relative tolerance (their results
+  # are sums whose scale grows with the hop, the harmonic number and T).
+  kernels[1]['max_rel_err'] = rel_err(dham, ref_dham)
+  kernels[2]['max_rel_err'] = rel_err(dphase, ref_dphase)
+  for k, key in zip(kernels, ('K1f', 'K1t', 'K1p')):
+    k['launches_by_path'] = {path: run[key] for path, run in launches.items()}
+    print_entry(k)
+  return kernels + k2_entries(torch, launches, dev)
+
+
+def k2_entries(torch, launches, dev):
+  """The kernels line's K2 entries at the training shape (B = 16,
+  T = 1000, H = 512, bf16 streams): K2f, K2b's serial pass and its
+  weight-gradient pass, with B = 1 times, times per serial step and the
+  cuDNN yardsticks."""
+  from ddsp_torch.kernels import gru as kg
+  kernels = []
   # K2 at the training shape: B = 16, T = 1000, H = 512, bf16 streams.
   xp, wh, bn, h0 = k2_inputs(torch, BATCH, torch.bfloat16, 6, dev)
   ys = kg.gru_sequence(xp, wh, bn, h0)
@@ -1049,7 +1136,24 @@ def phase_report(torch, port, reqs, launches, dev, profile):
         f"K2b at the training shape within {K2_BWD_RTOL['bfloat16']}")
   h_prev = kg.h_prev_stream(h0, ys, torch.bfloat16)
   bn32, h032 = bn.float().contiguous(), h0.float().contiguous()
-  lib_fwd, lib_bwd = library_gru_ms(torch, dev)
+  dxp, dhn, dbn_tiles, _ = kg._launch_bwd_serial(g2, xp, h_prev, wh, bn32)
+  serial_want = kg.gru_bwd_serial_plain(g2, xp, h_prev, wh, bn)
+  serial_err = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip((dxp, dhn, dbn_tiles), serial_want))
+  serial_rel = max(rel_err(a, b)
+                   for a, b in zip((dxp, dhn, dbn_tiles), serial_want))
+  wgrad = kg._launch_wgrad(h_prev, dxp, dhn, dbn_tiles)
+  wgrad_want = kg.gru_wgrad_plain(h_prev, dxp, dhn, dbn_tiles)
+  wgrad_errs = [rel_err(a, b) for a, b in zip(wgrad, wgrad_want)]
+  check(max(wgrad_errs) <= K2_WGRAD_RTOL,
+        f'the weight-gradient pass at the training shape within '
+        f'{K2_WGRAD_RTOL}')
+  hp2d = h_prev.reshape(-1, HIDDEN)
+  dhp2d = torch.cat([dxp[..., :2 * HIDDEN], dhn], dim=-1).reshape(
+      -1, 3 * HIDDEN)
+  lib = library_gru_ms(torch, dev)
+  yard = lib['bfloat16'] if 'rec_fwd_ms' in lib['bfloat16'] else lib[
+      'float32']
   src = 'ddsp_torch/csrc/gru.cu'
   ref_src = 'ddsp_tpu/ops/pallas_kernels/gru.py'
   kernels.append(kernel_entry(
@@ -1057,29 +1161,45 @@ def phase_report(torch, port, reqs, launches, dev, profile):
       launches['train']['K2f'], err,
       lambda: kg._launch_fwd(xp, wh, bn32, h032),
       lambda: kg.gru_sequence_plain(xp, wh, bn, h0),
-      *k2_bound(xp, wh, 'bfloat16'), lib_fwd, 10, 2))
+      *k2_bound(xp, wh, 'bfloat16'), yard['rec_fwd_ms'], 10, 2))
   kernels.append(kernel_entry(
-      torch, 'gru_sequence backward (K2b)', src, f'{ref_src}:152',
-      launches['train']['K2b'],
-      max((a.float() - b.float()).abs().max().item()
-          for a, b in zip(got, want)),
-      lambda: kg._launch_bwd(g2, xp, h_prev, wh, bn32),
-      lambda: kg.gru_bwd_plain(g2, xp, h_prev, wh, bn),
-      *k2_bound(xp, wh, 'bfloat16', backward=True), lib_bwd, 10, 2))
+      torch, 'gru_sequence backward, serial pass (K2b)', src,
+      f'{ref_src}:152', launches['train']['K2b'], serial_err,
+      lambda: kg._launch_bwd_serial(g2, xp, h_prev, wh, bn32),
+      lambda: kg.gru_bwd_serial_plain(g2, xp, h_prev, wh, bn),
+      *k2_bound(xp, wh, 'bfloat16', 'serial'), yard['rec_bwd_ms'], 10, 2))
+  kernels.append(kernel_entry(
+      torch, 'gru_sequence backward, weight gradient (K2b)', src,
+      f'{ref_src}:152', launches['train']['K2b_w'],
+      max((a - b).abs().max().item() for a, b in zip(wgrad, wgrad_want)),
+      lambda: kg._launch_wgrad(h_prev, dxp, dhn, dbn_tiles),
+      lambda: kg.gru_wgrad_plain(h_prev, dxp, dhn, dbn_tiles),
+      *k2_bound(xp, wh, 'bfloat16', 'wgrad'),
+      device_ms(torch, lambda: torch.matmul(hp2d.t(), dhp2d), 20), 50, 5))
   # The serving shape (one request: B = 1) beside the training shape.
-  p1, f1, a1 = k1_inputs(torch, 1, N_FRAMES, 5, dev)
-  o1 = torch.empty_like(p1)
-  kernels[0]['serving_ms'] = device_ms(
-      torch, lambda: kh._launch('fwd', (p1, f1, a1), o1, *shape), 100)
   xp1, wh1, bn1, h01 = k2_inputs(torch, 1, torch.bfloat16, 6, dev)
-  kernels[3]['serving_ms'] = device_ms(
+  kernels[0]['serving_ms'] = device_ms(
       torch, lambda: kg._launch_fwd(xp1, wh1, bn1, h01), 20)
-  # The backward kernels are held to a relative tolerance (their results
-  # are sums whose scale grows with the hop, the harmonic number and T).
-  kernels[1]['max_rel_err'] = rel_err(dham, ref_dham)
-  kernels[2]['max_rel_err'] = rel_err(dphase, ref_dphase)
-  kernels[4]['max_rel_err'] = max(errs)
-  for k, key in zip(kernels, ('K1f', 'K1t', 'K1p', 'K2f', 'K2b')):
+  ys1 = kg._launch_fwd(xp1, wh1, bn1, h01)
+  h_prev1 = kg.h_prev_stream(h01, ys1, torch.bfloat16)
+  g1 = g2[:, :1].contiguous()
+  kernels[1]['b1_ms'] = device_ms(
+      torch, lambda: kg._launch_bwd_serial(g1, xp1, h_prev1, wh1, bn1), 10)
+  # Per serial step, and K2b whole (both passes) beside cuDNN's backward.
+  kernels[0]['us_per_step'] = {
+      'B=16': 1e3 * kernels[0]['ms'] / N_FRAMES,
+      'B=1': 1e3 * kernels[0]['serving_ms'] / N_FRAMES}
+  kernels[1]['us_per_step'] = {
+      'B=16': 1e3 * kernels[1]['ms'] / N_FRAMES,
+      'B=1': 1e3 * kernels[1]['b1_ms'] / N_FRAMES}
+  kernels[1]['with_wgrad_ms'] = kernels[1]['ms'] + kernels[2]['ms']
+  for k in kernels[:2]:
+    k['library'] = lib
+  # The backward kernels are held to a relative tolerance (sums over T).
+  kernels[1]['max_rel_err'] = serial_rel
+  kernels[1]['k2b_max_rel_err'] = max(errs)  # both passes vs gru_bwd_plain
+  kernels[2]['max_rel_err'] = max(wgrad_errs)
+  for k, key in zip(kernels, ('K2f', 'K2b', 'K2b_w')):
     k['launches_by_path'] = {path: run[key] for path, run in launches.items()}
     print_entry(k)
   return kernels
@@ -1096,6 +1216,10 @@ def print_entry(k):
            if 'max_rel_err' in k else '')
         + (f", serving shape {k['serving_ms']:.4f} ms"
            if 'serving_ms' in k else '')
+        + (f", B = 1 {k['b1_ms']:.4f} ms" if 'b1_ms' in k else '')
+        + (f", us per step {k['us_per_step']}" if 'us_per_step' in k else '')
+        + (f", with the weight-gradient pass {k['with_wgrad_ms']:.4f} ms"
+           if 'with_wgrad_ms' in k else '')
         + (f", L2 flushed {k['cold_ms']} ms" if 'cold_ms' in k else ''),
         flush=True)
 
@@ -1135,37 +1259,89 @@ def k3_entry(torch, launches, k3_per_step, mesh, dev):
 
 
 def library_gru_ms(torch, dev):
-  """(forward ms, backward ms) of torch.nn.GRU (cuDNN, float32) on the
-  decoder's GRU at B = 16, T = 1000, as a yardstick only: it includes the
-  input GEMM (and its backward) that the port hoists out of K2. Its output
-  is checked against the port's float32 FastGRU first. The backward time is
-  forward-and-backward minus forward."""
+  """Yardsticks for K2 from torch.nn.GRU (cuDNN) on the decoder's GRU at
+  B = 16, T = 1000, H = 512; timed here and used nowhere in the port.
+
+  cuDNN's GRU includes the input projection x @ W_ih^T + b_ih, and its
+  backward, which the port hoists out of K2 into one GEMM. So the same
+  projection is timed alone at the same shapes (F.linear), and the
+  recurrence is the GRU minus the projection ('rec_fwd_ms', 'rec_bwd_ms'),
+  beside the raw times. float32 (checked against the port's float32
+  FastGRU first) and bfloat16 where cuDNN takes it ('refused' where not);
+  'kernels' names the top device kernels of one bf16 GRU forward, to show
+  which implementation ran. Backward = forward-and-backward minus
+  forward, x needing a gradient in both.
+  """
+  from torch.nn import functional as F
   from ddsp_torch.nn.layers import FastGRU
   in_dim = 2 * HIDDEN
   port_gru = FastGRU(in_dim, HIDDEN, compute_dtype='float32').to(dev)
   with torch.no_grad():
     port_gru.bi.normal_(0, 0.1)
     port_gru.bn.normal_(0, 0.1)
-  lib = torch.nn.GRU(in_dim, HIDDEN, batch_first=True).to(dev)
+  gru = torch.nn.GRU(in_dim, HIDDEN, batch_first=True).to(dev)
   with torch.no_grad():
-    lib.weight_ih_l0.copy_(port_gru.wi.t())
-    lib.weight_hh_l0.copy_(port_gru.wh.t())
-    lib.bias_ih_l0.copy_(port_gru.bi)
-    lib.bias_hh_l0.zero_()
-    lib.bias_hh_l0[2 * HIDDEN:].copy_(port_gru.bn)
+    gru.weight_ih_l0.copy_(port_gru.wi.t())
+    gru.weight_hh_l0.copy_(port_gru.wh.t())
+    gru.bias_ih_l0.copy_(port_gru.bi)
+    gru.bias_hh_l0.zero_()
+    gru.bias_hh_l0[2 * HIDDEN:].copy_(port_gru.bn)
     x = torch.randn((BATCH, N_FRAMES, in_dim), device=dev)
-    err = (lib(x)[0] - port_gru(x)).abs().max().item()
-    print(f'  torch.nn.GRU vs port FastGRU (float32): max |err| {err:.3e}')
-    check(err <= K2_ATOL['float32'],
-          'torch.nn.GRU yardstick computes the same GRU')
-    fwd = device_ms(torch, lambda: lib(x), 3)
+    err = (gru(x)[0] - port_gru(x)).abs().max().item()
+  print(f'  torch.nn.GRU vs port FastGRU (float32): max |err| {err:.3e}')
+  check(err <= K2_ATOL['float32'],
+        'torch.nn.GRU yardstick computes the same GRU')
+  out = {}
+  for name, dtype in (('float32', torch.float32),
+                      ('bfloat16', torch.bfloat16)):
+    gru = gru.to(dtype)
+    xx = x.to(dtype).requires_grad_()
+    gy = torch.randn((BATCH, N_FRAMES, HIDDEN), device=dev).to(dtype)
+    gp = torch.randn((BATCH, N_FRAMES, 3 * HIDDEN), device=dev).to(dtype)
+    w, b = gru.weight_ih_l0, gru.bias_ih_l0
 
-  def fwd_bwd():
-    lib.zero_grad(set_to_none=True)
-    lib(x)[0].pow(2).mean().backward()
+    def gru_fwd():
+      with torch.no_grad():
+        gru(xx)
 
-  both = device_ms(torch, fwd_bwd, 3)
-  return fwd, both - fwd
+    def gru_fwd_bwd():
+      gru.zero_grad(set_to_none=True)
+      xx.grad = None
+      gru(xx)[0].backward(gy)
+
+    def proj_fwd():
+      with torch.no_grad():
+        F.linear(xx, w, b)
+
+    def proj_fwd_bwd():
+      gru.zero_grad(set_to_none=True)
+      xx.grad = None
+      F.linear(xx, w, b).backward(gp)
+
+    try:
+      gru_fwd()
+    except RuntimeError as e:
+      out[name] = {'refused': str(e).splitlines()[0][:200]}
+      print(f'  torch.nn.GRU {name}: refused ({out[name]["refused"]})')
+      continue
+    fwd = device_ms(torch, gru_fwd, 3)
+    both = device_ms(torch, gru_fwd_bwd, 3)
+    p_fwd = device_ms(torch, proj_fwd, 20)
+    p_both = device_ms(torch, proj_fwd_bwd, 20)
+    out[name] = {'gru_fwd_ms': fwd, 'gru_bwd_ms': both - fwd,
+                 'proj_fwd_ms': p_fwd, 'proj_bwd_ms': p_both - p_fwd,
+                 'rec_fwd_ms': fwd - p_fwd,
+                 'rec_bwd_ms': (both - fwd) - (p_both - p_fwd)}
+    if dtype == torch.bfloat16:
+      from torch.profiler import ProfilerActivity, profile
+      with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gru_fwd()
+        torch.cuda.synchronize()
+      out[name]['kernels'] = [r[2][:60] for r in device_rows(prof)[:3]]
+    print(f'  torch.nn.GRU {name}: ' + ', '.join(
+        f'{k} {v:.4f}' if isinstance(v, float) else f'{k} {v}'
+        for k, v in out[name].items()), flush=True)
+  return out
 
 
 def main(argv=None):

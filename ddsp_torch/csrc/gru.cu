@@ -1,31 +1,14 @@
-// Fused GRU sequence, forward (K2f) and backward (K2b) of ddsp_torch: the
-// whole recurrence in one launch each way.
+// Fused GRU sequence of ddsp_torch: the forward (K2f) and backward (K2b)
+// recurrences, each one launch, and K2b's weight-gradient pass.
 //
-// Replaces ddsp_tpu/ops/pallas_kernels/gru.py:_fwd_kernel and _bwd_kernel
-// (reached through _pallas_gru_fwd, _pallas_gru_bwd / fused_gru).
-// Reset-after gates, xp = x @ wi + bi hoisted outside the kernels:
+// Replaces ddsp_tpu/ops/pallas_kernels/gru.py:_fwd_kernel (K2f) and
+// _bwd_kernel (K2b), reached through _pallas_gru_fwd, _pallas_gru_bwd /
+// fused_gru. Reset-after gates, xp = x @ wi + bi hoisted outside:
 //
 //   hp = h_{t-1} @ wh                           ([B, H] x [H, 3H])
 //   r  = sigmoid(xp_r + hp_r),  z = sigmoid(xp_z + hp_z)
 //   n  = tanh(xp_n + r * (hp_n + bn))
 //   h_t = (1 - z) * n + z * h_{t-1}
-//
-// Layout: xp [T, B, 3H] (float32 or bfloat16), wh [H, 3H] (same type as
-// xp), bn [H], h0 [B, H] and ys [T, B, H] float32. In bfloat16 mode the
-// recurrent dot takes h rounded to bf16 and bf16 wh with float32
-// accumulation; gates and the carry stay float32 (gru.py:141-148).
-//
-// Design. wh at H = 512 is 1.5 MiB in bf16, too large for one SM's shared
-// memory, so the hidden units are partitioned: block j owns units
-// [j*u, (j+1)*u) and keeps the 3u gate columns of wh for them (all H rows)
-// in shared memory for the whole sequence (12 KiB of bf16 data at u = 4,
-// held as float). The gate math is local to a block; the only exchange
-// between blocks is h_t, which goes through ys[t] itself. Between steps
-// there is one grid-wide barrier (a monotonic arrival counter; the launch
-// is cooperative, so every block is co-resident or the launch fails).
-// Each step a block reads h_{t-1} (B*H floats, from L2) into shared memory,
-// computes its B x 3u dot products of length H (one warp per output, lanes
-// split the k axis, shuffle reduction), then its B x u gate updates.
 //
 // Backward (gru.py:176-209), walking time in reverse with dh carried:
 //
@@ -37,42 +20,103 @@
 //   dh   = dht z + dhp @ wh^T
 //   dwh += h_{t-1}^T dhp,  dbn += sum_b dhn
 //
-// The same partition serves it: block j recomputes the gates of its units
-// and keeps its 3u columns of dwh and its u entries of dbn and of the dh
-// carry in shared memory for the whole sequence. Only dh = dhp @ wh^T
-// contracts over all 3H columns, so each step every block writes its 3u
-// columns of dhp to a [2, B, 3H] exchange buffer in global memory (double
-// buffered, so one grid barrier per step is enough), and after the barrier
-// reads all of dhp back through L2 for the rows of wh of its own units
-// ([u, 3H], also resident). h_prev and dhp are staged through shared
-// memory in tiles of kBatchTile batch rows, so the footprint does not grow
-// with the batch: at H = 512, u = 4 it is 72 KiB of weights and
-// accumulators plus 64 KiB of tiles.
+// Layout: xp [T, B, 3H], wh [H, 3H], h_prev [T, B, H], dxp at the stream
+// type; bn [H], h0 [B, H], g and ys [T, B, H], dwh, dbn, dh0 float32.
 //
-// Bound. Latency: T x (one grid barrier + one length-H dot per column),
-// not FLOPs or bytes. At B = 1, T = 1000, H = 512 in bf16 the work is
-// 1.6 GFLOP and 6.6 MB, about 2 microseconds at the card's peak rates,
-// while each of the 1000 serial steps costs a barrier of microseconds.
-// The backward does three such products per step and moves B x 3H of dhp
-// to every block through L2, so its step is a few times the forward's.
+// What bounds them. Each step needs all of h_{t-1} (or dh) from the step
+// before, so both recurrences are latency-bound per serial step, not by
+// FLOPs or bytes: at B = 16, T = 1000, H = 512 the forward is 25 GFLOP and
+// 82 MB (about 26 us at the card's peak rates), but it is 1000 dependent
+// steps, each a [16, 512] x [512, 1536] product, a gate update and an
+// exchange of h between the SMs that own its parts.
+//
+// bf16 streams (the main path): thread-block clusters.
+//   * One cluster per tile of 16 batch rows (kRows); rows never interact in
+//     a GRU, so ceil(B / 16) clusters run independently, in later waves
+//     when they do not all fit. Nothing grows with B.
+//   * The cluster partitions the hidden units: each of its H / 32 CTAs
+//     owns u = 32 units (kUnits), i.e. 96 gate columns of wh; at H = 512
+//     that is a cluster of 16 (non-portable size). u is fixed at 32: the
+//     96 columns are 12 n-tiles of mma.m16n8k16, and with them the forward
+//     keeps its slice of wh in registers as mma B-fragments (96 per thread
+//     at H = 512) and the backward keeps it in shared memory (96 KiB).
+//   * The recurrent products run on tensor cores:
+//     mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, A = the tile's 16 rows
+//     of h in bf16 (a tile of one row pads to 16), float32 accumulation:
+//     exactly the reference's bf16 x bf16 -> f32 dot. Eight warps split K
+//     four ways and N two ways, so each accumulator chains H / 64 mmas;
+//     the four K-partials are summed in shared memory by the gate threads.
+//   * The new h slice goes out in bf16, 16-byte st.async stores, to every
+//     CTA of the cluster through distributed shared memory, into a
+//     double-buffered [2, 16, H] A operand; ys[t] goes to device memory in
+//     float32.
+//   * No barrier per step: each buffer has an mbarrier in the receiving CTA
+//     that expects the buffer's bytes (mbarrier.arrive.expect_tx), and each
+//     st.async completes its bytes on it, so a CTA waits only for the data
+//     it needs. Double buffering is safe without a barrier because a CTA
+//     can only refill a buffer two steps on after every CTA has sent it the
+//     step between, i.e. after every CTA has read the buffer. One cluster
+//     barrier at the start (barriers initialised) and one at the end (no
+//     CTA exits while stores to it may be in flight). This replaces the
+//     cluster barrier per step (barrier.cluster.arrive/wait) of the first
+//     version of this design, which took 2.9 us per forward step at
+//     H = 512 against 2.1 us here (chip_smoke.py, PERF.md).
+//   * K2b (a), the serial reverse-time kernel, uses the same cluster, the
+//     same partition and the resident bf16 column slice w_col [H, 96]:
+//     it recomputes hp from h_prev[t] (cp.async-prefetched a step ahead,
+//     and issued before it waits for the previous step's dh, since it does
+//     not depend on dh), forms dxp and dhp for its units, and computes its
+//     partial dhp_own [16, 96] @ w_col^T [96, H] on the same slice (ldmatrix
+//     without .trans reads it as the transposed operand). The partials are
+//     reduce-scattered over DSMEM: each CTA sends each destination its
+//     [16, 32] float32 block with st.async, double-buffered, completing on
+//     the destination's mbarrier, and sums the C blocks it receives. A
+//     second, row-major copy of wh would not fit beside the first.
+//   * K2b (b): dwh = h_prev^T dhp over K = T * B and dbn are taken off the
+//     serial path. (a) writes the dhn stream [T, B, H] (the other two thirds
+//     of dhp are dxp's) and per-tile float32 sums of dhn [tiles, H]; a
+//     tensor-core kernel (64 x 64 output tiles, mma.m16n8k16 from a 3-stage
+//     cp.async ring, float32 accumulation) computes dwh and sums the tiles'
+//     dbn. The products and roundings are those of the reference; only the
+//     order of summation changes.
+//   Shared memory per CTA at H = 512: forward 60 KiB (h double buffer
+//   33 KiB, K-partials 26 KiB, h slice 1 KiB); backward 214 KiB (w_col
+//   104 KiB, h_prev 16 KiB, dh partials 2 x 16 x 2 KiB, K-partials 26 KiB,
+//   dhp 3 KiB). The cluster kernels take H in {64, 128, 256, 512}
+//   (clusters of 2, 4, 8, 16): H a multiple of 64 for the K split, at most
+//   16 CTAs per cluster.
+//
+// float32 streams (compute_dtype='float32', a parity mode): exact float32
+// products, so no tensor cores (TF32 would not hold the float32
+// tolerance). Cooperative launches of H / u blocks, each owning u units with
+// their columns of wh in shared memory as float, one software grid barrier
+// per step (a monotonic arrival counter); h and dhp go between blocks
+// through L2, staged in tiles of kBatchTile rows so the footprint does not
+// grow with the batch. CUDA-core dot products, one warp per output.
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
-#include <type_traits>
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ float gate_sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
+
+// ------------------------------------------------------------------------
+// float32: cooperative kernels with a software grid barrier.
+// ------------------------------------------------------------------------
+
+constexpr int kBatchTile = 8;
 
 // All blocks arrive once per step; step t waits for gridDim.x * (t + 1)
 // arrivals in total. The counter starts at 0 for each launch.
@@ -89,18 +133,36 @@ __device__ __forceinline__ void grid_barrier(unsigned int* counter,
   __syncthreads();
 }
 
-template <typename T>
+// One warp per (row, column) output of h_s[nb, hidden] x w_s[cols, hidden]^T.
+__device__ __forceinline__ void warp_dots(const float* h_s, const float* w_s,
+                                          float* out, int nb, int cols,
+                                          int hidden) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int o = warp; o < nb * cols; o += kThreads / 32) {
+    const int b = o / cols;
+    const float* hv = h_s + b * hidden;
+    const float* wv = w_s + (o - b * cols) * hidden;
+    float acc = 0.f;
+    for (int k = lane; k < hidden; k += 32) acc = fmaf(hv[k], wv[k], acc);
+    for (int off = 16; off > 0; off >>= 1) {
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    }
+    if (lane == 0) out[o] = acc;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-gru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
+gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
                const float* __restrict__ bn, const float* __restrict__ h0,
                float* ys, unsigned int* barrier, int seq_len, int batch,
                int hidden, int u) {
-  extern __shared__ float smem[];
+  extern __shared__ float smem_f[];
   const int cols = 3 * u;
-  float* w_s = smem;                   // [cols][hidden]
-  float* h_s = w_s + cols * hidden;    // [batch][hidden], h_{t-1}
-  float* hp_s = h_s + batch * hidden;  // [batch][cols]
-  float* carry = hp_s + batch * cols;  // [batch][u], float32 carry
+  float* w_s = smem_f;                      // [cols][hidden]
+  float* h_s = w_s + cols * hidden;         // [kBatchTile][hidden]
+  float* hp_s = h_s + kBatchTile * hidden;  // [kBatchTile][cols]
+  float* carry = hp_s + kBatchTile * cols;  // [batch][u]
   const int j = blockIdx.x;
   const int tid = threadIdx.x;
 
@@ -108,96 +170,62 @@ gru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
     const int c = i / hidden;
     const int k = i - c * hidden;
     const int gate = c / u;
-    const int col = gate * hidden + j * u + (c - gate * u);
-    w_s[i] = to_float(wh[(size_t)k * 3 * hidden + col]);
+    w_s[i] = wh[(size_t)k * 3 * hidden + gate * hidden + j * u + (c - gate * u)];
   }
   for (int i = tid; i < batch * u; i += kThreads) {
     const int b = i / u;
     carry[i] = h0[(size_t)b * hidden + j * u + (i - b * u)];
   }
 
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  constexpr int kWarps = kThreads / 32;
   for (int t = 0; t < seq_len; ++t) {
     // h_{t-1} was written by other blocks during this launch: read it
     // through L2 (ld.global.cg), never from a possibly stale L1 line.
     const float* h_prev = t == 0 ? h0 : ys + (size_t)(t - 1) * batch * hidden;
-    for (int i = tid; i < batch * hidden; i += kThreads) {
-      const float v = __ldcg(h_prev + i);
-      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-        h_s[i] = __bfloat162float(__float2bfloat16(v));
-      } else {
-        h_s[i] = v;
-      }
-    }
-    __syncthreads();
-
-    for (int o = warp; o < batch * cols; o += kWarps) {
-      const int b = o / cols;
-      const float* hv = h_s + b * hidden;
-      const float* wv = w_s + (o - b * cols) * hidden;
-      float acc = 0.f;
-      for (int k = lane; k < hidden; k += 32) acc = fmaf(hv[k], wv[k], acc);
-      for (int off = 16; off > 0; off >>= 1) {
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      }
-      if (lane == 0) hp_s[o] = acc;
-    }
-    __syncthreads();
-
-    const T* xp_t = xp + (size_t)t * batch * 3 * hidden;
+    const float* xp_t = xp + (size_t)t * batch * 3 * hidden;
     float* ys_t = ys + (size_t)t * batch * hidden;
-    for (int i = tid; i < batch * u; i += kThreads) {
-      const int b = i / u;
-      const int uu = i - b * u;
-      const int unit = j * u + uu;
-      const T* x = xp_t + (size_t)b * 3 * hidden;
-      const float* hp = hp_s + b * cols;
-      const float r = gate_sigmoid(to_float(x[unit]) + hp[uu]);
-      const float z = gate_sigmoid(to_float(x[hidden + unit]) + hp[u + uu]);
-      const float n =
-          tanhf(to_float(x[2 * hidden + unit]) + r * (hp[2 * u + uu] + bn[unit]));
-      const float h = (1.f - z) * n + z * carry[i];
-      carry[i] = h;
-      ys_t[(size_t)b * hidden + unit] = h;
+    for (int b0 = 0; b0 < batch; b0 += kBatchTile) {
+      const int nb = min(kBatchTile, batch - b0);
+      __syncthreads();  // the previous tile's h_s and hp_s are consumed
+      for (int i = tid; i < nb * hidden; i += kThreads) {
+        h_s[i] = __ldcg(h_prev + (size_t)b0 * hidden + i);
+      }
+      __syncthreads();
+      warp_dots(h_s, w_s, hp_s, nb, cols, hidden);
+      __syncthreads();
+      for (int i = tid; i < nb * u; i += kThreads) {
+        const int b = i / u;
+        const int uu = i - b * u;
+        const int unit = j * u + uu;
+        const float* x = xp_t + (size_t)(b0 + b) * 3 * hidden;
+        const float* hp = hp_s + b * cols;
+        const float r = gate_sigmoid(x[unit] + hp[uu]);
+        const float z = gate_sigmoid(x[hidden + unit] + hp[u + uu]);
+        const float n = tanhf(x[2 * hidden + unit] + r * (hp[2 * u + uu] + bn[unit]));
+        float* c = carry + (b0 + b) * u + uu;
+        const float h = (1.f - z) * n + z * *c;
+        *c = h;
+        ys_t[(size_t)(b0 + b) * hidden + unit] = h;
+      }
     }
     grid_barrier(barrier, gridDim.x * (unsigned int)(t + 1));
   }
 }
 
-__device__ __forceinline__ float round_to(float v, float) { return v; }
-__device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-// Loads that bypass L1: the data was written by other blocks in this launch.
-__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float load_cg(const __nv_bfloat16* p) {
-  const unsigned short bits = __ldcg(reinterpret_cast<const unsigned short*>(p));
-  return __bfloat162float(__ushort_as_bfloat16(bits));
-}
-
-constexpr int kBatchTile = 8;
-
-// g [T, B, H] float32; xp, hprev, dxp at the stream type T; exchange
-// [2, B, 3H] of T (scratch); dwh [H, 3H], dbn [H], dh0 [B, H] float32, every
-// element written. Launched cooperatively with hidden / u blocks.
-template <typename T>
+// g [T, B, H], xp, hprev, dxp; exchange [2, B, 3H] (scratch); dwh [H, 3H],
+// dbn [H], dh0 [B, H], every element written. Launched cooperatively with
+// hidden / u blocks.
 __global__ void __launch_bounds__(kThreads)
-gru_bwd_kernel(const float* __restrict__ g, const T* __restrict__ xp,
-               const T* __restrict__ hprev, const T* __restrict__ wh,
-               const float* __restrict__ bn, T* __restrict__ dxp, T* exchange,
-               float* __restrict__ dwh, float* __restrict__ dbn,
-               float* __restrict__ dh0, unsigned int* barrier, int seq_len,
-               int batch, int hidden, int u) {
-  extern __shared__ float smem[];
+gru_bwd_kernel(const float* __restrict__ g, const float* __restrict__ xp,
+               const float* __restrict__ hprev, const float* __restrict__ wh,
+               const float* __restrict__ bn, float* __restrict__ dxp,
+               float* exchange, float* __restrict__ dwh,
+               float* __restrict__ dbn, float* __restrict__ dh0,
+               unsigned int* barrier, int seq_len, int batch, int hidden,
+               int u) {
+  extern __shared__ float smem_f[];
   const int cols = 3 * u;
   const int three_h = 3 * hidden;
-  float* w_col = smem;                          // [cols][hidden]
+  float* w_col = smem_f;                        // [cols][hidden]
   float* w_row = w_col + cols * hidden;         // [u][3H]
   float* dwh_s = w_row + u * three_h;           // [cols][hidden]
   float* h_s = dwh_s + cols * hidden;           // [kBatchTile][hidden]
@@ -210,21 +238,17 @@ gru_bwd_kernel(const float* __restrict__ g, const T* __restrict__ xp,
   float* dbn_s = dhz_s + batch * u;             // [u]
   const int j = blockIdx.x;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  constexpr int kWarps = kThreads / 32;
 
   for (int i = tid; i < cols * hidden; i += kThreads) {
     const int c = i / hidden;
     const int k = i - c * hidden;
     const int gate = c / u;
-    const int col = gate * hidden + j * u + (c - gate * u);
-    w_col[i] = to_float(wh[(size_t)k * three_h + col]);
+    w_col[i] = wh[(size_t)k * three_h + gate * hidden + j * u + (c - gate * u)];
     dwh_s[i] = 0.f;
   }
   for (int i = tid; i < u * three_h; i += kThreads) {
     const int uu = i / three_h;
-    w_row[i] = to_float(wh[(size_t)(j * u + uu) * three_h + (i - uu * three_h)]);
+    w_row[i] = wh[(size_t)(j * u + uu) * three_h + (i - uu * three_h)];
   }
   for (int i = tid; i < batch * u; i += kThreads) dh_s[i] = 0.f;
   for (int i = tid; i < u; i += kThreads) dbn_s[i] = 0.f;
@@ -232,60 +256,50 @@ gru_bwd_kernel(const float* __restrict__ g, const T* __restrict__ xp,
 
   for (int step = 0; step < seq_len; ++step) {
     const int t = seq_len - 1 - step;
-    const T* xp_t = xp + (size_t)t * batch * three_h;
-    const T* hprev_t = hprev + (size_t)t * batch * hidden;
+    const float* xp_t = xp + (size_t)t * batch * three_h;
+    const float* hprev_t = hprev + (size_t)t * batch * hidden;
     const float* g_t = g + (size_t)t * batch * hidden;
-    T* dxp_t = dxp + (size_t)t * batch * three_h;
-    T* ex = exchange + (size_t)(step & 1) * batch * three_h;
+    float* dxp_t = dxp + (size_t)t * batch * three_h;
+    float* ex = exchange + (size_t)(step & 1) * batch * three_h;
 
     for (int b0 = 0; b0 < batch; b0 += kBatchTile) {
       const int nb = min(kBatchTile, batch - b0);
       // h_{t-1} of this tile (an input of the launch: plain loads).
       for (int i = tid; i < nb * hidden; i += kThreads) {
-        h_s[i] = to_float(hprev_t[(size_t)b0 * hidden + i]);
+        h_s[i] = hprev_t[(size_t)b0 * hidden + i];
       }
       __syncthreads();
-      for (int o = warp; o < nb * cols; o += kWarps) {
-        const int b = o / cols;
-        const float* hv = h_s + b * hidden;
-        const float* wv = w_col + (o - b * cols) * hidden;
-        float acc = 0.f;
-        for (int k = lane; k < hidden; k += 32) acc = fmaf(hv[k], wv[k], acc);
-        for (int off = 16; off > 0; off >>= 1) {
-          acc += __shfl_xor_sync(0xffffffffu, acc, off);
-        }
-        if (lane == 0) hp_s[o] = acc;
-      }
+      warp_dots(h_s, w_col, hp_s, nb, cols, hidden);
       __syncthreads();
       for (int i = tid; i < nb * u; i += kThreads) {
         const int b = i / u;
         const int uu = i - b * u;
         const int unit = j * u + uu;
         const size_t row = (size_t)(b0 + b);
-        const T* x = xp_t + row * three_h;
+        const float* x = xp_t + row * three_h;
         const float* hp = hp_s + b * cols;
         const float hpn = hp[2 * u + uu] + bn[unit];
-        const float r = gate_sigmoid(to_float(x[unit]) + hp[uu]);
-        const float z = gate_sigmoid(to_float(x[hidden + unit]) + hp[u + uu]);
-        const float n = tanhf(to_float(x[2 * hidden + unit]) + r * hpn);
+        const float r = gate_sigmoid(x[unit] + hp[uu]);
+        const float z = gate_sigmoid(x[hidden + unit] + hp[u + uu]);
+        const float n = tanhf(x[2 * hidden + unit] + r * hpn);
         const float h_prev = h_s[b * hidden + unit];
         const float dht = dh_s[row * u + uu] + g_t[row * hidden + unit];
         const float dn_pre = dht * (1.f - z) * (1.f - n * n);
         const float dz = dht * (h_prev - n) * z * (1.f - z);
         const float dr_pre = dn_pre * hpn * r * (1.f - r);
         const float dhn = dn_pre * r;
-        T* dx = dxp_t + row * three_h;
-        store(dx + unit, dr_pre);
-        store(dx + hidden + unit, dz);
-        store(dx + 2 * hidden + unit, dn_pre);
-        T* e = ex + row * three_h;
-        store(e + unit, dr_pre);
-        store(e + hidden + unit, dz);
-        store(e + 2 * hidden + unit, dhn);
+        float* dx = dxp_t + row * three_h;
+        dx[unit] = dr_pre;
+        dx[hidden + unit] = dz;
+        dx[2 * hidden + unit] = dn_pre;
+        float* e = ex + row * three_h;
+        e[unit] = dr_pre;
+        e[hidden + unit] = dz;
+        e[2 * hidden + unit] = dhn;
         float* own = dhp_own + b * cols;
-        own[uu] = round_to(dr_pre, T());
-        own[u + uu] = round_to(dz, T());
-        own[2 * u + uu] = round_to(dhn, T());
+        own[uu] = dr_pre;
+        own[u + uu] = dz;
+        own[2 * u + uu] = dhn;
         dhn_s[i] = dhn;
         dhz_s[row * u + uu] = dht * z;
       }
@@ -314,23 +328,14 @@ gru_bwd_kernel(const float* __restrict__ g, const T* __restrict__ xp,
     for (int b0 = 0; b0 < batch; b0 += kBatchTile) {
       const int nb = min(kBatchTile, batch - b0);
       for (int i = tid; i < nb * three_h; i += kThreads) {
-        dhp_all[i] = load_cg(ex + (size_t)b0 * three_h + i);
+        dhp_all[i] = __ldcg(ex + (size_t)b0 * three_h + i);
       }
       __syncthreads();
-      for (int o = warp; o < nb * u; o += kWarps) {
-        const int b = o / u;
-        const int uu = o - b * u;
-        const float* dv = dhp_all + b * three_h;
-        const float* wv = w_row + uu * three_h;
-        float acc = 0.f;
-        for (int c = lane; c < three_h; c += 32) acc = fmaf(dv[c], wv[c], acc);
-        for (int off = 16; off > 0; off >>= 1) {
-          acc += __shfl_xor_sync(0xffffffffu, acc, off);
-        }
-        if (lane == 0) {
-          const size_t idx = (size_t)(b0 + b) * u + uu;
-          dh_s[idx] = dhz_s[idx] + acc;
-        }
+      warp_dots(dhp_all, w_row, hp_s, nb, u, three_h);
+      __syncthreads();
+      for (int i = tid; i < nb * u; i += kThreads) {
+        const size_t idx = (size_t)b0 * u + i;
+        dh_s[idx] = dhz_s[idx] + hp_s[i];
       }
       __syncthreads();
     }
@@ -340,8 +345,7 @@ gru_bwd_kernel(const float* __restrict__ g, const T* __restrict__ xp,
     const int c = i / hidden;
     const int k = i - c * hidden;
     const int gate = c / u;
-    const int col = gate * hidden + j * u + (c - gate * u);
-    dwh[(size_t)k * three_h + col] = dwh_s[i];
+    dwh[(size_t)k * three_h + gate * hidden + j * u + (c - gate * u)] = dwh_s[i];
   }
   for (int i = tid; i < u; i += kThreads) dbn[j * u + i] = dbn_s[i];
   for (int i = tid; i < batch * u; i += kThreads) {
@@ -351,8 +355,9 @@ gru_bwd_kernel(const float* __restrict__ g, const T* __restrict__ xp,
 }
 
 size_t fwd_smem_bytes(int hidden, int batch, int u) {
-  return sizeof(float) * ((size_t)3 * u * hidden + (size_t)batch * hidden +
-                          (size_t)batch * 3 * u + (size_t)batch * u);
+  const size_t cols = 3 * (size_t)u;
+  return sizeof(float) * (cols * hidden + (size_t)kBatchTile * (hidden + cols) +
+                          (size_t)batch * u);
 }
 
 size_t bwd_smem_bytes(int hidden, int batch, int u) {
@@ -398,45 +403,794 @@ int launch_cooperative(Kernel kernel, size_t smem, int n_blocks, void** args,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_fwd(const void* xp, const void* wh, const void* bn, const void* h0,
-               void* ys, void* barrier, int seq_len, int batch, int hidden,
-               int u, void* stream) {
-  void* args[] = {&xp, &wh, &bn, &h0, &ys, &barrier,
-                  &seq_len, &batch, &hidden, &u};
-  return launch_cooperative(gru_fwd_kernel<T>,
-                            fwd_smem_bytes(hidden, batch, u), hidden / u,
-                            args, stream);
+// ------------------------------------------------------------------------
+// bf16: cluster kernels on tensor cores.
+// ------------------------------------------------------------------------
+
+constexpr int kRows = 16;   // batch rows per cluster: mma's M
+constexpr int kUnits = 32;  // hidden units per CTA
+constexpr int kCols = 3 * kUnits;
+constexpr int kKw = 4;      // warps along K in h @ w_col
+constexpr int kNw = 2;      // warps along N in h @ w_col
+constexpr int kNt = kCols / 8 / kNw;  // n-tiles per warp in h @ w_col
+constexpr int kPad = kCols + 8;  // row stride (elements) of [*, 96] tiles
+static_assert(kKw * kNw * 32 == kThreads, "8 warps");
+static_assert(kRows * kUnits == 2 * kThreads, "two units per gate thread");
+
+template <int H>
+struct Shape {
+  static_assert(H % 64 == 0 && H / kUnits <= 16, "H in {64, ..., 512}");
+  static constexpr int kCluster = H / kUnits;
+  static constexpr int kKt = H / 16 / kKw;        // k-tiles per warp
+  static constexpr int kNt2 = H / 8 / (kThreads / 32);  // dhp @ w_col^T
+  static constexpr int kHs = H + 8;               // row stride of h tiles
+  static constexpr size_t kHBytes = (size_t)kRows * kHs * sizeof(bf16);
+  static constexpr size_t kPartialBytes = (size_t)kKw * kRows * kPad * 4;
+  static constexpr size_t kRecvBytes =
+      (size_t)2 * kCluster * kRows * kUnits * 4;
+  static constexpr size_t kFwdSmem =
+      2 * kHBytes + kPartialBytes + kRows * kUnits * sizeof(bf16) + 16;
+  static constexpr size_t kBwdSmem = (size_t)H * kPad * sizeof(bf16) +
+                                     kHBytes + kRecvBytes + kPartialBytes +
+                                     (size_t)kRows * kPad * sizeof(bf16) + 16;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <typename T>
-int launch_bwd(const void* g, const void* xp, const void* hprev,
-               const void* wh, const void* bn, void* dxp, void* exchange,
-               void* dwh, void* dbn, void* dh0, void* barrier, int seq_len,
-               int batch, int hidden, int u, void* stream) {
-  void* args[] = {&g, &xp, &hprev, &wh, &bn, &dxp, &exchange, &dwh, &dbn,
-                  &dh0, &barrier, &seq_len, &batch, &hidden, &u};
-  return launch_cooperative(gru_bwd_kernel<T>,
-                            bwd_smem_bytes(hidden, batch, u), hidden / u,
-                            args, stream);
+__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 operands, float32 sum.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared, zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of complete_tx in this phase.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The shared::cluster address of `p` (this CTA's shared memory) in CTA
+// `rank` of the cluster.
+__device__ __forceinline__ unsigned map_rank(const void* p, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_async_v4(unsigned addr, uint4 v,
+                                            unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async_v2f(unsigned addr, float a, float b,
+                                             unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(addr),
+      "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+
+// Column j (0..95) of a CTA's slice -> column of wh [H, 3H].
+__device__ __forceinline__ int slice_col(int j, int rank, int hidden) {
+  return (j / kUnits) * hidden + rank * kUnits + j % kUnits;
+}
+
+// The gate threads: thread tid owns batch row tid / 16 of the tile and the
+// units 2 (tid % 16) and 2 (tid % 16) + 1 of the CTA.
+struct GateThread {
+  int row;   // row in the tile
+  int uu;    // first of its two units in the CTA
+  __device__ GateThread() : row(threadIdx.x >> 4), uu((threadIdx.x & 15) * 2) {}
+};
+
+// hp for the gate thread's two units: the kKw K-partials summed.
+__device__ __forceinline__ void sum_partials(const float* partial,
+                                             const GateThread& gt,
+                                             float (&hp)[3][2]) {
+#pragma unroll
+  for (int gate = 0; gate < 3; ++gate) {
+    float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < kKw; ++k) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          partial + (k * kRows + gt.row) * kPad + gate * kUnits + gt.uu);
+      s.x += v.x;
+      s.y += v.y;
+    }
+    hp[gate][0] = s.x;
+    hp[gate][1] = s.y;
+  }
+}
+
+// Write a warp's [16, 8 * kNt] K-partial (mma accumulator layout).
+__device__ __forceinline__ void store_partial(float* partial,
+                                              const float (&acc)[kNt][4],
+                                              int kw, int nw) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  float* pw = partial + kw * kRows * kPad;
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt) {
+    const int col = (nw * kNt + nt) * 8 + 2 * c;
+    *reinterpret_cast<float2*>(pw + g * kPad + col) =
+        make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(pw + (g + 8) * kPad + col) =
+        make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
+// K2f, bf16. Grid (H / 32, ceil(B / 16)), clusters of (H / 32, 1, 1).
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_fwd_cluster(const bf16* __restrict__ xp, const bf16* __restrict__ wh,
+                const float* __restrict__ bn, const float* __restrict__ h0,
+                float* __restrict__ ys, int seq_len, int batch) {
+  using S = Shape<H>;
+  constexpr int kHs = S::kHs;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* hbuf = reinterpret_cast<bf16*>(smem);  // [2][16][kHs]
+  float* partial = reinterpret_cast<float*>(smem + 2 * S::kHBytes);
+  bf16* stage = reinterpret_cast<bf16*>(smem + 2 * S::kHBytes +
+                                        S::kPartialBytes);  // [16][32]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = blockIdx.y * kRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int kw = warp % kKw, nw = warp / kKw;
+  constexpr int three_h = 3 * H;
+
+  // This warp's part of w_col as mma B-fragments, for the whole sequence.
+  uint32_t bfrag[S::kKt][kNt][2];
+#pragma unroll
+  for (int kt = 0; kt < S::kKt; ++kt) {
+    const int k = (kw * S::kKt + kt) * 16 + 2 * c;
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      const int col = slice_col((nw * kNt + nt) * 8 + g, rank, H);
+      const bf16* w = wh + (size_t)k * three_h + col;
+      bfrag[kt][nt][0] = pack_raw(w[0], w[three_h]);
+      bfrag[kt][nt][1] = pack_raw(w[8 * three_h], w[9 * three_h]);
+    }
+  }
+
+  const GateThread gt;
+  const int row = row0 + gt.row;
+  const bool valid = row < batch;
+  const int unit = rank * kUnits + gt.uu;
+  float carry[2] = {0.f, 0.f};
+  if (valid) {
+    const float2 v = *reinterpret_cast<const float2*>(h0 + (size_t)row * H + unit);
+    carry[0] = v.x;
+    carry[1] = v.y;
+  }
+  const float2 bnv = *reinterpret_cast<const float2*>(bn + unit);
+
+  // h_{-1} = h0 in bf16, all H columns of the tile's rows.
+  for (int i = tid; i < kRows * H / 8; i += kThreads) {
+    const int r = i / (H / 8), q = (i % (H / 8)) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row0 + r < batch) {
+      const float4* src = reinterpret_cast<const float4*>(
+          h0 + (size_t)(row0 + r) * H + q);
+      const float4 a = src[0], b = src[1];
+      v = make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                     pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+    }
+    *reinterpret_cast<uint4*>(hbuf + r * kHs + q) = v;
+  }
+
+  uint32_t x[3] = {0, 0, 0};  // xp_t for the two units, per gate
+  auto load_xp = [&](int t) {
+    if (valid) {
+      const bf16* src = xp + ((size_t)t * batch + row) * three_h + unit;
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate) {
+        x[gate] = *reinterpret_cast<const uint32_t*>(src + gate * H);
+      }
+    }
+  };
+  // full[b]: h buffer b holds this phase's h, all kCluster slices.
+  uint64_t* full = reinterpret_cast<uint64_t*>(stage + kRows * kUnits);
+  constexpr unsigned kFill = S::kCluster * kRows * kUnits * sizeof(bf16);
+  load_xp(0);
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_fence_init();
+    mbar_expect(&full[0], kFill);
+    mbar_expect(&full[1], kFill);
+  }
+  cluster.sync();  // every CTA runs, holds h0 and its barriers
+  unsigned parity = 0;  // bit b: the phase of full[b] to wait for
+
+  for (int t = 0; t < seq_len; ++t) {
+    const bf16* h_cur = hbuf + (t & 1) * kRows * kHs;
+    bf16* h_next = hbuf + ((t + 1) & 1) * kRows * kHs;
+    if (t > 0) {
+      const int b = t & 1;
+      mbar_wait(&full[b], (parity >> b) & 1);
+      parity ^= 1u << b;
+      if (tid == 0) mbar_expect(&full[b], kFill);  // its fill two steps on
+    }
+
+    float acc[kNt][4] = {};
+#pragma unroll
+    for (int kt = 0; kt < S::kKt; ++kt) {
+      const int k0 = (kw * S::kKt + kt) * 16;
+      uint32_t a[4];
+      ldsm_x4(a, h_cur + (lane & 15) * kHs + k0 + (lane >> 4) * 8);
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        mma_bf16(acc[nt], a, bfrag[kt][nt][0], bfrag[kt][nt][1]);
+      }
+    }
+    store_partial(partial, acc, kw, nw);
+    __syncthreads();
+
+    float hp[3][2];
+    sum_partials(partial, gt, hp);
+    float h[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float xr = e ? unpack_bf16(x[0]).y : unpack_bf16(x[0]).x;
+      const float xz = e ? unpack_bf16(x[1]).y : unpack_bf16(x[1]).x;
+      const float xn = e ? unpack_bf16(x[2]).y : unpack_bf16(x[2]).x;
+      const float b = e ? bnv.y : bnv.x;
+      const float r = gate_sigmoid(xr + hp[0][e]);
+      const float z = gate_sigmoid(xz + hp[1][e]);
+      const float n = tanhf(xn + r * (hp[2][e] + b));
+      h[e] = (1.f - z) * n + z * carry[e];
+      carry[e] = h[e];
+    }
+    if (valid) {
+      *reinterpret_cast<float2*>(ys + ((size_t)t * batch + row) * H + unit) =
+          make_float2(h[0], h[1]);
+    }
+    *reinterpret_cast<uint32_t*>(stage + gt.row * kUnits + gt.uu) =
+        pack_bf16(h[0], h[1]);
+    __syncthreads();
+
+    // The CTA's [16, 32] slice of h_t to every CTA of the cluster.
+    if (t + 1 < seq_len) {
+      uint64_t* bar = &full[(t + 1) & 1];
+      for (int i = tid; i < S::kCluster * kRows * 4; i += kThreads) {
+        const int dst = i / (kRows * 4), v = i % (kRows * 4);
+        const int r = v >> 2, q = (v & 3) * 8;
+        const uint4 val =
+            *reinterpret_cast<const uint4*>(stage + r * kUnits + q);
+        st_async_v4(map_rank(h_next + r * kHs + rank * kUnits + q, dst), val,
+                    map_rank(bar, dst));
+      }
+      load_xp(t + 1);
+    }
+  }
+  cluster.sync();  // no CTA exits while stores to it may be in flight
+}
+
+// K2b (a), bf16. Grid and clusters as the forward. Writes dxp [T, B, 3H]
+// and the dhn stream [T, B, H] (bf16), dbn_part [tiles, H] (per-tile sums
+// of dhn) and dh0 [B, H] (float32).
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_bwd_cluster(const float* __restrict__ g, const bf16* __restrict__ xp,
+                const bf16* __restrict__ hprev, const bf16* __restrict__ wh,
+                const float* __restrict__ bn, bf16* __restrict__ dxp,
+                bf16* __restrict__ dhn_out, float* __restrict__ dbn_part,
+                float* __restrict__ dh0, int seq_len, int batch) {
+  using S = Shape<H>;
+  constexpr int kHs = S::kHs;
+  constexpr int kC = S::kCluster;
+  constexpr int three_h = 3 * H;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* w_s = reinterpret_cast<bf16*>(smem);  // [H][kPad], w_col
+  unsigned char* p = smem + (size_t)H * kPad * sizeof(bf16);
+  bf16* h_a = reinterpret_cast<bf16*>(p);  // [16][kHs], h_prev[t]
+  p += S::kHBytes;
+  float* recv = reinterpret_cast<float*>(p);  // [2][kC][16][32]
+  p += S::kRecvBytes;
+  float* partial = reinterpret_cast<float*>(p);  // [kKw][16][kPad]
+  p += S::kPartialBytes;
+  bf16* dhp_s = reinterpret_cast<bf16*>(p);  // [16][kPad]
+  // rfull[b]: recv[b] holds this phase's kC blocks of dh partials.
+  uint64_t* rfull = reinterpret_cast<uint64_t*>(dhp_s + kRows * kPad);
+  constexpr unsigned kFill = kC * kRows * kUnits * sizeof(float);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = blockIdx.y * kRows;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, cq = lane & 3;
+  const int kw = warp % kKw, nw = warp / kKw;
+
+  for (int i = tid; i < H * (kCols / 8); i += kThreads) {
+    const int k = i / (kCols / 8), j = (i % (kCols / 8)) * 8;
+    *reinterpret_cast<uint4*>(w_s + k * kPad + j) =
+        *reinterpret_cast<const uint4*>(wh + (size_t)k * three_h +
+                                        slice_col(j, rank, H));
+  }
+  auto prefetch_h = [&](int t) {
+    for (int i = tid; i < kRows * H / 8; i += kThreads) {
+      const int r = i / (H / 8), q = (i % (H / 8)) * 8;
+      const bool ok = row0 + r < batch;
+      cp_async16(h_a + r * kHs + q,
+                 hprev + ((size_t)t * batch + (ok ? row0 + r : 0)) * H + q, ok);
+    }
+    cp_async_commit();
+  };
+
+  const GateThread gt;
+  const int row = row0 + gt.row;
+  const bool valid = row < batch;
+  const int unit = rank * kUnits + gt.uu;
+  const float2 bnv = *reinterpret_cast<const float2*>(bn + unit);
+  uint32_t x[3] = {0, 0, 0};
+  float2 gv = make_float2(0.f, 0.f);
+  auto load_step = [&](int t) {
+    if (valid) {
+      const bf16* src = xp + ((size_t)t * batch + row) * three_h + unit;
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate) {
+        x[gate] = *reinterpret_cast<const uint32_t*>(src + gate * H);
+      }
+      gv = *reinterpret_cast<const float2*>(g + ((size_t)t * batch + row) * H +
+                                            unit);
+    }
+  };
+
+  // hp = h_prev[t] @ w_col into the K-partials; the gate thread's own
+  // h_prev values into hv.
+  float hv[2];
+  auto recompute_hp = [&]() {
+    float acc[kNt][4] = {};
+#pragma unroll
+    for (int kt = 0; kt < S::kKt; ++kt) {
+      const int k0 = (kw * S::kKt + kt) * 16;
+      uint32_t a[4];
+      ldsm_x4(a, h_a + (lane & 15) * kHs + k0 + (lane >> 4) * 8);
+#pragma unroll
+      for (int pr = 0; pr < kNt / 2; ++pr) {
+        const int n0 = (nw * kNt + 2 * pr) * 8;
+        uint32_t b[4];
+        ldsm_x4_trans(b, w_s + (k0 + (lane & 15)) * kPad + n0 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * pr], a, b[0], b[1]);
+        mma_bf16(acc[2 * pr + 1], a, b[2], b[3]);
+      }
+    }
+    store_partial(partial, acc, kw, nw);
+    const float2 h = unpack_bf16(
+        *reinterpret_cast<const uint32_t*>(h_a + gt.row * kHs + unit));
+    hv[0] = h.x;
+    hv[1] = h.y;
+  };
+
+  float dh[2] = {0.f, 0.f}, dhz[2] = {0.f, 0.f}, dbn_acc[2] = {0.f, 0.f};
+  auto reduce_dh = [&](int buf) {
+    const float* rb = recv + (size_t)buf * kC * kRows * kUnits;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) dh[e] = dhz[e];
+#pragma unroll 4
+    for (int src = 0; src < kC; ++src) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          rb + (src * kRows + gt.row) * kUnits + gt.uu);
+      dh[0] += v.x;
+      dh[1] += v.y;
+    }
+  };
+
+  const int t_last = seq_len - 1;
+  prefetch_h(t_last);
+  load_step(t_last);
+  cp_async_wait<0>();
+  if (tid == 0) {
+    mbar_init(&rfull[0], 1);
+    mbar_init(&rfull[1], 1);
+    mbar_fence_init();
+    mbar_expect(&rfull[0], kFill);
+    mbar_expect(&rfull[1], kFill);
+  }
+  __syncthreads();
+  cluster.sync();  // every CTA runs and holds its barriers
+  unsigned parity = 0;
+  recompute_hp();
+  __syncthreads();
+  if (t_last > 0) prefetch_h(t_last - 1);
+
+  for (int s = 0; s < seq_len; ++s) {
+    const int t = t_last - s;
+    const int buf = s & 1;
+    if (s > 0) {
+      mbar_wait(&rfull[buf ^ 1], (parity >> (buf ^ 1)) & 1);
+      parity ^= 1u << (buf ^ 1);
+      if (tid == 0) mbar_expect(&rfull[buf ^ 1], kFill);
+      reduce_dh(buf ^ 1);
+    }
+
+    float hp[3][2];
+    sum_partials(partial, gt, hp);
+    float dr_pre[2], dz[2], dn_pre[2], dhn[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float xr = e ? unpack_bf16(x[0]).y : unpack_bf16(x[0]).x;
+      const float xz = e ? unpack_bf16(x[1]).y : unpack_bf16(x[1]).x;
+      const float xn = e ? unpack_bf16(x[2]).y : unpack_bf16(x[2]).x;
+      const float hpn = hp[2][e] + (e ? bnv.y : bnv.x);
+      const float r = gate_sigmoid(xr + hp[0][e]);
+      const float z = gate_sigmoid(xz + hp[1][e]);
+      const float n = tanhf(xn + r * hpn);
+      const float dht = dh[e] + (e ? gv.y : gv.x);
+      dn_pre[e] = dht * (1.f - z) * (1.f - n * n);
+      dz[e] = dht * (hv[e] - n) * z * (1.f - z);
+      dr_pre[e] = dn_pre[e] * hpn * r * (1.f - r);
+      dhn[e] = dn_pre[e] * r;
+      dhz[e] = dht * z;
+      dbn_acc[e] += dhn[e];
+    }
+    const uint32_t pr = pack_bf16(dr_pre[0], dr_pre[1]);
+    const uint32_t pz = pack_bf16(dz[0], dz[1]);
+    const uint32_t pn = pack_bf16(dhn[0], dhn[1]);
+    if (valid) {
+      bf16* dx = dxp + ((size_t)t * batch + row) * three_h + unit;
+      *reinterpret_cast<uint32_t*>(dx) = pr;
+      *reinterpret_cast<uint32_t*>(dx + H) = pz;
+      *reinterpret_cast<uint32_t*>(dx + 2 * H) = pack_bf16(dn_pre[0], dn_pre[1]);
+      *reinterpret_cast<uint32_t*>(dhn_out + ((size_t)t * batch + row) * H +
+                                   unit) = pn;
+    }
+    bf16* own = dhp_s + gt.row * kPad + gt.uu;
+    *reinterpret_cast<uint32_t*>(own) = pr;
+    *reinterpret_cast<uint32_t*>(own + kUnits) = pz;
+    *reinterpret_cast<uint32_t*>(own + 2 * kUnits) = pn;
+    __syncthreads();
+
+    // dhp_own [16, 96] @ w_col^T [96, H]: this CTA's share of dh for every
+    // unit, sent to the CTA owning the unit.
+    {
+      uint32_t a[kCols / 16][4];
+#pragma unroll
+      for (int kt = 0; kt < kCols / 16; ++kt) {
+        ldsm_x4(a[kt], dhp_s + (lane & 15) * kPad + kt * 16 + (lane >> 4) * 8);
+      }
+      float* send = recv + ((size_t)buf * kC + rank) * kRows * kUnits;
+#pragma unroll
+      for (int nt = 0; nt < S::kNt2; ++nt) {
+        const int n0 = (warp * S::kNt2 + nt) * 8;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kp = 0; kp < kCols / 32; ++kp) {
+          uint32_t b[4];
+          ldsm_x4(b, w_s + (n0 + (lane & 7)) * kPad + kp * 32 + (lane >> 3) * 8);
+          mma_bf16(acc, a[2 * kp], b[0], b[1]);
+          mma_bf16(acc, a[2 * kp + 1], b[2], b[3]);
+        }
+        const int dst = n0 / kUnits;
+        const int col = n0 % kUnits + 2 * cq;
+        const unsigned bar = map_rank(&rfull[buf], dst);
+        st_async_v2f(map_rank(send + gq * kUnits + col, dst), acc[0], acc[1],
+                     bar);
+        st_async_v2f(map_rank(send + (gq + 8) * kUnits + col, dst), acc[2],
+                     acc[3], bar);
+      }
+    }
+    if (t > 0) {
+      // The next step's hp does not depend on dh: overlap the exchange.
+      load_step(t - 1);
+      cp_async_wait<0>();
+      __syncthreads();
+      recompute_hp();
+      __syncthreads();
+      if (t > 1) prefetch_h(t - 2);
+    }
+  }
+  {
+    const int b = (seq_len - 1) & 1;
+    mbar_wait(&rfull[b], (parity >> b) & 1);
+    reduce_dh(b);
+  }
+  if (valid) {
+    *reinterpret_cast<float2*>(dh0 + (size_t)row * H + unit) =
+        make_float2(dh[0], dh[1]);
+  }
+  // Per-tile dbn: the 16 rows' sums of dhn (padded rows add zeros).
+  __syncthreads();
+  *reinterpret_cast<float2*>(partial + gt.row * kUnits + gt.uu) =
+      make_float2(dbn_acc[0], dbn_acc[1]);
+  __syncthreads();
+  if (tid < kUnits) {
+    float s = 0.f;
+    for (int r = 0; r < kRows; ++r) s += partial[r * kUnits + tid];
+    dbn_part[(size_t)blockIdx.y * H + rank * kUnits + tid] = s;
+  }
+  cluster.sync();  // no CTA exits while stores to it may be in flight
+}
+
+// K2b (b): dwh [H, 3H] = h_prev^T [dxp_r, dxp_z, dhn] over K = T * B rows,
+// dbn [H] = the sum of the tiles' partials. Grid (H / 64, 3H / 64) of 64 x
+// 64 output tiles, 4 warps of 32 x 32, K in chunks of 32 through a 3-stage
+// cp.async ring.
+constexpr int kWgTile = 64;
+constexpr int kWgK = 32;
+constexpr int kWgStages = 3;
+constexpr int kWgStride = kWgTile + 8;
+constexpr int kWgThreads = 128;
+
+__global__ void __launch_bounds__(kWgThreads)
+gru_wgrad_kernel(const bf16* __restrict__ hprev, const bf16* __restrict__ dxp,
+                 const bf16* __restrict__ dhn, const float* __restrict__ dbn_part,
+                 float* __restrict__ dwh, float* __restrict__ dbn, int rows,
+                 int hidden, int n_tiles) {
+  __shared__ __align__(16) bf16 a_s[kWgStages][kWgK][kWgStride];
+  __shared__ __align__(16) bf16 b_s[kWgStages][kWgK][kWgStride];
+  const int m0 = blockIdx.x * kWgTile, n0 = blockIdx.y * kWgTile;
+  const int three_h = 3 * hidden;
+  const bool from_dhn = n0 >= 2 * hidden;
+  const bf16* b_src = from_dhn ? dhn + (n0 - 2 * hidden) : dxp + n0;
+  const int b_stride = from_dhn ? hidden : three_h;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int g = lane >> 2, c = lane & 3;
+
+  auto load_chunk = [&](int chunk, int stage) {
+    const int k0 = chunk * kWgK;
+    for (int i = tid; i < kWgK * kWgTile / 8; i += kWgThreads) {
+      const int r = i / (kWgTile / 8), q = (i % (kWgTile / 8)) * 8;
+      const bool ok = k0 + r < rows;
+      const size_t k = ok ? (size_t)(k0 + r) : 0;
+      cp_async16(&a_s[stage][r][q], hprev + k * hidden + m0 + q, ok);
+      cp_async16(&b_s[stage][r][q], b_src + k * b_stride + q, ok);
+    }
+  };
+
+  const int n_chunks = (rows + kWgK - 1) / kWgK;
+#pragma unroll
+  for (int s = 0; s < kWgStages - 1; ++s) {
+    if (s < n_chunks) load_chunk(s, s);
+    cp_async_commit();
+  }
+  float acc[2][4][4] = {};
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    cp_async_wait<kWgStages - 2>();
+    __syncthreads();
+    const int next = chunk + kWgStages - 1;
+    if (next < n_chunks) load_chunk(next, next % kWgStages);
+    cp_async_commit();
+    const int st = chunk % kWgStages;
+#pragma unroll
+    for (int ks = 0; ks < kWgK / 16; ++ks) {
+      const int k0 = ks * 16;
+      uint32_t a[2][4], b[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        // A = h_prev^T: the stored [k][m] tile read transposed.
+        ldsm_x4_trans(a[mt], &a_s[st][k0 + (lane & 7) + ((lane >> 4) << 3)]
+                                 [wm * 32 + mt * 16 + ((lane >> 3) & 1) * 8]);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        ldsm_x4_trans(b[np], &b_s[st][k0 + (lane & 15)]
+                                 [wn * 32 + np * 16 + (lane >> 4) * 8]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          mma_bf16(acc[mt][2 * np], a[mt], b[np][0], b[np][1]);
+          mma_bf16(acc[mt][2 * np + 1], a[mt], b[np][2], b[np][3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int m = m0 + wm * 32 + mt * 16 + g;
+      const int n = n0 + wn * 32 + nt * 8 + 2 * c;
+      *reinterpret_cast<float2*>(dwh + (size_t)m * three_h + n) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(dwh + (size_t)(m + 8) * three_h + n) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  }
+  if (blockIdx.y == 0 && tid < kWgTile) {
+    float s = 0.f;
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      s += dbn_part[(size_t)tile * hidden + m0 + tid];
+    }
+    dbn[m0 + tid] = s;
+  }
+}
+
+template <typename Kernel>
+cudaError_t cluster_attributes(Kernel kernel, int cluster, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess && cluster > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  return e;
+}
+
+cudaLaunchConfig_t cluster_config(int cluster, int tiles, size_t smem,
+                                  void* stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, tiles, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename Kernel>
+int query_cluster(Kernel kernel, int cluster, size_t smem, int* max_clusters) {
+  cudaError_t e = cluster_attributes(kernel, cluster, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, 1, smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(max_clusters, (const void*)kernel,
+                                             &cfg);
+}
+
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), int cluster, int tiles,
+                   size_t smem, void* stream, Args... args) {
+  cudaError_t e = cluster_attributes(kernel, cluster, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, tiles, smem, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int H>
+int query_h(int bwd, int* cluster, int* units, int* max_clusters, int* smem) {
+  using S = Shape<H>;
+  *cluster = S::kCluster;
+  *units = kUnits;
+  *smem = (int)(bwd ? S::kBwdSmem : S::kFwdSmem);
+  return bwd ? query_cluster(gru_bwd_cluster<H>, S::kCluster, S::kBwdSmem,
+                             max_clusters)
+             : query_cluster(gru_fwd_cluster<H>, S::kCluster, S::kFwdSmem,
+                             max_clusters);
+}
+
+template <int H>
+int fwd_h(const void* xp, const void* wh, const void* bn, const void* h0,
+          void* ys, int seq_len, int batch, void* stream) {
+  using S = Shape<H>;
+  return launch_cluster(gru_fwd_cluster<H>, S::kCluster,
+                        (batch + kRows - 1) / kRows, S::kFwdSmem, stream,
+                        (const bf16*)xp, (const bf16*)wh, (const float*)bn,
+                        (const float*)h0, (float*)ys, seq_len, batch);
+}
+
+template <int H>
+int bwd_h(const void* g, const void* xp, const void* hprev, const void* wh,
+          const void* bn, void* dxp, void* dhn, void* dbn_part, void* dh0,
+          int seq_len, int batch, void* stream) {
+  using S = Shape<H>;
+  return launch_cluster(gru_bwd_cluster<H>, S::kCluster,
+                        (batch + kRows - 1) / kRows, S::kBwdSmem, stream,
+                        (const float*)g, (const bf16*)xp, (const bf16*)hprev,
+                        (const bf16*)wh, (const float*)bn, (bf16*)dxp,
+                        (bf16*)dhn, (float*)dbn_part, (float*)dh0, seq_len,
+                        batch);
 }
 
 }  // namespace
 
-// Blocks of the forward (bwd = 0) or backward (bwd = 1) kernel that fit on
-// one SM for this shape, and the SM count.
-extern "C" int ddsp_gru_occupancy(int hidden, int batch, int u, int bf16,
-                                  int bwd, int* blocks_per_sm, int* n_sms) {
-  if (bwd) {
-    const size_t smem = bwd_smem_bytes(hidden, batch, u);
-    return bf16 ? occupancy(gru_bwd_kernel<__nv_bfloat16>, smem,
-                            blocks_per_sm, n_sms)
-                : occupancy(gru_bwd_kernel<float>, smem, blocks_per_sm, n_sms);
-  }
-  const size_t smem = fwd_smem_bytes(hidden, batch, u);
-  return bf16 ? occupancy(gru_fwd_kernel<__nv_bfloat16>, smem, blocks_per_sm,
-                          n_sms)
-              : occupancy(gru_fwd_kernel<float>, smem, blocks_per_sm, n_sms);
+// ---- float32 entry points ------------------------------------------------
+
+// Blocks of the float32 forward (bwd = 0) or backward (bwd = 1) kernel that
+// fit on one SM for this shape, and the SM count.
+extern "C" int ddsp_gru_occupancy(int hidden, int batch, int u, int bwd,
+                                  int* blocks_per_sm, int* n_sms) {
+  return bwd ? occupancy(gru_bwd_kernel, bwd_smem_bytes(hidden, batch, u),
+                         blocks_per_sm, n_sms)
+             : occupancy(gru_fwd_kernel, fwd_smem_bytes(hidden, batch, u),
+                         blocks_per_sm, n_sms);
 }
 
 // barrier: one zeroed uint32 on the device. hidden % u == 0. Returns
@@ -444,26 +1198,89 @@ extern "C" int ddsp_gru_occupancy(int hidden, int batch, int u, int bf16,
 extern "C" int ddsp_gru_fwd(const void* xp, const void* wh, const void* bn,
                             const void* h0, void* ys, void* barrier,
                             int seq_len, int batch, int hidden, int u,
-                            int bf16, void* stream) {
-  return bf16 ? launch_fwd<__nv_bfloat16>(xp, wh, bn, h0, ys, barrier,
-                                          seq_len, batch, hidden, u, stream)
-              : launch_fwd<float>(xp, wh, bn, h0, ys, barrier, seq_len, batch,
-                                  hidden, u, stream);
+                            void* stream) {
+  void* args[] = {&xp, &wh, &bn, &h0, &ys, &barrier,
+                  &seq_len, &batch, &hidden, &u};
+  return launch_cooperative(gru_fwd_kernel, fwd_smem_bytes(hidden, batch, u),
+                            hidden / u, args, stream);
 }
 
-// g [T, B, H] float32; xp [T, B, 3H], hprev [T, B, H], wh [H, 3H] and the
-// outputs dxp [T, B, 3H] at the stream type; exchange: scratch of
-// 2 * B * 3H stream-type elements; dwh [H, 3H], dbn [H], dh0 [B, H]
-// float32; barrier: one zeroed uint32. Returns cudaError_t.
+// exchange: scratch of 2 * B * 3H floats; barrier: one zeroed uint32.
 extern "C" int ddsp_gru_bwd(const void* g, const void* xp, const void* hprev,
                             const void* wh, const void* bn, void* dxp,
                             void* exchange, void* dwh, void* dbn, void* dh0,
                             void* barrier, int seq_len, int batch, int hidden,
-                            int u, int bf16, void* stream) {
-  return bf16 ? launch_bwd<__nv_bfloat16>(g, xp, hprev, wh, bn, dxp, exchange,
-                                          dwh, dbn, dh0, barrier, seq_len,
-                                          batch, hidden, u, stream)
-              : launch_bwd<float>(g, xp, hprev, wh, bn, dxp, exchange, dwh,
-                                  dbn, dh0, barrier, seq_len, batch, hidden, u,
-                                  stream);
+                            int u, void* stream) {
+  void* args[] = {&g, &xp, &hprev, &wh, &bn, &dxp, &exchange, &dwh, &dbn,
+                  &dh0, &barrier, &seq_len, &batch, &hidden, &u};
+  return launch_cooperative(gru_bwd_kernel, bwd_smem_bytes(hidden, batch, u),
+                            hidden / u, args, stream);
+}
+
+// ---- bf16 entry points ---------------------------------------------------
+
+// The cluster size and units per CTA of the bf16 forward (bwd = 0) or
+// backward (bwd = 1) kernel at this H, its shared memory per CTA, and how
+// many such clusters the device can hold at once (0: none fits).
+extern "C" int ddsp_gru_cluster_query(int hidden, int bwd, int* cluster,
+                                      int* units, int* max_clusters,
+                                      int* smem) {
+#define DDSP_GRU_QUERY(H) query_h<H>(bwd, cluster, units, max_clusters, smem)
+  switch (hidden) {
+    case 64: return DDSP_GRU_QUERY(64);
+    case 128: return DDSP_GRU_QUERY(128);
+    case 256: return DDSP_GRU_QUERY(256);
+    case 512: return DDSP_GRU_QUERY(512);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DDSP_GRU_QUERY
+}
+
+// xp [T, B, 3H], wh [H, 3H] bf16; bn [H], h0 [B, H], ys [T, B, H] float32.
+extern "C" int ddsp_gru_cluster_fwd(const void* xp, const void* wh,
+                                    const void* bn, const void* h0, void* ys,
+                                    int seq_len, int batch, int hidden,
+                                    void* stream) {
+#define DDSP_GRU_FWD(H) fwd_h<H>(xp, wh, bn, h0, ys, seq_len, batch, stream)
+  switch (hidden) {
+    case 64: return DDSP_GRU_FWD(64);
+    case 128: return DDSP_GRU_FWD(128);
+    case 256: return DDSP_GRU_FWD(256);
+    case 512: return DDSP_GRU_FWD(512);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DDSP_GRU_FWD
+}
+
+// g [T, B, H] float32; xp, hprev, wh, dxp [T, B, 3H], dhn [T, B, H] bf16;
+// bn [H], dbn_part [ceil(B / 16), H], dh0 [B, H] float32.
+extern "C" int ddsp_gru_cluster_bwd(const void* g, const void* xp,
+                                    const void* hprev, const void* wh,
+                                    const void* bn, void* dxp, void* dhn,
+                                    void* dbn_part, void* dh0, int seq_len,
+                                    int batch, int hidden, void* stream) {
+#define DDSP_GRU_BWD(H) \
+  bwd_h<H>(g, xp, hprev, wh, bn, dxp, dhn, dbn_part, dh0, seq_len, batch, stream)
+  switch (hidden) {
+    case 64: return DDSP_GRU_BWD(64);
+    case 128: return DDSP_GRU_BWD(128);
+    case 256: return DDSP_GRU_BWD(256);
+    case 512: return DDSP_GRU_BWD(512);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DDSP_GRU_BWD
+}
+
+// hprev [rows, H], dxp [rows, 3H], dhn [rows, H] bf16 with rows = T * B;
+// dbn_part [n_tiles, H]; dwh [H, 3H], dbn [H] float32. H % 64 == 0.
+extern "C" int ddsp_gru_wgrad(const void* hprev, const void* dxp,
+                              const void* dhn, const void* dbn_part, void* dwh,
+                              void* dbn, int rows, int hidden, int n_tiles,
+                              void* stream) {
+  if (hidden % kWgTile != 0) return (int)cudaErrorInvalidValue;
+  gru_wgrad_kernel<<<dim3(hidden / kWgTile, 3 * hidden / kWgTile), kWgThreads,
+                     0, (cudaStream_t)stream>>>(
+      (const bf16*)hprev, (const bf16*)dxp, (const bf16*)dhn,
+      (const float*)dbn_part, (float*)dwh, (float*)dbn, rows, hidden, n_tiles);
+  return (int)cudaGetLastError();
 }
