@@ -10,7 +10,11 @@ Run from the repository root on a machine with a CUDA GPU and nvcc:
 Phases (any failed check exits non-zero before the result lines):
   1. build the kernels of ddsp_torch/csrc with nvcc (all sources at once);
   2. K1: the fused harmonic synth (K1f) and its backward kernels (K1t
-     amplitude taps, K1p phase) against their plain PyTorch versions;
+     amplitude taps, K1p phase) against their plain PyTorch versions, both
+     methods, hops 32, 64, 100, 128, 320 and 1280, B in {1, 2, 4}, H in
+     {13, 60, 160, 256}, on wrapped (angular cumsum) and unwrapped
+     (cumsum) phases; K1t's dham bit-equal across two launches, written
+     without fold_taps or a [B, F, 2, H] tensor;
   2c. K3: the halo shift against its plain version, bit for bit, on (1, 4),
      (2, 4) and (1, 8) meshes of one card, both directions, values and
      gradients, at the main path's three blocks; the (2 data x 2 time)
@@ -74,6 +78,14 @@ K1_ATOL = 4e-3
 # samples (taps) or 60 harmonics weighted by h (phase) in another order;
 # relative to the largest element of the plain result.
 K1_BWD_RTOL = 2e-3
+# K1_ATOL is set on 60 harmonics. The float32 chain drifts by up to
+# ~h * 6e-8 / |sin phi| rad in harmonic h (cos phi rounded to float32), so
+# its absolute error grows ~h^2 while the cases' unnormalized amplitudes
+# (~0.25 a harmonic) grow the audio ~H: past the Pallas kernel's 128 lanes
+# K1f is held, as K1t and K1p are, to K1_BWD_RTOL relative to the largest
+# plain element (tests/test_torch_harmonic_tiles.py runs the float32 chain
+# on the CPU at H = 60, 160 and 256 and prints both errors).
+K1_WIDE_HARMONICS = 128
 # K2f: float32 differs by summation order only; bf16 rounds h and wh.
 K2_ATOL = {'float32': 1e-4, 'bfloat16': 5e-2}
 # K2b, relative to the largest element of each plain result: float32 is
@@ -191,18 +203,38 @@ def kernel_ms(torch, fn, iters, name, before=None):
   return None
 
 
-def k1_inputs(torch, batch, n_frames, seed, dev):
+def k1_inputs(torch, batch, n_frames, seed, dev, n_harmonics=N_HARMONICS,
+              kind='angular', f0_lo=80.0):
   """phase0, f0_env [B, N] and ham [B, F, H] as the synth's factored path
-  builds them; f0 spans 80-1600 Hz so the Nyquist mask cuts harmonics."""
+  builds them; f0 spans f0_lo to 20 f0_lo Hz (80-1600 by default) so the
+  Nyquist mask cuts harmonics.
+  kind 'angular' accumulates the phase as serving does (angular_cumsum,
+  wrapped to a few radians); 'cumsum' as the training step does
+  (presets.py: use_angular_cumsum=False), up to ~2e4 rad at 4 s."""
   from ddsp_torch.ops.oscillator import angular_cumsum
   from ddsp_torch.ops.resample import resample
   g = torch.Generator(dev).manual_seed(seed)
-  f0 = 80.0 * 20.0**torch.rand((batch, n_frames, 1), generator=g, device=dev)
+  f0 = f0_lo * 20.0**torch.rand((batch, n_frames, 1), generator=g,
+                                device=dev)
   ham = (torch.rand((batch, n_frames, 1), generator=g, device=dev) *
-         torch.rand((batch, n_frames, N_HARMONICS), generator=g, device=dev))
+         torch.rand((batch, n_frames, n_harmonics), generator=g, device=dev))
   f0_env = resample(f0, N_SAMPLES)
-  phase0 = angular_cumsum(f0_env * 2 * np.pi / SR)
+  omega = f0_env * 2 * np.pi / SR
+  phase0 = (angular_cumsum(omega) if kind == 'angular' else
+            torch.cumsum(omega, dim=1))
   return phase0[..., 0].contiguous(), f0_env[..., 0].contiguous(), ham
+
+
+def wrapped64(torch, phase0):
+  """phase0 mod 2 pi, taken in float64 and rounded once.
+
+  The plain forward takes sin(h * phase) of the phase it is given, as the
+  JAX package's jnp path does; at ~1e4 rad the float32 product h * phase
+  alone is off by up to ~0.03 rad at h = 60, more than K1_ATOL allows. The
+  kernels wrap the phase first. On unwrapped phases K1f is therefore held
+  against the plain forward fed this phase, which holds the kernel's own
+  error and not the plain version's."""
+  return torch.remainder(phase0.double(), 2 * np.pi).float()
 
 
 def bound(n_bytes, ops, dtype_name):
@@ -217,18 +249,17 @@ def k1_bound(torch, kernel, f0_env, ham):
 
   Bytes: the [B, N] float32 streams it reads and writes (fwd: phase, f0 in,
   audio out; taps: phase, f0, g in; phase: phase, f0, g in, dphase out) plus
-  the frame array it reads (fwd, phase) or the per-hop partials it writes
-  (taps). Operations per sample per harmonic below Nyquist (the kernels
-  stop at the first muted harmonic, so count this data's share): recurrence
-  2, mask 1, two taps' FMAs 4 (fwd and taps: 6, counting the mask and one
-  FMA as one each with the recurrence's two), plus the multiply by h for
-  the phase kernel (8).
+  the frame array it reads (fwd, phase) or writes (taps: dham [B, F, H],
+  folded inside the kernel). Operations per sample per harmonic below
+  Nyquist (the kernels stop at the first muted harmonic, so count this
+  data's share): recurrence 2, mask 1, two taps' FMAs 4 (fwd and taps: 6,
+  counting the mask and one FMA as one each with the recurrence's two),
+  plus the multiply by h for the phase kernel (8).
   """
   n = f0_env.numel()
   batch, n_frames, n_harmonics = ham.shape
   streams = {'fwd': 3, 'bwd_taps': 3, 'bwd_phase': 4}[kernel]
-  frames = 2 * ham.numel() if kernel == 'bwd_taps' else ham.numel()
-  n_bytes = 4 * (streams * n + frames)
+  n_bytes = 4 * (streams * n + ham.numel())
   hmax = (SR / 2.0) / torch.clamp(f0_env, min=1e-20)
   active = torch.clamp(torch.ceil(hmax) - 1, 0, n_harmonics).sum().item()
   ops = (8.0 if kernel == 'bwd_phase' else 6.0) * active
@@ -315,36 +346,109 @@ def k1_backward(torch, phase0, f0_env, ham, g, method):
   return dham, dphase, ref_dham, ref_dphase
 
 
+def k1_case(torch, dev, method, n_frames, batch, n_harmonics, kind, seed=1,
+            f0_lo=80.0):
+  """One K1 case: each kernel against its plain version; returns
+  (inputs, g, errors) after checking the tolerances. errors: 'K1f' max
+  |err|; 'K1t', 'K1p' relative to the largest plain element, and the same
+  keys + ' abs' max |err|."""
+  from ddsp_torch.kernels import harmonic as kh
+  hop = N_SAMPLES // n_frames
+  what = f'{method} hop {hop} B={batch} H={n_harmonics} {kind}'
+  phase0, f0_env, ham = k1_inputs(torch, batch, n_frames, seed, dev,
+                                  n_harmonics, kind, f0_lo)
+  out = kh.fused_harmonic_synthesis(phase0, f0_env, ham, SR, method)
+  ref_phase = phase0 if kind == 'angular' else wrapped64(torch, phase0)
+  ref = kh.harmonic_synthesis_plain(ref_phase, f0_env, ham, SR, method)
+  torch.cuda.synchronize()
+  errs = {'K1f': (out - ref).abs().max().item(),
+          'K1f rel': rel_err(out, ref)}
+  if n_harmonics <= K1_WIDE_HARMONICS:
+    check(torch.isfinite(out).all().item() and errs['K1f'] <= K1_ATOL,
+          f'K1f {what}: max |err| {errs["K1f"]:.3e} within {K1_ATOL}')
+  else:
+    check(torch.isfinite(out).all().item() and
+          errs['K1f rel'] <= K1_BWD_RTOL,
+          f'K1f {what}: relative max err {errs["K1f rel"]:.3e} within '
+          f'{K1_BWD_RTOL} (max |err| {errs["K1f"]:.3e})')
+  g = torch.randn(phase0.shape, device=dev,
+                  generator=torch.Generator(dev).manual_seed(7))
+  dham, dphase, ref_dham, ref_dphase = k1_backward(torch, phase0, f0_env,
+                                                   ham, g, method)
+  torch.cuda.synchronize()
+  for name, got, want in (('K1t dham', dham, ref_dham),
+                          ('K1p dphase', dphase, ref_dphase)):
+    errs[name[:3]] = rel_err(got, want)
+    errs[name[:3] + ' abs'] = (got - want).abs().max().item()
+    check(torch.isfinite(got).all().item() and
+          errs[name[:3]] <= K1_BWD_RTOL,
+          f'{name} {what}: relative max err {errs[name[:3]]:.3e} within '
+          f'{K1_BWD_RTOL}')
+  return (phase0, f0_env, ham), g, errs
+
+
 def phase_k1(torch, dev):
   from ddsp_torch.kernels import harmonic as kh
   print('[2] K1 fused harmonic synth vs plain: forward, taps and phase '
         'backward', flush=True)
-  # Hop 64 is the serving and training shape; 320 the VST hop; 32 and 128
-  # bracket them.
-  for method, n_frames in (('window', N_FRAMES), ('linear', N_SAMPLES // 320),
-                           ('window', N_SAMPLES // 32),
-                           ('linear', N_SAMPLES // 128)):
-    hop = N_SAMPLES // n_frames
-    phase0, f0_env, ham = k1_inputs(torch, 4, n_frames, 1, dev)
-    out = kh.fused_harmonic_synthesis(phase0, f0_env, ham, SR, method)
-    ref = kh.harmonic_synthesis_plain(phase0, f0_env, ham, SR, method)
+  # Hop 64 is the serving and training shape, 320 the VST hop, 100 a hop
+  # that K1t's 8-sample tile does not divide (and the Pallas kernel does
+  # not take); 32 and 128 bracket 64. B = 1 and H = 13 (not a multiple of
+  # K1f's float4 of harmonics) are the edges.
+  for method in ('window', 'linear'):
+    for hop in (64, 320, 100):
+      for batch, n_harmonics in ((4, N_HARMONICS), (1, 13)):
+        k1_case(torch, dev, method, N_SAMPLES // hop, batch, n_harmonics,
+                'angular')
+      k1_case(torch, dev, method, N_SAMPLES // hop, 4, N_HARMONICS,
+              'cumsum')
+  for method, hop in (('window', 32), ('linear', 128)):
+    k1_case(torch, dev, method, N_SAMPLES // hop, 4, N_HARMONICS, 'angular')
+  # A hop over 1024 samples: K1t adds a second pass into the same partials.
+  for method in ('window', 'linear'):
+    k1_case(torch, dev, method, N_SAMPLES // 1280, 4, N_HARMONICS, 'cumsum')
+  # More than 128 harmonics, f0 from 30 Hz so that harmonics past 128 are
+  # audible: at hop 64 in one K1t block, at hop 100 (13 threads a hop, 128
+  # partial rows) more than the card's shared memory holds in one, so K1t
+  # splits them over the grid.
+  for method, hop, n_harmonics in (('window', 64, 160), ('linear', 100, 256)):
+    k1_case(torch, dev, method, N_SAMPLES // hop, 2, n_harmonics, 'cumsum',
+            f0_lo=30.0)
+
+  # K1t folds the taps inside the kernel, in a fixed order: two launches
+  # give the same bits, and the CUDA backward neither calls fold_taps nor
+  # holds a [B, F, 2, H] tensor.
+  (phase0, f0_env, ham), g, _ = k1_case(torch, dev, 'window', N_FRAMES,
+                                        BATCH, N_HARMONICS, 'cumsum', seed=3)
+  shape = (N_FRAMES, N_HARMONICS, SR, 'window')
+  first = kh._launch('bwd_taps', (phase0, f0_env, g), torch.empty_like(ham),
+                     *shape)
+  second = kh._launch('bwd_taps', (phase0, f0_env, g), torch.empty_like(ham),
+                      *shape)
+  torch.cuda.synchronize()
+  check(torch.equal(first, second), 'K1t: two launches give bit-equal dham')
+  folds = []
+  fold = kh.fold_taps
+  kh.fold_taps = lambda dtaps: folds.append(1) or fold(dtaps)
+  try:
+    a = ham.detach().requires_grad_()
+    out = kh.fused_harmonic_synthesis(phase0, f0_env, a, SR)
     torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    print(f'  K1f {method} hop {hop}: max |err| {err:.3e} (atol {K1_ATOL})')
-    check(torch.isfinite(out).all().item() and err <= K1_ATOL,
-          f'K1f {method} hop {hop} within {K1_ATOL}')
-    g = torch.randn(phase0.shape, device=dev,
-                    generator=torch.Generator(dev).manual_seed(7))
-    dham, dphase, ref_dham, ref_dphase = k1_backward(torch, phase0, f0_env,
-                                                     ham, g, method)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (dham,) = torch.autograd.grad(out, (a,), g)
     torch.cuda.synchronize()
-    for name, got, want in (('K1t dham', dham, ref_dham),
-                            ('K1p dphase', dphase, ref_dphase)):
-      err = rel_err(got, want)
-      print(f'  {name} {method} hop {hop}: relative max err {err:.3e} '
-            f'(rtol {K1_BWD_RTOL})')
-      check(torch.isfinite(got).all().item() and err <= K1_BWD_RTOL,
-            f'{name} {method} hop {hop} within {K1_BWD_RTOL}')
+    grown = torch.cuda.max_memory_allocated() - before
+  finally:
+    kh.fold_taps = fold
+  two_taps = 2 * ham.numel() * 4
+  print(f'  K1t backward at [{BATCH}, {N_FRAMES}, {N_HARMONICS}]: peak '
+        f'device memory grew {grown} B (dham {ham.numel() * 4} B, a [B, F, '
+        f'2, H] tensor {two_taps} B); fold_taps calls {len(folds)}')
+  check(not folds and tuple(dham.shape) == tuple(ham.shape) and
+        grown < two_taps and torch.equal(dham, first),
+        'K1t on CUDA writes dham itself: no fold_taps, no [B, F, 2, H] '
+        'tensor, the same bits as the direct launch')
 
 
 def k3_blocks(torch, n_shards, dtype, dev, seed):
@@ -1038,7 +1142,6 @@ def kernel_entry(torch, name, source_line, replaces, launches, err, fn,
 
 def phase_report(torch, port, reqs, launches, dev, profile):
   """launches: {'serve': {...}, 'chain': {...}, 'train': {...}}."""
-  from ddsp_torch.kernels import harmonic as kh
   print('[7] report', flush=True)
   times = []
   for _ in range(2):
@@ -1058,61 +1161,74 @@ def phase_report(torch, port, reqs, launches, dev, profile):
   if profile:
     profile_steps(torch, lambda: port.get_audio(reqs[1]), 3, median_ms,
                   'request')
+  return k1_entries(torch, launches, dev) + k2_entries(torch, launches, dev)
 
-  kernels = []
-  # K1 at the training shape: 16 x 64000 samples, 1000 frames, 'window'.
-  phase0, f0_env, ham = k1_inputs(torch, BATCH, N_FRAMES, 5, dev)
-  g = torch.randn(phase0.shape, device=dev,
-                  generator=torch.Generator(dev).manual_seed(9))
-  ref = kh.harmonic_synthesis_plain(phase0, f0_env, ham, SR)
-  err = (kh.fused_harmonic_synthesis(phase0, f0_env, ham, SR) -
-         ref).abs().max().item()
-  check(err <= K1_ATOL, f'K1f at the training shape within {K1_ATOL}')
-  dham, dphase, ref_dham, ref_dphase = k1_backward(torch, phase0, f0_env,
-                                                   ham, g, 'window')
-  check(rel_err(dham, ref_dham) <= K1_BWD_RTOL and
-        rel_err(dphase, ref_dphase) <= K1_BWD_RTOL,
-        f'K1t and K1p at the training shape within {K1_BWD_RTOL}')
-  dtaps = torch.empty((BATCH, N_FRAMES, 2, N_HARMONICS), device=dev)
-  out = torch.empty_like(phase0)
+
+def k1_entries(torch, launches, dev):
+  """The kernels line's K1 entries at the training shape (16 x 64000
+  samples, 1000 frames, 60 harmonics, 'window') on the training step's own
+  phases (cumsum), with the times on serving's phases (angular cumsum) and
+  at B = 1 (one request) beside them."""
+  from ddsp_torch.kernels import harmonic as kh
   shape = (N_FRAMES, N_HARMONICS, SR, 'window')
+  runs = {}
+  for kind in ('cumsum', 'angular'):
+    inputs, g, errs = k1_case(torch, dev, 'window', N_FRAMES, BATCH,
+                              N_HARMONICS, kind, seed=5)
+    runs[kind] = (inputs, g, errs)
+  (phase0, f0_env, ham), g, errs = runs['cumsum']
+  out = torch.empty_like(phase0)
+  dham = torch.empty_like(ham)
   src = 'ddsp_torch/csrc/harmonic.cu'
   ref_src = 'ddsp_tpu/ops/pallas_kernels/harmonic.py'
-  kernels.append(kernel_entry(
-      torch, 'fused_harmonic_synthesis forward (K1f)', src, f'{ref_src}:191',
-      launches['train']['K1f'], err,
-      lambda: kh._launch('fwd', (phase0, f0_env, ham), out, *shape),
-      lambda: kh.harmonic_synthesis_plain(phase0, f0_env, ham, SR),
-      *k1_bound(torch, 'fwd', f0_env, ham), None, 50, 5))
-  kernels.append(kernel_entry(
-      torch, 'fused_harmonic_synthesis backward, taps (K1t)', src,
-      f'{ref_src}:235', launches['train']['K1t'],
-      (dham - ref_dham).abs().max().item(),
-      lambda: kh._launch('bwd_taps', (phase0, f0_env, g), dtaps, *shape),
-      lambda: kh.harmonic_bwd_taps_plain(phase0, f0_env, g, N_FRAMES,
-                                         N_HARMONICS, SR),
-      *k1_bound(torch, 'bwd_taps', f0_env, ham), None, 50, 5))
-  kernels.append(kernel_entry(
-      torch, 'fused_harmonic_synthesis backward, phase (K1p)', src,
-      f'{ref_src}:272', launches['chain']['K1p'],
-      (dphase - ref_dphase).abs().max().item(),
-      lambda: kh._launch('bwd_phase', (phase0, f0_env, ham, g), out, *shape),
-      lambda: kh.harmonic_bwd_phase_plain(phase0, f0_env, ham, g, SR),
-      *k1_bound(torch, 'bwd_phase', f0_env, ham), None, 50, 5))
+  fns = {
+      'K1f': (lambda p, f, a, g: kh._launch('fwd', (p, f, a), out, *shape),
+              lambda p, f, a, g: kh.harmonic_synthesis_plain(p, f, a, SR)),
+      'K1t': (lambda p, f, a, g: kh._launch('bwd_taps', (p, f, g), dham,
+                                            *shape),
+              lambda p, f, a, g: kh.fold_taps(kh.harmonic_bwd_taps_plain(
+                  p, f, g, N_FRAMES, N_HARMONICS, SR))),
+      'K1p': (lambda p, f, a, g: kh._launch('bwd_phase', (p, f, a, g), out,
+                                            *shape),
+              lambda p, f, a, g: kh.harmonic_bwd_phase_plain(p, f, a, g, SR)),
+  }
+  names = {'K1f': ('fused_harmonic_synthesis forward (K1f)', 191, 'fwd',
+                   'train'),
+           'K1t': ('fused_harmonic_synthesis backward, taps (K1t)', 235,
+                   'bwd_taps', 'train'),
+           'K1p': ('fused_harmonic_synthesis backward, phase (K1p)', 272,
+                   'bwd_phase', 'chain')}
+  kernels = []
+  for key, (fn, plain) in fns.items():
+    name, line, kernel, path = names[key]
+    args = (phase0, f0_env, ham, g)
+    entry = kernel_entry(
+        torch, name, src, f'{ref_src}:{line}', launches[path][key],
+        errs[key if key == 'K1f' else key + ' abs'], lambda: fn(*args),
+        lambda: plain(*args), *k1_bound(torch, kernel, f0_env, ham), None,
+        50, 5)
+    if key != 'K1f':  # held to a relative tolerance: sums over a hop or H
+      entry['max_rel_err'] = errs[key]
+    entry['phases'] = 'cumsum (the training step)'
+    (pa, fa, aa), ga, errs_a = runs['angular']
+    entry['angular_ms'] = device_ms(torch, lambda: fn(pa, fa, aa, ga), 50)
+    entry['angular_err'] = errs_a[key]
+    entry['angular_bound_ms'] = k1_bound(torch, kernel, fa, aa)[0]
+    kernels.append(entry)
 
-  # The serving shape (one request: B = 1) beside the training shape.
+  # One request (B = 1) on serving's phases.
   p1, f1, a1 = k1_inputs(torch, 1, N_FRAMES, 5, dev)
-  o1 = torch.empty_like(p1)
-  kernels[0]['serving_ms'] = device_ms(
-      torch, lambda: kh._launch('fwd', (p1, f1, a1), o1, *shape), 100)
-  # The backward kernels are held to a relative tolerance (their results
-  # are sums whose scale grows with the hop, the harmonic number and T).
-  kernels[1]['max_rel_err'] = rel_err(dham, ref_dham)
-  kernels[2]['max_rel_err'] = rel_err(dphase, ref_dphase)
-  for k, key in zip(kernels, ('K1f', 'K1t', 'K1p')):
-    k['launches_by_path'] = {path: run[key] for path, run in launches.items()}
-    print_entry(k)
-  return kernels + k2_entries(torch, launches, dev)
+  g1 = g[:1].contiguous()
+  o1, d1 = torch.empty_like(p1), torch.empty_like(a1)
+  b1 = {'K1f': lambda: kh._launch('fwd', (p1, f1, a1), o1, *shape),
+        'K1t': lambda: kh._launch('bwd_taps', (p1, f1, g1), d1, *shape),
+        'K1p': lambda: kh._launch('bwd_phase', (p1, f1, a1, g1), o1, *shape)}
+  for entry, key in zip(kernels, ('K1f', 'K1t', 'K1p')):
+    entry['serving_ms'] = device_ms(torch, b1[key], 100)
+    entry['launches_by_path'] = {path: run[key]
+                                 for path, run in launches.items()}
+    print_entry(entry)
+  return kernels
 
 
 def k2_entries(torch, launches, dev):
@@ -1216,6 +1332,9 @@ def print_entry(k):
            if 'max_rel_err' in k else '')
         + (f", serving shape {k['serving_ms']:.4f} ms"
            if 'serving_ms' in k else '')
+        + (f", on angular-cumsum phases {k['angular_ms']:.4f} ms (bound "
+           f"{k['angular_bound_ms']:.5f}, err {k['angular_err']:.3e})"
+           if 'angular_ms' in k else '')
         + (f", B = 1 {k['b1_ms']:.4f} ms" if 'b1_ms' in k else '')
         + (f", us per step {k['us_per_step']}" if 'us_per_step' in k else '')
         + (f", with the weight-gradient pass {k['with_wgrad_ms']:.4f} ms"

@@ -5,10 +5,27 @@ ddsp_tpu/ops/pallas_kernels/harmonic.py: _fwd_kernel (K1f), _bwd_taps_kernel
 (K1t) and _bwd_phase_kernel (K1p). `HarmonicSynthesis` is the
 torch.autograd.Function around them: a CUDA tensor launches the kernels in
 both directions, a CPU tensor takes the plain PyTorch versions beside them
-(`harmonic_synthesis_plain`, `harmonic_bwd_taps_plain`,
+(`harmonic_synthesis_plain`, `harmonic_bwd_taps_plain` + `fold_taps`,
 `harmonic_bwd_phase_plain`). The CPU tests hold the plain versions against
 the JAX package, and chip_smoke.py holds each kernel against its plain
 version.
+
+On an H100 the K1 kernels are bound by instruction issue, not by bytes or
+fp32 operations (csrc/harmonic.cu says how). K1f splits each hop over
+threads that take several samples of it (4 at a training batch, 1 for one
+request; the C entry picks from the batch and the card's SMs), so one
+float4 of amplitudes feeds them all, and counts each sample's audible
+harmonics once. K1t keeps the sine chains and a 4-harmonic x 2-tap tile
+of sums in registers, reduces each hop's partials by warp shuffles and a
+fixed-order pass through shared memory, and folds the taps onto frames
+itself: it writes dham [B, F, H], with no [B, F, 2, H] intermediate, the
+same from run to run. Any number of
+harmonics runs on the kernels: where K1t's partials outgrow shared memory
+it splits the harmonics over blocks. All kernels wrap the phase mod 2 pi to
+within one float32 rounding; the plain backward versions wrap it in
+float64, which agrees with that. The Pallas kernels wrap by float32(2 pi)
+instead, so on a long unwrapped phase the port's backward departs from
+theirs by design (ROADMAP.md section 3 gives the size).
 """
 
 from __future__ import annotations
@@ -80,7 +97,9 @@ def _sample_terms(phase0, f0_env, n_harmonics, sample_rate, trig):
   wrapped phase and its mask rule h >= nyquist / max(f0, 1e-20)."""
   ratios = torch.linspace(1.0, float(n_harmonics), n_harmonics,
                           device=phase0.device)
-  phase = torch.remainder(phase0, 2.0 * np.pi)
+  # Wrapped in float64: float32's `%` would wrap by float32(2 pi), which
+  # is 1.75e-7 off, and a training step's cumsum phase makes ~1e3 turns.
+  phase = torch.remainder(phase0.double(), 2.0 * np.pi).float()
   # A true division (scalar / tensor would multiply by a reciprocal, which
   # rounds differently and flips the mask where hmax is an integer).
   hmax = torch.full_like(f0_env, sample_rate / 2.0) / torch.clamp(f0_env,
@@ -144,19 +163,20 @@ def harmonic_bwd_phase_plain(phase0: torch.Tensor, f0_env: torch.Tensor,
 
 
 _PTR = ctypes.c_void_p
-_SHAPE_ARGS = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, _PTR]
+_SHAPE_ARGS = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int]
 _SIGNATURES = {
-    'ddsp_harmonic_fwd': [_PTR] * 4 + _SHAPE_ARGS,
-    'ddsp_harmonic_bwd_taps': [_PTR] * 4 + _SHAPE_ARGS,
-    'ddsp_harmonic_bwd_phase': [_PTR] * 5 + _SHAPE_ARGS,
+    'ddsp_harmonic_fwd': [_PTR] * 4 + _SHAPE_ARGS + [_PTR],
+    'ddsp_harmonic_bwd_taps': [_PTR] * 4 + _SHAPE_ARGS + [_PTR],
+    'ddsp_harmonic_bwd_phase': [_PTR] * 5 + _SHAPE_ARGS + [_PTR],
 }
 
 
 def _launch(name, inputs, out, n_frames, n_harmonics, sample_rate,
             amp_resample_method):
   """Run C entry `ddsp_harmonic_<name>` on contiguous float32 `inputs`
-  ([batch, n_samples] streams and ham) into `out`, on the current stream
-  of the inputs' device."""
+  ([batch, n_samples] streams and ham) into `out` ([batch, n_samples], or
+  dham [batch, n_frames, H] for 'bwd_taps'), on the current stream of the
+  inputs' device."""
   fn = getattr(_build.load('harmonic', _SIGNATURES), f'ddsp_harmonic_{name}')
   batch, n_samples = inputs[0].shape
   with torch.cuda.device(inputs[0].device):
@@ -173,9 +193,10 @@ class HarmonicSynthesis(torch.autograd.Function):
   """K1 with its backward: kernels on CUDA tensors, plain versions on CPU
   tensors, the same gradients either way.
 
-  Gradients: dham from K1t (per-hop partials, folded onto frames here),
-  dphase from K1p only when the phase needs one, none for f0_env (the
-  Nyquist mask is piecewise constant).
+  Gradients: dham from K1t (on the CPU: per-hop partials, then
+  `fold_taps`; on CUDA the kernel folds them itself), dphase from K1p only
+  when the phase needs one, none for f0_env (the Nyquist mask is piecewise
+  constant).
   """
 
   @staticmethod
@@ -201,16 +222,12 @@ class HarmonicSynthesis(torch.autograd.Function):
     dphase = dham = None
     if ctx.needs_input_grad[2]:
       if on_cpu:
-        dtaps = harmonic_bwd_taps_plain(phase0, f0_env, g, n_frames,
-                                        n_harmonics, ctx.sample_rate,
-                                        ctx.method)
+        dham = fold_taps(harmonic_bwd_taps_plain(
+            phase0, f0_env, g, n_frames, n_harmonics, ctx.sample_rate,
+            ctx.method))
       else:
-        dtaps = _launch(
-            'bwd_taps', (phase0, f0_env, g),
-            torch.empty((ham.shape[0], n_frames, 2, n_harmonics),
-                        dtype=torch.float32, device=ham.device),
-            n_frames, n_harmonics, ctx.sample_rate, ctx.method)
-      dham = fold_taps(dtaps)
+        dham = _launch('bwd_taps', (phase0, f0_env, g), torch.empty_like(ham),
+                       n_frames, n_harmonics, ctx.sample_rate, ctx.method)
     if ctx.needs_input_grad[0]:
       if on_cpu:
         dphase = harmonic_bwd_phase_plain(phase0, f0_env, ham, g,
