@@ -84,15 +84,28 @@
 //   104 KiB, h_prev 16 KiB, dh partials 2 x 16 x 2 KiB, K-partials 26 KiB,
 //   dhp 3 KiB). The cluster kernels take H in {64, 128, 256, 512}
 //   (clusters of 2, 4, 8, 16): H a multiple of 64 for the K split, at most
-//   16 CTAs per cluster.
+//   16 CTAs per cluster. The wrapper runs any other H up to 512 on the
+//   next of these sizes, zero-padded: padded units get zero xp columns,
+//   wh rows and columns, bn and h0, so they stay exactly 0 and add exact
+//   zeros to every real unit's sums.
 //
-// float32 streams (compute_dtype='float32', a parity mode): exact float32
-// products, so no tensor cores (TF32 would not hold the float32
-// tolerance). Cooperative launches of H / u blocks, each owning u units with
-// their columns of wh in shared memory as float, one software grid barrier
-// per step (a monotonic arrival counter); h and dhp go between blocks
-// through L2, staged in tiles of kBatchTile rows so the footprint does not
-// grow with the batch. CUDA-core dot products, one warp per output.
+// float32 streams (compute_dtype='float32', a parity mode), and bf16 streams
+// past H = 512, where no cluster of at most 16 CTAs holds wh (at H = 1024
+// bf16 wh alone is 6.3 MB against 16 x 227 KB): cooperative launches of
+// H / u blocks, one per SM, each owning u units with their 3u columns of
+// wh in shared memory at the stream type, one software grid barrier per
+// step (a monotonic arrival counter). CUDA-core dot products with float32
+// accumulation (exact float32 products, which TF32 tensor cores would not
+// hold to the float32 tolerance; with bf16 streams h and dhp are rounded to
+// bf16 first, as the cluster kernels and the plain versions round them);
+// gates and carries are float32. The forward sends h through
+// L2; the backward reduce-scatters dhp @ wh^T: each block writes its
+// columns' partial for every unit and sums the partials of its own units
+// after the barrier, so a block holds one copy of wh (and its float32 dwh
+// columns), which fits H = 1024 in float32 for up to 19 rows a launch.
+// Rows never interact, so a batch whose carries do not fit beside them runs
+// as row groups, one launch each, in sequence (the wrapper plans them).
+// Tiles of kBatchTile rows keep the rest of the footprint fixed.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -113,10 +126,37 @@ __device__ __forceinline__ float gate_sigmoid(float x) {
 }
 
 // ------------------------------------------------------------------------
-// float32: cooperative kernels with a software grid barrier.
+// Cooperative kernels with a software grid barrier: float32 streams, and
+// bf16 streams past the clusters' 512 units. T is the stream type of xp,
+// wh, h_prev and dxp.
 // ------------------------------------------------------------------------
 
 constexpr int kBatchTile = 8;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to the stream type: the operand the recurrent products take.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// Bytes of a block's [cols][hidden] slice of wh at the stream type, rounded
+// up so the float arrays after it stay 16-byte aligned.
+__host__ __device__ inline size_t slice_bytes(int cols, int hidden,
+                                              size_t item) {
+  return ((size_t)cols * hidden * item + 15) & ~(size_t)15;
+}
 
 // All blocks arrive once per step; step t waits for gridDim.x * (t + 1)
 // arrivals in total. The counter starts at 0 for each launch.
@@ -133,36 +173,55 @@ __device__ __forceinline__ void grid_barrier(unsigned int* counter,
   __syncthreads();
 }
 
-// One warp per (row, column) output of h_s[nb, hidden] x w_s[cols, hidden]^T.
-__device__ __forceinline__ void warp_dots(const float* h_s, const float* w_s,
+// out[b][c] = sum_k h_s[b][k] w_s[c][k] for b < nb, c < cols: one warp per
+// column c, its lanes striding k, every row of the tile at once (each w
+// element is read once a tile), then a shuffle sum per output. The order
+// of each output's sum does not depend on nb.
+template <typename TW>
+__device__ __forceinline__ void warp_dots(const float* h_s, const TW* w_s,
                                           float* out, int nb, int cols,
                                           int hidden) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int o = warp; o < nb * cols; o += kThreads / 32) {
-    const int b = o / cols;
-    const float* hv = h_s + b * hidden;
-    const float* wv = w_s + (o - b * cols) * hidden;
-    float acc = 0.f;
-    for (int k = lane; k < hidden; k += 32) acc = fmaf(hv[k], wv[k], acc);
-    for (int off = 16; off > 0; off >>= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  for (int c = warp; c < cols; c += kThreads / 32) {
+    const TW* wv = w_s + (size_t)c * hidden;
+    float acc[kBatchTile];
+#pragma unroll
+    for (int b = 0; b < kBatchTile; ++b) acc[b] = 0.f;
+    for (int k = lane; k < hidden; k += 32) {
+      const float w = to_f(wv[k]);
+#pragma unroll
+      for (int b = 0; b < kBatchTile; ++b) {
+        if (b < nb) acc[b] = fmaf(h_s[b * hidden + k], w, acc[b]);
+      }
     }
-    if (lane == 0) out[o] = acc;
+#pragma unroll
+    for (int b = 0; b < kBatchTile; ++b) {
+      float a = acc[b];
+      for (int off = 16; off > 0; off >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+      }
+      if (lane == 0 && b < nb) out[b * cols + c] = a;
+    }
   }
 }
 
+// Rows b of a launch are rows b0 + b of the caller's tensors: xp, ys, g,
+// hprev and dxp step by ld rows per timestep (ld >= batch), h0 and dh0 are
+// [batch, H] at the group's first row.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
+gru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
                const float* __restrict__ bn, const float* __restrict__ h0,
                float* ys, unsigned int* barrier, int seq_len, int batch,
-               int hidden, int u) {
-  extern __shared__ float smem_f[];
+               int ld, int hidden, int u) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int cols = 3 * u;
-  float* w_s = smem_f;                      // [cols][hidden]
-  float* h_s = w_s + cols * hidden;         // [kBatchTile][hidden]
-  float* hp_s = h_s + kBatchTile * hidden;  // [kBatchTile][cols]
-  float* carry = hp_s + kBatchTile * cols;  // [batch][u]
+  T* w_s = reinterpret_cast<T*>(smem);  // [cols][hidden]
+  float* h_s = reinterpret_cast<float*>(
+      smem + slice_bytes(cols, hidden, sizeof(T)));  // [kBatchTile][hidden]
+  float* hp_s = h_s + kBatchTile * hidden;           // [kBatchTile][cols]
+  float* carry = hp_s + kBatchTile * cols;           // [batch][u]
   const int j = blockIdx.x;
   const int tid = threadIdx.x;
 
@@ -180,14 +239,14 @@ gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
   for (int t = 0; t < seq_len; ++t) {
     // h_{t-1} was written by other blocks during this launch: read it
     // through L2 (ld.global.cg), never from a possibly stale L1 line.
-    const float* h_prev = t == 0 ? h0 : ys + (size_t)(t - 1) * batch * hidden;
-    const float* xp_t = xp + (size_t)t * batch * 3 * hidden;
-    float* ys_t = ys + (size_t)t * batch * hidden;
+    const float* h_prev = t == 0 ? h0 : ys + (size_t)(t - 1) * ld * hidden;
+    const T* xp_t = xp + (size_t)t * ld * 3 * hidden;
+    float* ys_t = ys + (size_t)t * ld * hidden;
     for (int b0 = 0; b0 < batch; b0 += kBatchTile) {
       const int nb = min(kBatchTile, batch - b0);
       __syncthreads();  // the previous tile's h_s and hp_s are consumed
       for (int i = tid; i < nb * hidden; i += kThreads) {
-        h_s[i] = __ldcg(h_prev + (size_t)b0 * hidden + i);
+        h_s[i] = round_to<T>(__ldcg(h_prev + (size_t)b0 * hidden + i));
       }
       __syncthreads();
       warp_dots(h_s, w_s, hp_s, nb, cols, hidden);
@@ -196,11 +255,12 @@ gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
         const int b = i / u;
         const int uu = i - b * u;
         const int unit = j * u + uu;
-        const float* x = xp_t + (size_t)(b0 + b) * 3 * hidden;
+        const T* x = xp_t + (size_t)(b0 + b) * 3 * hidden;
         const float* hp = hp_s + b * cols;
-        const float r = gate_sigmoid(x[unit] + hp[uu]);
-        const float z = gate_sigmoid(x[hidden + unit] + hp[u + uu]);
-        const float n = tanhf(x[2 * hidden + unit] + r * (hp[2 * u + uu] + bn[unit]));
+        const float r = gate_sigmoid(to_f(x[unit]) + hp[uu]);
+        const float z = gate_sigmoid(to_f(x[hidden + unit]) + hp[u + uu]);
+        const float n = tanhf(to_f(x[2 * hidden + unit]) +
+                              r * (hp[2 * u + uu] + bn[unit]));
         float* c = carry + (b0 + b) * u + uu;
         const float h = (1.f - z) * n + z * *c;
         *c = h;
@@ -211,32 +271,42 @@ gru_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
   }
 }
 
-// g [T, B, H], xp, hprev, dxp; exchange [2, B, 3H] (scratch); dwh [H, 3H],
-// dbn [H], dh0 [B, H], every element written. Launched cooperatively with
-// hidden / u blocks.
+// g [T, ld, H], xp, hprev, dxp at the stream type; exchange: scratch of
+// 2 * gridDim.x * batch * H floats, each block's partial dh for every unit
+// ([gridDim.x][batch][H], double-buffered by step); dwh [H, 3H] and dbn [H]
+// are added to (the caller zeroes them), dh0 [batch, H] written.
+//
+// Per step, block j owns u units, i.e. 3u columns of wh (w_col, in shared
+// memory): it recomputes hp for them from h_prev, forms dxp and
+// dhp_own = [dr_pre, dz, dhn] for its units, adds h_prev^T dhp_own into its
+// columns of dwh (shared memory, float32), and computes its partial
+// dhp_own @ w_col^T for all H units. After the grid barrier it sums the
+// blocks' partials for its own units: a reduce-scatter through L2, as the
+// cluster kernel does over DSMEM. One copy of wh a block.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gru_bwd_kernel(const float* __restrict__ g, const float* __restrict__ xp,
-               const float* __restrict__ hprev, const float* __restrict__ wh,
-               const float* __restrict__ bn, float* __restrict__ dxp,
+gru_bwd_kernel(const float* __restrict__ g, const T* __restrict__ xp,
+               const T* __restrict__ hprev, const T* __restrict__ wh,
+               const float* __restrict__ bn, T* __restrict__ dxp,
                float* exchange, float* __restrict__ dwh,
                float* __restrict__ dbn, float* __restrict__ dh0,
-               unsigned int* barrier, int seq_len, int batch, int hidden,
-               int u) {
-  extern __shared__ float smem_f[];
+               unsigned int* barrier, int seq_len, int batch, int ld,
+               int hidden, int u) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int cols = 3 * u;
   const int three_h = 3 * hidden;
-  float* w_col = smem_f;                        // [cols][hidden]
-  float* w_row = w_col + cols * hidden;         // [u][3H]
-  float* dwh_s = w_row + u * three_h;           // [cols][hidden]
-  float* h_s = dwh_s + cols * hidden;           // [kBatchTile][hidden]
-  float* dhp_all = h_s + kBatchTile * hidden;   // [kBatchTile][3H]
-  float* hp_s = dhp_all + kBatchTile * three_h;  // [kBatchTile][cols]
-  float* dhp_own = hp_s + kBatchTile * cols;    // [kBatchTile][cols]
-  float* dhn_s = dhp_own + kBatchTile * cols;   // [kBatchTile][u]
-  float* dh_s = dhn_s + kBatchTile * u;         // [batch][u], the carry
-  float* dhz_s = dh_s + batch * u;              // [batch][u], dht * z
-  float* dbn_s = dhz_s + batch * u;             // [u]
+  T* w_col = reinterpret_cast<T*>(smem);  // [cols][hidden]
+  float* dwh_s = reinterpret_cast<float*>(
+      smem + slice_bytes(cols, hidden, sizeof(T)));  // [cols][hidden]
+  float* h_s = dwh_s + cols * hidden;            // [kBatchTile][hidden]
+  float* hp_s = h_s + kBatchTile * hidden;       // [kBatchTile][cols]
+  float* dhp_own = hp_s + kBatchTile * cols;     // [kBatchTile][cols]
+  float* dhn_s = dhp_own + kBatchTile * cols;    // [kBatchTile][u]
+  float* dh_s = dhn_s + kBatchTile * u;          // [batch][u], the carry
+  float* dhz_s = dh_s + batch * u;               // [batch][u], dht * z
+  float* dbn_s = dhz_s + batch * u;              // [u]
   const int j = blockIdx.x;
+  const int n_blocks = gridDim.x;
   const int tid = threadIdx.x;
 
   for (int i = tid; i < cols * hidden; i += kThreads) {
@@ -246,27 +316,24 @@ gru_bwd_kernel(const float* __restrict__ g, const float* __restrict__ xp,
     w_col[i] = wh[(size_t)k * three_h + gate * hidden + j * u + (c - gate * u)];
     dwh_s[i] = 0.f;
   }
-  for (int i = tid; i < u * three_h; i += kThreads) {
-    const int uu = i / three_h;
-    w_row[i] = wh[(size_t)(j * u + uu) * three_h + (i - uu * three_h)];
-  }
   for (int i = tid; i < batch * u; i += kThreads) dh_s[i] = 0.f;
   for (int i = tid; i < u; i += kThreads) dbn_s[i] = 0.f;
   __syncthreads();
 
   for (int step = 0; step < seq_len; ++step) {
     const int t = seq_len - 1 - step;
-    const float* xp_t = xp + (size_t)t * batch * three_h;
-    const float* hprev_t = hprev + (size_t)t * batch * hidden;
-    const float* g_t = g + (size_t)t * batch * hidden;
-    float* dxp_t = dxp + (size_t)t * batch * three_h;
-    float* ex = exchange + (size_t)(step & 1) * batch * three_h;
+    const T* xp_t = xp + (size_t)t * ld * three_h;
+    const T* hprev_t = hprev + (size_t)t * ld * hidden;
+    const float* g_t = g + (size_t)t * ld * hidden;
+    T* dxp_t = dxp + (size_t)t * ld * three_h;
+    float* ex = exchange + (size_t)(step & 1) * n_blocks * batch * hidden;
+    float* ex_own = ex + (size_t)j * batch * hidden;
 
     for (int b0 = 0; b0 < batch; b0 += kBatchTile) {
       const int nb = min(kBatchTile, batch - b0);
       // h_{t-1} of this tile (an input of the launch: plain loads).
       for (int i = tid; i < nb * hidden; i += kThreads) {
-        h_s[i] = hprev_t[(size_t)b0 * hidden + i];
+        h_s[i] = to_f(hprev_t[(size_t)b0 * hidden + i]);
       }
       __syncthreads();
       warp_dots(h_s, w_col, hp_s, nb, cols, hidden);
@@ -276,43 +343,57 @@ gru_bwd_kernel(const float* __restrict__ g, const float* __restrict__ xp,
         const int uu = i - b * u;
         const int unit = j * u + uu;
         const size_t row = (size_t)(b0 + b);
-        const float* x = xp_t + row * three_h;
+        const T* x = xp_t + row * three_h;
         const float* hp = hp_s + b * cols;
         const float hpn = hp[2 * u + uu] + bn[unit];
-        const float r = gate_sigmoid(x[unit] + hp[uu]);
-        const float z = gate_sigmoid(x[hidden + unit] + hp[u + uu]);
-        const float n = tanhf(x[2 * hidden + unit] + r * hpn);
+        const float r = gate_sigmoid(to_f(x[unit]) + hp[uu]);
+        const float z = gate_sigmoid(to_f(x[hidden + unit]) + hp[u + uu]);
+        const float n = tanhf(to_f(x[2 * hidden + unit]) + r * hpn);
         const float h_prev = h_s[b * hidden + unit];
         const float dht = dh_s[row * u + uu] + g_t[row * hidden + unit];
         const float dn_pre = dht * (1.f - z) * (1.f - n * n);
         const float dz = dht * (h_prev - n) * z * (1.f - z);
         const float dr_pre = dn_pre * hpn * r * (1.f - r);
         const float dhn = dn_pre * r;
-        float* dx = dxp_t + row * three_h;
-        dx[unit] = dr_pre;
-        dx[hidden + unit] = dz;
-        dx[2 * hidden + unit] = dn_pre;
-        float* e = ex + row * three_h;
-        e[unit] = dr_pre;
-        e[hidden + unit] = dz;
-        e[2 * hidden + unit] = dhn;
+        T* dx = dxp_t + row * three_h;
+        dx[unit] = from_f<T>(dr_pre);
+        dx[hidden + unit] = from_f<T>(dz);
+        dx[2 * hidden + unit] = from_f<T>(dn_pre);
+        // dhp at the stream type, as both products take it.
         float* own = dhp_own + b * cols;
-        own[uu] = dr_pre;
-        own[u + uu] = dz;
-        own[2 * u + uu] = dhn;
+        own[uu] = round_to<T>(dr_pre);
+        own[u + uu] = round_to<T>(dz);
+        own[2 * u + uu] = round_to<T>(dhn);
         dhn_s[i] = dhn;
         dhz_s[row * u + uu] = dht * z;
       }
       __syncthreads();
-      // dwh[:, own columns] += h_{t-1}^T dhp; dbn += sum_b dhn.
-      for (int i = tid; i < cols * hidden; i += kThreads) {
-        const int c = i / hidden;
-        const int k = i - c * hidden;
-        float acc = dwh_s[i];
-        for (int b = 0; b < nb; ++b) {
-          acc = fmaf(h_s[b * hidden + k], dhp_own[b * cols + c], acc);
+      // Per k: dwh[k, own columns] += h_{t-1}[:, k]^T dhp_own, and the
+      // partial dh[:, k] = dhp_own . w_col[:, k] for this tile's rows.
+      for (int k = tid; k < hidden; k += kThreads) {
+        float hv[kBatchTile], pd[kBatchTile];
+#pragma unroll
+        for (int b = 0; b < kBatchTile; ++b) {
+          hv[b] = b < nb ? h_s[b * hidden + k] : 0.f;
+          pd[b] = 0.f;
         }
-        dwh_s[i] = acc;
+        for (int c = 0; c < cols; ++c) {
+          const float w = to_f(w_col[c * hidden + k]);
+          float acc = dwh_s[c * hidden + k];
+#pragma unroll
+          for (int b = 0; b < kBatchTile; ++b) {
+            if (b < nb) {
+              const float d = dhp_own[b * cols + c];
+              acc = fmaf(hv[b], d, acc);
+              pd[b] = fmaf(d, w, pd[b]);
+            }
+          }
+          dwh_s[c * hidden + k] = acc;
+        }
+#pragma unroll
+        for (int b = 0; b < kBatchTile; ++b) {
+          if (b < nb) ex_own[(size_t)(b0 + b) * hidden + k] = pd[b];
+        }
       }
       if (tid < u) {
         float acc = dbn_s[tid];
@@ -322,49 +403,48 @@ gru_bwd_kernel(const float* __restrict__ g, const float* __restrict__ xp,
       __syncthreads();
     }
 
-    grid_barrier(barrier, gridDim.x * (unsigned int)(step + 1));
+    grid_barrier(barrier, n_blocks * (unsigned int)(step + 1));
 
-    // dh_{t-1}[b, own units] = dht z + dhp[b, :] . wh[unit, :].
-    for (int b0 = 0; b0 < batch; b0 += kBatchTile) {
-      const int nb = min(kBatchTile, batch - b0);
-      for (int i = tid; i < nb * three_h; i += kThreads) {
-        dhp_all[i] = __ldcg(ex + (size_t)b0 * three_h + i);
+    // dh_{t-1}[b, own units] = dht z + the blocks' partials, read through
+    // L2 (other blocks wrote them in this launch).
+    for (int i = tid; i < batch * u; i += kThreads) {
+      const int b = i / u;
+      const float* p = ex + (size_t)b * hidden + j * u + (i - b * u);
+      float s = dhz_s[i];
+      for (int jj = 0; jj < n_blocks; ++jj) {
+        s += __ldcg(p + (size_t)jj * batch * hidden);
       }
-      __syncthreads();
-      warp_dots(dhp_all, w_row, hp_s, nb, u, three_h);
-      __syncthreads();
-      for (int i = tid; i < nb * u; i += kThreads) {
-        const size_t idx = (size_t)b0 * u + i;
-        dh_s[idx] = dhz_s[idx] + hp_s[i];
-      }
-      __syncthreads();
+      dh_s[i] = s;
     }
+    __syncthreads();
   }
 
   for (int i = tid; i < cols * hidden; i += kThreads) {
     const int c = i / hidden;
     const int k = i - c * hidden;
     const int gate = c / u;
-    dwh[(size_t)k * three_h + gate * hidden + j * u + (c - gate * u)] = dwh_s[i];
+    dwh[(size_t)k * three_h + gate * hidden + j * u + (c - gate * u)] +=
+        dwh_s[i];
   }
-  for (int i = tid; i < u; i += kThreads) dbn[j * u + i] = dbn_s[i];
+  for (int i = tid; i < u; i += kThreads) dbn[j * u + i] += dbn_s[i];
   for (int i = tid; i < batch * u; i += kThreads) {
     const int b = i / u;
     dh0[(size_t)b * hidden + j * u + (i - b * u)] = dh_s[i];
   }
 }
 
-size_t fwd_smem_bytes(int hidden, int batch, int u) {
+size_t fwd_smem_bytes(int hidden, int batch, int u, size_t item) {
   const size_t cols = 3 * (size_t)u;
-  return sizeof(float) * (cols * hidden + (size_t)kBatchTile * (hidden + cols) +
+  return slice_bytes((int)cols, hidden, item) +
+         sizeof(float) * ((size_t)kBatchTile * (hidden + cols) +
                           (size_t)batch * u);
 }
 
-size_t bwd_smem_bytes(int hidden, int batch, int u) {
+size_t bwd_smem_bytes(int hidden, int batch, int u, size_t item) {
   const size_t cols = 3 * (size_t)u;
-  return sizeof(float) * (2 * cols * hidden + (size_t)u * 3 * hidden +
-                          (size_t)kBatchTile * (4 * (size_t)hidden + 2 * cols +
-                                                u) +
+  return slice_bytes((int)cols, hidden, item) +
+         sizeof(float) * (cols * hidden +
+                          (size_t)kBatchTile * (hidden + 2 * cols + u) +
                           2 * (size_t)batch * u + u);
 }
 
@@ -401,6 +481,58 @@ int launch_cooperative(Kernel kernel, size_t smem, int n_blocks, void** args,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int coop_occupancy(int hidden, int batch, int u, int bwd, int* blocks_per_sm,
+                   int* n_sms) {
+  return bwd ? occupancy(gru_bwd_kernel<T>,
+                         bwd_smem_bytes(hidden, batch, u, sizeof(T)),
+                         blocks_per_sm, n_sms)
+             : occupancy(gru_fwd_kernel<T>,
+                         fwd_smem_bytes(hidden, batch, u, sizeof(T)),
+                         blocks_per_sm, n_sms);
+}
+
+template <typename T>
+int coop_fwd(const void* xp, const void* wh, const void* bn, const void* h0,
+             void* ys, void* barrier, int seq_len, int batch, int ld,
+             int hidden, int u, void* stream) {
+  const T* xp_t = (const T*)xp;
+  const T* wh_t = (const T*)wh;
+  const float* bn_f = (const float*)bn;
+  const float* h0_f = (const float*)h0;
+  float* ys_f = (float*)ys;
+  unsigned int* bar = (unsigned int*)barrier;
+  void* args[] = {&xp_t, &wh_t, &bn_f, &h0_f, &ys_f, &bar,
+                  &seq_len, &batch, &ld, &hidden, &u};
+  return launch_cooperative(gru_fwd_kernel<T>,
+                            fwd_smem_bytes(hidden, batch, u, sizeof(T)),
+                            hidden / u, args, stream);
+}
+
+template <typename T>
+int coop_bwd(const void* g, const void* xp, const void* hprev, const void* wh,
+             const void* bn, void* dxp, void* exchange, void* dwh, void* dbn,
+             void* dh0, void* barrier, int seq_len, int batch, int ld,
+             int hidden, int u, void* stream) {
+  const float* g_f = (const float*)g;
+  const T* xp_t = (const T*)xp;
+  const T* hprev_t = (const T*)hprev;
+  const T* wh_t = (const T*)wh;
+  const float* bn_f = (const float*)bn;
+  T* dxp_t = (T*)dxp;
+  float* ex_f = (float*)exchange;
+  float* dwh_f = (float*)dwh;
+  float* dbn_f = (float*)dbn;
+  float* dh0_f = (float*)dh0;
+  unsigned int* bar = (unsigned int*)barrier;
+  void* args[] = {&g_f, &xp_t, &hprev_t, &wh_t, &bn_f, &dxp_t, &ex_f,
+                  &dwh_f, &dbn_f, &dh0_f, &bar, &seq_len, &batch, &ld,
+                  &hidden, &u};
+  return launch_cooperative(gru_bwd_kernel<T>,
+                            bwd_smem_bytes(hidden, batch, u, sizeof(T)),
+                            hidden / u, args, stream);
 }
 
 // ------------------------------------------------------------------------
@@ -1181,40 +1313,50 @@ int bwd_h(const void* g, const void* xp, const void* hprev, const void* wh,
 
 }  // namespace
 
-// ---- float32 entry points ------------------------------------------------
+// ---- cooperative entry points (float32; bf16 past 512 units) -----------
 
-// Blocks of the float32 forward (bwd = 0) or backward (bwd = 1) kernel that
-// fit on one SM for this shape, and the SM count.
+// Blocks of the cooperative forward (bwd = 0) or backward (bwd = 1) kernel,
+// with float32 (use_bf16 = 0) or bf16 streams, that fit on one SM for this
+// shape, and the SM count.
 extern "C" int ddsp_gru_occupancy(int hidden, int batch, int u, int bwd,
-                                  int* blocks_per_sm, int* n_sms) {
-  return bwd ? occupancy(gru_bwd_kernel, bwd_smem_bytes(hidden, batch, u),
-                         blocks_per_sm, n_sms)
-             : occupancy(gru_fwd_kernel, fwd_smem_bytes(hidden, batch, u),
-                         blocks_per_sm, n_sms);
+                                  int use_bf16, int* blocks_per_sm,
+                                  int* n_sms) {
+  return use_bf16
+             ? coop_occupancy<bf16>(hidden, batch, u, bwd, blocks_per_sm,
+                                    n_sms)
+             : coop_occupancy<float>(hidden, batch, u, bwd, blocks_per_sm,
+                                     n_sms);
 }
 
-// barrier: one zeroed uint32 on the device. hidden % u == 0. Returns
-// cudaError_t.
+// xp [T, ld, 3H], wh [H, 3H] at the stream type; bn [H], h0 [batch, H],
+// ys [T, ld, H] float32, each pointer at the launch's first row; barrier:
+// one zeroed uint32 on the device. hidden % u == 0. Returns cudaError_t.
 extern "C" int ddsp_gru_fwd(const void* xp, const void* wh, const void* bn,
                             const void* h0, void* ys, void* barrier,
-                            int seq_len, int batch, int hidden, int u,
-                            void* stream) {
-  void* args[] = {&xp, &wh, &bn, &h0, &ys, &barrier,
-                  &seq_len, &batch, &hidden, &u};
-  return launch_cooperative(gru_fwd_kernel, fwd_smem_bytes(hidden, batch, u),
-                            hidden / u, args, stream);
+                            int seq_len, int batch, int ld, int hidden, int u,
+                            int use_bf16, void* stream) {
+  return use_bf16 ? coop_fwd<bf16>(xp, wh, bn, h0, ys, barrier, seq_len,
+                                   batch, ld, hidden, u, stream)
+                  : coop_fwd<float>(xp, wh, bn, h0, ys, barrier, seq_len,
+                                    batch, ld, hidden, u, stream);
 }
 
-// exchange: scratch of 2 * B * 3H floats; barrier: one zeroed uint32.
+// g [T, ld, H] float32; xp, hprev, dxp [T, ld, *] at the stream type;
+// exchange: scratch of 2 * (hidden / u) * batch * H floats; dwh [H, 3H],
+// dbn [H] float32, added to; dh0 [batch, H] float32; barrier: one zeroed
+// uint32.
 extern "C" int ddsp_gru_bwd(const void* g, const void* xp, const void* hprev,
                             const void* wh, const void* bn, void* dxp,
                             void* exchange, void* dwh, void* dbn, void* dh0,
-                            void* barrier, int seq_len, int batch, int hidden,
-                            int u, void* stream) {
-  void* args[] = {&g, &xp, &hprev, &wh, &bn, &dxp, &exchange, &dwh, &dbn,
-                  &dh0, &barrier, &seq_len, &batch, &hidden, &u};
-  return launch_cooperative(gru_bwd_kernel, bwd_smem_bytes(hidden, batch, u),
-                            hidden / u, args, stream);
+                            void* barrier, int seq_len, int batch, int ld,
+                            int hidden, int u, int use_bf16, void* stream) {
+  return use_bf16
+             ? coop_bwd<bf16>(g, xp, hprev, wh, bn, dxp, exchange, dwh, dbn,
+                              dh0, barrier, seq_len, batch, ld, hidden, u,
+                              stream)
+             : coop_bwd<float>(g, xp, hprev, wh, bn, dxp, exchange, dwh, dbn,
+                               dh0, barrier, seq_len, batch, ld, hidden, u,
+                               stream);
 }
 
 // ---- bf16 entry points ---------------------------------------------------

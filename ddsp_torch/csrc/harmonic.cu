@@ -74,8 +74,12 @@
 // block runs the chain from harmonic 1 but sums only its own, so every
 // harmonic sees the same chain values and the same order as in one block.
 //
-// K1p, the phase backward, keeps its first design: one thread per sample,
-// the cos chain, a loop that stops at the first muted harmonic.
+// K1p, the phase backward, takes K1f's structure with the cos chain: the
+// same split of a hop (S = 4 or 1 by the same rule), the block's frames
+// staged as h * A_h, padded to a multiple of 4 harmonics, so its inner loop
+// is one chain fma and two tap fmas per sample-harmonic, with no multiply
+// by h, no scalar loads and no branch per harmonic. Staging h * A_h rounds
+// that product once; the plain version sums in the same order.
 
 #include <cuda_runtime.h>
 
@@ -277,32 +281,15 @@ harmonic_fwd_kernel(const float* __restrict__ phase,
   }
 }
 
-// ---- K1p (first design, helpers shared). ----
+// ---- K1p. ----
 
-constexpr int kPhaseThreads = 256;
+constexpr int kPhaseThreads = 128;
 
-// Stages frames k0 .. of ham[b] that the block's samples interpolate between
-// into amps[rows][n_harmonics]; returns k0. Ends with a __syncthreads().
-__device__ __forceinline__ int stage_frames(const float* __restrict__ ham,
-                                            float* amps, int b, int s0,
-                                            int n_samples, int n_frames,
-                                            int n_harmonics, int hop) {
-  const int s_last = min(s0 + kPhaseThreads, n_samples) - 1;
-  const int k0 = s0 / hop;
-  const int rows = s_last / hop + 2 - k0;  // frames k0 .. k_last + 1
-  const float* ham_b = ham + (size_t)b * n_frames * n_harmonics;
-  for (int i = threadIdx.x; i < rows * n_harmonics; i += kPhaseThreads) {
-    const int row = i / n_harmonics;
-    const int h = i - row * n_harmonics;
-    const int frame = min(k0 + row, n_frames - 1);  // endpoint frame
-    amps[i] = ham_b[(size_t)frame * n_harmonics + h];
-  }
-  __syncthreads();
-  return k0;
-}
-
-// dphi[b, n] = g * sum_h A_h * h * cos(h phi): the cos chain
-// c_{h+1} = 2 cos(phi) c_h - c_{h-1}, c_0 = 1, one thread per sample.
+// dphi[b, n] = g * sum_{h audible} A_h * h * cos(h phi): the cos chain
+// c_{h+1} = 2 cos(phi) c_h - c_{h-1}, c_0 = 1, c_1 = cos(phi), in K1f's
+// layout (the head of the file) with the block's G + 1 frames staged as
+// h * A_h.
+template <int S>
 __global__ void __launch_bounds__(kPhaseThreads)
 harmonic_bwd_phase_kernel(const float* __restrict__ phase,
                           const float* __restrict__ f0,
@@ -311,36 +298,112 @@ harmonic_bwd_phase_kernel(const float* __restrict__ phase,
                           float* __restrict__ dphase,
                           int n_samples, int n_frames, int n_harmonics,
                           int hop, float nyquist, int linear) {
-  extern __shared__ float amps[];  // [rows, n_harmonics]
+  extern __shared__ float4 smem4[];
+  const Split sp = split_hop(hop, S, kPhaseThreads);
+  const int hp = round_up4(n_harmonics);
+  float* amps = reinterpret_cast<float*>(smem4);  // [G + 1][hp], h * A_h
+  float* fall_tab = amps + (sp.G + 1) * hp;       // [hop]
+  float* rise_tab = fall_tab + hop;               // [hop]
   const int b = blockIdx.y;
-  const int s0 = blockIdx.x * kPhaseThreads;
-  const int k0 = stage_frames(ham, amps, b, s0, n_samples, n_frames,
-                              n_harmonics, hop);
-  const int n = s0 + threadIdx.x;
-  if (n >= n_samples) return;
-  const size_t idx = (size_t)b * n_samples + n;
-  const int k = n / hop;
-  float rise, fall;
-  tap_weights(n - k * hop, hop, linear, &rise, &fall);
+  const int k0 = blockIdx.x * sp.G;
 
-  float s1, c_cur;
-  wrapped_sincos(phase[idx], &s1, &c_cur);
-  const float two_c = 2.f * c_cur;
-  const float hmax = harmonic_limit(f0[idx], nyquist);
-
-  const float* a0 = amps + (k - k0) * n_harmonics;
-  const float* a1 = a0 + n_harmonics;
-  float acc0 = 0.f, acc1 = 0.f, c_prev = 1.f;
-  for (int h = 1; h <= n_harmonics; ++h) {
-    if (hmax <= (float)h) break;
-    const float hc = (float)h * c_cur;
-    acc0 = fmaf(a0[h - 1], hc, acc0);
-    acc1 = fmaf(a1[h - 1], hc, acc1);
-    const float c_next = two_c * c_cur - c_prev;
-    c_prev = c_cur;
-    c_cur = c_next;
+  const float* ham_b = ham + (size_t)b * n_frames * n_harmonics;
+  for (int i = threadIdx.x; i < (sp.G + 1) * hp; i += kPhaseThreads) {
+    const int row = i / hp;
+    const int h = i - row * hp;
+    const int frame = min(k0 + row, n_frames - 1);  // endpoint frame
+    amps[i] = (h < n_harmonics && k0 + row <= n_frames)
+                  ? (float)(h + 1) * ham_b[(size_t)frame * n_harmonics + h]
+                  : 0.f;
   }
-  dphase[idx] = g[idx] * (fall * acc0 + rise * acc1);
+  fill_tap_table(fall_tab, rise_tab, hop, linear);
+  __syncthreads();
+
+  // Every thread stays to the end: the loop bounds are warp-wide.
+  const int gi = threadIdx.x / sp.P;
+  const int p = threadIdx.x - gi * sp.P;
+  const int k = k0 + gi;
+  const bool hop_ok = gi < sp.G && k < n_frames;
+  const int row = min(gi, sp.G - 1);
+  const float4* a0 = reinterpret_cast<const float4*>(amps + row * hp);
+  const float4* a1 = reinterpret_cast<const float4*>(amps + (row + 1) * hp);
+  const size_t row0 = (size_t)b * n_samples + (size_t)min(k, n_frames - 1) * hop;
+
+  for (int pass = 0; pass < sp.passes; ++pass) {
+    float c_cur[S], c_prev[S], two_c[S], acc0[S], acc1[S];
+    int n_aud[S];
+    int lo = n_harmonics, hi = 0;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int d = pass * sp.P * S + p + sp.P * i;
+      c_cur[i] = 0.f;
+      c_prev[i] = 0.f;
+      two_c[i] = 0.f;
+      n_aud[i] = 0;
+      if (hop_ok && d < hop) {
+        float s1;
+        wrapped_sincos(phase[row0 + d], &s1, &c_cur[i]);
+        c_prev[i] = 1.f;
+        two_c[i] = 2.f * c_cur[i];
+        n_aud[i] = n_audible(f0[row0 + d], nyquist, n_harmonics);
+        lo = min(lo, n_aud[i]);
+        hi = max(hi, n_aud[i]);
+      }
+      acc0[i] = 0.f;
+      acc1[i] = 0.f;
+    }
+    // Warp-wide bounds: no lane diverges from the warp's chunk loops.
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    const int full = min(lo, hi) & ~3;
+    int h0 = 0;
+    // Chunks where every sample of this thread is audible.
+    for (; h0 < full; h0 += 4) {
+      const float4 x0 = a0[h0 >> 2];
+      const float4 x1 = a1[h0 >> 2];
+      const float w0[4] = {x0.x, x0.y, x0.z, x0.w};
+      const float w1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+          acc0[i] = fmaf(w0[j], c_cur[i], acc0[i]);
+          acc1[i] = fmaf(w1[j], c_cur[i], acc1[i]);
+          const float c_next = two_c[i] * c_cur[i] - c_prev[i];
+          c_prev[i] = c_cur[i];
+          c_cur[i] = c_next;
+        }
+      }
+    }
+    // Chunks that cross some sample's limit: harmonic h0 + j + 1 is
+    // audible iff h0 + j < n_aud.
+    for (; h0 < hi; h0 += 4) {
+      const float4 x0 = a0[h0 >> 2];
+      const float4 x1 = a1[h0 >> 2];
+      const float w0[4] = {x0.x, x0.y, x0.z, x0.w};
+      const float w1[4] = {x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+          const float cm = (h0 + j < n_aud[i]) ? c_cur[i] : 0.f;
+          acc0[i] = fmaf(w0[j], cm, acc0[i]);
+          acc1[i] = fmaf(w1[j], cm, acc1[i]);
+          const float c_next = two_c[i] * c_cur[i] - c_prev[i];
+          c_prev[i] = c_cur[i];
+          c_cur[i] = c_next;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      const int d = pass * sp.P * S + p + sp.P * i;
+      if (hop_ok && d < hop) {
+        dphase[row0 + d] =
+            g[row0 + d] * (fall_tab[d] * acc0[i] + rise_tab[d] * acc1[i]);
+      }
+    }
+  }
 }
 
 // ---- K1t. ----
@@ -629,6 +692,25 @@ cudaError_t launch_fwd(const float* phase, const float* f0, const float* ham,
   return cudaGetLastError();
 }
 
+template <int S>
+cudaError_t launch_phase(const float* phase, const float* f0,
+                         const float* ham, const float* g, float* dphase,
+                         int batch, int n_samples, int n_frames,
+                         int n_harmonics, int hop, float nyquist, int linear,
+                         cudaStream_t stream) {
+  const Split sp = split_hop(hop, S, kPhaseThreads);
+  const size_t smem = sizeof(float) * ((size_t)(sp.G + 1) *
+                                           round_up4(n_harmonics) +
+                                       2 * (size_t)hop);
+  const cudaError_t e = allow_smem(harmonic_bwd_phase_kernel<S>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n_frames + sp.G - 1) / sp.G, batch);
+  harmonic_bwd_phase_kernel<S><<<grid, kPhaseThreads, smem, stream>>>(
+      phase, f0, ham, g, dphase, n_samples, n_frames, n_harmonics, hop,
+      nyquist, linear);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // phase, f0, out: [batch, n_samples] float32; ham: [batch, n_frames,
@@ -663,17 +745,22 @@ extern "C" int ddsp_harmonic_bwd_phase(const void* phase, const void* f0,
                                        float nyquist, int linear,
                                        void* stream) {
   const int hop = n_samples / n_frames;
-  const int max_rows = (kPhaseThreads - 1) / hop + 3;
-  const size_t smem = (size_t)max_rows * n_harmonics * sizeof(float);
-  const cudaError_t e = allow_smem(harmonic_bwd_phase_kernel, smem);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((n_samples + kPhaseThreads - 1) / kPhaseThreads, batch);
-  harmonic_bwd_phase_kernel<<<grid, kPhaseThreads, smem,
-                              (cudaStream_t)stream>>>(
-      (const float*)phase, (const float*)f0, (const float*)ham,
-      (const float*)g, (float*)dphase, n_samples, n_frames, n_harmonics, hop,
-      nyquist, linear);
-  return (int)cudaGetLastError();
+  const auto args = [&](auto launch) {
+    return launch((const float*)phase, (const float*)f0, (const float*)ham,
+                  (const float*)g, (float*)dphase, batch, n_samples,
+                  n_frames, n_harmonics, hop, nyquist, linear,
+                  (cudaStream_t)stream);
+  };
+  // K1f's rule: 4 samples a thread while that still leaves 512 threads an
+  // SM.
+  const bool fills = (long long)batch * n_samples / 4 >= 512LL * sms;
+  return (int)(fills ? args(launch_phase<4>) : args(launch_phase<1>));
 }
 
 // dham: [batch, n_frames, n_harmonics] float32, every element written; the

@@ -9,17 +9,21 @@ both directions, a CPU tensor takes the plain PyTorch versions beside them
 the same dtypes). The CPU tests hold the plain versions against the JAX
 package, and chip_smoke.py holds each kernel against its plain version.
 
-With bf16 streams (the main path) the kernels run one thread-block cluster
-per tile of TILE_ROWS batch rows, on tensor cores, and K2b is two kernels:
-the serial reverse-time pass (a), whose plain version is
+With bf16 streams (the main path) the route depends on H (`bf16_route`).
+Up to 512 units the kernels run one thread-block cluster per tile of
+TILE_ROWS batch rows, on tensor cores, at the next H in CLUSTER_HIDDEN (the
+operands zero-padded, which is exact: padded units stay 0), and K2b is two
+kernels: the serial reverse-time pass (a), whose plain version is
 `gru_bwd_serial_plain`, and the weight-gradient pass (b), `gru_wgrad_plain`.
-float32 streams keep one cooperative kernel each way.
+Past 512 units, and with float32 streams, one cooperative kernel runs each
+way (dwh and dbn in K2b's body), in row groups where a batch does not fit
+one co-resident grid.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -27,12 +31,15 @@ from ddsp_torch.kernels import _build
 
 # Kernel launches so far, per kernel; a run reads them to show which
 # kernels its path went through.
-# 'bwd' counts K2b calls, 'wgrad' its weight-gradient pass (bf16 only).
+# 'fwd' and 'bwd' count K2f and K2b launches (one per call, or one per row
+# group on the cooperative route), 'wgrad' K2b's weight-gradient pass (the
+# cluster route only).
 launches: Dict[str, int] = {'fwd': 0, 'bwd': 0, 'wgrad': 0}
 
-# The bf16 kernels: one cluster per tile of TILE_ROWS batch rows, u =
-# UNITS_PER_CTA hidden units per CTA, so H / u CTAs per cluster; they take
-# these H (csrc/gru.cu: H a multiple of 64, at most 16 CTAs per cluster).
+# The bf16 cluster kernels: one cluster per tile of TILE_ROWS batch rows,
+# u = UNITS_PER_CTA hidden units per CTA, so H / u CTAs per cluster; they
+# take these H (csrc/gru.cu: H a multiple of 64, at most 16 CTAs per
+# cluster), and other H up to the last one zero-padded.
 TILE_ROWS = 16
 UNITS_PER_CTA = 32
 CLUSTER_HIDDEN = (64, 128, 256, 512)
@@ -131,14 +138,60 @@ def batch_tiles(batch: int) -> int:
 
 
 def cluster_shape(hidden: int) -> Tuple[int, int]:
-  """(CTAs per cluster, hidden units per CTA) of the bf16 kernels at H."""
+  """(CTAs per cluster, hidden units per CTA) of the bf16 cluster kernels
+  at H, one of CLUSTER_HIDDEN (`bf16_route` pads other H to one)."""
   if hidden not in CLUSTER_HIDDEN:
     raise ValueError(
-        f'K2 with bf16 streams takes H in {CLUSTER_HIDDEN}, not H={hidden}: '
+        f'the K2 cluster kernels take H in {CLUSTER_HIDDEN}, not H={hidden}: '
         f'each CTA of a cluster owns {UNITS_PER_CTA} hidden units, the '
         'tensor-core product splits H four ways in steps of 16, and a '
         'cluster holds at most 16 CTAs.')
   return hidden // UNITS_PER_CTA, UNITS_PER_CTA
+
+
+def bf16_route(hidden: int) -> Tuple[str, int]:
+  """How the bf16 kernels run H units: ('cluster', h_pad) with h_pad the
+  smallest of CLUSTER_HIDDEN >= H (the operands zero-padded to it), or
+  ('cooperative', H) past the largest, where no cluster holds wh."""
+  if hidden < 1:
+    raise ValueError(f'K2 needs at least one hidden unit, not H={hidden}.')
+  for h_pad in CLUSTER_HIDDEN:
+    if h_pad >= hidden:
+      return 'cluster', h_pad
+  return 'cooperative', hidden
+
+
+def pad_units(x: torch.Tensor, h_pad: int) -> torch.Tensor:
+  """[..., H] -> [..., h_pad] with zeros after the H units."""
+  return torch.nn.functional.pad(x, (0, h_pad - x.shape[-1]))
+
+
+def pad_gates(x: torch.Tensor, h_pad: int) -> torch.Tensor:
+  """[..., 3H] -> [..., 3 h_pad]: each gate block [r | z | n] padded with
+  zeros to h_pad units."""
+  hidden = x.shape[-1] // 3
+  return pad_units(x.unflatten(-1, (3, hidden)), h_pad).flatten(-2)
+
+
+def unpad_gates(x: torch.Tensor, hidden: int) -> torch.Tensor:
+  """[..., 3 h_pad] -> [..., 3H], the first H units of each gate block."""
+  h_pad = x.shape[-1] // 3
+  return x.unflatten(-1, (3, h_pad))[..., :hidden].flatten(-2).contiguous()
+
+
+def pad_gru_inputs(h_pad: int, xp: torch.Tensor, wh: torch.Tensor,
+                   bn: torch.Tensor, *per_unit: torch.Tensor):
+  """K2's operands zero-padded from H to h_pad units: xp [..., 3H] per gate
+  block, wh [H, 3H] in its rows and each gate's columns, bn [H] and every
+  [..., H] tensor of `per_unit` (h0, g, h_prev). Padded units then stay
+  exactly 0 forward and backward, and add exact zeros to the real units'
+  sums. At h_pad = H they are returned as they are."""
+  if h_pad == wh.shape[0]:
+    return (xp, wh, bn, *per_unit)
+  wh_p = pad_gates(torch.nn.functional.pad(wh, (0, 0, 0, h_pad - wh.shape[0])),
+                   h_pad)
+  return (pad_gates(xp, h_pad), wh_p, pad_units(bn, h_pad),
+          *(pad_units(t, h_pad).contiguous() for t in per_unit))
 
 
 def gru_bwd_serial_plain(g: torch.Tensor, xp: torch.Tensor,
@@ -219,19 +272,19 @@ def _check(xp, wh, bn, h0):
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
-    'ddsp_gru_occupancy': [_INT] * 4 + [ctypes.POINTER(_INT)] * 2,
-    'ddsp_gru_fwd': [_PTR] * 6 + [_INT] * 4 + [_PTR],
-    'ddsp_gru_bwd': [_PTR] * 11 + [_INT] * 4 + [_PTR],
+    'ddsp_gru_occupancy': [_INT] * 5 + [ctypes.POINTER(_INT)] * 2,
+    'ddsp_gru_fwd': [_PTR] * 6 + [_INT] * 6 + [_PTR],
+    'ddsp_gru_bwd': [_PTR] * 11 + [_INT] * 6 + [_PTR],
     'ddsp_gru_cluster_query': [_INT] * 2 + [ctypes.POINTER(_INT)] * 4,
     'ddsp_gru_cluster_fwd': [_PTR] * 5 + [_INT] * 3 + [_PTR],
     'ddsp_gru_cluster_bwd': [_PTR] * 9 + [_INT] * 3 + [_PTR],
     'ddsp_gru_wgrad': [_PTR] * 6 + [_INT] * 3 + [_PTR],
 }
 
-# Chosen u per (device index, H, B, backward) of the float32 kernels, and
-# the cluster of the bf16 kernels per (device index, H, backward): each
-# depends on nothing else.
-_UNITS_PER_BLOCK: Dict[Tuple[int, int, int, bool], int] = {}
+# The plan (u, rows per launch) per (device index, H, B, backward, bf16) of
+# the cooperative kernels, and the cluster of the bf16 cluster kernels per
+# (device index, H, backward): each depends on nothing else.
+_PLANS: Dict[Tuple[int, int, int, bool, bool], Tuple[int, int]] = {}
 _CLUSTERS: Dict[Tuple[int, int, bool], Dict[str, int]] = {}
 
 
@@ -239,38 +292,55 @@ def _lib():
   return _build.load('gru', _SIGNATURES)
 
 
-def pick_units_per_block(device: torch.device, hidden: int, batch: int,
-                         backward: bool = False) -> int:
-  """float32 kernels: the smallest u dividing H whose H/u blocks fit one per
-  SM, co-resident.
+def plan_cooperative(hidden: int, batch: int, n_sms: int,
+                     fits: Callable[[int, int], bool]) -> Tuple[int, int]:
+  """(u, rows) of a cooperative launch: the smallest u dividing H whose
+  H / u blocks fit one per SM, co-resident, with `rows` batch rows per
+  launch; rows is the batch, halved (rounded up) until some u fits.
 
   One block per SM gives each block the whole SM and keeps the number of
-  barrier arrivals per step low. Raises if no u gives a co-resident grid
-  (the kernels hold their slices of wh in shared memory, which bounds H).
-  The occupancy queries run once per (device, H, B, direction); call it
-  with `device` current.
+  barrier arrivals per step low. `fits(u, rows)` says whether a block of u
+  units and `rows` carries fits on an SM; a wider u only grows the block,
+  so the search over u stops at the first that does not. Raises
+  RuntimeError when not even one row fits.
   """
-  key = (device.index, hidden, batch, backward)
-  if key in _UNITS_PER_BLOCK:
-    return _UNITS_PER_BLOCK[key]
-  lib = _lib()
-  for u in range(1, hidden + 1):
-    if hidden % u:
-      continue
-    per_sm, n_sms = _INT(0), _INT(0)
-    status = lib.ddsp_gru_occupancy(hidden, batch, u, int(backward),
-                                    ctypes.byref(per_sm), ctypes.byref(n_sms))
-    # A slice too large for an SM's shared memory is refused here, and a
-    # wider u only grows it.
-    if status != 0 or per_sm.value < 1:
-      break
-    if hidden // u <= n_sms.value:
-      _UNITS_PER_BLOCK[key] = u
-      return u
-  which = 'K2b' if backward else 'K2f'
-  raise RuntimeError(f'{which} (float32) cannot make a co-resident grid for '
-                     f'H={hidden}, B={batch}: its shared-memory slice of wh '
-                     'does not fit one SM.')
+  rows = batch
+  while True:
+    for u in range(1, hidden + 1):
+      if hidden % u:
+        continue
+      if not fits(u, rows):
+        break
+      if hidden // u <= n_sms:
+        return u, rows
+    if rows == 1:
+      raise RuntimeError(
+          f'the cooperative K2 kernels cannot make a co-resident grid for '
+          f'H={hidden}: the shared-memory slice of wh that one block holds '
+          'does not fit an SM.')
+    rows = -(-rows // 2)
+
+
+def pick_cooperative(device: torch.device, hidden: int, batch: int,
+                     backward: bool = False,
+                     bf16: bool = False) -> Tuple[int, int]:
+  """`plan_cooperative` on this device, from the kernels' occupancy
+  queries; once per (device, H, B, direction, dtype). Call it with `device`
+  current."""
+  key = (device.index, hidden, batch, backward, bf16)
+  if key not in _PLANS:
+    lib = _lib()
+
+    def fits(u, rows):
+      per_sm, n_sms = _INT(0), _INT(0)
+      status = lib.ddsp_gru_occupancy(hidden, rows, u, int(backward),
+                                      int(bf16), ctypes.byref(per_sm),
+                                      ctypes.byref(n_sms))
+      return status == 0 and per_sm.value >= 1
+
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    _PLANS[key] = plan_cooperative(hidden, batch, n_sms, fits)
+  return _PLANS[key]
 
 
 def pick_cluster(device: torch.device, hidden: int,
@@ -302,48 +372,79 @@ def pick_cluster(device: torch.device, hidden: int,
   return _CLUSTERS[key]
 
 
-def _bf16_launch_check(device: torch.device, hidden: int):
-  """Raise for a shape the bf16 kernels do not take, before any CUDA call."""
-  cluster_shape(hidden)
+def _cuda_check(device: torch.device):
   if device.type != 'cuda':
     raise ValueError(f'the K2 kernels take CUDA tensors, not {device}.')
 
 
 def _launch_fwd(xp, wh, bn, h0):
+  """K2f: ys [T, B, H] float32 from contiguous xp, wh at the stream dtype
+  and float32 bn, h0, on the route of this H and dtype."""
+  hidden = wh.shape[0]
+  _cuda_check(xp.device)
+  if xp.dtype == torch.bfloat16:
+    route, h_pad = bf16_route(hidden)
+    if route == 'cluster':
+      ys = _launch_cluster_fwd(*pad_gru_inputs(h_pad, xp, wh, bn, h0))
+      return ys[..., :hidden].contiguous()  # a no-op at h_pad = H
+  return _launch_coop_fwd(xp, wh, bn, h0)
+
+
+def _launch_cluster_fwd(xp, wh, bn, h0):
   seq_len, batch, _ = xp.shape
-  h_dim = wh.shape[0]
-  bf16 = xp.dtype == torch.bfloat16
-  if bf16:
-    _bf16_launch_check(xp.device, h_dim)
+  hidden = wh.shape[0]
+  cluster_shape(hidden)
   lib = _lib()
   with torch.cuda.device(xp.device):
-    ys = torch.empty((seq_len, batch, h_dim), dtype=torch.float32,
+    pick_cluster(xp.device, hidden)
+    ys = torch.empty((seq_len, batch, hidden), dtype=torch.float32,
                      device=xp.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    if bf16:
-      pick_cluster(xp.device, h_dim)
-      status = lib.ddsp_gru_cluster_fwd(xp.data_ptr(), wh.data_ptr(),
-                                        bn.data_ptr(), h0.data_ptr(),
-                                        ys.data_ptr(), seq_len, batch, h_dim,
-                                        stream)
-    else:
-      u = pick_units_per_block(xp.device, h_dim, batch)
-      barrier = torch.zeros(1, dtype=torch.int32, device=xp.device)
-      status = lib.ddsp_gru_fwd(xp.data_ptr(), wh.data_ptr(), bn.data_ptr(),
-                                h0.data_ptr(), ys.data_ptr(),
-                                barrier.data_ptr(), seq_len, batch, h_dim, u,
-                                stream)
-  _build.check(status, 'ddsp_gru_cluster_fwd' if bf16 else 'ddsp_gru_fwd')
+    status = lib.ddsp_gru_cluster_fwd(xp.data_ptr(), wh.data_ptr(),
+                                      bn.data_ptr(), h0.data_ptr(),
+                                      ys.data_ptr(), seq_len, batch, hidden,
+                                      torch.cuda.current_stream().cuda_stream)
+  _build.check(status, 'ddsp_gru_cluster_fwd')
   launches['fwd'] += 1
   return ys
 
 
+def _row_groups(batch: int, rows: int):
+  return [(b0, min(rows, batch - b0)) for b0 in range(0, batch, rows)]
+
+
+def _launch_coop_fwd(xp, wh, bn, h0):
+  """The cooperative K2f, one launch per row group."""
+  seq_len, batch, _ = xp.shape
+  hidden = wh.shape[0]
+  bf16 = xp.dtype == torch.bfloat16
+  dev = xp.device
+  lib = _lib()
+  with torch.cuda.device(dev):
+    u, rows = pick_cooperative(dev, hidden, batch, bf16=bf16)
+    groups = _row_groups(batch, rows)
+    ys = torch.empty((seq_len, batch, hidden), dtype=torch.float32,
+                     device=dev)
+    barriers = torch.zeros(len(groups), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for i, (b0, nb) in enumerate(groups):
+      status = lib.ddsp_gru_fwd(xp[:, b0:].data_ptr(), wh.data_ptr(),
+                                bn.data_ptr(), h0[b0:].data_ptr(),
+                                ys[:, b0:].data_ptr(), barriers[i:].data_ptr(),
+                                seq_len, nb, batch, hidden, u, int(bf16),
+                                stream)
+      _build.check(status, 'ddsp_gru_fwd')
+      launches['fwd'] += 1
+  return ys
+
+
 def _launch_bwd_serial(g, xp, h_prev, wh, bn):
-  """K2b (a), bf16: (dxp, dhn stream, per-tile dbn sums, dh0)."""
+  """K2b (a), bf16 cluster kernel, H in CLUSTER_HIDDEN: (dxp, dhn stream,
+  per-tile dbn sums, dh0)."""
   seq_len, batch, _ = xp.shape
   h_dim = wh.shape[0]
   dev = xp.device
-  _bf16_launch_check(dev, h_dim)
+  _cuda_check(dev)
+  cluster_shape(h_dim)
   lib = _lib()
   with torch.cuda.device(dev):
     pick_cluster(dev, h_dim, backward=True)
@@ -363,10 +464,11 @@ def _launch_bwd_serial(g, xp, h_prev, wh, bn):
 
 
 def _launch_wgrad(h_prev, dxp, dhn, dbn_tiles):
-  """K2b (b), bf16: (dwh, dbn) from K2b (a)'s streams."""
+  """K2b (b), bf16 cluster route: (dwh, dbn) from K2b (a)'s streams."""
   seq_len, batch, h_dim = h_prev.shape
   dev = dxp.device
-  _bf16_launch_check(dev, h_dim)
+  _cuda_check(dev)
+  cluster_shape(h_dim)
   lib = _lib()
   with torch.cuda.device(dev):
     dwh = torch.empty((h_dim, 3 * h_dim), dtype=torch.float32, device=dev)
@@ -381,32 +483,52 @@ def _launch_wgrad(h_prev, dxp, dhn, dbn_tiles):
   return dwh, dbn
 
 
-def _launch_bwd(g, xp, h_prev, wh, bn):
-  """K2b: (dxp, dwh, dbn, dh0); bf16 as passes (a) and (b)."""
-  if xp.dtype == torch.bfloat16:
-    dxp, dhn, dbn_tiles, dh0 = _launch_bwd_serial(g, xp, h_prev, wh, bn)
-    dwh, dbn = _launch_wgrad(h_prev, dxp, dhn, dbn_tiles)
-    return dxp, dwh, dbn, dh0
-  lib = _lib()
+def _launch_coop_bwd(g, xp, h_prev, wh, bn):
+  """The cooperative K2b, one launch per row group; dwh and dbn are summed
+  over the groups in the kernel."""
   seq_len, batch, three_h = xp.shape
-  h_dim = wh.shape[0]
+  hidden = wh.shape[0]
+  bf16 = xp.dtype == torch.bfloat16
   dev = xp.device
+  lib = _lib()
   with torch.cuda.device(dev):
-    u = pick_units_per_block(dev, h_dim, batch, backward=True)
+    u, rows = pick_cooperative(dev, hidden, batch, backward=True, bf16=bf16)
+    groups = _row_groups(batch, rows)
     dxp = torch.empty_like(xp)
-    exchange = torch.empty((2, batch, three_h), dtype=xp.dtype, device=dev)
-    dwh = torch.empty((h_dim, three_h), dtype=torch.float32, device=dev)
-    dbn = torch.empty((h_dim,), dtype=torch.float32, device=dev)
-    dh0 = torch.empty((batch, h_dim), dtype=torch.float32, device=dev)
-    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
-    status = lib.ddsp_gru_bwd(
-        g.data_ptr(), xp.data_ptr(), h_prev.data_ptr(), wh.data_ptr(),
-        bn.data_ptr(), dxp.data_ptr(), exchange.data_ptr(), dwh.data_ptr(),
-        dbn.data_ptr(), dh0.data_ptr(), barrier.data_ptr(), seq_len, batch,
-        h_dim, u, torch.cuda.current_stream().cuda_stream)
-  _build.check(status, 'ddsp_gru_bwd')
-  launches['bwd'] += 1
+    exchange = torch.empty((2, hidden // u, rows, hidden),
+                           dtype=torch.float32, device=dev)
+    dwh = torch.zeros((hidden, three_h), dtype=torch.float32, device=dev)
+    dbn = torch.zeros((hidden,), dtype=torch.float32, device=dev)
+    dh0 = torch.empty((batch, hidden), dtype=torch.float32, device=dev)
+    barriers = torch.zeros(len(groups), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for i, (b0, nb) in enumerate(groups):
+      status = lib.ddsp_gru_bwd(
+          g[:, b0:].data_ptr(), xp[:, b0:].data_ptr(),
+          h_prev[:, b0:].data_ptr(), wh.data_ptr(), bn.data_ptr(),
+          dxp[:, b0:].data_ptr(), exchange.data_ptr(), dwh.data_ptr(),
+          dbn.data_ptr(), dh0[b0:].data_ptr(), barriers[i:].data_ptr(),
+          seq_len, nb, batch, hidden, u, int(bf16), stream)
+      _build.check(status, 'ddsp_gru_bwd')
+      launches['bwd'] += 1
   return dxp, dwh, dbn, dh0
+
+
+def _launch_bwd(g, xp, h_prev, wh, bn):
+  """K2b: (dxp, dwh, dbn, dh0) on the route of this H and dtype; on the
+  bf16 cluster route as passes (a) and (b), at the padded H."""
+  hidden = wh.shape[0]
+  _cuda_check(xp.device)
+  if xp.dtype == torch.bfloat16:
+    route, h_pad = bf16_route(hidden)
+    if route == 'cluster':
+      xp, wh, bn, g, h_prev = pad_gru_inputs(h_pad, xp, wh, bn, g, h_prev)
+      dxp, dhn, dbn_tiles, dh0 = _launch_bwd_serial(g, xp, h_prev, wh, bn)
+      dwh, dbn = _launch_wgrad(h_prev, dxp, dhn, dbn_tiles)
+      # Slicing back is a no-op at h_pad = H.
+      return (unpad_gates(dxp, hidden), unpad_gates(dwh[:hidden], hidden),
+              dbn[:hidden].contiguous(), dh0[:, :hidden].contiguous())
+  return _launch_coop_bwd(g, xp, h_prev, wh, bn)
 
 
 class GruSequence(torch.autograd.Function):

@@ -15,7 +15,8 @@ fp32 operations (csrc/harmonic.cu says how). K1f splits each hop over
 threads that take several samples of it (4 at a training batch, 1 for one
 request; the C entry picks from the batch and the card's SMs), so one
 float4 of amplitudes feeds them all, and counts each sample's audible
-harmonics once. K1t keeps the sine chains and a 4-harmonic x 2-tap tile
+harmonics once; K1p does the same with the cosine chain and frames staged
+as h * A_h (its plain version sums in that order). K1t keeps the sine chains and a 4-harmonic x 2-tap tile
 of sums in registers, reduces each hop's partials by warp shuffles and a
 fixed-order pass through shared memory, and folds the taps onto frames
 itself: it writes dham [B, F, H], with no [B, F, 2, H] intermediate, the
@@ -154,12 +155,20 @@ def harmonic_bwd_phase_plain(phase0: torch.Tensor, f0_env: torch.Tensor,
                              sample_rate: int = 16000,
                              amp_resample_method: str = 'window'):
   """dphase[b, n] = g sum_h A_h h cos(h phase) mask: the plain version of
-  K1p."""
-  n_samples = phase0.shape[1]
-  coss, ratios = _sample_terms(phase0, f0_env, ham.shape[-1], sample_rate,
+  K1p, in its order: the frames scaled by h first (h * ham rounded once),
+  each tap's sum over harmonics, then g (fall acc0 + rise acc1)."""
+  batch, n_samples = phase0.shape
+  _, n_frames, n_harmonics = ham.shape
+  hop = n_samples // n_frames
+  coss, ratios = _sample_terms(phase0, f0_env, n_harmonics, sample_rate,
                                torch.cos)
-  amplitude_envelopes = resample(ham, n_samples, method=amp_resample_method)
-  return g * torch.sum(amplitude_envelopes * ratios * coss, dim=-1)
+  h_ham = ham * ratios
+  h_ham = torch.cat([h_ham, h_ham[:, -1:]], dim=1)  # the endpoint frame
+  coss = coss.reshape(batch, n_frames, hop, n_harmonics)
+  acc0 = torch.sum(coss * h_ham[:, :-1, None], dim=-1)
+  acc1 = torch.sum(coss * h_ham[:, 1:, None], dim=-1)
+  fall, rise = _tap_weights(hop, amp_resample_method, phase0.device)
+  return g * (fall * acc0 + rise * acc1).reshape(batch, n_samples)
 
 
 _PTR = ctypes.c_void_p

@@ -34,7 +34,7 @@ import torch
 from ddsp_torch.ops import fftconv as fftconv_ops
 from ddsp_torch.ops import spectral as spectral_ops
 from ddsp_torch.ops.core import DB_RANGE, power_to_db, safe_log
-from ddsp_torch.ops.oscillator import remove_above_nyquist
+from ddsp_torch.ops.oscillator import phase_cumsum, remove_above_nyquist
 from ddsp_torch.ops.resample import resample as resample_fn
 from ddsp_torch.parallel import mesh as mesh_lib
 from ddsp_torch.parallel.halo import neighbor_shift
@@ -57,7 +57,7 @@ def local_phase_cumsum(omega: Shards, mesh: Mesh) -> Shards:
   Returns each shard of the global cumulative phase (shard-count invariant
   up to float rounding of the carry, which is kept mod 2 pi).
   """
-  local = [torch.cumsum(w, dim=1) for w in omega]
+  local = [phase_cumsum(w) for w in omega]
   totals = [torch.remainder(x[:, -1:], _TWO_PI) for x in local]
   out = []
   for i, x in enumerate(local):

@@ -8,6 +8,12 @@ against the plain K2b (`gru_bwd_plain`) and the JAX package's Pallas VJP
 (interpret mode). The CUDA kernels themselves are held against these plain
 versions on the card by chip_smoke.py.
 
+The bf16 route of any H: `bf16_route` (the cluster kernels at the next size
+they take, or the cooperative kernels past 512 units), the zero padding of
+the cluster route (exact, bit for bit), the cooperative route's row-group
+plan, and the FastGRU of solo_instrument(rnn_channels=384) against the JAX
+package's.
+
 Tolerances, relative to the largest element of the reference:
 - float32, 1e-5: the split changes only the order of the float32 sums (dwh
   over T * B rows at once instead of step by step, dbn per tile first);
@@ -123,17 +129,159 @@ def test_cluster_shape(hidden, cluster):
   assert k_gru.cluster_shape(hidden) == (cluster, 32)
 
 
-@pytest.mark.parametrize('hidden', [32, 96, 1024])
-def test_wrapper_raises_on_a_hidden_size_it_does_not_take(hidden):
-  """The bf16 kernels' wrapper names the shape and refuses it before any
-  CUDA call (so this holds on the CPU); the plain path takes any H."""
-  xp, wh, bn, h0, g = _inputs(2, 3, hidden, seed=24)
+@pytest.mark.parametrize('hidden,route', [
+    (32, ('cluster', 64)), (96, ('cluster', 128)), (384, ('cluster', 512)),
+    (512, ('cluster', 512)), (1024, ('cooperative', 1024))])
+def test_bf16_route(hidden, route):
+  """bf16 K2 takes any H: up to 512 the cluster kernels at the next size
+  they take (zero-padded), past it the cooperative kernels."""
+  assert k_gru.bf16_route(hidden) == route
+  if route[0] == 'cluster':
+    assert route[1] in k_gru.CLUSTER_HIDDEN
+    assert k_gru.cluster_shape(route[1])[0] <= 16
+
+
+def _matmul_in_sequence(a, b):
+  """a @ b for 2-D a, b, each output summed over K one term at a time in
+  index order, whatever K is."""
+  out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+  for k in range(a.shape[1]):
+    out += a[:, k:k + 1] * b[k:k + 1]
+  return out
+
+
+@pytest.mark.parametrize('hidden,h_pad', [(96, 128), (384, 512)])
+def test_zero_padding_is_exact(hidden, h_pad, monkeypatch):
+  """The padding of the cluster route changes no bit: in bf16 plain, the
+  padded run's forward and its four backward outputs, sliced back, equal
+  the unpadded ones, and the padded units stay exactly 0.
+
+  The products run in index order over K: MKL's sgemm blocks K (at
+  K = 512 it sums in two blocks, at 384 in one), which moves the last bit
+  of a sum by its own choice of order (1.5e-5 at H = 384), not by the
+  padding; the padded terms themselves add exact zeros."""
+  monkeypatch.setattr(torch.Tensor, '__matmul__', _matmul_in_sequence)
+  xp, wh, bn, h0, g = _inputs(3, 6, hidden, seed=25)
   g_t, xp_t, h_prev, wh_s, bn_t = _time_major(xp, wh, bn, h0, g,
                                               torch.bfloat16)
   h0_t = torch.from_numpy(h0)
-  with pytest.raises(ValueError, match=f'H={hidden}'):
-    k_gru._launch_fwd(xp_t, wh_s, bn_t, h0_t)
-  with pytest.raises(ValueError, match=f'H={hidden}'):
-    k_gru._launch_bwd(g_t, xp_t, h_prev, wh_s, bn_t)
-  ys = k_gru.gru_sequence(xp_t, torch.from_numpy(wh), bn_t, h0_t)
-  assert ys.shape == (3, 2, hidden) and torch.isfinite(ys).all()
+  ys = k_gru.gru_sequence_plain(xp_t, wh_s, bn_t, h0_t)
+  want = k_gru.gru_bwd_plain(g_t, xp_t, h_prev, wh_s, bn_t)
+  xp_p, wh_p, bn_p, h0_p, g_p = k_gru.pad_gru_inputs(h_pad, xp_t, wh_s, bn_t,
+                                                     h0_t, g_t)
+  assert xp_p.shape[-1] == 3 * h_pad and wh_p.shape == (h_pad, 3 * h_pad)
+  ys_p = k_gru.gru_sequence_plain(xp_p, wh_p, bn_p, h0_p)
+  assert torch.equal(ys_p[..., :hidden], ys)
+  assert torch.count_nonzero(ys_p[..., hidden:]) == 0
+  h_prev_p = k_gru.h_prev_stream(h0_p, ys_p, torch.bfloat16)
+  assert torch.equal(h_prev_p, k_gru.pad_gru_inputs(
+      h_pad, xp_t, wh_s, bn_t, h_prev)[3])
+  dxp, dwh, dbn, dh0 = k_gru.gru_bwd_plain(g_p, xp_p, h_prev_p, wh_p, bn_p)
+  got = (k_gru.unpad_gates(dxp, hidden),
+         k_gru.unpad_gates(dwh[:hidden], hidden), dbn[:hidden],
+         dh0[:, :hidden])
+  for a, b, what in zip(got, want, GRADS):
+    assert a.dtype == b.dtype and torch.equal(a, b), what
+  for t in (dbn[hidden:], dh0[:, hidden:], dwh[hidden:],
+            dwh.unflatten(-1, (3, h_pad))[..., hidden:],
+            dxp.unflatten(-1, (3, h_pad))[..., hidden:]):
+    assert torch.count_nonzero(t) == 0
+
+
+@pytest.mark.parametrize('hidden', [96, 512])
+def test_cluster_route_pads_and_slices_back(hidden, monkeypatch):
+  """The wrappers' glue of the cluster route on the CPU, with the plain
+  versions standing in for the kernels (which see only H in
+  CLUSTER_HIDDEN): K2f and both K2b passes through `_launch_fwd` and
+  `_launch_bwd` give what the plain versions give at H (the forward bit
+  for bit, the backward at the bf16 tolerance of the split)."""
+  def cluster_only(fn):
+    def run(*args):
+      assert args[-1].shape[-1] in k_gru.CLUSTER_HIDDEN
+      return fn(*args)
+    return run
+
+  monkeypatch.setattr(k_gru, '_cuda_check', lambda device: None)
+  monkeypatch.setattr(k_gru, '_launch_cluster_fwd',
+                      lambda xp, wh, bn, h0: k_gru.gru_sequence_plain(
+                          xp, wh, bn, cluster_only(lambda t: t)(h0)))
+  monkeypatch.setattr(k_gru, '_launch_bwd_serial',
+                      cluster_only(k_gru.gru_bwd_serial_plain))
+  monkeypatch.setattr(k_gru, '_launch_wgrad', k_gru.gru_wgrad_plain)
+  xp, wh, bn, h0, g = _inputs(3, 5, hidden, seed=27)
+  g_t, xp_t, h_prev, wh_s, bn_t = _time_major(xp, wh, bn, h0, g,
+                                              torch.bfloat16)
+  h0_t = torch.from_numpy(h0)
+  ys = k_gru._launch_fwd(xp_t, wh_s, bn_t, h0_t)
+  assert torch.equal(ys, k_gru.gru_sequence_plain(xp_t, wh_s, bn_t, h0_t))
+  got = k_gru._launch_bwd(g_t, xp_t, h_prev, wh_s, bn_t)
+  want = k_gru.gru_bwd_plain(g_t, xp_t, h_prev, wh_s, bn_t)
+  for a, b, what in zip(got, want, GRADS):
+    assert a.shape == b.shape and a.dtype == b.dtype, what
+    _scaled_close(a.float().numpy(), b.float().numpy(),
+                  RTOL[torch.bfloat16], what)
+
+
+def _smem_fits(budget):
+  """A stand-in for the occupancy query: a block of u units and `rows`
+  carries fits when u * (1000 + rows) <= budget."""
+  return lambda u, rows: u * (1000 + rows) <= budget
+
+
+@pytest.mark.parametrize('hidden,batch,budget,plan', [
+    (1024, 16, 8 * 1016, (8, 16)),   # one launch: 128 blocks of 8 units
+    (1024, 40, 8 * 1016, (8, 10)),   # 40 rows do not fit: groups of 10
+    (1024, 3, 8 * 1002, (8, 2)),     # halved and rounded up: 2 rows
+    (768, 40, 10**6, (6, 40)),       # the smallest u with <= 132 blocks
+])
+def test_cooperative_plan(hidden, batch, budget, plan):
+  """The cooperative route's plan: the smallest u whose H / u blocks fit
+  one per SM (132 SMs), rows halved until a block fits."""
+  assert k_gru.plan_cooperative(hidden, batch, 132, _smem_fits(budget)) == plan
+
+
+def test_cooperative_plan_raises_where_one_row_does_not_fit():
+  with pytest.raises(RuntimeError, match='H=1024'):
+    k_gru.plan_cooperative(1024, 16, 132, _smem_fits(8 * 1000))
+
+
+def test_solo_instrument_384_gru_matches_the_jax_fast_gru():
+  """solo_instrument(rnn_channels=384)'s FastGRU (bf16) on the CPU against
+  the JAX package's FastGRU, which takes its Pallas kernel at H = 384 (a
+  multiple of 128), in interpret mode: values and the gradients of every
+  parameter, at the bf16 tolerances of tests/test_torch_kernels.py."""
+  from ddsp_tpu.nn.layers import FastGRU as JaxFastGRU
+  from ddsp_torch.utils import build_model, load_jax_params
+  port = build_model('solo_instrument', device='cpu', rnn_channels=384,
+                     seed=0).decoder.rnn.FastGRU_0
+  assert (port.wh.shape, port.dtype) == ((384, 1152), torch.bfloat16)
+  rng = np.random.RandomState(26)
+  x = rng.randn(2, 8, 1024).astype(np.float32)
+  jax_gru = JaxFastGRU(dims=384, compute_dtype='bfloat16', use_pallas=True)
+  params = jax.tree_util.tree_map(np.asarray, jax_gru.init(
+      jax.random.PRNGKey(0), jnp.asarray(x))['params'])
+  params['bi'] = (rng.randn(1152) * 0.1).astype(np.float32)
+  params['bn'] = (rng.randn(384) * 0.1).astype(np.float32)
+  load_jax_params(port, params)
+  g = rng.randn(2, 8, 384).astype(np.float32)
+
+  def jax_loss(p):
+    ys, h = jax_gru.apply({'params': p}, jnp.asarray(x), return_state=True)
+    return jnp.sum(ys * g) + jnp.sum(h * g[:, -1]), (ys, h)
+
+  (_, (ys_j, hf_j)), grads_j = jax.value_and_grad(jax_loss, has_aux=True)(
+      jax.tree_util.tree_map(jnp.asarray, params))
+  ys_t, hf_t = port(torch.from_numpy(x), return_state=True)
+  loss = (ys_t * torch.from_numpy(g)).sum() + (
+      hf_t * torch.from_numpy(g[:, -1])).sum()
+  grads_t = dict(zip(('wi', 'wh', 'bi', 'bn'), torch.autograd.grad(
+      loss, [port.wi, port.wh, port.bi, port.bn])))
+  np.testing.assert_allclose(ys_t.detach().numpy(), np.asarray(ys_j),
+                             atol=5e-2)
+  np.testing.assert_allclose(hf_t.detach().numpy(), np.asarray(hf_j),
+                             atol=5e-2)
+  for name, got in grads_t.items():
+    a = got.numpy().astype(np.float64).ravel()
+    b = np.asarray(grads_j[name], np.float64).ravel()
+    _scaled_close(a, b, 2e-2, name)
+    assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.999, name
