@@ -32,6 +32,15 @@ Phases (any failed check exits non-zero before the result lines):
   4. serve 4 requests of 4 s through the full-width solo_instrument
      autoencoder (AutoencoderInference on a params-format export), check the
      audio, and check that K1f and K2f carried the path;
+  4b. VST streaming: the full-width vst preset from its own params-format
+     export, 250 hops (5 s) of a 440 Hz tone through VSTExtractFeatures ->
+     VSTStatelessPredictControls -> VSTSynthesize with the state and the
+     phase carried on the card; check every hop, the state, VSTPredictControls
+     and reset() bit for bit, the launches (K2f once a hop on its float32
+     route, no other kernel), the phase carry against one synthesis of the
+     whole span, the stream against the port on the CPU, and the whole-clip
+     forward (K2f once on its bf16 route); print per-hop latency against the
+     20 ms hop period and K2f's one-hop entry (GRUCell beside it);
   5. the synthesis chain (Harmonic + FilteredNoise + Add + Reverb, batch 16,
      4 s) forward and gradient with respect to every control, f0 included:
      the path of K1p;
@@ -862,6 +871,441 @@ def phase_serve(torch, export_dir):
   print(f'  GPU vs CPU port, request 1: relative L2 {rel:.3e}')
   check(rel <= E2E_REL_L2, f'GPU path within {E2E_REL_L2} of the CPU path')
   return port, reqs, launches
+
+
+# The VST streaming path (phase 4b): the vst preset at full width, streamed
+# hop by hop as a plugin runs it (ddsp_tpu/infer/inference.py:172-423).
+VST_HOP = 320              # 16 kHz / 50 frames per second
+VST_FRAME = 1024
+VST_HOPS = 250             # 5 s
+VST_WARMUP_HOPS = 10
+VST_HOP_PERIOD_MS = 1e3 * VST_HOP / SR  # 20 ms: a hop is due every period
+VST_CLIP_SAMPLES = 4 * SR + VST_HOP     # the preset's clip: 4 s + one hop
+VST_CLIP_FRAMES = VST_CLIP_SAMPLES // VST_HOP + 1  # centered framing: 202
+# The vst preset as it is: rnn_channels 512, ch 256, 60 harmonics, 65 noise
+# bands, a 24000-tap FilteredNoiseReverb (ddsp_tpu/configs/presets.py:154).
+VST_KWARGS = {}
+# The streamed state and audio on the card against the port on the CPU over
+# the same 250 hops and noise buffer. The state: the GRU runs float32 on
+# both devices at T = 1, fed by bf16 FC stacks whose outputs the two
+# devices may round apart where a float32 sum lands on a bf16 rounding
+# boundary (2^-8 relative); none did on an H100 (4.2e-7), and 1e-3 leaves
+# room for one such element damped through the LayerNorm and the gates.
+VST_STATE_ATOL = 1e-3
+# The audio: CUDA divides a tensor by a scalar as a product with the
+# scalar's float32 reciprocal and the CPU divides, so the angular frequency
+# 2 pi f / sr rounds apart and a hop's phase (55 rad at 440 Hz) ends about
+# a float32 ulp from the CPU's; the carried phase is unwrapped
+# (~1257 rad after 250 hops, an ulp of 1.2e-4), and its sums round those
+# ulps into whole ulps of the carry now and then: 5.7e-3 rad after 250 hops
+# on an H100, the stream 1.7e-2 apart in relative L2 (harmonic h moves h
+# times the phase). The serving slice's tolerance.
+VST_STREAM_REL_L2 = E2E_REL_L2
+# 250 hops of constant controls (amplitude 0.5, the 60 harmonics flat, 18
+# of them below Nyquist at 440 Hz) streamed with the phase carried, against
+# one streaming_harmonic_synthesis of all 80000 samples. The carry is the
+# unwrapped phase, as the JAX package returns it: after 250 hops it is
+# ~1257 rad, and adding the next hop's wrapped phase to it rounds to
+# float32 (ulp 1.2e-4 rad) once per sample; on an H100 the two syntheses
+# end 2.35e-3 rad and 1.12e-2 apart.
+VST_CONTINUITY_ATOL = 2e-2
+
+
+# angular_cumsum's phase over the 80000 samples of the continuity check,
+# against a float64 sum: the float32 rounding of each sample (ulp 4.8e-7
+# below 2 pi) and of the chunks' carries; 9.1e-5 rad on the CPU.
+VST_CUMSUM_ATOL = 1e-3
+
+
+def angular_cumsum_float32(torch, omega, chunk=1000):
+  """ops/oscillator.py angular_cumsum with torch.cumsum's own accumulation
+  (float32 on the card) in place of phase_cumsum's float64 sums; omega
+  [1, n, 1] with n a multiple of chunk."""
+  phase = torch.cumsum(omega.view(1, -1, chunk, 1), dim=2)
+  offsets = torch.remainder(phase[:, :, -1:], 2 * np.pi)
+  offsets = torch.nn.functional.pad(offsets, (0, 0, 0, 0, 1, 0))[:, :-1]
+  offsets = torch.remainder(torch.cumsum(offsets, dim=1), 2 * np.pi)
+  return torch.remainder(phase + offsets, 2 * np.pi).view(omega.shape)
+
+
+def vst_tone(n_samples):
+  """A 440 Hz sine at -20 dBFS (RMS 0.1), float32."""
+  t = np.arange(n_samples) / SR
+  return (0.1 * np.sqrt(2.0) * np.sin(2 * np.pi * 440.0 * t)).astype(
+      np.float32)
+
+
+def write_vst_export(torch, export_dir):
+  """A params-format export of the vst preset (VST_KWARGS: its own widths,
+  with its reverb), weights drawn from torch.Generator(seed 0)."""
+  from ddsp_torch.utils import build_model
+  os.makedirs(export_dir, exist_ok=True)
+  model = build_model('vst', device='cpu', seed=0, **VST_KWARGS)
+  with open(os.path.join(export_dir, 'operative_spec.json'), 'w') as f:
+    json.dump({'preset': 'vst', 'kwargs': VST_KWARGS}, f)
+  np.savez(os.path.join(export_dir, 'params.npz'),
+           **{k.replace('.', '/'): v.detach().numpy()
+              for k, v in model.named_parameters()})
+
+
+def vst_stream(torch, dev, extract, predict, synth, frames, sync_stages,
+               state=None):
+  """Stream the hops of `frames` [n, 1024] through extract -> predict ->
+  synth, carrying the state and the phase on `dev`. predict takes the
+  state when `state` is given (stateless), else carries its own.
+
+  Returns {'audio': [n, 320], 'controls': [(amps, hd, noise)], 'state':
+  the last state (stateless), 'states': the first and last state, 'ms':
+  {stage: [ms per hop]}}. With sync_stages the device is synchronized after
+  every stage and each stage is timed; else once per hop, as a plugin
+  synchronizes to hand its audio over (on the CPU there is nothing to
+  synchronize)."""
+  from ddsp_torch.nn.preprocessing import scale_f0_hz
+  cuda = dev.type == 'cuda'
+  sync = torch.cuda.synchronize if cuda else (lambda: None)
+  f0_hz = torch.full((1,), 440.0, device=dev)
+  f0_scaled = scale_f0_hz(f0_hz)
+  phase = synth.initial_phase()
+  prev = None
+  audio, controls, states = [], [], []
+  ms = {'extract': [], 'predict': [], 'synth': [], 'total': []}
+  for frame in frames:
+    t0 = time.perf_counter()
+    _, _, _, pw_scaled = extract(frame)
+    if sync_stages:
+      sync()
+      t1 = time.perf_counter()
+      ms['extract'].append(1e3 * (t1 - t0))
+    if state is None:
+      amps, hd, noise = predict(f0_scaled, pw_scaled)
+    else:
+      amps, hd, noise, state = predict(f0_scaled, pw_scaled, state)
+      if not states:
+        states.append(state)
+    if sync_stages:
+      sync()
+      t2 = time.perf_counter()
+      ms['predict'].append(1e3 * (t2 - t1))
+    if prev is None:
+      prev = (amps, hd)
+    hop, phase = synth(amps, prev[0], hd, prev[1], f0_hz, f0_hz, noise,
+                       phase)
+    sync()
+    t3 = time.perf_counter()
+    if sync_stages:
+      ms['synth'].append(1e3 * (t3 - t2))
+    ms['total'].append(1e3 * (t3 - t0))
+    prev = (amps, hd)
+    audio.append(hop)
+    controls.append((amps, hd, noise))
+  if state is not None:
+    states.append(state)
+  return {'audio': torch.stack(audio), 'controls': controls, 'state': state,
+          'states': states, 'ms': ms, 'phase': phase}
+
+
+def same_controls(torch, a, b):
+  """Whether two runs' controls are equal bit for bit, hop by hop."""
+  return all(torch.equal(x, y) for ca, cb in zip(a, b)
+             for x, y in zip(ca, cb))
+
+
+def k2f_one_hop_entry(torch, dev, predict, frame_state, launches):
+  """The kernels line's entry for K2f at one hop: T = 1, B = 1, H = 512,
+  float32 streams (the cooperative route), on the operands of one hop of
+  the stream (the GRU's input and state as the decoder hands them over).
+  Library: one torch.nn.GRUCell step on the same operands (weight_ih = the
+  bf16-rounded wi^T, bias_ih = bi, weight_hh = wh^T, bias_hh = [0, 0,
+  bn]); it includes the input projection, which the port runs as a GEMM
+  beside K2f, so the port's whole FastGRU step is timed beside it."""
+  from ddsp_torch.kernels import gru as kg
+  gru = predict.model.decoder.rnn.FastGRU_0
+  seen = {}
+
+  def grab(module, args, kwargs):
+    seen['x'], seen['h0'] = args[0], kwargs['initial_state']
+
+  hook = gru.register_forward_pre_hook(grab, with_kwargs=True)
+  predict(*frame_state)
+  hook.remove()
+  with torch.no_grad():
+    x, h0 = seen['x'], seen['h0'].float().contiguous()
+    hidden = gru.dims
+    wi = gru.wi.to(gru.dtype).float()
+    xp = (x.to(gru.dtype).float() @ wi + gru.bi).transpose(0, 1).contiguous()
+    wh, bn = gru.wh.detach().contiguous(), gru.bn.detach().contiguous()
+    ys = kg._launch_fwd(xp, wh, bn, h0)
+    err = (ys - kg.gru_sequence_plain(xp, wh, bn, h0)).abs().max().item()
+    check(err <= K2_ATOL['float32'] and tuple(ys.shape) == (1, 1, hidden),
+          f"K2f at one hop (T = 1, B = 1, H = {hidden}, float32, a non-zero "
+          f"h0) within {K2_ATOL['float32']} of its plain version")
+    cell = torch.nn.GRUCell(x.shape[-1], hidden).to(dev)
+    cell.weight_ih.copy_(wi.t())
+    cell.bias_ih.copy_(gru.bi)
+    cell.weight_hh.copy_(wh.t())
+    cell.bias_hh.zero_()
+    cell.bias_hh[2 * hidden:].copy_(bn)
+    x2 = x[:, 0].to(gru.dtype).float()
+    cell_err = (cell(x2, h0) - ys[0]).abs().max().item()
+    check(cell_err <= K2_ATOL['float32'],
+          f"torch.nn.GRUCell yardstick computes the same step (max |err| "
+          f"{cell_err:.3e})")
+    entry = kernel_entry(
+        torch, 'gru_sequence forward, one hop (K2f, float32, T = 1, B = 1)',
+        'ddsp_torch/csrc/gru.cu', 'ddsp_tpu/ops/pallas_kernels/gru.py:124',
+        launches['K2f'], err, lambda: kg._launch_fwd(xp, wh, bn, h0),
+        lambda: kg.gru_sequence_plain(xp, wh, bn, h0),
+        *k2_bound(xp, wh, 'float32'),
+        device_ms(torch, lambda: cell(x2, h0), 200), 200, 50)
+    entry['library'] = ('torch.nn.GRUCell, one step with its input '
+                        'projection')
+    entry['library_call_ms'] = cuda_ms(torch, lambda: cell(x2, h0), 200)
+    entry['port_step_ms'] = device_ms(
+        torch, lambda: gru(x, initial_state=h0, return_state=True), 200)
+    entry['launches_per_hop'] = launches['K2f'] / VST_HOPS
+  entry['launches_by_path'] = {'vst': launches['K2f']}
+  print_entry(entry)
+  print(f"  one FastGRU step of the port (projection GEMM + K2f): "
+        f"{entry['port_step_ms']:.4f} ms device; GRUCell per call with host "
+        f"{entry['library_call_ms']:.4f} ms", flush=True)
+  return entry
+
+
+def latency_line(name, values):
+  v = np.asarray(values)
+  return (f'{name} median {np.median(v):.4f} ms, p99 '
+          f'{np.percentile(v, 99):.4f} ms, max {v.max():.4f} ms')
+
+
+def phase_vst(torch, dev, export_dir, profile=False):
+  """Stream 250 hops of a 440 Hz tone through the vst preset at full width
+  (extract -> stateless predict -> synthesize), check the hops, the state,
+  the stateful class, the launches, the phase carry, the CPU port, and the
+  whole-clip forward; report per-hop latency and K2f's one-hop entry."""
+  from ddsp_torch import infer
+  from ddsp_torch.infer.inference import load_params
+  from ddsp_torch.kernels import gru as kg
+  from ddsp_torch.ops import oscillator as osc
+  from ddsp_torch.utils import load_jax_params, registry
+  write_vst_export(torch, export_dir)
+  spec_model = registry.model_from_spec(export_dir, device='cpu')
+  reverb_length = spec_model.processor_group.reverb.reverb_length
+  print(f'[4b] VST streaming: the vst preset (GRU '
+        f'{spec_model.decoder.rnn.FastGRU_0.dims}, '
+        f'{N_HARMONICS} harmonics, {VST_HOPS} hops of {VST_HOP} samples, '
+        f'{reverb_length}-tap reverb on the whole clip)', flush=True)
+  tone = vst_tone(VST_FRAME + (VST_HOPS - 1) * VST_HOP)
+  frames = np.stack([tone[i * VST_HOP:i * VST_HOP + VST_FRAME]
+                     for i in range(VST_HOPS)])
+  where = {}
+  for name in ('cuda', 'cpu'):
+    d = dev if name == 'cuda' else torch.device('cpu')
+    where[name] = {
+        'dev': d, 'frames': torch.from_numpy(frames).to(d),
+        'extract': infer.VSTExtractFeatures(export_dir, compute_f0=False,
+                                            device=d),
+        'predict': infer.VSTStatelessPredictControls(export_dir, device=d),
+        'synth': infer.VSTSynthesize(export_dir, device=d)}
+  gpu, cpu = where['cuda'], where['cpu']
+  cpu['synth'].noise_signal = gpu['synth'].noise_signal.cpu()
+
+  def run(side, sync_stages, stateful=None):
+    predict = stateful or side['predict']
+    return vst_stream(torch, side['dev'], side['extract'], predict,
+                      side['synth'], side['frames'], sync_stages,
+                      None if stateful else predict.initial_state())
+
+  # K2f's routes at one hop and at one batch row, with a non-zero h0: the
+  # float32 cooperative route (every hop) and the bf16 cluster route (the
+  # whole clip's T >= 8 streams take it; here at T = 1).
+  for name, route in (('float32', 'cooperative'), ('bfloat16', 'cluster')):
+    xp, wh, bn, h0 = k2_inputs(torch, 1, getattr(torch, name), 21, dev,
+                               HIDDEN, 1)
+    reset_launches()
+    ys = kg.gru_sequence(xp, wh, bn, h0)
+    torch.cuda.synchronize()
+    n_fwd, n_coop = kg.launches['fwd'], kg.launches['fwd_cooperative']
+    err = (ys - kg.gru_sequence_plain(xp, wh, bn, h0)).abs().max().item()
+    print(f'  K2f {name} T=1 B=1 H={HIDDEN} (h0 |max| '
+          f'{h0.abs().max().item():.3f}): max |err| {err:.3e}; launches '
+          f'{n_fwd}, cooperative {n_coop}', flush=True)
+    check(err <= K2_ATOL[name] and n_fwd == 1 and
+          n_coop == (1 if route == 'cooperative' else 0),
+          f'K2f {name} at T = 1, B = 1 within {K2_ATOL[name]}, one launch '
+          f'on the {route} route')
+
+  # Warm-up (not counted): the first launches, K2f's plan, cuFFT's plans.
+  run({**gpu, 'frames': gpu['frames'][:VST_WARMUP_HOPS]}, True)
+  reset_launches()
+  stream = run(gpu, True)
+  torch.cuda.synchronize()
+  launches = read_launches()
+  n_coop = kg.launches['fwd_cooperative']
+  print(f'  launches over {VST_HOPS} hops: {launches}, K2f on the '
+        f'cooperative route {n_coop}', flush=True)
+  audio = stream['audio']
+  per_hop_ok = all(
+      tuple(a.shape) == (VST_HOP,) and torch.isfinite(a).all().item() and
+      a.abs().max().item() > 0 for a in audio)
+  check(per_hop_ok, f'every hop is [{VST_HOP}], finite and not all zero')
+  first, last = stream['states']
+  moved = (last - first).abs().max().item()
+  print(f'  state: |first| {first.abs().max().item():.4f}, |last - first| '
+        f'{moved:.4f}; audio rms {audio.pow(2).mean().sqrt().item():.4f}')
+  check(moved > 1e-3, 'the GRU state moves over the stream')
+  check(launches['K2f'] == VST_HOPS and n_coop == VST_HOPS,
+        'K2f launched once per predict call, on the float32 (cooperative) '
+        'route')
+  check(all(launches[k] == 0 for k in ('K1f', 'K1t', 'K1p', 'K2b', 'K2b_w',
+                                       'K3')),
+        'no K1f, K1t, K1p, K2b, K2b_w or K3 launch on the streaming path')
+  print('  (K1f: the streaming synth is harmonic_oscillator_bank, plain '
+        'torch as the JAX package\'s jnp; the JAX package reaches no Pallas '
+        'kernel per hop)')
+
+  # As a plugin runs it: the stateful class, one synchronization per hop.
+  stateful = infer.VSTPredictControls(export_dir, device=dev)
+  plugin = run(gpu, False, stateful)
+  check(same_controls(torch, plugin['controls'], stream['controls']) and
+        torch.equal(plugin['audio'], audio),
+        'VSTPredictControls repeats the stateless run bit for bit')
+  stateful.reset()
+  again = run(gpu, False, stateful)
+  check(same_controls(torch, again['controls'], stream['controls']),
+        'after reset() VSTPredictControls repeats that run bit for bit')
+  for name in ('extract', 'predict', 'synth', 'total'):
+    print('  per hop, ' + latency_line(
+        f'{name} (synchronized after each stage)', stream['ms'][name]))
+  total = plugin['ms']['total'] + again['ms']['total']
+  print('  per hop, ' + latency_line(
+      f'total with one synchronization per hop ({len(total)} hops)', total) +
+        f'; the hop period is {VST_HOP_PERIOD_MS:.1f} ms (median '
+        f'{100 * np.median(total) / VST_HOP_PERIOD_MS:.1f} % of it)',
+        flush=True)
+  if profile:
+    profile_steps(torch, lambda: run({**gpu, 'frames': gpu['frames'][:1]},
+                                     False),
+                  20, float(np.median(total)), 'hop')
+
+  # Phase continuity: constant controls streamed with the phase carried,
+  # against one synthesis of the whole span.
+  harmonic = infer.VSTSynthesizeHarmonic(export_dir, device=dev)
+  amps = torch.full((1,), 0.5, device=dev)
+  hd = torch.full((N_HARMONICS,), 1.0 / N_HARMONICS, device=dev)
+  f0 = torch.full((1,), 440.0, device=dev)
+  phase = harmonic.initial_phase()
+  hops = []
+  for _ in range(VST_HOPS):
+    hop, phase = harmonic(amps, amps, hd, hd, f0, f0, phase)
+    hops.append(hop)
+  streamed = torch.cat(hops)
+  whole, whole_phase = osc.streaming_harmonic_synthesis(
+      torch.full((1, 2, 1), 440.0, device=dev),
+      torch.full((1, 2, 1), 0.5, device=dev),
+      torch.full((1, 2, N_HARMONICS), 1.0 / N_HARMONICS, device=dev),
+      torch.zeros((1, 1, 1), device=dev), n_samples=VST_HOPS * VST_HOP,
+      sample_rate=SR)
+  cont_err = (streamed - whole[0]).abs().max().item()
+  phase_err = abs(np.angle(np.exp(1j * (phase.double().item() -
+                                        whole_phase.double().item()))))
+  edges = torch.diff(streamed).abs()
+  print(f'  phase carry: {VST_HOPS} streamed hops vs one synthesis of '
+        f'{VST_HOPS * VST_HOP} samples: max |err| {cont_err:.3e} (atol '
+        f'{VST_CONTINUITY_ATOL}), final phase {phase.item():.4f} rad, '
+        f'{phase_err:.3e} rad from the whole span\'s (mod 2 pi); largest '
+        f'step at a hop edge {edges[VST_HOP - 1::VST_HOP].max().item():.4f}, '
+        f'within hops {edges.max().item():.4f}', flush=True)
+  check(cont_err <= VST_CONTINUITY_ATOL,
+        f'streamed hops match one synthesis within {VST_CONTINUITY_ATOL}: no '
+        'phase jump at the hop edges')
+
+  # The angular cumsum over the span on the card: phase_cumsum's float64
+  # sums, and float32 sums (torch.cumsum of float32 on the card) in the
+  # same chunked scheme, against a float64 phase.
+  omega = torch.full((1, VST_HOPS * VST_HOP, 1), 440.0 * 2 * np.pi / SR,
+                     device=dev)
+  exact = torch.cumsum(omega.double(), dim=1)
+  cumsum_err = {}
+  for name, phase64 in (
+      ('float64 sums', osc.angular_cumsum(omega).double()),
+      ('float32 sums', angular_cumsum_float32(torch, omega).double())):
+    apart = torch.remainder(phase64 - exact + np.pi, 2 * np.pi) - np.pi
+    cumsum_err[name] = apart.abs().max().item()
+  print(f'  angular cumsum of {VST_HOPS * VST_HOP} samples at 440 Hz on the '
+        f"card: {cumsum_err['float64 sums']:.3e} rad from a float64 phase "
+        f"(ops/oscillator.py); float32 sums {cumsum_err['float32 sums']:.3e}"
+        ' rad', flush=True)
+  check(cumsum_err['float64 sums'] <= VST_CUMSUM_ATOL,
+        f'angular_cumsum on the card within {VST_CUMSUM_ATOL} rad of a '
+        'float64 phase')
+
+  # The same 250 hops through the port on the CPU.
+  ref = run(cpu, False)
+  state_err = (stream['state'].cpu() - ref['state']).abs().max().item()
+  out, want = stream['audio'].cpu().flatten(), ref['audio'].flatten()
+  stream_rel = ((out - want).norm() / want.norm()).item()
+  phase_apart = abs(stream['phase'].item() - ref['phase'].item())
+  print(f'  GPU vs CPU port over {VST_HOPS} hops: state max |err| '
+        f'{state_err:.3e} (atol {VST_STATE_ATOL}), stream relative L2 '
+        f'{stream_rel:.3e} (rtol {VST_STREAM_REL_L2}), carried phase '
+        f'{phase_apart:.3e} rad apart', flush=True)
+  check(state_err <= VST_STATE_ATOL,
+        f'the streamed state within {VST_STATE_ATOL} of the CPU port')
+  check(stream_rel <= VST_STREAM_REL_L2,
+        f'the streamed audio within relative L2 {VST_STREAM_REL_L2} of the '
+        'CPU port')
+
+  # The whole clip: the vst model (bf16, with its reverb) from audio and f0.
+  clip = {}
+  params = load_params(export_dir)
+  gen = torch.Generator().manual_seed(5)
+  noise = {'filtered_noise': torch.rand((1, VST_CLIP_SAMPLES),
+                                        generator=gen) * 2 - 1,
+           'reverb': torch.rand((1, reverb_length), generator=gen) * 2 - 1}
+  features = {'audio': torch.from_numpy(vst_tone(VST_CLIP_SAMPLES))[None],
+              'f0_hz': torch.full((1, VST_CLIP_FRAMES), 440.0),
+              'f0_confidence': torch.ones((1, VST_CLIP_FRAMES))}
+  for name, d in (('cuda', dev), ('cpu', torch.device('cpu'))):
+    model = registry.model_from_spec(export_dir, device='cpu')
+    load_jax_params(model, params)
+    model.to(d).eval()
+    reset_launches()
+    with torch.no_grad():
+      clip[name] = model({k: v.to(d) for k, v in features.items()},
+                         training=False,
+                         noise={k: v.to(d) for k, v in noise.items()})
+    if name == 'cuda':
+      torch.cuda.synchronize()
+      clip_launches = read_launches()
+      clip_coop = kg.launches['fwd_cooperative']
+  out = clip['cuda']['audio_synth'].cpu()
+  want = clip['cpu']['audio_synth']
+  clip_rel = ((out - want).norm() / want.norm()).item()
+  print(f'  whole clip ({VST_CLIP_SAMPLES} samples, {VST_CLIP_FRAMES} '
+        f'frames): audio {tuple(out.shape)}, launches {clip_launches}, K2f '
+        f'on the cooperative route {clip_coop}; GPU vs CPU port relative '
+        f'L2 {clip_rel:.3e}', flush=True)
+  print(f'  (K1f: the clip\'s Harmonic renders {VST_CLIP_SAMPLES} samples '
+        f'from {VST_CLIP_FRAMES} frames, not a whole number of samples a '
+        'frame, so it takes the plain path, as the JAX package takes its '
+        'jnp path: harmonic_kernel_supported is False there)')
+  check(tuple(out.shape) == (1, VST_CLIP_SAMPLES - VST_HOP) and
+        torch.isfinite(out).all().item() and out.abs().max().item() > 0,
+        f'the whole clip after Crop is [1, {VST_CLIP_SAMPLES - VST_HOP}], '
+        'finite, not all zero')
+  check(clip_launches['K2f'] == 1 and clip_coop == 0 and
+        clip_launches['K1f'] == 0,
+        'the whole clip launches K2f once, on the bf16 cluster route, and '
+        'no K1f')
+  check(clip_rel <= E2E_REL_L2,
+        f'the whole clip on the card within relative L2 {E2E_REL_L2} of the '
+        'CPU port')
+
+  from ddsp_torch.nn.preprocessing import scale_f0_hz
+  last_hop = (scale_f0_hz(torch.full((1,), 440.0, device=dev)),
+              gpu['extract'](gpu['frames'][-1])[3], stream['state'])
+  entry = k2f_one_hop_entry(torch, dev, gpu['predict'], last_hop, launches)
+  return launches, entry
 
 
 def phase_chain(torch, dev):
@@ -1814,8 +2258,8 @@ def library_gru_ms(torch, dev, hidden=HIDDEN):
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--profile', action='store_true',
-                      help='also print per-kernel device time over 3 requests '
-                      'and over 3 training steps')
+                      help='also print per-kernel device time over 3 requests, '
+                      '20 VST hops and 3 training steps')
   args = parser.parse_args(argv)
   import torch
   if not torch.cuda.is_available():
@@ -1842,6 +2286,8 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as work_dir:
       write_export(torch, work_dir)
       port, reqs, launches['serve'] = phase_serve(torch, work_dir)
+      launches['vst'], vst_entry = phase_vst(
+          torch, dev, os.path.join(work_dir, 'vst'), args.profile)
       launches['chain'], _ = phase_chain(torch, dev)
       launches['train'], dense_ms = phase_train(torch, dev, work_dir,
                                                 args.profile)
@@ -1850,6 +2296,7 @@ def main(argv=None):
         torch, dev, dense_ms, args.profile)
     kernels = phase_report(torch, port, reqs, launches, dev, args.profile)
     kernels.append(k3_entry(torch, launches, k3_per_step, sp_mesh, dev))
+    kernels.append(vst_entry)
   except CheckFailed as e:
     print(f'chip_smoke: check failed: {e}', file=sys.stderr)
     return 1

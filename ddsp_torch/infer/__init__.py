@@ -1,5 +1,12 @@
 """Inference wrappers (port of ddsp_tpu.infer)."""
 
-from ddsp_torch.infer.inference import AutoencoderInference, load_params
+from ddsp_torch.infer.inference import (AutoencoderInference,
+                                        VSTExtractFeatures,
+                                        VSTPredictControls,
+                                        VSTStatelessPredictControls,
+                                        VSTSynthesize, VSTSynthesizeHarmonic,
+                                        VSTSynthesizeNoise, load_params)
 
-__all__ = ['AutoencoderInference', 'load_params']
+__all__ = ['AutoencoderInference', 'VSTExtractFeatures', 'VSTPredictControls',
+           'VSTStatelessPredictControls', 'VSTSynthesize',
+           'VSTSynthesizeHarmonic', 'VSTSynthesizeNoise', 'load_params']

@@ -33,8 +33,10 @@ from ddsp_torch.kernels import _build
 # kernels its path went through.
 # 'fwd' and 'bwd' count K2f and K2b launches (one per call, or one per row
 # group on the cooperative route), 'wgrad' K2b's weight-gradient pass (the
-# cluster route only).
-launches: Dict[str, int] = {'fwd': 0, 'bwd': 0, 'wgrad': 0}
+# cluster route only); 'fwd_cooperative' counts the K2f launches of 'fwd'
+# that took the cooperative route (float32 streams, or bf16 past 512 units).
+launches: Dict[str, int] = {'fwd': 0, 'bwd': 0, 'wgrad': 0,
+                            'fwd_cooperative': 0}
 
 # The bf16 cluster kernels: one cluster per tile of TILE_ROWS batch rows,
 # u = UNITS_PER_CTA hidden units per CTA, so H / u CTAs per cluster; they
@@ -434,6 +436,7 @@ def _launch_coop_fwd(xp, wh, bn, h0):
                                 stream)
       _build.check(status, 'ddsp_gru_fwd')
       launches['fwd'] += 1
+      launches['fwd_cooperative'] += 1
   return ys
 
 

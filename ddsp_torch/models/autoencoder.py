@@ -67,7 +67,9 @@ class Autoencoder(Model):
                           noise: Optional[torch.Tensor] = None,
                           generator: Optional[torch.Generator] = None
                           ) -> Tuple[TensorDict, TensorDict]:
-    """Predictions and losses; noise/generator feed FilteredNoise."""
+    """Predictions and losses; noise/generator feed the noise processors
+    (a noise tensor goes to each, a dict {node name: tensor} to the one
+    named)."""
     features = self.encode(features, training=training)
     outputs = self.decode(features, training=training, noise=noise,
                           generator=generator)

@@ -188,11 +188,22 @@ class FastGRU(nn.Module):
   Reset-after convention (flax GRUCell): n = tanh(x W_in + b_in +
   r * (h W_hn + b_hn)). All T input projections are one GEMM (plain
   torch.matmul, differentiated by autograd); the recurrence is kernel K2f
-  on a CUDA tensor and its backward kernel K2b. In bf16 mode
-  the GEMM takes bf16 operands with float32 accumulation, and xp and wh
-  enter the recurrence as bf16 (the Pallas path's numerics,
-  ddsp_tpu/nn/layers.py:217-237).
+  on a CUDA tensor and its backward kernel K2b.
+
+  Stream dtype. In bf16 mode the GEMM takes bf16 operands with float32
+  accumulation. Where the JAX package runs its Pallas kernel
+  (ddsp_tpu/nn/layers.py:209-237: a TPU and gru_kernel_supported,
+  ddsp_tpu/ops/pallas_kernels/gru.py:84), xp and wh enter the recurrence
+  as bf16. Where it runs its lax.scan instead because the sequence is
+  shorter than MIN_BF16_STEPS (the same :84), xp stays float32 (the bf16
+  GEMM's float32 result, not cast back) and wh float32 (:239-253), so a
+  streaming decoder's T = 1 recurrence runs K2f's float32 route. The
+  clause `hidden % 128 == 0` of :84 is not followed: the port runs bf16
+  streams at every H (ROADMAP.md section 3).
   """
+
+  # ddsp_tpu/ops/pallas_kernels/gru.py:84 (`seq_len >= 8`).
+  MIN_BF16_STEPS = 8
 
   def __init__(self, in_features: int, dims: int = 512,
                compute_dtype: str = 'bfloat16'):
@@ -212,16 +223,25 @@ class FastGRU(nn.Module):
       self.bi.zero_()
       self.bn.zero_()
 
-  def forward(self, x: torch.Tensor, return_state: bool = False):
+  def forward(self, x: torch.Tensor,
+              initial_state: Optional[torch.Tensor] = None,
+              return_state: bool = False):
+    """x [batch, time, in] -> ys [batch, time, dims] float32, and the final
+    state [batch, dims] if return_state; initial_state [batch, dims] is
+    the carry's start (zeros if None)."""
     dt = self.dtype
     if dt != torch.float32:
       # Products of bf16 operands are exact in float32: this is a bf16 GEMM
-      # with float32 accumulation, and xp streams into K2 as bf16.
+      # with float32 accumulation.
       xp = x.to(dt).float() @ self.wi.to(dt).float() + self.bi
-      xp = xp.to(dt)
+      if x.shape[1] >= self.MIN_BF16_STEPS:
+        xp = xp.to(dt)  # bf16 streams: K2's bf16 route
     else:
       xp = x.float() @ self.wi + self.bi  # [batch, time, 3H]
-    h0 = x.new_zeros((x.shape[0], self.dims), dtype=torch.float32)
+    if initial_state is None:
+      h0 = x.new_zeros((x.shape[0], self.dims), dtype=torch.float32)
+    else:
+      h0 = initial_state.float()
     ys = gru_sequence(xp.transpose(0, 1).contiguous(), self.wh, self.bn,
                       h0).transpose(0, 1)
     if return_state:
@@ -246,3 +266,22 @@ class Rnn(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     return self.FastGRU_0(x).float()
+
+
+class StatelessRnn(nn.Module):
+  """One GRU layer (FastGRU_0) with its state passed in and out, for
+  streaming (port of ddsp_tpu/nn/layers.py:305, GRU only)."""
+
+  def __init__(self, in_features: int, dims: int = 512,
+               rnn_type: str = 'gru', compute_dtype: str = 'bfloat16'):
+    super().__init__()
+    if rnn_type != 'gru':
+      raise NotImplementedError(
+          f"ddsp_torch's StatelessRnn runs the FastGRU only, not "
+          f'{rnn_type!r}.')
+    self.FastGRU_0 = FastGRU(in_features, dims, compute_dtype)
+
+  def forward(self, x: torch.Tensor, state: torch.Tensor):
+    """x [batch, time, ch], state [batch, dims] -> (y [batch, time, dims],
+    new_state [batch, dims]), both float32."""
+    return self.FastGRU_0(x, initial_state=state, return_state=True)

@@ -71,7 +71,11 @@ class DAGModule(nn.Module):
     return self.run_dag(inputs, **kwargs)
 
   def run_dag(self, inputs: TensorDict, **kwargs) -> TensorDict:
-    """Run the dag; kwargs go to every processor node (e.g. noise=...)."""
+    """Run the dag; kwargs go to every processor node (e.g. noise=...).
+
+    A dict `noise` is {node name: tensor}: each processor gets its own
+    entry (None where there is none).
+    """
     outputs = dict(inputs)
     outputs['inputs'] = inputs
     module_outputs = {}
@@ -80,8 +84,11 @@ class DAGModule(nn.Module):
       module = getattr(self, name)
       node_inputs = [nested_lookup(key, outputs) for key in in_keys]
       if is_processor(module):
+        node_kwargs = dict(kwargs)
+        if isinstance(node_kwargs.get('noise'), dict):
+          node_kwargs['noise'] = node_kwargs['noise'].get(name)
         module_outputs = module(*node_inputs, return_outputs_dict=True,
-                                **kwargs)
+                                **node_kwargs)
       elif is_loss(module):
         module_outputs = module.get_losses_dict(*node_inputs, **kwargs)
       else:

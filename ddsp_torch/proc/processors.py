@@ -1,4 +1,4 @@
-"""Processor base class, ProcessorGroup, and the Add router.
+"""Processor base class, ProcessorGroup, and the Add and Crop processors.
 
 Port of ddsp_tpu/proc/processors.py. A Processor turns network outputs into
 controls (`get_controls`) and controls into a signal (`get_signal`).
@@ -75,3 +75,32 @@ class Add(Processor):
 
   def get_signal(self, signal_one, signal_two) -> torch.Tensor:
     return signal_one + signal_two
+
+
+class Crop(Processor):
+  """Trim the samples that padded frames added, from one or both ends.
+
+  One frame_size of samples goes in total: all from the start ('front'),
+  all from the end ('back'), or half from each ('center', the two
+  half-frames of centered framing, rounded down for odd sizes).
+  """
+
+  def __init__(self, frame_size: int = 1024, crop_location: str = 'back',
+               name: Optional[str] = None):
+    super().__init__(name)
+    self.frame_size = frame_size
+    self.crop_location = crop_location
+
+  def get_controls(self, audio) -> TensorDict:
+    return {'audio': audio}
+
+  def get_signal(self, audio) -> torch.Tensor:
+    half = int(self.frame_size // 2)
+    if self.crop_location == 'front':
+      return audio[:, 2 * half:]
+    if self.crop_location == 'center':
+      return audio[:, half:-half]
+    if self.crop_location == 'back':
+      return audio[:, :-2 * half]
+    raise ValueError(f'Unknown crop_location {self.crop_location!r}; '
+                     "expected 'front', 'center', or 'back'.")
