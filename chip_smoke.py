@@ -29,6 +29,12 @@ Phases (any failed check exits non-zero before the result lines):
      serial reverse-time kernel and the weight-gradient kernel, each against
      its own plain version; the clusters chosen; gradients through FastGRU
      and harmonic_synthesis on the card against the port on the CPU;
+  3c. K2b's weight-gradient kernel (TMA + wgmma, split K over a cluster per
+     output tile) against its plain version at H = 512, T = 1000, B in
+     {1, 16, 40, 128}, at H = 64 and through the padded H = 96 and 384,
+     with its plan and bit-equal repeats; K2f's step kernel (float32,
+     T = 1, no grid barrier) against its plain version at B in {1, 4, 40}
+     and H in {64, 512, 1024} with a non-zero h0;
   4. serve 4 requests of 4 s through the full-width solo_instrument
      autoencoder (AutoencoderInference on a params-format export), check the
      audio, and check that K1f and K2f carried the path;
@@ -36,11 +42,12 @@ Phases (any failed check exits non-zero before the result lines):
      export, 250 hops (5 s) of a 440 Hz tone through VSTExtractFeatures ->
      VSTStatelessPredictControls -> VSTSynthesize with the state and the
      phase carried on the card; check every hop, the state, VSTPredictControls
-     and reset() bit for bit, the launches (K2f once a hop on its float32
-     route, no other kernel), the phase carry against one synthesis of the
+     and reset() bit for bit, the launches (K2f once a hop on its step
+     kernel, no other kernel), the phase carry against one synthesis of the
      whole span, the stream against the port on the CPU, and the whole-clip
      forward (K2f once on its bf16 route); print per-hop latency against the
-     20 ms hop period and K2f's one-hop entry (GRUCell beside it);
+     20 ms hop period and K2f's one-hop entry (GRUCell and the cooperative
+     route beside it);
   5. the synthesis chain (Harmonic + FilteredNoise + Add + Reverb, batch 16,
      4 s) forward and gradient with respect to every control, f0 included:
      the path of K1p;
@@ -111,8 +118,9 @@ K2_ATOL = {'float32': 1e-4, 'bfloat16': 5e-2}
 K2_BWD_RTOL = {'float32': 1e-4, 'bfloat16': 2e-2}
 # K2b's weight-gradient pass against its plain version (one float32
 # matmul) on the same bf16 streams: exact products, float32 sums of up to
-# T * B = 128000 rows in another order (the kernel adds each output's rows
-# in sequence, 32 at a time); 1.6e-4 at B = 128 on an H100.
+# T * B = 128000 rows in another order (the kernel adds 16 rows at a time
+# in wgmma's chains over each K slice, then the slices in order); 3.7e-5
+# at B = 128 on an H100.
 K2_WGRAD_RTOL = 1e-3
 E2E_REL_L2 = 5e-2
 # One training step on the card against the port on the CPU (plain
@@ -726,6 +734,84 @@ def phase_k2(torch, dev):
                 f'within {K2_WGRAD_RTOL} of their plain versions')
 
 
+# Phase 3c: K2b's weight-gradient kernel (H, T, batches; H = 96 and 384
+# through the zero padding to 128 and 512) and K2f's step kernel (H,
+# batches).
+WGRAD_CASES = ((HIDDEN, N_FRAMES, (1, 16, 40, 128)), (64, 24, (40,)),
+               (64, N_FRAMES, (16,)), (96, N_FRAMES, (16,)),
+               (384, N_FRAMES, (16,)))
+STEP_CASES = ((64, (1, 4, 40)), (HIDDEN, (1, 4, 40)), (1024, (1, 4, 40)))
+
+
+def wgrad_streams(torch, hidden, seq_len, batch, seed, dev):
+  """K2b (a)'s outputs as the weight-gradient pass takes them: h_prev, dxp,
+  dhn in bf16 (h in [-1, 1], gradients ~1e-2) and the tiles' dbn sums."""
+  from ddsp_torch.kernels import gru as kg
+  g = torch.Generator(dev).manual_seed(seed)
+  shape = (seq_len, batch)
+  return ((torch.rand(shape + (hidden,), generator=g, device=dev) * 2 -
+           1).bfloat16(),
+          (torch.randn(shape + (3 * hidden,), generator=g, device=dev) *
+           1e-2).bfloat16(),
+          (torch.randn(shape + (hidden,), generator=g, device=dev) *
+           1e-2).bfloat16(),
+          torch.randn((kg.batch_tiles(batch), hidden), generator=g,
+                      device=dev) * 0.1)
+
+
+def phase_k2_hopper(torch, dev):
+  from ddsp_torch.kernels import gru as kg
+  print('[3c] K2b weight-gradient kernel (TMA + wgmma, split K) and K2f step '
+        'kernel vs plain', flush=True)
+  for hidden, seq_len, batches in WGRAD_CASES:
+    h_pad = kg.bf16_route(hidden)[1]
+    for batch in batches:
+      streams = wgrad_streams(torch, hidden, seq_len, batch, 12, dev)
+      padded = (kg.pad_units(streams[0], h_pad).contiguous(),
+                kg.pad_gates(streams[1], h_pad).contiguous(),
+                kg.pad_units(streams[2], h_pad).contiguous(),
+                kg.pad_units(streams[3], h_pad).contiguous())
+      kg.reset_launches()
+      got = kg._launch_wgrad(*padded)
+      again = kg._launch_wgrad(*padded)
+      torch.cuda.synchronize()
+      got = (kg.unpad_gates(got[0][:hidden], hidden), got[1][:hidden])
+      again = (kg.unpad_gates(again[0][:hidden], hidden), again[1][:hidden])
+      want = kg.gru_wgrad_plain(*streams)
+      errs = [rel_err(a, b) for a, b in zip(got, want)]
+      plan = kg.pick_wgrad(dev, h_pad, seq_len * batch)
+      what = (f'H={hidden}' + (f' (padded to {h_pad})' if h_pad != hidden
+                               else '') + f' T={seq_len} B={batch}')
+      print(f"  weight gradient {what}: plan {plan['bm']} x {plan['bn']} "
+            f"tiles x {plan['tiles']}, {plan['splits']} K slices of "
+            f"{plan['chunk']}-row chunks ({plan['tiles'] * plan['splits']} "
+            f'CTAs); relative max err dwh {errs[0]:.3e} dbn {errs[1]:.3e}',
+            flush=True)
+      check(max(errs) <= K2_WGRAD_RTOL and
+            all(torch.isfinite(a).all().item() for a in got),
+            f'weight gradient {what} within {K2_WGRAD_RTOL}')
+      check(all(torch.equal(a, b) for a, b in zip(got, again)) and
+            kg.launches['wgrad'] == 2,
+            f'weight gradient {what}: two launches, bit-equal results')
+  for hidden, batches in STEP_CASES:
+    for batch in batches:
+      xp, wh, bn, h0 = k2_inputs(torch, batch, torch.float32, 13, dev,
+                                 hidden, 1)
+      h0 = 3.0 * h0  # |h0| up to ~1, as a streamed state
+      kg.reset_launches()
+      ys = kg.gru_sequence(xp, wh, bn, h0)
+      torch.cuda.synchronize()
+      err = (ys - kg.gru_sequence_plain(xp, wh, bn, h0)).abs().max().item()
+      what = f'K2f step kernel H={hidden} B={batch}'
+      print(f'  {what} (h0 |max| {h0.abs().max().item():.3f}): max |err| '
+            f'{err:.3e}; launches {dict(kg.launches)}', flush=True)
+      check(torch.isfinite(ys).all().item() and err <= K2_ATOL['float32'],
+            f"{what} within {K2_ATOL['float32']}")
+      check(kg.launches['fwd'] == kg.launches['fwd_step'] == 1 and
+            kg.launches['fwd_cooperative'] == 0,
+            f'{what}: one launch of the step kernel, none cooperative')
+
+
 def phase_gradients_reach_parameters(torch, dev):
   """loss.backward() through FastGRU and through harmonic_synthesis on the
   card leaves the gradients the port computes on the CPU."""
@@ -1012,12 +1098,14 @@ def same_controls(torch, a, b):
 
 def k2f_one_hop_entry(torch, dev, predict, frame_state, launches):
   """The kernels line's entry for K2f at one hop: T = 1, B = 1, H = 512,
-  float32 streams (the cooperative route), on the operands of one hop of
-  the stream (the GRU's input and state as the decoder hands them over).
+  float32 streams (the step kernel), on the operands of one hop of the
+  stream (the GRU's input and state as the decoder hands them over).
   Library: one torch.nn.GRUCell step on the same operands (weight_ih = the
   bf16-rounded wi^T, bias_ih = bi, weight_hh = wh^T, bias_hh = [0, 0,
   bn]); it includes the input projection, which the port runs as a GEMM
-  beside K2f, so the port's whole FastGRU step is timed beside it."""
+  beside K2f, so the port's whole FastGRU step is timed beside it. The
+  earlier design, the cooperative kernel with its grid barrier (still the
+  float32 route from T = 2), is timed on the same operands."""
   from ddsp_torch.kernels import gru as kg
   gru = predict.model.decoder.rnn.FastGRU_0
   seen = {}
@@ -1051,7 +1139,8 @@ def k2f_one_hop_entry(torch, dev, predict, frame_state, launches):
           f"torch.nn.GRUCell yardstick computes the same step (max |err| "
           f"{cell_err:.3e})")
     entry = kernel_entry(
-        torch, 'gru_sequence forward, one hop (K2f, float32, T = 1, B = 1)',
+        torch, 'gru_sequence forward, one hop (K2f step kernel, float32, '
+        'T = 1, B = 1)',
         'ddsp_torch/csrc/gru.cu', 'ddsp_tpu/ops/pallas_kernels/gru.py:124',
         launches['K2f'], err, lambda: kg._launch_fwd(xp, wh, bn, h0),
         lambda: kg.gru_sequence_plain(xp, wh, bn, h0),
@@ -1062,12 +1151,21 @@ def k2f_one_hop_entry(torch, dev, predict, frame_state, launches):
     entry['library_call_ms'] = cuda_ms(torch, lambda: cell(x2, h0), 200)
     entry['port_step_ms'] = device_ms(
         torch, lambda: gru(x, initial_state=h0, return_state=True), 200)
+    coop = lambda: kg._launch_coop_fwd(xp, wh, bn, h0)
+    coop_err = (coop() - ys).abs().max().item()
+    check(coop_err <= K2_ATOL['float32'],
+          f'the cooperative route agrees with the step kernel at one hop '
+          f'(max |err| {coop_err:.3e})')
+    entry['cooperative_ms'] = device_ms(torch, coop, 200)
+    entry['cooperative_call_ms'] = cuda_ms(torch, coop, 200)
     entry['launches_per_hop'] = launches['K2f'] / VST_HOPS
   entry['launches_by_path'] = {'vst': launches['K2f']}
   print_entry(entry)
   print(f"  one FastGRU step of the port (projection GEMM + K2f): "
         f"{entry['port_step_ms']:.4f} ms device; GRUCell per call with host "
-        f"{entry['library_call_ms']:.4f} ms", flush=True)
+        f"{entry['library_call_ms']:.4f} ms; the earlier design (the "
+        f"cooperative kernel) {entry['cooperative_ms']:.4f} ms device, "
+        f"{entry['cooperative_call_ms']:.4f} ms per call", flush=True)
   return entry
 
 
@@ -1116,21 +1214,22 @@ def phase_vst(torch, dev, export_dir, profile=False):
                       None if stateful else predict.initial_state())
 
   # K2f's routes at one hop and at one batch row, with a non-zero h0: the
-  # float32 cooperative route (every hop) and the bf16 cluster route (the
-  # whole clip's T >= 8 streams take it; here at T = 1).
-  for name, route in (('float32', 'cooperative'), ('bfloat16', 'cluster')):
+  # float32 step kernel (every hop) and the bf16 cluster route (the whole
+  # clip's T >= 8 streams take it; here at T = 1).
+  for name, route in (('float32', 'step'), ('bfloat16', 'cluster')):
     xp, wh, bn, h0 = k2_inputs(torch, 1, getattr(torch, name), 21, dev,
                                HIDDEN, 1)
     reset_launches()
     ys = kg.gru_sequence(xp, wh, bn, h0)
     torch.cuda.synchronize()
     n_fwd, n_coop = kg.launches['fwd'], kg.launches['fwd_cooperative']
+    n_step = kg.launches['fwd_step']
     err = (ys - kg.gru_sequence_plain(xp, wh, bn, h0)).abs().max().item()
     print(f'  K2f {name} T=1 B=1 H={HIDDEN} (h0 |max| '
           f'{h0.abs().max().item():.3f}): max |err| {err:.3e}; launches '
-          f'{n_fwd}, cooperative {n_coop}', flush=True)
-    check(err <= K2_ATOL[name] and n_fwd == 1 and
-          n_coop == (1 if route == 'cooperative' else 0),
+          f'{n_fwd}, step {n_step}, cooperative {n_coop}', flush=True)
+    check(err <= K2_ATOL[name] and n_fwd == 1 and n_coop == 0 and
+          n_step == (1 if route == 'step' else 0),
           f'K2f {name} at T = 1, B = 1 within {K2_ATOL[name]}, one launch '
           f'on the {route} route')
 
@@ -1140,9 +1239,9 @@ def phase_vst(torch, dev, export_dir, profile=False):
   stream = run(gpu, True)
   torch.cuda.synchronize()
   launches = read_launches()
-  n_coop = kg.launches['fwd_cooperative']
-  print(f'  launches over {VST_HOPS} hops: {launches}, K2f on the '
-        f'cooperative route {n_coop}', flush=True)
+  n_coop, n_step = kg.launches['fwd_cooperative'], kg.launches['fwd_step']
+  print(f'  launches over {VST_HOPS} hops: {launches}, K2f on the step '
+        f'kernel {n_step}, on the cooperative route {n_coop}', flush=True)
   audio = stream['audio']
   per_hop_ok = all(
       tuple(a.shape) == (VST_HOP,) and torch.isfinite(a).all().item() and
@@ -1153,9 +1252,9 @@ def phase_vst(torch, dev, export_dir, profile=False):
   print(f'  state: |first| {first.abs().max().item():.4f}, |last - first| '
         f'{moved:.4f}; audio rms {audio.pow(2).mean().sqrt().item():.4f}')
   check(moved > 1e-3, 'the GRU state moves over the stream')
-  check(launches['K2f'] == VST_HOPS and n_coop == VST_HOPS,
-        'K2f launched once per predict call, on the float32 (cooperative) '
-        'route')
+  check(launches['K2f'] == n_step == VST_HOPS and n_coop == 0,
+        'K2f launched once per predict call, on the step kernel (float32, '
+        'T = 1), never on the cooperative route')
   check(all(launches[k] == 0 for k in ('K1f', 'K1t', 'K1p', 'K2b', 'K2b_w',
                                        'K3')),
         'no K1f, K1t, K1p, K2b, K2b_w or K3 launch on the streaming path')
@@ -1277,13 +1376,13 @@ def phase_vst(torch, dev, export_dir, profile=False):
     if name == 'cuda':
       torch.cuda.synchronize()
       clip_launches = read_launches()
-      clip_coop = kg.launches['fwd_cooperative']
+      clip_coop = kg.launches['fwd_cooperative'] + kg.launches['fwd_step']
   out = clip['cuda']['audio_synth'].cpu()
   want = clip['cpu']['audio_synth']
   clip_rel = ((out - want).norm() / want.norm()).item()
   print(f'  whole clip ({VST_CLIP_SAMPLES} samples, {VST_CLIP_FRAMES} '
         f'frames): audio {tuple(out.shape)}, launches {clip_launches}, K2f '
-        f'on the cooperative route {clip_coop}; GPU vs CPU port relative '
+        f'on a float32 route {clip_coop}; GPU vs CPU port relative '
         f'L2 {clip_rel:.3e}', flush=True)
   print(f'  (K1f: the clip\'s Harmonic renders {VST_CLIP_SAMPLES} samples '
         f'from {VST_CLIP_FRAMES} frames, not a whole number of samples a '
@@ -2049,7 +2148,16 @@ def k2_entries(torch, launches, dev):
       lambda: kg._launch_wgrad(h_prev, dxp, dhn, dbn_tiles),
       lambda: kg.gru_wgrad_plain(h_prev, dxp, dhn, dbn_tiles),
       *k2_bound(xp, wh, 'bfloat16', 'wgrad'),
-      device_ms(torch, lambda: torch.matmul(hp2d.t(), dhp2d), 20), 50, 5))
+      device_ms(torch, lambda: torch.matmul(hp2d.t(), dhp2d), 50), 50, 5))
+  kernels[2]['library'] = 'torch.matmul(h_prev^T, dhp), the same streams'
+  kernels[2]['library_call_ms'] = cuda_ms(
+      torch, lambda: torch.matmul(hp2d.t(), dhp2d), 50)
+  kernels[2]['plan'] = kg.pick_wgrad(dev, HIDDEN, N_FRAMES * BATCH)
+  again = kg._launch_wgrad(h_prev, dxp, dhn, dbn_tiles)
+  kernels[2]['bit_equal_repeat'] = all(
+      torch.equal(a, b) for a, b in zip(wgrad, again))
+  check(kernels[2]['bit_equal_repeat'],
+        'the weight-gradient pass repeats bit for bit at the training shape')
   # The serving shape (one request: B = 1) beside the training shape.
   xp1, wh1, bn1, h01 = k2_inputs(torch, 1, torch.bfloat16, 6, dev)
   kernels[0]['serving_ms'] = device_ms(
@@ -2129,7 +2237,8 @@ def print_entry(k):
         + (f", issue floor {k['issue_floor_ms']:.5f} ms"
            if 'issue_floor_ms' in k else '')
         + (f", other H (B = 16, T = 1000, bf16; with K2b both passes) "
-           f"{k['by_hidden']}" if 'by_hidden' in k else ''),
+           f"{k['by_hidden']}" if 'by_hidden' in k else '')
+        + (f", plan {k['plan']}" if 'plan' in k else ''),
         flush=True)
 
 
@@ -2283,6 +2392,7 @@ def main(argv=None):
     phase_k3(torch, dev)
     phase_k2(torch, dev)
     phase_gradients_reach_parameters(torch, dev)
+    phase_k2_hopper(torch, dev)
     with tempfile.TemporaryDirectory() as work_dir:
       write_export(torch, work_dir)
       port, reqs, launches['serve'] = phase_serve(torch, work_dir)

@@ -75,8 +75,9 @@
 //   * K2b (b): dwh = h_prev^T dhp over K = T * B and dbn are taken off the
 //     serial path. (a) writes the dhn stream [T, B, H] (the other two thirds
 //     of dhp are dxp's) and per-tile float32 sums of dhn [tiles, H]; a
-//     tensor-core kernel (64 x 64 output tiles, mma.m16n8k16 from a 3-stage
-//     cp.async ring, float32 accumulation) computes dwh and sums the tiles'
+//     Hopper GEMM kernel (TMA loads into a 4-stage ring, wgmma on both
+//     operands as stored, K split over the SMs and the slices added in a
+//     fixed order; see gru_wgrad_kernel) computes dwh and sums the tiles'
 //     dbn. The products and roundings are those of the reference; only the
 //     order of summation changes.
 //   Shared memory per CTA at H = 512: forward 60 KiB (h double buffer
@@ -105,9 +106,13 @@
 // columns), which fits H = 1024 in float32 for up to 19 rows a launch.
 // Rows never interact, so a batch whose carries do not fit beside them runs
 // as row groups, one launch each, in sequence (the wrapper plans them).
-// Tiles of kBatchTile rows keep the rest of the footprint fixed.
+// Tiles of kBatchTile rows keep the rest of the footprint fixed. A float32
+// forward of one step (T = 1, the VST hop) takes neither: gru_step_kernel
+// is an ordinary launch without a grid barrier (one step exchanges
+// nothing between steps).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -533,6 +538,95 @@ int coop_bwd(const void* g, const void* xp, const void* hprev, const void* wh,
   return launch_cooperative(gru_bwd_kernel<T>,
                             bwd_smem_bytes(hidden, batch, u, sizeof(T)),
                             hidden / u, args, stream);
+}
+
+// ------------------------------------------------------------------------
+// K2f at one step (T = 1) with float32 streams: the VST hop.
+// ------------------------------------------------------------------------
+//
+// One step has no step-to-step exchange, so it needs no co-resident grid,
+// no grid barrier and no copy of wh in shared memory: an ordinary launch of
+// ceil(H / kStepUnits) blocks, each owning kStepUnits units, i.e. 3 x
+// kStepUnits columns of wh, read straight from device memory (wh is 3.1 MB
+// at H = 512 and stays in L2 from hop to hop). What bounds it: bytes (wh
+// read once, 0.94 us at 3.35 TB/s), and in practice the launch and the
+// latency of each thread's chain of loads, so K is split kStepSplit ways
+// over the block's threads: thread (p, c) sums h[b][k] wh[k][c] over
+// k = p, p + kStepSplit, ... in float32 FMAs (exact products, no TF32),
+// and the gate threads add the kStepSplit partials in order p = 0, 1, ...
+// Rows of h0 are staged kStepRows at a time; rows are independent, so any
+// B runs, one pass of kStepRows rows after another.
+constexpr int kStepUnits = 4;
+constexpr int kStepCols = 3 * kStepUnits;
+constexpr int kStepSplit = 32;
+constexpr int kStepThreads = kStepCols * kStepSplit;  // 384
+constexpr int kStepRows = 8;
+
+size_t step_smem_bytes(int hidden) {
+  return sizeof(float) * ((size_t)kStepRows * hidden +
+                          (size_t)kStepSplit * kStepRows * kStepCols);
+}
+
+__global__ void __launch_bounds__(kStepThreads)
+gru_step_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
+                const float* __restrict__ bn, const float* __restrict__ h0,
+                float* __restrict__ ys, int batch, int hidden) {
+  extern __shared__ __align__(16) float step_smem[];
+  float* h_s = step_smem;                  // [kStepRows][hidden]
+  float* part = h_s + kStepRows * hidden;  // [kStepSplit][kStepRows][kStepCols]
+  const int tid = threadIdx.x;
+  const int c = tid % kStepCols, p = tid / kStepCols;
+  const int unit0 = blockIdx.x * kStepUnits;
+  const int unit = unit0 + c % kStepUnits;
+  const bool live = unit < hidden;
+  const size_t three_h = 3 * (size_t)hidden;
+  const float* w = wh + (c / kStepUnits) * hidden + (live ? unit : 0);
+  for (int b0 = 0; b0 < batch; b0 += kStepRows) {
+    const int nb = min(kStepRows, batch - b0);
+    __syncthreads();  // the previous pass is done with h_s and part
+    for (int i = tid; i < nb * hidden; i += kStepThreads) {
+      h_s[i] = h0[(size_t)b0 * hidden + i];
+    }
+    __syncthreads();
+    float acc[kStepRows];
+#pragma unroll
+    for (int b = 0; b < kStepRows; ++b) acc[b] = 0.f;
+    if (live) {
+#pragma unroll 4
+      for (int k = p; k < hidden; k += kStepSplit) {
+        const float wk = __ldg(w + k * three_h);
+#pragma unroll
+        for (int b = 0; b < kStepRows; ++b) {
+          if (b < nb) acc[b] = fmaf(h_s[b * hidden + k], wk, acc[b]);
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kStepRows; ++b) {
+      if (b < nb) part[(p * kStepRows + b) * kStepCols + c] = acc[b];
+    }
+    __syncthreads();
+    for (int i = tid; i < nb * kStepUnits; i += kStepThreads) {
+      const int b = i / kStepUnits, uu = i % kStepUnits;
+      const int un = unit0 + uu;
+      if (un >= hidden) continue;
+      float hp[3];
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate) {
+        float s = 0.f;
+        for (int q = 0; q < kStepSplit; ++q) {
+          s += part[(q * kStepRows + b) * kStepCols + gate * kStepUnits + uu];
+        }
+        hp[gate] = s;
+      }
+      const float* x = xp + (size_t)(b0 + b) * three_h;
+      const float r = gate_sigmoid(x[un] + hp[0]);
+      const float z = gate_sigmoid(x[hidden + un] + hp[1]);
+      const float n = tanhf(x[2 * hidden + un] + r * (hp[2] + bn[un]));
+      ys[(size_t)(b0 + b) * hidden + un] =
+          (1.f - z) * n + z * h_s[b * hidden + un];
+    }
+  }
 }
 
 // ------------------------------------------------------------------------
@@ -1126,102 +1220,501 @@ gru_bwd_cluster(const float* __restrict__ g, const bf16* __restrict__ xp,
   cluster.sync();  // no CTA exits while stores to it may be in flight
 }
 
-// K2b (b): dwh [H, 3H] = h_prev^T [dxp_r, dxp_z, dhn] over K = T * B rows,
-// dbn [H] = the sum of the tiles' partials. Grid (H / 64, 3H / 64) of 64 x
-// 64 output tiles, 4 warps of 32 x 32, K in chunks of 32 through a 3-stage
-// cp.async ring.
-constexpr int kWgTile = 64;
-constexpr int kWgK = 32;
-constexpr int kWgStages = 3;
-constexpr int kWgStride = kWgTile + 8;
-constexpr int kWgThreads = 128;
+// ------------------------------------------------------------------------
+// K2b (b), the weight-gradient pass: TMA loads, wgmma, split K.
+// ------------------------------------------------------------------------
+//
+// dwh [H, 3H] = h_prev^T [dxp_r, dxp_z, dhn] over K = rows = T * B, and
+// dbn [H] = the sum of K2b (a)'s per-tile partials dbn_part [dbn_rows, H].
+// The reference (gru.py:203-207) adds h_{t-1}^T dhp into a resident
+// accumulator step by step; here the T steps are one product over K.
+//
+// What bounds it: operations. At B = 16, T = 1000, H = 512 it is 25.2 GFLOP
+// of bf16 products (25.4 us at the card's 989 TFLOP/s) on 65.5 MB of
+// streams (19.6 us at 3.35 TB/s). The design:
+//   * CTA tiles of BM x BN outputs, BM = min(128, H), BN = min(256, H). BN
+//     divides H, so a tile's columns lie all in dxp's first 2H columns or
+//     all in dhn, never across the boundary. Both operands are read as they
+//     are stored, MN-major: A = h_prev^T from h_prev [rows, H] ([k][m]), B
+//     from dxp [rows, 3H] or dhn [rows, H] ([k][n]); wgmma's transpose bits
+//     take them so, and nothing is transposed in memory.
+//   * K in chunks of kWgBk = 64 rows through a ring of kWgStages = 4 stages.
+//     One thread of the producer warpgroup issues each stage's TMA loads
+//     (boxes of 64 rows x 64 columns, 128-byte swizzle; rows past T * B
+//     arrive as zeros) onto the stage's `full` mbarrier. Each consumer
+//     warpgroup runs wgmma.m64nBNk16 on its 64 rows of the tile with both
+//     operands in shared memory and float32 sums in registers, and frees a
+//     stage (its `empty` mbarrier) once the next stage's products are issued
+//     and its own have completed.
+//   * Split K: H = 512 has only 24 tiles of 128 x 256 against 132 SMs, so
+//     each tile's rows are cut into S slices of whole chunks, one CTA each,
+//     and the S CTAs of a tile form a thread-block cluster (kernels/gru.py
+//     wgrad_plan: S <= 8, tiles x S CTAs in one wave, all clusters
+//     resident). After its last products each CTA stages its float32
+//     partial tile in its own shared memory (over the ring); after a
+//     cluster barrier, CTA r of the cluster adds up its share of the
+//     tile's rows from all S CTAs' shared memory (DSMEM) in rank order,
+//     0 to S - 1, and writes them to dwh; a second cluster barrier keeps
+//     every CTA resident until its tile has been read. Nothing partial
+//     goes through device memory, and the order is fixed, so dwh is
+//     bit-identical from call to call. CTA 0 of each cluster in column
+//     block 0 also adds up dbn, in tile order.
+//   The products are exact (bf16 x bf16 in float32) and the sums float32:
+//   only their order differs from the reference's.
+constexpr int kWgBk = 64;      // rows of K per stage
+constexpr int kWgStages = 4;
+constexpr int kWgBox = 64;     // columns per TMA box: one 128-byte atom
+constexpr int kWgBoxBytes = kWgBk * kWgBox * 2;  // 8 KiB
+constexpr int kWgMaxSplits = 8;  // K slices: CTAs in a portable cluster
 
-__global__ void __launch_bounds__(kWgThreads)
-gru_wgrad_kernel(const bf16* __restrict__ hprev, const bf16* __restrict__ dxp,
-                 const bf16* __restrict__ dhn, const float* __restrict__ dbn_part,
-                 float* __restrict__ dwh, float* __restrict__ dbn, int rows,
-                 int hidden, int n_tiles) {
-  __shared__ __align__(16) bf16 a_s[kWgStages][kWgK][kWgStride];
-  __shared__ __align__(16) bf16 b_s[kWgStages][kWgK][kWgStride];
-  const int m0 = blockIdx.x * kWgTile, n0 = blockIdx.y * kWgTile;
-  const int three_h = 3 * hidden;
-  const bool from_dhn = n0 >= 2 * hidden;
-  const bf16* b_src = from_dhn ? dhn + (n0 - 2 * hidden) : dxp + n0;
-  const int b_stride = from_dhn ? hidden : three_h;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int g = lane >> 2, c = lane & 3;
+template <int BM, int BN>
+struct WgradShape {
+  static_assert(BM % 64 == 0 && BM <= 128 && BN % kWgBox == 0 && BN <= 256,
+                "wgmma tiles");
+  static constexpr int kConsumers = BM / 64;  // warpgroups of 64 rows
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kABytes = BM / kWgBox * kWgBoxBytes;
+  static constexpr int kStageBytes = (BM + BN) / kWgBox * kWgBoxBytes;
+  static constexpr int kAcc = BN / 2;  // float32 sums per consumer thread
+  // The partial tile staged over the ring, rows padded by 8 floats (no bank
+  // conflicts in the fragments' float2 stores, 16-byte aligned rows).
+  static constexpr int kTileLd = BN + 8;
+  static_assert((size_t)BM * kTileLd * 4 <= (size_t)kWgStages * kStageBytes,
+                "the staged tile fits over the ring");
+  // 1024 bytes to align the ring to the swizzle pattern, the ring, and two
+  // mbarriers a stage.
+  static constexpr size_t kSmem = 1024 + (size_t)kWgStages * kStageBytes +
+                                  2 * kWgStages * sizeof(uint64_t);
+};
 
-  auto load_chunk = [&](int chunk, int stage) {
-    const int k0 = chunk * kWgK;
-    for (int i = tid; i < kWgK * kWgTile / 8; i += kWgThreads) {
-      const int r = i / (kWgTile / 8), q = (i % (kWgTile / 8)) * 8;
-      const bool ok = k0 + r < rows;
-      const size_t k = ok ? (size_t)(k0 + r) : 0;
-      cp_async16(&a_s[stage][r][q], hprev + k * hidden + m0 + q, ok);
-      cp_async16(&b_s[stage][r][q], b_src + k * b_stride + q, ok);
-    }
-  };
+// A wgmma shared-memory matrix descriptor of a 128-byte-swizzled MN-major
+// operand, in atoms of 64 (MN) x 8 (K) bf16, a K row 128 bytes long. lbo:
+// bytes from one 64-wide atom to the next along MN; sbo: bytes from one
+// group of 8 K rows to the next. Base offset 0: every start address lies on
+// a 1024-byte boundary, where the swizzle pattern starts.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
 
-  const int n_chunks = (rows + kWgK - 1) / kWgK;
-#pragma unroll
-  for (int s = 0; s < kWgStages - 1; ++s) {
-    if (s < n_chunks) load_chunk(s, s);
-    cp_async_commit();
+template <int N>
+struct Wgmma;
+
+// d[32] += A (64 x 16) B (16 x 64), both MN-major in shared memory.
+template <>
+struct Wgmma<64> {
+  __device__ static __forceinline__ void mma(float (&d)[32], uint64_t a,
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
   }
-  float acc[2][4][4] = {};
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    cp_async_wait<kWgStages - 2>();
-    __syncthreads();
-    const int next = chunk + kWgStages - 1;
-    if (next < n_chunks) load_chunk(next, next % kWgStages);
-    cp_async_commit();
-    const int st = chunk % kWgStages;
+};
+
+// d[64] += A (64 x 16) B (16 x 128), both MN-major in shared memory.
+template <>
+struct Wgmma<128> {
+  __device__ static __forceinline__ void mma(float (&d)[64], uint64_t a,
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// d[128] += A (64 x 16) B (16 x 256), both MN-major in shared memory.
+template <>
+struct Wgmma<256> {
+  __device__ static __forceinline__ void mma(float (&d)[128], uint64_t a,
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, "
+        "%88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, "
+        "%104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-    for (int ks = 0; ks < kWgK / 16; ++ks) {
-      const int k0 = ks * 16;
-      uint32_t a[2][4], b[2][4];
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// A 2D TMA load of one box at (column c0, row c1), completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// Barrier 1 over the consumer warpgroups only.
+template <int N>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(WgradShape<BM, BN>::kThreads, 1)
+gru_wgrad_kernel(const __grid_constant__ CUtensorMap map_h,
+                 const __grid_constant__ CUtensorMap map_dxp,
+                 const __grid_constant__ CUtensorMap map_dhn,
+                 const float* __restrict__ dbn_part, float* __restrict__ dwh,
+                 float* __restrict__ dbn, int hidden, int dbn_rows,
+                 int n_chunks) {
+  using S = WgradShape<BM, BN>;
+  extern __shared__ __align__(16) unsigned char wgrad_smem[];
+  unsigned char* ring =
+      wgrad_smem + ((1024 - (smem_addr(wgrad_smem) & 1023)) & 1023);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + kWgStages * S::kStageBytes);
+  uint64_t* empty = full + kWgStages;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks();
+  const int slice = (int)cluster.block_rank();
+  const int tile = blockIdx.x / splits;  // a tile's slices: one cluster
+  const int m_blocks = hidden / BM;
+  const int m0 = (tile % m_blocks) * BM;
+  const int n0 = (tile / m_blocks) * BN;
+  const int c0 = (int)((long long)slice * n_chunks / splits);
+  const int n_local = (int)((long long)(slice + 1) * n_chunks / splits) - c0;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], S::kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer warpgroup: one thread issues every load.
+    if constexpr (S::kConsumers == 2) reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      const bool from_dhn = n0 >= 2 * hidden;
+      const CUtensorMap* map_b = from_dhn ? &map_dhn : &map_dxp;
+      const int nb0 = from_dhn ? n0 - 2 * hidden : n0;
+      for (int c = 0; c < n_local; ++c) {
+        const int st = c % kWgStages;
+        mbar_wait(&empty[st], ((c / kWgStages) & 1) ^ 1);
+        unsigned char* stage = ring + st * S::kStageBytes;
+        mbar_expect(&full[st], S::kStageBytes);
+        const int k = (c0 + c) * kWgBk;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        // A = h_prev^T: the stored [k][m] tile read transposed.
-        ldsm_x4_trans(a[mt], &a_s[st][k0 + (lane & 7) + ((lane >> 4) << 3)]
-                                 [wm * 32 + mt * 16 + ((lane >> 3) & 1) * 8]);
-      }
+        for (int i = 0; i < BM / kWgBox; ++i) {
+          tma_load_2d(stage + i * kWgBoxBytes, &map_h, &full[st],
+                      m0 + i * kWgBox, k);
+        }
 #pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        ldsm_x4_trans(b[np], &b_s[st][k0 + (lane & 15)]
-                                 [wn * 32 + np * 16 + (lane >> 4) * 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          mma_bf16(acc[mt][2 * np], a[mt], b[np][0], b[np][1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], b[np][2], b[np][3]);
+        for (int i = 0; i < BN / kWgBox; ++i) {
+          tma_load_2d(stage + S::kABytes + i * kWgBoxBytes, map_b, &full[st],
+                      nb0 + i * kWgBox, k);
         }
       }
     }
-  }
+    cluster.sync();  // the partial tiles are staged
+    cluster.sync();  // and have been read
+  } else {
+    // Consumer warpgroup cw: rows m0 + 64 cw ... + 63 of the tile.
+    if constexpr (S::kConsumers == 2) reg_alloc<232>();
+    const int cw = wg - 1;
+    float acc[S::kAcc];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+    for (int i = 0; i < S::kAcc; ++i) acc[i] = 0.f;
+    const uint32_t ring_addr = smem_addr(ring);
+    for (int c = 0; c < n_local; ++c) {
+      const int st = c % kWgStages;
+      mbar_wait(&full[st], (c / kWgStages) & 1);
+      const uint32_t a = ring_addr + st * S::kStageBytes + cw * kWgBoxBytes;
+      const uint32_t b = ring_addr + st * S::kStageBytes + S::kABytes;
+      fence_acc(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int m = m0 + wm * 32 + mt * 16 + g;
-      const int n = n0 + wn * 32 + nt * 8 + 2 * c;
-      *reinterpret_cast<float2*>(dwh + (size_t)m * three_h + n) =
-          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<float2*>(dwh + (size_t)(m + 8) * three_h + n) =
-          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      for (int j = 0; j < kWgBk / 16; ++j) {
+        // 16 rows of K: two groups of 8 rows, 1024 bytes apart.
+        Wgmma<BN>::mma(acc, wgmma_desc(a + j * 2048, kWgBoxBytes, 1024),
+                       wgmma_desc(b + j * 2048, kWgBoxBytes, 1024));
+      }
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();  // the previous chunk's products have completed
+      if (c > 0 && (threadIdx.x & 127) == 0) {
+        mbar_arrive(&empty[(c - 1) % kWgStages]);
+      }
     }
-  }
-  if (blockIdx.y == 0 && tid < kWgTile) {
-    float s = 0.f;
-    for (int tile = 0; tile < n_tiles; ++tile) {
-      s += dbn_part[(size_t)tile * hidden + m0 + tid];
+    wgmma_wait<0>();
+    fence_acc(acc);
+
+    // Stage the partial tile over the ring, once both warpgroups' last
+    // products (the last reads of the ring) have completed.
+    // acc[4 i + 2 half + e] is the tile's (row + 8 half, col + 8 i + e).
+    consumers_sync<S::kConsumers * 128>();
+    float* staged = reinterpret_cast<float*>(ring);
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int row = cw * 64 + warp * 16 + (lane >> 2);
+    const int col = 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        *reinterpret_cast<float2*>(staged + (row + 8 * half) * S::kTileLd +
+                                   col + 8 * i) =
+            make_float2(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
+      }
     }
-    dbn[m0 + tid] = s;
+    cluster.sync();
+
+    // This CTA's share of the tile's rows, summed over the cluster's
+    // partials in rank order.
+    const float* parts[kWgMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kWgMaxSplits; ++r) {
+      parts[r] = cluster.map_shared_rank(staged, r < splits ? r : 0);
+    }
+    const int r0 = slice * BM / splits, r1 = (slice + 1) * BM / splits;
+    const size_t three_h = 3 * (size_t)hidden;
+    for (int v = threadIdx.x - 128; v < (r1 - r0) * (BN / 4);
+         v += S::kConsumers * 128) {
+      const int tr = r0 + v / (BN / 4), tc = 4 * (v % (BN / 4));
+      const int at = tr * S::kTileLd + tc;
+      float4 sum = *reinterpret_cast<const float4*>(parts[0] + at);
+#pragma unroll
+      for (int r = 1; r < kWgMaxSplits; ++r) {
+        if (r < splits) {
+          const float4 x = *reinterpret_cast<const float4*>(parts[r] + at);
+          sum.x += x.x;
+          sum.y += x.y;
+          sum.z += x.z;
+          sum.w += x.w;
+        }
+      }
+      *reinterpret_cast<float4*>(dwh + (m0 + tr) * three_h + n0 + tc) = sum;
+    }
+    const int t = threadIdx.x - 128;
+    if (slice == 0 && n0 == 0 && t < BM) {
+      float sb = 0.f;
+      for (int r = 0; r < dbn_rows; ++r) {
+        sb += dbn_part[(size_t)r * hidden + m0 + t];
+      }
+      dbn[m0 + t] = sb;
+    }
+    cluster.sync();  // no CTA leaves while its partial tile may be read
   }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime, so that the library
+// needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+cudaError_t tensor_map_encoder(EncodeTiledFn* fn) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) {
+      return cudaErrorNotSupported;
+    }
+    encode = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  *fn = encode;
+  return cudaSuccess;
+}
+
+// The map of a [rows, cols] bf16 matrix whose rows are ld elements apart,
+// in boxes of kWgBk rows x kWgBox columns with the 128-byte swizzle; boxes
+// past the last row are filled with zeros.
+cudaError_t wgrad_map(EncodeTiledFn encode, CUtensorMap* map, const void* base,
+                      int cols, int rows, int ld) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(bf16)};
+  const cuuint32_t box[2] = {kWgBox, kWgBk};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The launch of gru_wgrad_kernel<BM, BN> over `tiles` clusters of `splits`
+// CTAs (grid and stream unused by the occupancy query).
+template <int BM, int BN>
+cudaLaunchConfig_t wgrad_config(int tiles, int splits, void* stream,
+                                cudaLaunchAttribute* attr) {
+  using S = WgradShape<BM, BN>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * splits, 1, 1);
+  cfg.blockDim = dim3(S::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = S::kSmem;
+  cfg.stream = (cudaStream_t)stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = splits;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int BM, int BN>
+int wgrad_clusters(int splits, int* max_clusters) {
+  cudaError_t e = cudaFuncSetAttribute(
+      gru_wgrad_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)WgradShape<BM, BN>::kSmem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wgrad_config<BM, BN>(1, splits, nullptr,
+                                                      &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      max_clusters, (const void*)gru_wgrad_kernel<BM, BN>, &cfg);
+}
+
+template <int BM, int BN>
+int launch_wgrad(const CUtensorMap& map_h, const CUtensorMap& map_dxp,
+                 const CUtensorMap& map_dhn, const void* dbn_part, void* dwh,
+                 void* dbn, int hidden, int dbn_rows, int n_chunks,
+                 int splits, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      gru_wgrad_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)WgradShape<BM, BN>::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wgrad_config<BM, BN>(
+      (hidden / BM) * (3 * hidden / BN), splits, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, gru_wgrad_kernel<BM, BN>, map_h, map_dxp,
+                         map_dhn, (const float*)dbn_part, (float*)dwh,
+                         (float*)dbn, hidden, dbn_rows, n_chunks);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 template <typename Kernel>
@@ -1413,16 +1906,69 @@ extern "C" int ddsp_gru_cluster_bwd(const void* g, const void* xp,
 #undef DDSP_GRU_BWD
 }
 
-// hprev [rows, H], dxp [rows, 3H], dhn [rows, H] bf16 with rows = T * B;
-// dbn_part [n_tiles, H]; dwh [H, 3H], dbn [H] float32. H % 64 == 0.
+// How many clusters of `splits` CTAs of K2b (b)'s kernel with bm x bn tiles
+// the device holds at once.
+extern "C" int ddsp_gru_wgrad_clusters(int bm, int bn, int splits,
+                                       int* max_clusters) {
+  if (splits < 1 || splits > kWgMaxSplits) return (int)cudaErrorInvalidValue;
+  if (bm == 128 && bn == 256) return wgrad_clusters<128, 256>(splits, max_clusters);
+  if (bm == 128 && bn == 128) return wgrad_clusters<128, 128>(splits, max_clusters);
+  if (bm == 64 && bn == 64) return wgrad_clusters<64, 64>(splits, max_clusters);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2b (b). hprev [rows, H], dxp [rows, 3H], dhn [rows, H] bf16 with
+// rows = T * B, 16-byte aligned; dbn_part [dbn_rows, H], dwh [H, 3H], dbn
+// [H] float32. (bm, bn, chunk, splits) is kernels/gru.py wgrad_plan's:
+// tiles of bm x bn with bm, bn dividing H, K cut into splits slices of
+// whole chunks, a cluster of splits CTAs per tile.
 extern "C" int ddsp_gru_wgrad(const void* hprev, const void* dxp,
                               const void* dhn, const void* dbn_part, void* dwh,
-                              void* dbn, int rows, int hidden, int n_tiles,
+                              void* dbn, int rows, int hidden, int dbn_rows,
+                              int bm, int bn, int chunk, int splits,
                               void* stream) {
-  if (hidden % kWgTile != 0) return (int)cudaErrorInvalidValue;
-  gru_wgrad_kernel<<<dim3(hidden / kWgTile, 3 * hidden / kWgTile), kWgThreads,
-                     0, (cudaStream_t)stream>>>(
-      (const bf16*)hprev, (const bf16*)dxp, (const bf16*)dhn,
-      (const float*)dbn_part, (float*)dwh, (float*)dbn, rows, hidden, n_tiles);
+  if (rows < 1 || hidden < 1 || chunk != kWgBk) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int n_chunks = (rows + kWgBk - 1) / kWgBk;
+  if (splits < 1 || splits > kWgMaxSplits || splits > n_chunks ||
+      hidden % bm != 0 || hidden % bn != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  EncodeTiledFn encode;
+  cudaError_t e = tensor_map_encoder(&encode);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap map_h, map_dxp, map_dhn;
+  if ((e = wgrad_map(encode, &map_h, hprev, hidden, rows, hidden)) !=
+          cudaSuccess ||
+      (e = wgrad_map(encode, &map_dxp, dxp, 2 * hidden, rows, 3 * hidden)) !=
+          cudaSuccess ||
+      (e = wgrad_map(encode, &map_dhn, dhn, hidden, rows, hidden)) !=
+          cudaSuccess) {
+    return (int)e;
+  }
+#define DDSP_GRU_WGRAD(BM, BN)                                              \
+  launch_wgrad<BM, BN>(map_h, map_dxp, map_dhn, dbn_part, dwh, dbn, hidden, \
+                       dbn_rows, n_chunks, splits, stream)
+  if (bm == 128 && bn == 256) return DDSP_GRU_WGRAD(128, 256);
+  if (bm == 128 && bn == 128) return DDSP_GRU_WGRAD(128, 128);
+  if (bm == 64 && bn == 64) return DDSP_GRU_WGRAD(64, 64);
+#undef DDSP_GRU_WGRAD
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2f at one step, float32: xp [1, B, 3H], wh [H, 3H], bn [H], h0 [B, H],
+// ys [1, B, H], all float32. Any B and H.
+extern "C" int ddsp_gru_step(const void* xp, const void* wh, const void* bn,
+                             const void* h0, void* ys, int batch, int hidden,
+                             void* stream) {
+  if (batch < 1 || hidden < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = step_smem_bytes(hidden);
+  const cudaError_t e = allow_smem(gru_step_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  gru_step_kernel<<<(hidden + kStepUnits - 1) / kStepUnits, kStepThreads,
+                    smem, (cudaStream_t)stream>>>(
+      (const float*)xp, (const float*)wh, (const float*)bn, (const float*)h0,
+      (float*)ys, batch, hidden);
   return (int)cudaGetLastError();
 }

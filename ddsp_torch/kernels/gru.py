@@ -9,21 +9,24 @@ both directions, a CPU tensor takes the plain PyTorch versions beside them
 the same dtypes). The CPU tests hold the plain versions against the JAX
 package, and chip_smoke.py holds each kernel against its plain version.
 
-With bf16 streams (the main path) the route depends on H (`bf16_route`).
-Up to 512 units the kernels run one thread-block cluster per tile of
-TILE_ROWS batch rows, on tensor cores, at the next H in CLUSTER_HIDDEN (the
-operands zero-padded, which is exact: padded units stay 0), and K2b is two
-kernels: the serial reverse-time pass (a), whose plain version is
-`gru_bwd_serial_plain`, and the weight-gradient pass (b), `gru_wgrad_plain`.
-Past 512 units, and with float32 streams, one cooperative kernel runs each
-way (dwh and dbn in K2b's body), in row groups where a batch does not fit
-one co-resident grid.
+K2f takes one of three routes (`fwd_route`). With bf16 streams (the main
+path) the route depends on H (`bf16_route`): up to 512 units the kernels
+run one thread-block cluster per tile of TILE_ROWS batch rows, on tensor
+cores, at the next H in CLUSTER_HIDDEN (the operands zero-padded, which is
+exact: padded units stay 0), and K2b is two kernels: the serial
+reverse-time pass (a), whose plain version is `gru_bwd_serial_plain`, and
+the weight-gradient pass (b), a split-K GEMM (`wgrad_plan`) whose plain
+versions are `gru_wgrad_plain` and, in its order of summation,
+`gru_wgrad_split_plain`. Past 512 units, and with float32 streams, one
+cooperative kernel runs each way (dwh and dbn in K2b's body), in row groups
+where a batch does not fit one co-resident grid; but a float32 forward of
+one step (the VST hop) runs the step kernel, without a grid barrier.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -33,10 +36,11 @@ from ddsp_torch.kernels import _build
 # kernels its path went through.
 # 'fwd' and 'bwd' count K2f and K2b launches (one per call, or one per row
 # group on the cooperative route), 'wgrad' K2b's weight-gradient pass (the
-# cluster route only); 'fwd_cooperative' counts the K2f launches of 'fwd'
-# that took the cooperative route (float32 streams, or bf16 past 512 units).
+# cluster route only); 'fwd_cooperative' and 'fwd_step' count the K2f
+# launches of 'fwd' that took the cooperative route (float32 streams at
+# T >= 2, or bf16 past 512 units) and the step kernel (float32, T = 1).
 launches: Dict[str, int] = {'fwd': 0, 'bwd': 0, 'wgrad': 0,
-                            'fwd_cooperative': 0}
+                            'fwd_cooperative': 0, 'fwd_step': 0}
 
 # The bf16 cluster kernels: one cluster per tile of TILE_ROWS batch rows,
 # u = UNITS_PER_CTA hidden units per CTA, so H / u CTAs per cluster; they
@@ -45,6 +49,14 @@ launches: Dict[str, int] = {'fwd': 0, 'bwd': 0, 'wgrad': 0,
 TILE_ROWS = 16
 UNITS_PER_CTA = 32
 CLUSTER_HIDDEN = (64, 128, 256, 512)
+
+# K2b's weight-gradient pass (csrc/gru.cu gru_wgrad_kernel): rows of K per
+# pipeline stage, the output tile's largest height and width, the most K
+# slices (CTAs in a portable cluster) and the fewest chunks a slice gets.
+WGRAD_CHUNK = 64
+WGRAD_MAX_TILE = (128, 256)
+WGRAD_MAX_SPLITS = 8
+WGRAD_MIN_SLICE_CHUNKS = 4
 
 
 def reset_launches() -> None:
@@ -163,6 +175,63 @@ def bf16_route(hidden: int) -> Tuple[str, int]:
   return 'cooperative', hidden
 
 
+def fwd_route(dtype: torch.dtype, seq_len: int, hidden: int) -> str:
+  """Which K2f kernel runs a forward: 'step' (float32 streams, one step),
+  'cluster' (bf16 up to 512 units, zero-padded to CLUSTER_HIDDEN) or
+  'cooperative' (float32 from two steps, bf16 past 512 units)."""
+  if stream_dtype(dtype) == torch.bfloat16:
+    return bf16_route(hidden)[0]
+  return 'step' if seq_len == 1 else 'cooperative'
+
+
+def wgrad_plan(hidden: int, rows: int, n_sms: int,
+               max_clusters: Optional[Callable[[int, int, int], int]] = None
+               ) -> Dict[str, int]:
+  """How K2b's weight-gradient kernel cuts dwh [H, 3H] = h_prev^T dhp over
+  K = rows (T * B) for a card of n_sms SMs.
+
+  Output tiles of bm x bn = min(128, H) x min(256, H): bn divides H, so no
+  tile straddles dxp's 2H columns and dhn. K runs in chunks of WGRAD_CHUNK
+  rows, cut into `splits` slices of whole chunks, one CTA per tile and
+  slice; a tile's CTAs form one cluster, which adds up their partial tiles.
+  The wave rule: tiles x splits <= n_sms, and where `max_clusters(bm, bn,
+  splits)` (the clusters the device holds at once) is given, tiles <= it:
+  every CTA in one wave. splits is the largest that allows, at most
+  WGRAD_MAX_SPLITS, while every slice keeps WGRAD_MIN_SLICE_CHUNKS chunks
+  (or one slice has all of them). Returns {'bm', 'bn', 'tiles', 'chunk',
+  'chunks', 'splits'}; H must be one of CLUSTER_HIDDEN (the wrapper pads
+  other H).
+  """
+  cluster_shape(hidden)
+  if rows < 1:
+    raise ValueError(f'the weight-gradient pass needs rows >= 1, not {rows}.')
+  bm, bn = min(WGRAD_MAX_TILE[0], hidden), min(WGRAD_MAX_TILE[1], hidden)
+  tiles = (hidden // bm) * (3 * hidden // bn)
+  chunks = -(-rows // WGRAD_CHUNK)
+  splits = max(1, min(WGRAD_MAX_SPLITS, n_sms // tiles,
+                      chunks // WGRAD_MIN_SLICE_CHUNKS))
+  while (splits > 1 and max_clusters is not None and
+         max_clusters(bm, bn, splits) < tiles):
+    splits -= 1
+  return {'bm': bm, 'bn': bn, 'tiles': tiles, 'chunk': WGRAD_CHUNK,
+          'chunks': chunks, 'splits': splits}
+
+
+def wgrad_blocks(plan: Dict[str, int], hidden: int, rows: int):
+  """The CTAs of the weight-gradient kernel in launch order, as the kernel
+  computes them from its index and cluster rank: [(m0, n0, first row, end
+  row)]."""
+  m_blocks = hidden // plan['bm']
+  out = []
+  for block in range(plan['tiles'] * plan['splits']):
+    tile, piece = divmod(block, plan['splits'])
+    c0 = piece * plan['chunks'] // plan['splits']
+    c1 = (piece + 1) * plan['chunks'] // plan['splits']
+    out.append(((tile % m_blocks) * plan['bm'], (tile // m_blocks) * plan['bn'],
+                c0 * plan['chunk'], min(rows, c1 * plan['chunk'])))
+  return out
+
+
 def pad_units(x: torch.Tensor, h_pad: int) -> torch.Tensor:
   """[..., H] -> [..., h_pad] with zeros after the H units."""
   return torch.nn.functional.pad(x, (0, h_pad - x.shape[-1]))
@@ -251,6 +320,29 @@ def gru_wgrad_plain(h_prev: torch.Tensor, dxp: torch.Tensor,
   return hp.t() @ dhp, dbn_tiles.sum(dim=0)
 
 
+def gru_wgrad_split_plain(h_prev: torch.Tensor, dxp: torch.Tensor,
+                          dhn: torch.Tensor, dbn_tiles: torch.Tensor,
+                          plan: Dict[str, int]):
+  """`gru_wgrad_plain` in the kernel's order of summation for `plan`
+  (`wgrad_plan`): one float32 product per K slice, the slices' partials
+  added in slice order (a cluster's rank order), the tiles' dbn sums in
+  tile order."""
+  h_dim = h_prev.shape[-1]
+  hp = h_prev.reshape(-1, h_dim).float()
+  dhp = torch.cat([dxp[..., :2 * h_dim], dhn], dim=-1).reshape(
+      -1, 3 * h_dim).float()
+  slices = sorted({(r0, r1) for _, _, r0, r1 in
+                   wgrad_blocks(plan, h_dim, hp.shape[0])})
+  dwh = None
+  for r0, r1 in slices:
+    part = hp[r0:r1].t() @ dhp[r0:r1]
+    dwh = part if dwh is None else dwh + part
+  dbn = dbn_tiles[0].clone()
+  for row in dbn_tiles[1:]:
+    dbn = dbn + row
+  return dwh, dbn
+
+
 def _check(xp, wh, bn, h0):
   if xp.ndim != 3 or wh.ndim != 2 or wh.shape[1] != 3 * wh.shape[0]:
     raise ValueError(f'K2 takes xp [T, B, 3H] and wh [H, 3H]; got '
@@ -280,7 +372,9 @@ _SIGNATURES = {
     'ddsp_gru_cluster_query': [_INT] * 2 + [ctypes.POINTER(_INT)] * 4,
     'ddsp_gru_cluster_fwd': [_PTR] * 5 + [_INT] * 3 + [_PTR],
     'ddsp_gru_cluster_bwd': [_PTR] * 9 + [_INT] * 3 + [_PTR],
-    'ddsp_gru_wgrad': [_PTR] * 6 + [_INT] * 3 + [_PTR],
+    'ddsp_gru_wgrad_clusters': [_INT] * 3 + [ctypes.POINTER(_INT)],
+    'ddsp_gru_wgrad': [_PTR] * 6 + [_INT] * 7 + [_PTR],
+    'ddsp_gru_step': [_PTR] * 5 + [_INT] * 2 + [_PTR],
 }
 
 # The plan (u, rows per launch) per (device index, H, B, backward, bf16) of
@@ -288,6 +382,9 @@ _SIGNATURES = {
 # (device index, H, backward): each depends on nothing else.
 _PLANS: Dict[Tuple[int, int, int, bool, bool], Tuple[int, int]] = {}
 _CLUSTERS: Dict[Tuple[int, int, bool], Dict[str, int]] = {}
+# Clusters of the weight-gradient kernel a device holds at once, per
+# (device index, bm, bn, splits).
+_WGRAD_CLUSTERS: Dict[Tuple[int, int, int, int], int] = {}
 
 
 def _lib():
@@ -381,15 +478,33 @@ def _cuda_check(device: torch.device):
 
 def _launch_fwd(xp, wh, bn, h0):
   """K2f: ys [T, B, H] float32 from contiguous xp, wh at the stream dtype
-  and float32 bn, h0, on the route of this H and dtype."""
+  and float32 bn, h0, on the route of this T, H and dtype (`fwd_route`)."""
   hidden = wh.shape[0]
   _cuda_check(xp.device)
-  if xp.dtype == torch.bfloat16:
-    route, h_pad = bf16_route(hidden)
-    if route == 'cluster':
-      ys = _launch_cluster_fwd(*pad_gru_inputs(h_pad, xp, wh, bn, h0))
-      return ys[..., :hidden].contiguous()  # a no-op at h_pad = H
+  route = fwd_route(xp.dtype, xp.shape[0], hidden)
+  if route == 'step':
+    return _launch_step_fwd(xp, wh, bn, h0)
+  if route == 'cluster':
+    h_pad = bf16_route(hidden)[1]
+    ys = _launch_cluster_fwd(*pad_gru_inputs(h_pad, xp, wh, bn, h0))
+    return ys[..., :hidden].contiguous()  # a no-op at h_pad = H
   return _launch_coop_fwd(xp, wh, bn, h0)
+
+
+def _launch_step_fwd(xp, wh, bn, h0):
+  """K2f at T = 1 with float32 streams: the step kernel, one launch."""
+  batch, hidden = h0.shape
+  dev = xp.device
+  lib = _lib()
+  with torch.cuda.device(dev):
+    ys = torch.empty((1, batch, hidden), dtype=torch.float32, device=dev)
+    status = lib.ddsp_gru_step(xp.data_ptr(), wh.data_ptr(), bn.data_ptr(),
+                               h0.data_ptr(), ys.data_ptr(), batch, hidden,
+                               torch.cuda.current_stream().cuda_stream)
+  _build.check(status, 'ddsp_gru_step')
+  launches['fwd'] += 1
+  launches['fwd_step'] += 1
+  return ys
 
 
 def _launch_cluster_fwd(xp, wh, bn, h0):
@@ -466,21 +581,55 @@ def _launch_bwd_serial(g, xp, h_prev, wh, bn):
   return dxp, dhn, dbn_tiles, dh0
 
 
+def pick_wgrad(device: torch.device, hidden: int,
+               rows: int) -> Dict[str, int]:
+  """`wgrad_plan` for this device: its SM count and cluster occupancy (each
+  queried once per device and shape). Call it with `device` current."""
+  def max_clusters(bm, bn, splits):
+    key = (device.index, bm, bn, splits)
+    if key not in _WGRAD_CLUSTERS:
+      out = _INT(0)
+      status = _lib().ddsp_gru_wgrad_clusters(bm, bn, splits,
+                                              ctypes.byref(out))
+      _build.check(status, 'ddsp_gru_wgrad_clusters')
+      _WGRAD_CLUSTERS[key] = out.value
+    return _WGRAD_CLUSTERS[key]
+
+  n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+  return wgrad_plan(hidden, rows, n_sms, max_clusters)
+
+
 def _launch_wgrad(h_prev, dxp, dhn, dbn_tiles):
   """K2b (b), bf16 cluster route: (dwh, dbn) from K2b (a)'s streams."""
   seq_len, batch, h_dim = h_prev.shape
+  rows = seq_len * batch
   dev = dxp.device
+  for name, t, width in (('h_prev', h_prev, h_dim), ('dxp', dxp, 3 * h_dim),
+                         ('dhn', dhn, h_dim)):
+    if tuple(t.shape) != (seq_len, batch, width):
+      raise ValueError(f'the weight-gradient pass takes {name} '
+                       f'[{seq_len}, {batch}, {width}], not '
+                       f'{tuple(t.shape)}.')
+    if (t.dtype != torch.bfloat16 or not t.is_contiguous() or
+        t.data_ptr() % 16):
+      raise ValueError(f'the weight-gradient pass reads {name} through TMA: '
+                       'contiguous bf16 at a 16-byte aligned address.')
+  if (dbn_tiles.dtype != torch.float32 or not dbn_tiles.is_contiguous() or
+      dbn_tiles.ndim != 2 or dbn_tiles.shape[1] != h_dim):
+    raise ValueError(f'the weight-gradient pass takes float32 dbn_tiles '
+                     f'[tiles, {h_dim}], not {dbn_tiles.dtype} '
+                     f'{tuple(dbn_tiles.shape)}.')
   _cuda_check(dev)
-  cluster_shape(h_dim)
   lib = _lib()
   with torch.cuda.device(dev):
+    plan = pick_wgrad(dev, h_dim, rows)
     dwh = torch.empty((h_dim, 3 * h_dim), dtype=torch.float32, device=dev)
     dbn = torch.empty((h_dim,), dtype=torch.float32, device=dev)
     status = lib.ddsp_gru_wgrad(
         h_prev.data_ptr(), dxp.data_ptr(), dhn.data_ptr(),
-        dbn_tiles.data_ptr(), dwh.data_ptr(), dbn.data_ptr(),
-        seq_len * batch, h_dim, dbn_tiles.shape[0],
-        torch.cuda.current_stream().cuda_stream)
+        dbn_tiles.data_ptr(), dwh.data_ptr(), dbn.data_ptr(), rows, h_dim,
+        dbn_tiles.shape[0], plan['bm'], plan['bn'], plan['chunk'],
+        plan['splits'], torch.cuda.current_stream().cuda_stream)
   _build.check(status, 'ddsp_gru_wgrad')
   launches['wgrad'] += 1
   return dwh, dbn

@@ -193,17 +193,20 @@ class FastGRU(nn.Module):
   Stream dtype. In bf16 mode the GEMM takes bf16 operands with float32
   accumulation. Where the JAX package runs its Pallas kernel
   (ddsp_tpu/nn/layers.py:209-237: a TPU and gru_kernel_supported,
-  ddsp_tpu/ops/pallas_kernels/gru.py:84), xp and wh enter the recurrence
-  as bf16. Where it runs its lax.scan instead because the sequence is
-  shorter than MIN_BF16_STEPS (the same :84), xp stays float32 (the bf16
-  GEMM's float32 result, not cast back) and wh float32 (:239-253), so a
-  streaming decoder's T = 1 recurrence runs K2f's float32 route. The
-  clause `hidden % 128 == 0` of :84 is not followed: the port runs bf16
-  streams at every H (ROADMAP.md section 3).
+  ddsp_tpu/ops/pallas_kernels/gru.py:84: at least MIN_BF16_STEPS steps and
+  a multiple of BF16_HIDDEN_MULTIPLE units), xp and wh enter the recurrence
+  as bf16. Where it runs its float32 lax.scan instead (a shorter sequence,
+  or another H such as the tiny preset's 64), xp stays float32 (the bf16
+  GEMM's float32 result, not cast back) and wh float32 (:239-253), so the
+  port runs K2's float32 routes there: a streaming decoder's T = 1
+  recurrence takes the step kernel. The VMEM clause of :84 is a TPU layout
+  limit and is not followed.
   """
 
-  # ddsp_tpu/ops/pallas_kernels/gru.py:84 (`seq_len >= 8`).
+  # ddsp_tpu/ops/pallas_kernels/gru.py:84: `seq_len >= 8` and
+  # `hidden % _LANES == 0` (128 lanes).
   MIN_BF16_STEPS = 8
+  BF16_HIDDEN_MULTIPLE = 128
 
   def __init__(self, in_features: int, dims: int = 512,
                compute_dtype: str = 'bfloat16'):
@@ -234,7 +237,8 @@ class FastGRU(nn.Module):
       # Products of bf16 operands are exact in float32: this is a bf16 GEMM
       # with float32 accumulation.
       xp = x.to(dt).float() @ self.wi.to(dt).float() + self.bi
-      if x.shape[1] >= self.MIN_BF16_STEPS:
+      if (x.shape[1] >= self.MIN_BF16_STEPS and
+          self.dims % self.BF16_HIDDEN_MULTIPLE == 0):
         xp = xp.to(dt)  # bf16 streams: K2's bf16 route
     else:
       xp = x.float() @ self.wi + self.bi  # [batch, time, 3H]

@@ -484,13 +484,23 @@ def test_fast_gru_initial_state_at_one_step_matches_jax_scan(dtype):
     np.testing.assert_allclose(_np(g), np.asarray(w), atol=GRU_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize('seq_len,stream', [(1, torch.float32),
-                                            (7, torch.float32),
-                                            (8, torch.bfloat16)])
-def test_short_sequences_stream_float32(monkeypatch, seq_len, stream):
+_H = t_layers.FastGRU.BF16_HIDDEN_MULTIPLE
+
+
+@pytest.mark.parametrize('hidden,seq_len,stream', [
+    pytest.param(_H, 1, torch.float32, id='1-stream0'),
+    pytest.param(_H, 7, torch.float32, id='7-stream1'),
+    pytest.param(_H, 8, torch.bfloat16, id='8-stream2'),
+    pytest.param(64, 24, torch.float32, id='h64-24'),
+    pytest.param(96, 24, torch.float32, id='h96-24'),
+    pytest.param(_H, 24, torch.bfloat16, id='h128-24'),
+    pytest.param(512, 8, torch.bfloat16, id='h512-8')])
+def test_short_sequences_stream_float32(monkeypatch, hidden, seq_len,
+                                        stream):
   """In bf16 mode xp reaches the recurrence as float32 below
-  MIN_BF16_STEPS (where the JAX package runs its float32 scan) and as bf16
-  from it (its Pallas kernel)."""
+  MIN_BF16_STEPS (where the JAX package runs its float32 scan) and off the
+  multiples of BF16_HIDDEN_MULTIPLE units (where `gru_kernel_supported`
+  fails), and as bf16 otherwise (its Pallas kernel)."""
   seen = []
   real = t_layers.gru_sequence
 
@@ -499,7 +509,7 @@ def test_short_sequences_stream_float32(monkeypatch, seq_len, stream):
     return real(xp, wh, bn, h0)
 
   monkeypatch.setattr(t_layers, 'gru_sequence', spy)
-  gru = t_layers.FastGRU(4, 8, compute_dtype='bfloat16')
+  gru = t_layers.FastGRU(4, hidden, compute_dtype='bfloat16')
   ys = gru(torch.randn(2, seq_len, 4))
   assert t_layers.FastGRU.MIN_BF16_STEPS == 8
   assert seen == [(stream, torch.float32)] and ys.dtype == torch.float32
