@@ -6,6 +6,8 @@ Run from the repository root on a machine with a CUDA GPU and nvcc:
 
     python3 chip_smoke.py            # what the acceptance check runs
     python3 chip_smoke.py --profile  # also print per-kernel breakdowns
+    python3 chip_smoke.py --prefetch-pairs 10  # only phase 6c's timing,
+                                               # prefetch 0 against 2
 
 Phases (any failed check exits non-zero before the result lines):
   1. build the kernels of ddsp_torch/csrc with nvcc (all sources at once);
@@ -56,6 +58,17 @@ Phases (any failed check exits non-zero before the result lines):
      losses, the gradients, the kernels' launch counts, a step against the
      port on the CPU (the reverb IR's gradient too: check_ir_gradient), and
      a checkpoint round trip;
+  6c. train the same model from a TFRecord dataset: 48 examples of 4 s
+     written in 3 shards by the port's writer (the native codec's CRC
+     against the pure-Python one), 12 steps of train() from
+     TFRecordProvider through the pinned-memory prefetch; check the
+     batches bit for bit against the host provider, on the card in
+     float32, the launches per step, that train() closed the prefetch
+     and started no thread, and the losses against prefetch=0; time train() steps with prefetch 0 and 2 in
+     turns, from the records and from one repeated batch; export the
+     checkpoint (export_model), serve a 4 s request from it through K1f
+     and K2f against the train directory on the CPU, and check the
+     impulse-response wav against the trained reverb IR;
   6a. one B = 2 training step at rnn_channels 384 and 1024 against the port
      on the CPU, with the launches of each GRU route;
   6b. train the same model sequence-parallel: Trainer on a (1 data x 4 time)
@@ -71,6 +84,7 @@ Exits 1 without a CUDA device or outside a checkout of the repository.
 """
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -1662,7 +1676,6 @@ def check_ir_gradient(torch, dev, label, gpu_model, cpu_model, batch, noise,
 def phase_train(torch, dev, work_dir, profile):
   from ddsp_torch.train import Trainer, train
   from ddsp_torch.utils import build_model
-  import itertools
   print(f'[6] train solo_instrument (full width, bf16, batch {BATCH} x 4 s, '
         f'{TRAIN_STEPS} steps)', flush=True)
   batch = training_batch()
@@ -1755,6 +1768,315 @@ def phase_train(torch, dev, work_dir, profile):
     profile_steps(torch, lambda: trainer.train_step(state, batch), 3,
                   median_ms, 'training step')
   return launches, median_ms
+
+
+# Phase 6c: train from a TFRecord dataset, export, serve. 48 examples of
+# 4 s in 3 shards (~13 MB), 3 batches of 16 an epoch.
+DATA_EXAMPLES = 48
+DATA_SHARDS = 3
+DATA_STEPS = 12
+DATA_SEED = 7
+# Steps timed per train() run (the first DATA_WARMUP_STEPS intervals are
+# not counted), runs in turns: prefetch 0, 2, 2, 0.
+DATA_TIMED_STEPS = 24
+DATA_WARMUP_STEPS = 4
+
+
+def write_dataset(data_dir):
+  """DATA_EXAMPLES examples of SyntheticSinusoidProvider into DATA_SHARDS
+  TFRecord shards with the port's writer; returns the file pattern."""
+  from ddsp_torch import native
+  from ddsp_torch.data import SyntheticSinusoidProvider, tfrecord
+  os.makedirs(data_dir, exist_ok=True)
+  examples = list(SyntheticSinusoidProvider(
+      n_samples=N_SAMPLES, n_examples=DATA_EXAMPLES,
+      seed=DATA_SEED).get_dataset(shuffle=False))
+  per_shard = DATA_EXAMPLES // DATA_SHARDS
+  paths = []
+  t0 = time.time()
+  for i in range(DATA_SHARDS):
+    paths.append(os.path.join(
+        data_dir, f'train.tfrecord-{i:05d}-of-{DATA_SHARDS:05d}'))
+    tfrecord.write_examples(paths[-1],
+                            examples[i * per_shard:(i + 1) * per_shard])
+  seconds = time.time() - t0
+  size = sum(os.path.getsize(p) for p in paths)
+  codec = native.codec_name()
+  print(f'  wrote {DATA_EXAMPLES} examples ({size / 1e6:.2f} MB) into '
+        f'{DATA_SHARDS} shards in {seconds:.2f} s; codec: {codec}')
+  check(codec == 'native', 'the native TFRecord codec built and ran')
+  # The native CRC against the pure-Python one on the first records.
+  records = list(tfrecord.read_records(paths[0], verify_crc=True))[:2]
+  agree = []
+  for record in records:
+    crc = tfrecord.crc32c(record)
+    python_masked = (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+    agree.append(native.crc32c(record) == crc and
+                 native.masked_crc(record) == python_masked and
+                 native.check_record(native.frame_record(record)) ==
+                 len(record))
+  check(all(agree), f'the native CRC32C and masked CRC of the first '
+        f'{len(records)} records ({len(records[0])} bytes) equal the '
+        'pure-Python ones, and their native framing checks')
+  return os.path.join(data_dir, 'train.tfrecord*')
+
+
+def dataset_run(torch, pattern, prefetch, num_steps, save_dir=None,
+                record=False, one_batch=False):
+  """One train() run of full-width solo_instrument from the dataset (model
+  seed 0, provider seed DATA_SEED, batch BATCH), or from its first batch
+  repeated (one_batch: no reading or parsing per step).
+
+  Returns {'losses': [float], 'batches': [host copies] if record, 'starts':
+  [CUDA event at each step's start], 'end': CUDA event after train(),
+  'to_device_s': [host seconds in Trainer.to_device], 'provider_s': [host
+  seconds in the provider's next()], 'same_tensors': [to_device returned
+  the batch's own tensors], 'prefetches': [the prefetch iterators train()
+  made], 'threads': threads alive after train() less before, 'trainer'}.
+  """
+  import threading
+  from ddsp_torch.data import TFRecordProvider, prefetch_to_device
+  from ddsp_torch.train import Trainer, train, train_loop
+  from ddsp_torch.utils import build_model
+  trainer = Trainer(build_model('solo_instrument', seed=0), seed=0)
+  run = {'losses': [], 'batches': [], 'starts': [], 'to_device_s': [],
+         'provider_s': [], 'same_tensors': [], 'prefetches': [],
+         'trainer': trainer}
+
+  def kept_prefetch(*args, **kwargs):
+    run['prefetches'].append(prefetch_to_device(*args, **kwargs))
+    return run['prefetches'][-1]
+  step, to_device = trainer.train_step, trainer.to_device
+
+  def timed_to_device(batch):
+    t0 = time.perf_counter()
+    out = to_device(batch)
+    run['to_device_s'].append(time.perf_counter() - t0)
+    run['same_tensors'].append(all(out[k] is v for k, v in batch.items()))
+    return out
+
+  def recording_step(state, batch):
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run['starts'].append(start)
+    if record:
+      run['batches'].append({k: (v.device.type, v.dtype, v.cpu())
+                             if isinstance(v, torch.Tensor) else v
+                             for k, v in batch.items()})
+    state, losses = step(state, batch)
+    run['losses'].append(losses['total_loss'])
+    return state, losses
+
+  trainer.to_device = timed_to_device
+  trainer.train_step = recording_step
+  batches = TFRecordProvider(pattern, example_secs=N_SAMPLES / SR,
+                             seed=DATA_SEED).get_batch(BATCH, shuffle=True)
+  if one_batch:
+    batches = itertools.repeat(next(batches))
+
+  def timed_batches():
+    while True:
+      t0 = time.perf_counter()
+      batch = next(batches)
+      run['provider_s'].append(time.perf_counter() - t0)
+      yield batch
+
+  threads = threading.active_count()
+  train_loop.prefetch_to_device = kept_prefetch
+  try:
+    train(timed_batches(), trainer, num_steps=num_steps,
+          steps_per_summary=num_steps, steps_per_save=num_steps,
+          save_dir=save_dir, prefetch=prefetch)
+  finally:
+    train_loop.prefetch_to_device = prefetch_to_device
+  run['threads'] = threading.active_count() - threads
+  run['end'] = torch.cuda.Event(enable_timing=True)
+  run['end'].record()
+  torch.cuda.synchronize()
+  run['losses'] = [l.item() for l in run['losses']]
+  return run
+
+
+def timed_runs(torch, pattern, depths, one_batch=False):
+  """One dataset_run of DATA_TIMED_STEPS for each prefetch depth in
+  `depths`, in order. Steps are timed by CUDA events at each step's start
+  (the device's timeline, host stalls included), after DATA_WARMUP_STEPS.
+
+  Returns [(depth, [ms per step], [host ms in to_device], [host ms in the
+  source's next()])], one entry per run.
+  """
+  out = []
+  for depth in depths:
+    r = dataset_run(torch, pattern, depth, DATA_TIMED_STEPS,
+                    one_batch=one_batch)
+    marks = r['starts'] + [r['end']]
+    out.append((depth, [a.elapsed_time(b) for a, b in zip(
+        marks[DATA_WARMUP_STEPS:], marks[DATA_WARMUP_STEPS + 1:])],
+                [1e3 * t for t in r['to_device_s'][DATA_WARMUP_STEPS:]],
+                [1e3 * t for t in r['provider_s'][DATA_WARMUP_STEPS:]]))
+  return out
+
+
+def phase_prefetch_pairs(torch, work_dir, pairs):
+  """train() from the records with prefetch 0 against prefetch 2, in
+  `pairs` pairs, the side that runs first alternating; prints each run's
+  median ms per step, the pairwise differences and prefetch 0's quartile
+  spread. Measures only; checks nothing but the dataset's codec."""
+  print(f'[6c pairs] train() from the records, prefetch 0 against 2, '
+        f'{pairs} pairs of {DATA_TIMED_STEPS - DATA_WARMUP_STEPS} timed '
+        'steps a run', flush=True)
+  pattern = write_dataset(os.path.join(work_dir, 'dataset'))
+  medians = {0: [], 2: []}
+  for i in range(pairs):
+    order = (0, 2) if i % 2 == 0 else (2, 0)
+    for depth, steps, _, _ in timed_runs(torch, pattern, order):
+      medians[depth].append(float(np.median(steps)))
+    print(f'  pair {i + 1} ({order[0]} first): prefetch 0 '
+          f'{medians[0][-1]:.3f}, prefetch 2 {medians[2][-1]:.3f} ms per '
+          'train() step', flush=True)
+  diffs = [b - a for a, b in zip(medians[0], medians[2])]
+  q1, q3 = np.percentile(medians[0], [25, 75])
+  print(f'  median of the run medians: prefetch 0 '
+        f'{np.median(medians[0]):.3f}, prefetch 2 {np.median(medians[2]):.3f}'
+        f' ms; pairwise prefetch 2 - prefetch 0: median '
+        f'{np.median(diffs):.3f} ms, prefetch 2 lower in '
+        f'{sum(d < 0 for d in diffs)} of {pairs} pairs; prefetch 0\'s '
+        f'quartile spread {q3 - q1:.3f} ms ({q1:.3f}-{q3:.3f})')
+
+
+def phase_data_train(torch, dev, work_dir):
+  """[6c] Train from a TFRecord dataset through the pinned-memory prefetch,
+  export the checkpoint and serve it."""
+  from ddsp_torch.data import TFRecordProvider
+  from ddsp_torch.eval.summaries import write_wav
+  from ddsp_torch.infer import (AutoencoderInference,
+                                export_impulse_response, export_model)
+  from ddsp_torch.utils import save_spec
+  print(f'[6c] train solo_instrument from TFRecords (batch {BATCH} x 4 s, '
+        f'{DATA_STEPS} steps, prefetch 2), export, serve', flush=True)
+  pattern = write_dataset(os.path.join(work_dir, 'dataset'))
+  save_dir = os.path.join(work_dir, 'data_train')
+  save_spec(save_dir, 'solo_instrument')
+
+  reset_launches()
+  run = dataset_run(torch, pattern, 2, DATA_STEPS, save_dir, record=True)
+  launches = read_launches()
+  print(f'  launches over {DATA_STEPS} steps: {launches}')
+  print(f'  total_loss per step: {[round(l, 4) for l in run["losses"]]}')
+  check(len(run['losses']) == DATA_STEPS and all(np.isfinite(run['losses'])),
+        f'train() took {DATA_STEPS} steps with finite losses')
+  check(all(launches[k] == DATA_STEPS
+            for k in ('K1f', 'K1t', 'K2f', 'K2b', 'K2b_w')) and
+        launches['K1p'] == launches['K3'] == 0,
+        'K1f, K1t, K2f, K2b and its weight-gradient pass once per step '
+        'from the dataset, K1p and K3 none')
+  check(len(run['prefetches']) == 1 and
+        run['prefetches'][0].gi_frame is None and run['threads'] == 0,
+        'train() closed its prefetch on return and left no thread')
+  check(all(run['same_tensors']),
+        'Trainer.to_device used the prefetched tensors as they were (no '
+        'copy, no cast)')
+  reference = TFRecordProvider(pattern, example_secs=N_SAMPLES / SR,
+                               seed=DATA_SEED).get_batch(BATCH, shuffle=True)
+  differ = []
+  for i, got in enumerate(run['batches']):
+    want = next(reference)
+    differ += [(i, k) for k in sorted(set(got) | set(want))
+               if k not in got or k not in want or got[k][:2] != (
+                   dev.type, torch.float32) or not np.array_equal(
+                       got[k][2].numpy(), want[k].astype(np.float32))]
+  check(len(run['batches']) == DATA_STEPS and not differ,
+        f'each of the {DATA_STEPS} batches the step received is on '
+        f'{dev.type}, float32 and bit for bit the host provider\'s '
+        f'(differ: {differ})')
+
+  # The same steps without prefetch, twice: their spread bounds the
+  # prefetched run's departure.
+  plain = [dataset_run(torch, pattern, 0, DATA_STEPS)['losses']
+           for _ in range(2)]
+  spread = max(abs(a - b) for a, b in zip(*plain))
+  apart = max(abs(a - b) for a, b in zip(run['losses'], plain[0]))
+  print(f'  prefetch 2 against prefetch 0: max |loss difference| {apart:.3e}'
+        f'; two prefetch 0 runs: {spread:.3e}')
+  if spread == 0:
+    check(run['losses'] == plain[0], 'prefetch 2 gives the losses of '
+          'prefetch 0 bit for bit (two prefetch 0 runs agree bit for bit)')
+  else:
+    check(all(min(a, b) - spread <= p <= max(a, b) + spread
+              for p, a, b in zip(run['losses'], *plain)),
+          'prefetch 2 gives the losses of prefetch 0 within the spread of '
+          'two prefetch 0 runs')
+
+  # Whole train() steps in turns, from the records, and from their first
+  # batch repeated (the prefetch without the reader's work).
+  for source in ('records', 'one batch'):
+    timed = {0: [], 2: []}
+    host_ms = {0: [], 2: []}
+    provider_ms = {0: [], 2: []}
+    for turn, (depth, steps, to_device_ms, next_ms) in enumerate(timed_runs(
+        torch, pattern, (0, 2, 2, 0), one_batch=source == 'one batch')):
+      timed[depth] += steps
+      host_ms[depth] += to_device_ms
+      provider_ms[depth] += next_ms
+      print(f'  {source}, turn {turn + 1}, prefetch {depth}: median ms per '
+            f'train() step {np.median(steps):.3f}')
+    for depth in (0, 2):
+      median = float(np.median(timed[depth]))
+      print(f'  {source}, prefetch {depth}: median ms per train() step '
+            f'{median:.3f} ({1e3 / median:.3f} steps/s, two turns of '
+            f'{DATA_TIMED_STEPS - DATA_WARMUP_STEPS} steps); host ms per '
+            f'step in to_device: median {np.median(host_ms[depth]):.4f}, '
+            f'mean {np.mean(host_ms[depth]):.4f}; in the source\'s next(): '
+            f'median {np.median(provider_ms[depth]):.4f}')
+
+  # Export the checkpoint of the prefetched run and serve it.
+  export_dir = os.path.join(work_dir, 'data_export')
+  seconds = N_SAMPLES / SR
+  export_model(save_dir, export_dir, length_seconds=seconds)
+  port = AutoencoderInference(export_dir, length_seconds=seconds)
+  request = requests()[1]
+  noise = torch.rand((1, N_SAMPLES), generator=torch.Generator().manual_seed(
+      3)) * 2 - 1
+  port.get_audio(request)  # warm-up, not counted
+  reset_launches()
+  audio = port(request, noise=noise.to(dev))['audio_synth']
+  torch.cuda.synchronize()
+  serve_launches = read_launches()
+  print(f'  one {seconds:g} s request from the export: launches '
+        f'{serve_launches}')
+  check(serve_launches['K1f'] == serve_launches['K2f'] == 1 and
+        serve_launches['K1t'] == serve_launches['K2b'] == 0,
+        'the exported model serves a request through K1f and K2f, once each')
+  cpu_audio = AutoencoderInference(save_dir, length_seconds=seconds,
+                                   device='cpu')(request, noise=noise)[
+                                       'audio_synth']
+  rel = ((audio.cpu() - cpu_audio).norm() / cpu_audio.norm()).item()
+  print(f'  export on the card against the train directory on the CPU: '
+        f'relative L2 {rel:.3e}')
+  check(tuple(audio.shape) == (1, N_SAMPLES) and
+        torch.isfinite(audio).all().item() and rel <= E2E_REL_L2,
+        f'served audio finite, [1, {N_SAMPLES}], within {E2E_REL_L2} of the '
+        'CPU port')
+
+  ir_dir = os.path.join(work_dir, 'data_ir')
+  path = export_impulse_response(save_dir, ir_dir)
+  trained_ir = run['trainer'].model.processor_group.reverb.ir.detach().cpu()
+  write_wav(os.path.join(ir_dir, 'trained', 'ir.wav'), trained_ir.numpy(),
+            SR)
+  samples = [wav_samples(p) for p in
+             (path, os.path.join(ir_dir, 'trained', 'ir.wav'))]
+  check(len(samples[0]) == REVERB_LENGTH and
+        np.array_equal(samples[0], samples[1]),
+        'the impulse-response wav holds write_wav of the trained reverb IR')
+  print(f'  {os.path.basename(path)}: {len(samples[0])} int16 samples equal '
+        'to write_wav of the trained IR')
+  return launches, serve_launches
+
+
+def wav_samples(path):
+  import wave
+  with wave.open(path) as w:
+    return np.frombuffer(w.readframes(w.getnframes()), np.int16)
 
 
 def phase_wide_gru_steps(torch, dev):
@@ -2364,11 +2686,22 @@ def library_gru_ms(torch, dev, hidden=HIDDEN):
   return out
 
 
+def card_line():
+  """The card's name and power limit, as nvidia-smi gives them."""
+  return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                         '--format=csv,noheader'], capture_output=True,
+                        text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--profile', action='store_true',
                       help='also print per-kernel device time over 3 requests, '
                       '20 VST hops and 3 training steps')
+  parser.add_argument('--prefetch-pairs', type=int, default=0, metavar='N',
+                      help='only time train() from the records with prefetch '
+                      '0 against 2 in N pairs (phase 6c\'s timing), then '
+                      'exit; no kernel check and no result line')
   args = parser.parse_args(argv)
   import torch
   if not torch.cuda.is_available():
@@ -2386,6 +2719,16 @@ def main(argv=None):
   torch.backends.cudnn.allow_tf32 = False
   dev = torch.device('cuda')
   launches = {}
+  if args.prefetch_pairs:
+    try:
+      phase_build()
+      with tempfile.TemporaryDirectory() as work_dir:
+        phase_prefetch_pairs(torch, work_dir, args.prefetch_pairs)
+    except CheckFailed as e:
+      print(f'chip_smoke: check failed: {e}', file=sys.stderr)
+      return 1
+    print(card_line())
+    return 0
   try:
     phase_build()
     phase_k1(torch, dev)
@@ -2401,6 +2744,8 @@ def main(argv=None):
       launches['chain'], _ = phase_chain(torch, dev)
       launches['train'], dense_ms = phase_train(torch, dev, work_dir,
                                                 args.profile)
+      launches['data_train'], launches['data_serve'] = phase_data_train(
+          torch, dev, work_dir)
     phase_wide_gru_steps(torch, dev)
     launches['sp_train'], k3_per_step, sp_mesh = phase_sp_train(
         torch, dev, dense_ms, args.profile)
@@ -2410,11 +2755,8 @@ def main(argv=None):
   except CheckFailed as e:
     print(f'chip_smoke: check failed: {e}', file=sys.stderr)
     return 1
-  smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                        '--format=csv,noheader'], capture_output=True,
-                       text=True, check=True).stdout.strip().splitlines()[0]
   print(json.dumps({'kernels': kernels}))
-  print(smi)
+  print(card_line())
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
       'count': torch.cuda.device_count()}}))

@@ -1,5 +1,7 @@
-"""Inference wrappers (port of ddsp_tpu.infer)."""
+"""Inference wrappers and export (port of ddsp_tpu.infer)."""
 
+from ddsp_torch.infer.export import (export_impulse_response, export_model,
+                                     unflatten)
 from ddsp_torch.infer.inference import (AutoencoderInference,
                                         VSTExtractFeatures,
                                         VSTPredictControls,
@@ -9,4 +11,6 @@ from ddsp_torch.infer.inference import (AutoencoderInference,
 
 __all__ = ['AutoencoderInference', 'VSTExtractFeatures', 'VSTPredictControls',
            'VSTStatelessPredictControls', 'VSTSynthesize',
-           'VSTSynthesizeHarmonic', 'VSTSynthesizeNoise', 'load_params']
+           'VSTSynthesizeHarmonic', 'VSTSynthesizeNoise',
+           'export_impulse_response', 'export_model', 'load_params',
+           'unflatten']

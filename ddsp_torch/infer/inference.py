@@ -1,11 +1,15 @@
-"""Inference-only models served from a params-format artifact.
+"""Inference-only models served from a params-format artifact or a train
+directory.
 
 Port of AutoencoderInference and the streaming (VST) classes of
 ddsp_tpu/infer/inference.py (:97-169, :172-423). They load the fmt='params'
-layout of ddsp_tpu/infer/export.py: operative_spec.json plus params.npz
-with flat 'a/b/c' keys (README.md says how to write one for a vst
-checkpoint). Every class runs on CUDA unless given device='cpu'; its calls
-take and return tensors on that device.
+layout that infer/export.py (and ddsp_tpu/infer/export.py) writes:
+operative_spec.json plus params.npz with flat 'a/b/c' keys (README.md says
+how to write one for a vst checkpoint). As the JAX classes restore a train
+directory's newest checkpoint, a directory without params.npz gives the
+parameters of its newest port checkpoint (ckpt-<step>.pt, utils/checkpoints.py).
+Every class runs on CUDA unless given device='cpu'; its calls take and
+return tensors on that device.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from ddsp_torch.nn.preprocessing import (OnlineF0PowerPreprocessor,
                                          inv_scale_f0_hz)
 from ddsp_torch.ops.fftconv import frequency_filter
 from ddsp_torch.ops.oscillator import streaming_harmonic_synthesis
-from ddsp_torch.utils import registry
+from ddsp_torch.utils import checkpoints, registry
 from ddsp_torch.utils.convert import load_jax_params
 from ddsp_torch.utils.device import DeviceLike, resolve_device
 
@@ -30,14 +34,28 @@ PARAMS_FILENAME = 'params.npz'
 _KEYS_WITHOUT_REVERB = ('decoder', 'encoder', 'preprocessor')
 
 
-def load_params(export_dir: str) -> Dict[str, np.ndarray]:
-  """The flat {'a/b/c': array} params of a fmt='params' export."""
-  with np.load(os.path.join(export_dir, PARAMS_FILENAME)) as data:
-    return {k: data[k] for k in data.files}
+def load_params(save_dir: str) -> Dict[str, np.ndarray]:
+  """The flat {'a/b/c': array} params of a fmt='params' export, or of the
+  newest checkpoint of a port train directory."""
+  path = os.path.join(save_dir, PARAMS_FILENAME)
+  if os.path.exists(path):
+    with np.load(path) as data:
+      return {k: data[k] for k in data.files}
+  steps = checkpoints.checkpoint_steps(save_dir)
+  if not steps:
+    raise FileNotFoundError(f'Neither {PARAMS_FILENAME} nor a checkpoint '
+                            f'(ckpt-<step>.pt) in {save_dir!r}.')
+  restored = torch.load(checkpoints.checkpoint_path(save_dir, steps[-1]),
+                        map_location='cpu', weights_only=True)
+  return {k.replace('.', '/'): v.numpy()
+          for k, v in restored['params'].items()}
 
 
 class AutoencoderInference:
-  """Autoencoder rebuilt from an exported spec, for rendering features.
+  """Autoencoder rebuilt from a spec, for rendering features.
+
+  save_dir is a fmt='params' export or a port train directory (its spec
+  and newest checkpoint), as load_params reads them.
 
   As the JAX class does, it mutates the architecture for a new length
   (n_samples and time_steps from length_seconds), forces the chunked

@@ -18,7 +18,9 @@ from pathlib import Path
 from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / 'csrc'
-BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'ddsp_torch_kernels'
+# build/ at the repository root, beside the package, never inside it.
+BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build'
+BUILD_DIR = BUILD_ROOT / 'ddsp_torch_kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -34,13 +36,22 @@ def _nvcc() -> str:
                      'built from csrc/ on a machine with the CUDA toolkit.')
 
 
+def hashed_library(source: Path, compiler: str, flags: Sequence[str],
+                   build_dir: Path, stem: str) -> Path:
+  """build_dir/lib<stem>_<hash>.so: where `source` builds with `compiler`
+  and `flags`, named by a hash of the source, the flags and the compiler
+  binary (its real path, size and mtime)."""
+  sha = hashlib.sha1(Path(source).read_bytes())
+  stat = os.stat(compiler)
+  sha.update(f'{" ".join(flags)}|{os.path.realpath(compiler)}|'
+             f'{stat.st_size}|{stat.st_mtime_ns}'.encode())
+  return build_dir / f'lib{stem}_{sha.hexdigest()[:12]}.so'
+
+
 def library_path(name: str, nvcc: str) -> Path:
   """Where csrc/<name>.cu builds with `nvcc` and NVCC_FLAGS."""
-  sha = hashlib.sha1((CSRC_DIR / f'{name}.cu').read_bytes())
-  stat = os.stat(nvcc)
-  sha.update(f'{" ".join(NVCC_FLAGS)}|{os.path.realpath(nvcc)}|'
-             f'{stat.st_size}|{stat.st_mtime_ns}'.encode())
-  return BUILD_DIR / f'lib{name}_{sha.hexdigest()[:12]}.so'
+  return hashed_library(CSRC_DIR / f'{name}.cu', nvcc, NVCC_FLAGS, BUILD_DIR,
+                        name)
 
 
 def build(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:

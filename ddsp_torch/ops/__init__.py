@@ -1,5 +1,7 @@
 """Differentiable DSP ops on torch tensors (port of ddsp_tpu.ops)."""
 
-from ddsp_torch.ops import core, fftconv, oscillator, resample, spectral
+from ddsp_torch.ops import (core, fftconv, oscillator, resample, spectral,
+                            synth_convert)
 
-__all__ = ['core', 'fftconv', 'oscillator', 'resample', 'spectral']
+__all__ = ['core', 'fftconv', 'oscillator', 'resample', 'spectral',
+           'synth_convert']

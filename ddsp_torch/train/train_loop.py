@@ -1,6 +1,7 @@
 """The training loop.
 
-Port of ddsp_tpu/train/train_loop.py: iterate batches, track mean losses,
+Port of ddsp_tpu/train/train_loop.py: iterate batches (each copied to the
+device ahead of its step, data/prefetch.py), track mean losses,
 log steps/sec, periodic checkpoints and summaries, early stop. Loss scalars
 stay on the device between summary intervals, so the loop never waits for
 the card inside an interval; `profile_dir` captures a torch.profiler trace
@@ -18,6 +19,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from ddsp_torch.data.prefetch import prefetch_to_device
 from ddsp_torch.train.trainer import Trainer, TrainState
 
 logger = logging.getLogger('ddsp_torch')
@@ -62,12 +64,13 @@ def train(data_iterator: Iterator[Dict[str, Any]],
           profile_dir: Optional[str] = None,
           profile_start: int = 10,
           profile_steps: int = 10,
-          log_every_step: bool = False) -> TrainState:
+          log_every_step: bool = False,
+          prefetch: int = 2) -> TrainState:
   """Main training loop.
 
   Args:
     data_iterator: Iterator yielding feature-dict batches (host arrays or
-      tensors); each batch is moved to the trainer's device as it is used.
+      tensors).
     trainer: A Trainer binding model and optimizer.
     num_steps: Total training steps.
     steps_per_summary: Interval for scalar summaries / steps-per-sec logs.
@@ -83,24 +86,18 @@ def train(data_iterator: Iterator[Dict[str, Any]],
     profile_steps: Number of steps to trace.
     log_every_step: Log losses every step (waits for the device each step;
       debug only).
+    prefetch: Depth of the host-to-device prefetch
+      (data.prefetch_to_device: pinned memory, a copy stream on CUDA, the
+      reading in this thread after each step is enqueued); 0 moves each
+      batch inside the step instead (Trainer.to_device).
 
   Returns:
     The final TrainState.
   """
-  batch = next(data_iterator)
-  state = trainer.init(batch)
-  logger.info('Trainer initialized: %d params.', trainer.param_count(state))
-
-  restore_dir = restore_dir or save_dir
-  if restore_dir and os.path.isdir(restore_dir):
-    state = trainer.restore(state, restore_dir)
-    if state.step > 0:
-      logger.info('Restored at step %d.', state.step)
-
-  writer = MetricsWriter(save_dir) if save_dir else None
-  pending_losses: List[Dict[str, Any]] = []
-  last_summary_time = time.time()
-  last_summary_step = step = state.step
+  if prefetch:
+    data_iterator = prefetch_to_device(data_iterator, size=prefetch,
+                                       device=trainer.device)
+  writer = None
   profiler = None
 
   def stop_profiler():
@@ -111,6 +108,21 @@ def train(data_iterator: Iterator[Dict[str, Any]],
     logger.info('Wrote profiler trace to %s', path)
 
   try:
+    batch = next(data_iterator)
+    state = trainer.init(batch)
+    logger.info('Trainer initialized: %d params.', trainer.param_count(state))
+
+    restore_dir = restore_dir or save_dir
+    if restore_dir and os.path.isdir(restore_dir):
+      state = trainer.restore(state, restore_dir)
+      if state.step > 0:
+        logger.info('Restored at step %d.', state.step)
+
+    writer = MetricsWriter(save_dir) if save_dir else None
+    pending_losses: List[Dict[str, Any]] = []
+    last_summary_time = time.time()
+    last_summary_step = step = state.step
+
     while step < num_steps:
       if profile_dir and step == profile_start and profiler is None:
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -181,3 +193,7 @@ def train(data_iterator: Iterator[Dict[str, Any]],
       stop_profiler()
     if writer:
       writer.close()
+    if prefetch:
+      # Release the prefetched device batches on every exit: normal, early
+      # stop or exception.
+      data_iterator.close()

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import re
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -27,14 +26,12 @@ import torch
 from ddsp_torch.parallel import sp_model
 from ddsp_torch.parallel.halo import check_halo_impl
 from ddsp_torch.parallel.mesh import normalize_device
+from ddsp_torch.utils import checkpoints
 from ddsp_torch.utils.device import DeviceLike, resolve_device
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
-
-_CKPT_RE = re.compile(r'ckpt-(\d+)\.pt$')
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -202,17 +199,8 @@ class Trainer:
   # ----------------------------------------------------------------------
   # Checkpointing
   # ----------------------------------------------------------------------
-  @staticmethod
-  def checkpoint_steps(directory: str) -> List[int]:
-    """Steps of the checkpoints in `directory`, ascending."""
-    if not os.path.isdir(directory):
-      return []
-    found = (_CKPT_RE.match(name) for name in os.listdir(directory))
-    return sorted(int(m.group(1)) for m in found if m)
-
-  @staticmethod
-  def checkpoint_path(directory: str, step: int) -> str:
-    return os.path.join(directory, f'ckpt-{step:08d}.pt')
+  checkpoint_steps = staticmethod(checkpoints.checkpoint_steps)
+  checkpoint_path = staticmethod(checkpoints.checkpoint_path)
 
   def save(self, state: TrainState, save_dir: str) -> float:
     """Saves model and optimizer to a step-numbered checkpoint; returns the

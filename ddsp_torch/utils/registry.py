@@ -1,8 +1,9 @@
-"""Preset registry and the 'operative spec' reader.
+"""Preset registry and the 'operative spec' artifact.
 
 Port of ddsp_tpu/utils/registry.py. A spec is operative_spec.json, holding
-{'preset': name, 'kwargs': {...}}, written beside checkpoints and exported
-artifacts by the JAX package; it rebuilds (and may mutate) the exact model.
+{'preset': name, 'kwargs': {...}}, written beside checkpoints (save_spec)
+and exported artifacts (infer/export.py), by the port or the JAX package; it
+rebuilds (and may mutate) the exact model.
 """
 
 from __future__ import annotations
@@ -61,6 +62,16 @@ def build_model(name: str, device: DeviceLike = None,
   if seed is not None:
     init_parameters(model, seed)
   return model.to(device)
+
+
+def save_spec(save_dir: str, preset: str, **kwargs) -> str:
+  """Write the (preset, kwargs) model spec next to checkpoints."""
+  os.makedirs(save_dir, exist_ok=True)
+  path = os.path.join(save_dir, SPEC_FILENAME)
+  with open(path, 'w') as f:
+    json.dump({'preset': preset, 'kwargs': kwargs}, f, indent=2,
+              sort_keys=True)
+  return path
 
 
 def load_spec(save_dir: str) -> Dict[str, Any]:

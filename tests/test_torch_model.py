@@ -174,7 +174,8 @@ def test_load_jax_params_is_strict():
 
 def test_port_imports_no_jax():
   code = ('import sys, ddsp_torch, ddsp_torch.infer, ddsp_torch.configs, '
-          'ddsp_torch.kernels, ddsp_torch.losses, ddsp_torch.train; '
+          'ddsp_torch.kernels, ddsp_torch.losses, ddsp_torch.train, '
+          'ddsp_torch.data, ddsp_torch.native, ddsp_torch.eval.summaries; '
           "bad = [m for m in sys.modules if m.split('.')[0] in "
           "('jax', 'flax', 'ddsp_tpu', 'optax', 'orbax')]; print(bad)")
   out = subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True,
