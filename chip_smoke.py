@@ -50,6 +50,14 @@ Phases (any failed check exits non-zero before the result lines):
      forward (K2f once on its bf16 route); print per-hop latency against the
      20 ms hop period and K2f's one-hop entry (GRUCell and the cooperative
      route beside it);
+  4c. CREPE (ops/crepe.py) on 1000 frames with TF32 turned on for the
+     process around the call, against the port on the CPU (CREPE pins full
+     float32 itself); then the vst preset streamed with its own f0: 250
+     hops of a 440 Hz tone through VSTExtractFeatures() (CREPE on) ->
+     VSTStatelessPredictControls -> VSTSynthesize; check f0 within 20 cents
+     of 440 Hz, the features against the CPU port hop for hop, K2f once a
+     hop; print the hop's latency, the extract stage's and CREPE's device
+     ms;
   5. the synthesis chain (Harmonic + FilteredNoise + Add + Reverb, batch 16,
      4 s) forward and gradient with respect to every control, f0 included:
      the path of K1p;
@@ -69,6 +77,16 @@ Phases (any failed check exits non-zero before the result lines):
      checkpoint (export_model), serve a 4 s request from it through K1f
      and K2f against the train directory on the CPU, and check the
      impulse-response wav against the trained reverb IR;
+  6d. evaluate_or_sample of that checkpoint at batch 4, 4 batches of 4 s,
+     BasicEvaluator and F0LdEvaluator on CREPE with Viterbi: 'eval' on the
+     card against the same evaluation by the CPU port (the scalars; the
+     first batch's audio and its loss's mag term), K1f and K2f once a
+     batch, then 'sample' (the wavs); print ms per eval batch and the
+     shares of CREPE's network and the Viterbi decode;
+  6e. prepare_records of a 20 s wav of harmonic glides on the card (CREPE
+     with Viterbi, loudness) into 2 shards, read back with
+     TFRecordProvider, against the CPU port's prepare_records of the same
+     file; print the seconds of audio prepared per second;
   6a. one B = 2 training step at rnn_channels 384 and 1024 against the port
      on the CPU, with the launches of each GRU route;
   6b. train the same model sequence-parallel: Trainer on a (1 data x 4 time)
@@ -1421,6 +1439,183 @@ def phase_vst(torch, dev, export_dir, profile=False):
   return launches, entry
 
 
+# Phase 4c: the VST path with its own f0 (CREPE, ops/crepe.py) and CREPE's
+# precision on the card. CREPE's activations on the card against the port
+# on the CPU: the same float32 convolutions in another order (cuDNN's
+# algorithms, oneDNN's; ~1e-7 between XLA and oneDNN on the CPU); TF32
+# convolutions would round each product to a 10-bit mantissa and move the
+# activations by ~1e-3, so 1e-4 tells the two apart.
+CREPE_FRAMES = 1000
+CREPE_ACT_ATOL = 1e-4
+# f0 of the streamed 440 Hz tone: the plugin's pitch, within 20 cents.
+VST_F0_CENTS = 20.0
+# The extracted features hop by hop against the CPU port: CREPE's f0 from
+# activations within CREPE_ACT_ATOL, decoded to cents (a weighted mean of
+# 10 bins, the tests' 1-cent tier), and the frame's power in dB (a mean of
+# squares in another order, tests/test_torch_vst.py's 1e-4 dB).
+VST_F0_CPU_CENTS = 1.0
+VST_POWER_ATOL_DB = 1e-4
+
+
+def cents_apart(a, b):
+  return np.abs(1200.0 * np.log2(np.asarray(a, np.float64) /
+                                 np.asarray(b, np.float64)))
+
+
+def phase_crepe_precision(torch, dev):
+  """CREPE's activations on CREPE_FRAMES frames on the card, with TF32
+  turned on for the process around the call, against the port on the CPU;
+  CREPE pins full float32 itself (ops/crepe.py full_float32). The same
+  network without the pin, TF32 on, is printed beside it."""
+  from ddsp_torch.ops import crepe
+  print(f'[4c] CREPE on the card: {CREPE_FRAMES} frames, TF32 on around '
+        'the call', flush=True)
+  hop = 160
+  n = crepe.CREPE_FRAME_SIZE + (CREPE_FRAMES - 1) * hop
+  t = np.arange(n) / SR
+  f0 = 110.0 * 2**(3 * t / t[-1])  # three octaves up
+  rng = np.random.RandomState(9)
+  audio = (0.3 * np.sin(2 * np.pi * np.cumsum(f0) / SR) +
+           0.01 * rng.randn(n)).astype(np.float32)[None]
+  gpu = crepe.PretrainedCrepe(hop_size=hop)
+  cpu = crepe.PretrainedCrepe(hop_size=hop, device='cpu')
+  cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+  saved = (cudnn.allow_tf32, matmul.allow_tf32)
+  try:
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    acts = gpu.activations(torch.from_numpy(audio).to(dev))
+    flags_after = (cudnn.allow_tf32, matmul.allow_tf32)
+    frames = gpu.normalize_frames(gpu.batch_frames(
+        torch.from_numpy(audio).to(dev)))
+    with torch.no_grad():
+      unpinned = gpu.model(frames)
+    ms = device_ms(torch, lambda: gpu.activations(
+        torch.from_numpy(audio).to(dev)), 20)
+  finally:
+    cudnn.allow_tf32, matmul.allow_tf32 = saved
+  want = cpu.activations(torch.from_numpy(audio))
+  err = (acts.cpu() - want).abs().max().item()
+  tf32_err = (unpinned.cpu() - want[0]).abs().max().item()
+  print(f'  activations {tuple(acts.shape)}: max |err| against the CPU port '
+        f'{err:.3e} (atol {CREPE_ACT_ATOL}); the network without the pin, '
+        f'TF32 on: {tf32_err:.3e}; {ms:.4f} ms device per '
+        f'{CREPE_FRAMES} frames', flush=True)
+  check(tuple(acts.shape) == (1, CREPE_FRAMES, 360) and
+        torch.isfinite(acts).all().item(),
+        f'CREPE activations [1, {CREPE_FRAMES}, 360], finite')
+  check(flags_after == (True, True),
+        "CREPE restored the process's TF32 settings after its call")
+  check(err <= CREPE_ACT_ATOL,
+        f'CREPE on the card with TF32 on for the process within '
+        f'{CREPE_ACT_ATOL} of the CPU port (it runs full float32 itself)')
+
+
+def vst_stream_own_f0(torch, dev, extract, predict, synth, frames):
+  """Stream `frames` [n, 1024] through extract (CREPE on) -> stateless
+  predict -> synth, each hop's f0 from the extractor. Returns {'f0': [Hz],
+  'pw_db': [dB], 'audio': [n, 320], 'ms': [ms per hop], 'extract_ms':
+  [ms per extract, synchronized]}; one synchronization per hop, as a
+  plugin hands its audio over."""
+  state = predict.initial_state()
+  phase = synth.initial_phase()
+  prev = None
+  out = {'f0': [], 'pw_db': [], 'audio': [], 'ms': [], 'extract_ms': []}
+  for frame in frames:
+    t0 = time.perf_counter()
+    f0_hz, f0_scaled, pw_db, pw_scaled = extract(frame)
+    amps, hd, noise, state = predict(f0_scaled, pw_scaled, state)
+    if prev is None:
+      prev = (amps, hd, f0_hz)
+    hop, phase = synth(amps, prev[0], hd, prev[1], f0_hz, prev[2], noise,
+                       phase)
+    if dev.type == 'cuda':
+      torch.cuda.synchronize()
+    out['ms'].append(1e3 * (time.perf_counter() - t0))
+    prev = (amps, hd, f0_hz)
+    out['f0'].append(f0_hz)
+    out['pw_db'].append(pw_db)
+    out['audio'].append(hop)
+  for frame in frames[:50]:
+    t0 = time.perf_counter()
+    extract(frame)
+    if dev.type == 'cuda':
+      torch.cuda.synchronize()
+    out['extract_ms'].append(1e3 * (time.perf_counter() - t0))
+  out['f0'] = torch.stack(out['f0']).cpu().numpy()
+  out['pw_db'] = torch.stack(out['pw_db']).cpu().numpy()
+  out['audio'] = torch.stack(out['audio'])
+  return out
+
+
+def phase_vst_f0(torch, dev, export_dir):
+  """[4c] The vst preset streamed with its own f0: VSTExtractFeatures()
+  (CREPE on, no Viterbi) -> VSTStatelessPredictControls -> VSTSynthesize
+  over VST_HOPS hops of a 440 Hz tone (phase 4b's export)."""
+  from ddsp_torch import infer
+  from ddsp_torch.kernels import gru as kg
+  print(f'[4c] VST streaming with CREPE f0: {VST_HOPS} hops of a 440 Hz '
+        'tone', flush=True)
+  tone = vst_tone(VST_FRAME + (VST_HOPS - 1) * VST_HOP)
+  frames = np.stack([tone[i * VST_HOP:i * VST_HOP + VST_FRAME]
+                     for i in range(VST_HOPS)])
+  sides = {}
+  for name, d in (('cuda', dev), ('cpu', torch.device('cpu'))):
+    sides[name] = {
+        'extract': infer.VSTExtractFeatures(export_dir, device=d),
+        'predict': infer.VSTStatelessPredictControls(export_dir, device=d),
+        'synth': infer.VSTSynthesize(export_dir, device=d),
+        'frames': torch.from_numpy(frames).to(d)}
+  gpu, cpu = sides['cuda'], sides['cpu']
+  cpu['synth'].noise_signal = gpu['synth'].noise_signal.cpu()
+  run = lambda side, d, n=None: vst_stream_own_f0(
+      torch, d, side['extract'], side['predict'], side['synth'],
+      side['frames'][:n])
+  run(gpu, dev, VST_WARMUP_HOPS)  # warm-up: cuDNN's plans, K2f's
+  reset_launches()
+  stream = run(gpu, dev)
+  torch.cuda.synchronize()
+  launches = read_launches()
+  n_step = kg.launches['fwd_step']
+  ref = run(cpu, torch.device('cpu'))
+  voiced = stream['pw_db'] > -60.0
+  off = cents_apart(stream['f0'][voiced], 440.0)
+  cpu_cents = cents_apart(stream['f0'], ref['f0']).max()
+  pw_err = np.abs(stream['pw_db'] - ref['pw_db']).max()
+  crepe_model = gpu['extract'].preprocessor.crepe
+  one = gpu['frames'][:1]
+  crepe_ms = device_ms(torch, lambda: crepe_model.predict_f0_and_confidence(
+      one, padding='valid'), 100)
+  print(f'  launches over {VST_HOPS} hops: {launches}, K2f on the step '
+        f'kernel {n_step}')
+  print(f'  f0: median {np.median(stream["f0"]):.3f} Hz, {voiced.sum()} '
+        f'voiced hops, at most {off.max():.3f} cents from 440 Hz (limit '
+        f'{VST_F0_CENTS}); against the CPU port: f0 {cpu_cents:.4f} cents '
+        f'(limit {VST_F0_CPU_CENTS}), power {pw_err:.3e} dB (atol '
+        f'{VST_POWER_ATOL_DB})')
+  print('  per hop, ' + latency_line('total with CREPE, one synchronization '
+                                     'per hop', stream['ms']) +
+        f'; the hop period is {VST_HOP_PERIOD_MS:.1f} ms')
+  print('  per hop, ' + latency_line('extract alone (CREPE + power), '
+                                     'synchronized', stream['extract_ms']) +
+        f'; CREPE {crepe_ms:.4f} ms device a hop', flush=True)
+  check(voiced.sum() == VST_HOPS and off.max() <= VST_F0_CENTS,
+        f'every hop of the tone is voiced and its f0 within {VST_F0_CENTS} '
+        'cents of 440 Hz')
+  check(cpu_cents <= VST_F0_CPU_CENTS and pw_err <= VST_POWER_ATOL_DB,
+        f'the extracted f0 within {VST_F0_CPU_CENTS} cents and the power '
+        f'within {VST_POWER_ATOL_DB} dB of the CPU port, hop for hop')
+  audio = stream['audio']
+  check(tuple(audio.shape) == (VST_HOPS, VST_HOP) and
+        torch.isfinite(audio).all().item() and audio.abs().max().item() > 0,
+        f'the streamed hops [{VST_HOPS}, {VST_HOP}], finite, not all zero')
+  check(launches['K2f'] == n_step == VST_HOPS and
+        all(launches[k] == 0 for k in ('K1f', 'K1t', 'K1p', 'K2b', 'K2b_w',
+                                       'K3')),
+        'K2f once a hop on its step kernel, no other kernel (CREPE and the '
+        'synth are plain torch, as the JAX package computes them)')
+  return launches
+
+
 def phase_chain(torch, dev):
   """Harmonic(60) + FilteredNoise(65) + Add + Reverb(48000), batch 16, 4 s:
   forward and the gradient with respect to every control, f0_hz included,
@@ -2071,6 +2266,283 @@ def phase_data_train(torch, dev, work_dir):
   print(f'  {os.path.basename(path)}: {len(samples[0])} int16 samples equal '
         'to write_wav of the trained IR')
   return launches, serve_launches
+
+
+# Phase 6d: evaluate and sample phase 6c's checkpoint, full width: batch 4,
+# EVAL_BATCHES batches of 4 s, F0LdEvaluator on CREPE with Viterbi.
+EVAL_BATCH = 4
+EVAL_BATCHES = 4
+# The eval scalars on the card against the same evaluation by the CPU port
+# (the same batches and noise). The losses: SpectralLoss of audio that the
+# two devices compute 2e-3 apart (relative L2, bf16 GRU routes); its logmag
+# term reads near-silent bins at 1/|X| (safe_log clamps only non-positive
+# bins; ROADMAP.md section 3), and the synthetic dataset has no noise
+# floor, so the loss moves by ~1e-2 relative (8.0e-3 measured on an H100)
+# while its mag term, held on the first batch, agrees as a training step's
+# loss does (STEP_LOSS_RTOL). The loudness L1 in dB: 20 log10 of amplitudes
+# that close, averaged (0.1 dB). Pitch of the generated audio by CREPE with
+# Viterbi: an f0 within a cent moves the mean MIDI distance by 0.01;
+# RPA/RCA and the outlier ratio count frames and examples, and a frame near
+# the 50-cent edge or an example near the 12-MIDI outlier cut may count on
+# either side: 2 % of the frames, one example of the 16.
+EVAL_LOSS_RTOL = 2e-2
+EVAL_MAG_LOSS_RTOL = STEP_LOSS_RTOL
+EVAL_LOUDNESS_ATOL_DB = 0.1
+EVAL_F0_MIDI_ATOL = 5e-2
+EVAL_FRACTION_ATOL = 2e-2
+EVAL_OUTLIER_ATOL = 1.0 / (EVAL_BATCH * EVAL_BATCHES)
+
+
+def eval_tolerance(key, want):
+  if key.startswith('losses/'):
+    return EVAL_LOSS_RTOL * abs(want)
+  if 'loudness' in key:
+    return EVAL_LOUDNESS_ATOL_DB
+  if 'outlier' in key:
+    return EVAL_OUTLIER_ATOL
+  if 'accuracy' in key:
+    return EVAL_FRACTION_ATOL
+  return EVAL_F0_MIDI_ATOL
+
+
+def timed_calls(torch, module, name, log):
+  """Wrap module.name so each call is timed (synchronized) into log."""
+  fn = getattr(module, name)
+
+  def timed(*args, **kwargs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    log.append(time.perf_counter() - t0)
+    return out
+  setattr(module, name, timed)
+  return fn
+
+
+def phase_eval(torch, dev, work_dir, pattern, train_dir):
+  """[6d] evaluate_or_sample of phase 6c's checkpoint: 'eval' on the card
+  and on the CPU (the same batches and noise), then 'sample'."""
+  from ddsp_torch.data import TFRecordProvider
+  from ddsp_torch.eval import evaluate_or_sample
+  from ddsp_torch.ops import crepe
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import build_model
+  print(f'[6d] evaluate and sample phase 6c\'s checkpoint: '
+        f'{EVAL_BATCHES} batches of {EVAL_BATCH} x 4 s, F0LdEvaluator on '
+        'CREPE with Viterbi', flush=True)
+  provider = TFRecordProvider(pattern, example_secs=N_SAMPLES / SR)
+  noise = torch.rand((EVAL_BATCH, N_SAMPLES),
+                     generator=torch.Generator().manual_seed(0)) * 2 - 1
+  # The first batch's forward on both devices, its loss whole and its mag
+  # term alone.
+  first = next(provider.get_batch(EVAL_BATCH, shuffle=False))
+  runs = {}
+  for name, d in (('cuda', dev), ('cpu', torch.device('cpu'))):
+    trainer = Trainer(build_model('solo_instrument', device=d, seed=1),
+                      device=d)
+    trainer.restore(trainer.init(), train_dir)
+    model = trainer.model
+    with torch.no_grad():
+      outputs, losses = model(trainer.to_device(first), training=False,
+                              return_losses=True, noise=noise.to(d))
+      model.losses = mag_only_losses(torch, model).to(d)
+      _, mag = model(trainer.to_device(first), training=False,
+                     return_losses=True, noise=noise.to(d))
+    runs[name] = (outputs['audio_synth'].cpu(), losses['total_loss'].item(),
+                  mag['total_loss'].item())
+  (g_audio, g_loss, g_mag), (c_audio, c_loss, c_mag) = (runs['cuda'],
+                                                        runs['cpu'])
+  mag_rel = abs(g_mag - c_mag) / abs(c_mag)
+  print(f'  first batch: audio relative L2 card against CPU '
+        f'{rel_l2(g_audio, c_audio):.3e}; loss card {g_loss:.5f}, CPU '
+        f'{c_loss:.5f} ({abs(g_loss - c_loss) / abs(c_loss):.3e} apart); its '
+        f'mag term card {g_mag:.5f}, CPU {c_mag:.5f} ({mag_rel:.3e} apart)',
+        flush=True)
+  check(rel_l2(g_audio, c_audio) <= E2E_REL_L2 and
+        mag_rel <= EVAL_MAG_LOSS_RTOL,
+        f'the first eval batch\'s audio within {E2E_REL_L2} and its loss\'s '
+        f'mag term within {EVAL_MAG_LOSS_RTOL} of the CPU port')
+  out = {}
+  for name, d in (('cuda', dev), ('cpu', torch.device('cpu'))):
+    trainer = Trainer(build_model('solo_instrument', device=d, seed=1),
+                      device=d)
+    eval_dir = os.path.join(work_dir, f'eval_{name}')
+    logs = {'activations': [], 'viterbi': []}
+    originals = ()
+    if name == 'cuda':
+      evaluate_or_sample(provider, trainer, os.path.join(work_dir, 'warm'),
+                         restore_dir=train_dir, batch_size=EVAL_BATCH,
+                         num_batches=1, noise=noise[:EVAL_BATCH].to(d))
+      originals = (
+          timed_calls(torch, crepe.PretrainedCrepe, 'activations',
+                      logs['activations']),
+          timed_calls(torch, crepe, 'crepe_viterbi_centers',
+                      logs['viterbi']))
+      reset_launches()
+      torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+      scalars = evaluate_or_sample(
+          provider, trainer, eval_dir, restore_dir=train_dir,
+          batch_size=EVAL_BATCH, num_batches=EVAL_BATCHES,
+          noise=noise.to(d))
+    finally:
+      if originals:
+        crepe.PretrainedCrepe.activations = originals[0]
+        crepe.crepe_viterbi_centers = originals[1]
+    if name == 'cuda':
+      torch.cuda.synchronize()
+      out['launches'] = read_launches()
+    seconds = time.perf_counter() - t0
+    out[name] = {'scalars': scalars, 'seconds': seconds, 'logs': logs,
+                 'trainer': trainer}
+  gpu, cpu = out['cuda'], out['cpu']
+  launches = out['launches']
+  per_batch = 1e3 * gpu['seconds'] / EVAL_BATCHES
+  crepe_s = sum(gpu['logs']['activations'])
+  viterbi_s = sum(gpu['logs']['viterbi'])
+  print(f'  launches over {EVAL_BATCHES} eval batches: {launches}')
+  print(f'  eval on the card: {per_batch:.3f} ms per eval batch (forward, '
+        f'losses, metrics); CREPE\'s network {100 * crepe_s / gpu["seconds"]:.1f}'
+        f' %, the Viterbi decode {100 * viterbi_s / gpu["seconds"]:.1f} % '
+        f'({len(gpu["logs"]["viterbi"])} decodes, '
+        f'{1e3 * viterbi_s / max(1, len(gpu["logs"]["viterbi"])):.3f} ms '
+        f'each); the CPU port {1e3 * cpu["seconds"] / EVAL_BATCHES:.1f} ms '
+        'per batch', flush=True)
+  bad = []
+  for key in sorted(set(gpu['scalars']) | set(cpu['scalars'])):
+    g, c = gpu['scalars'].get(key), cpu['scalars'].get(key)
+    tol = eval_tolerance(key, c) if c is not None else 0
+    ok = g is not None and c is not None and abs(g - c) <= tol
+    print(f'    {key}: card {g}, CPU {c} (tolerance {tol:.3e})')
+    if not ok:
+      bad.append(key)
+  check('metrics/f0_crepe/raw_pitch_accuracy' in gpu['scalars'] and
+        all(np.isfinite(v) for v in gpu['scalars'].values()),
+        'the eval reports finite scalars, CREPE pitch metrics among them')
+  check(not bad, f'the eval scalars on the card match the CPU port\'s '
+        f'evaluation of the checkpoint (apart: {bad})')
+  check(launches['K1f'] == launches['K2f'] == EVAL_BATCHES and
+        all(launches[k] == 0 for k in ('K1t', 'K1p', 'K2b', 'K2b_w', 'K3')),
+        'one K1f and one K2f launch per eval batch, no backward kernel')
+
+  sample_dir = os.path.join(work_dir, 'sample')
+  reset_launches()
+  evaluate_or_sample(provider, gpu['trainer'], sample_dir,
+                     restore_dir=train_dir, mode='sample',
+                     batch_size=EVAL_BATCH, num_batches=EVAL_BATCHES,
+                     noise=noise.to(dev))
+  torch.cuda.synchronize()
+  sample_launches = read_launches()
+  step_dir = os.path.join(sample_dir, 'samples', f'step_{DATA_STEPS}')
+  wavs = sorted(n for n in os.listdir(step_dir) if n.endswith('.wav'))
+  expected = {f'{i}_{kind}.wav' for i in range(EVAL_BATCH * EVAL_BATCHES)
+              for kind in ('original', 'synth')}
+  lengths = {len(wav_samples(os.path.join(step_dir, n))) for n in wavs}
+  print(f'  sample: {len(wavs)} wavs in {step_dir} ({lengths} samples '
+        f'each), launches {sample_launches}')
+  check(set(wavs) == expected and lengths == {N_SAMPLES},
+        f'sample wrote the {len(expected)} wavs of {N_SAMPLES} samples')
+  check(sample_launches['K1f'] == sample_launches['K2f'] == EVAL_BATCHES,
+        'sample launches K1f and K2f once per batch')
+  return launches
+
+
+# Phase 6e: prepare records from a 20 s wav on the card. f0 against the
+# CPU port's prepare_records of the same file: CREPE's activations within
+# CREPE_ACT_ATOL decoded to cents; the Viterbi path may take another state
+# where two paths' scores tie within that rounding, which the confident
+# frames of a clean glide do not (1 cent); every frame's confidence within
+# 1e-4 (CREPE_ACT_ATOL, its max); the loudness within 1e-3 dB (float32
+# powers of cuFFT and pocketfft).
+PREPARE_SECONDS = 20
+PREPARE_F0_CENTS = 1.0
+PREPARE_CONFIDENCE_ATOL = CREPE_ACT_ATOL
+PREPARE_LOUDNESS_ATOL_DB = 1e-3
+
+
+def glides_wav(path):
+  """PREPARE_SECONDS of harmonic glides (four notes sliding an octave and
+  back), 16 kHz, written with write_wav."""
+  from ddsp_torch.eval.summaries import write_wav
+  t = np.arange(PREPARE_SECONDS * SR) / SR
+  note = (t // 5).astype(int)
+  base = np.array([110.0, 196.0, 262.0, 147.0])[note]
+  f0 = base * 2**(1 - np.abs(((t % 5) / 2.5) - 1.0))
+  phase = 2 * np.pi * np.cumsum(f0) / SR
+  env = 0.6 * np.minimum(1.0, np.minimum(t % 5, 5 - t % 5) / 0.1)
+  audio = env * sum(np.sin(k * phase) / k for k in range(1, 6)) / 2.3
+  write_wav(path, audio.astype(np.float32), SR)
+  return path
+
+
+def phase_prepare(torch, dev, work_dir):
+  """[6e] prepare_records of a 20 s wav on the card (CREPE with Viterbi,
+  loudness) into 2 shards, read back with TFRecordProvider, against the
+  CPU port's prepare_records of the same file."""
+  from ddsp_torch.data import TFRecordProvider, prepare_records, tfrecord
+  print(f'[6e] prepare {PREPARE_SECONDS} s of harmonic glides into '
+        'TFRecords (CREPE with Viterbi, loudness)', flush=True)
+  wav = glides_wav(os.path.join(work_dir, 'glides', 'glides.wav'))
+  written, seconds = {}, {}
+  for name, d in (('warm', dev), ('cuda', dev), ('cpu', 'cpu')):
+    out_dir = os.path.join(work_dir, f'prepared_{name}')
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    written[name] = prepare_records([wav], os.path.join(out_dir, 'glides'),
+                                    num_shards=2, device=d)
+    seconds[name] = time.perf_counter() - t0
+  print(f'  written {[os.path.basename(p) for p in written["cuda"]]}; '
+        f'{PREPARE_SECONDS / seconds["cuda"]:.2f} s of audio prepared per '
+        f'second on the card ({seconds["cuda"]:.3f} s; first call '
+        f'{seconds["warm"]:.3f} s), {PREPARE_SECONDS / seconds["cpu"]:.2f} '
+        'on the CPU port', flush=True)
+  provider = TFRecordProvider(os.path.join(work_dir, 'prepared_cuda',
+                                           'glides*'), centered=False)
+  read = list(provider.get_dataset(shuffle=False))
+  examples = {name: [ex for p in written[name]
+                     for ex in tfrecord.read_examples(p)]
+              for name in ('cuda', 'cpu')}
+  n_expected = PREPARE_SECONDS - 4 + 1  # 4 s windows every 1 s
+  check(len(written['cuda']) == 2 and len(read) == n_expected ==
+        len(examples['cuda']) == len(examples['cpu']),
+        f'{n_expected} examples in 2 shards, read back by TFRecordProvider')
+  check(all(ex['audio'].shape == (4 * SR,) and ex['f0_hz'].shape == (1000,)
+            for ex in read), 'each example 4 s of audio and 1000 frames')
+  f0 = {n: np.stack([ex['f0_hz'] for ex in examples[n]]) for n in examples}
+  conf = {n: np.stack([ex['f0_confidence'] for ex in examples[n]])
+          for n in examples}
+  loud = {n: np.stack([ex['loudness_db'] for ex in examples[n]])
+          for n in examples}
+  confident = conf['cpu'] >= 0.85
+  cents = cents_apart(f0['cuda'], f0['cpu'])
+  conf_err = np.abs(conf['cuda'] - conf['cpu']).max()
+  loud_err = np.abs(loud['cuda'] - loud['cpu']).max()
+  # The glides' own f0 at each frame's centre ('same' framing: frame j of
+  # the example starting at k s is centred at k + (64 j + 512) / 16000 s).
+  t_frames = (np.arange(len(read))[:, None] + (64 * np.arange(1000) + 512)
+              / SR)[confident]
+  note = np.minimum(t_frames // 5, 3).astype(int)
+  truth = np.array([110.0, 196.0, 262.0, 147.0])[note] * 2**(
+      1 - np.abs(((t_frames % 5) / 2.5) - 1.0))
+  truth_cents = cents_apart(f0['cuda'][confident], truth)
+  print(f'  the card\'s f0 on confident frames against the glides\' own: '
+        f'median {np.median(truth_cents):.2f} cents, 90th percentile '
+        f'{np.percentile(truth_cents, 90):.2f}')
+  print(f'  against the CPU port: f0 on the {confident.mean():.3f} '
+        f'confident share of frames at most {cents[confident].max():.4f} '
+        f'cents apart, on all frames {cents.max():.4f} (within '
+        f'{PREPARE_F0_CENTS} cents: {np.mean(cents <= PREPARE_F0_CENTS):.5f}'
+        f'); confidence {conf_err:.3e}; loudness {loud_err:.3e} dB')
+  check(confident.mean() > 0.5 and
+        cents[confident].max() <= PREPARE_F0_CENTS,
+        f'f0 of the confident frames within {PREPARE_F0_CENTS} cents of the '
+        'CPU port')
+  check(conf_err <= PREPARE_CONFIDENCE_ATOL and
+        loud_err <= PREPARE_LOUDNESS_ATOL_DB,
+        f'confidence within {PREPARE_CONFIDENCE_ATOL} and loudness within '
+        f'{PREPARE_LOUDNESS_ATOL_DB} dB of the CPU port')
 
 
 def wav_samples(path):
@@ -2741,11 +3213,20 @@ def main(argv=None):
       port, reqs, launches['serve'] = phase_serve(torch, work_dir)
       launches['vst'], vst_entry = phase_vst(
           torch, dev, os.path.join(work_dir, 'vst'), args.profile)
+      phase_crepe_precision(torch, dev)
+      launches['vst_f0'] = phase_vst_f0(torch, dev,
+                                        os.path.join(work_dir, 'vst'))
+      vst_entry['launches_by_path']['vst_f0'] = launches['vst_f0']['K2f']
       launches['chain'], _ = phase_chain(torch, dev)
       launches['train'], dense_ms = phase_train(torch, dev, work_dir,
                                                 args.profile)
       launches['data_train'], launches['data_serve'] = phase_data_train(
           torch, dev, work_dir)
+      launches['eval'] = phase_eval(
+          torch, dev, work_dir, os.path.join(work_dir, 'dataset',
+                                             'train.tfrecord*'),
+          os.path.join(work_dir, 'data_train'))
+      phase_prepare(torch, dev, work_dir)
     phase_wide_gru_steps(torch, dev)
     launches['sp_train'], k3_per_step, sp_mesh = phase_sp_train(
         torch, dev, dense_ms, args.profile)

@@ -1,8 +1,6 @@
 """Data providers and dataset IO (port of ddsp_tpu.data).
 
-Exports what the JAX package's data/__init__.py exports, except
-`prepare_records`: data/prepare.py needs CREPE's compute_f0, which the port
-does not have yet (ROADMAP.md queue 1 item 5).
+Exports what the JAX package's data/__init__.py exports.
 """
 
 from ddsp_torch.data import synthetic_data
@@ -10,6 +8,7 @@ from ddsp_torch.data.multi import (BaseMultiProvider, MixedProvider,
                                    SyntheticNotesProvider, Urmp, UrmpMidi,
                                    UrmpMidiUnsegmented, ZippedProvider)
 from ddsp_torch.data.prefetch import prefetch_to_device
+from ddsp_torch.data.prepare import prepare_records
 from ddsp_torch.data.providers import (ArrayDataProvider, DataProvider,
                                        ExperimentalDataProvider,
                                        LegacyTFRecordProvider,
@@ -22,4 +21,4 @@ __all__ = ['ArrayDataProvider', 'BaseMultiProvider', 'DataProvider',
            'MixedProvider', 'NSynthTfds', 'SyntheticNotesProvider',
            'SyntheticSinusoidProvider', 'TFRecordProvider', 'TfdsProvider',
            'Urmp', 'UrmpMidi', 'UrmpMidiUnsegmented', 'ZippedProvider',
-           'prefetch_to_device', 'synthetic_data']
+           'prefetch_to_device', 'prepare_records', 'synthetic_data']

@@ -138,19 +138,25 @@ class _VSTBase:
 
 class VSTExtractFeatures(_VSTBase):
   """One frame of audio [frame_size] -> (f0_hz, f0_scaled, pw_db,
-  pw_scaled), each [1]: the power of the frame, 'valid' framing.
+  pw_scaled), each [1]: CREPE's f0 (no Viterbi) and the power of the
+  frame, 'valid' framing.
 
-  Needs no parameters (the JAX class restores none either). f0 comes from
-  CREPE in the JAX package, which is not ported: compute_f0=True raises
-  NotImplementedError, and with compute_f0=False f0 is 0 Hz.
+  Needs no parameters (the JAX class restores none either). With
+  compute_f0=False f0 is 0 Hz.
   """
 
   def __init__(self, save_dir: str, compute_f0: bool = True,
+               crepe_model_capacity: str = 'tiny',
+               crepe_weights_path: Optional[str] = None,
                device: DeviceLike = None):
     super().__init__(save_dir, device)
     self.preprocessor = OnlineF0PowerPreprocessor(
         frame_rate=self.frame_rate, frame_size=self.frame_size,
-        padding='valid', compute_power=True, compute_f0=compute_f0)
+        padding='valid', compute_power=True, compute_f0=compute_f0,
+        crepe_model_capacity=crepe_model_capacity,
+        crepe_weights_path=crepe_weights_path, viterbi=False)
+    if compute_f0:
+      self.preprocessor.crepe.to(self.device)
     self._no_f0 = torch.zeros((1, 1), device=self.device)
 
   @torch.no_grad()

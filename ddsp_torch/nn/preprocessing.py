@@ -1,25 +1,26 @@
 """Preprocessors: scale and resample conditioning features.
 
 Port of F0LoudnessPreprocessor, F0PowerPreprocessor,
-OnlineF0PowerPreprocessor and their helpers from
-ddsp_tpu/nn/preprocessing.py. On-the-fly f0 (CREPE) is not ported yet:
-OnlineF0PowerPreprocessor(compute_f0=True) raises.
+OnlineF0PowerPreprocessor (with CREPE's f0, ops/crepe.py) and their helpers
+from ddsp_tpu/nn/preprocessing.py.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ddsp_torch.nn.layers import DictModule
 from ddsp_torch.ops import core as ops_core
 from ddsp_torch.ops import spectral
+from ddsp_torch.ops.crepe import CREPE_SAMPLE_RATE, PretrainedCrepe
 from ddsp_torch.ops.resample import resample
 
 F0_RANGE = spectral.F0_RANGE  # 127.0 MIDI
 DB_RANGE = ops_core.DB_RANGE  # 80.0 dB
-# The JAX package preprocesses online features at CREPE's rate
-# (ddsp_tpu/ops/crepe.py CREPE_SAMPLE_RATE).
-ONLINE_SAMPLE_RATE = 16000
+# Online features are computed at CREPE's rate.
+ONLINE_SAMPLE_RATE = CREPE_SAMPLE_RATE
 
 
 def at_least_3d(x) -> torch.Tensor:
@@ -143,20 +144,25 @@ class F0PowerPreprocessor(F0LoudnessPreprocessor):
 
 
 class OnlineF0PowerPreprocessor(DictModule):
-  """Computes power_db from the audio (and, in the JAX package, f0 with
-  CREPE) at the frames' own rate, without resampling.
+  """Computes power_db from the audio and f0 with CREPE, at the frames' own
+  rate, without resampling.
 
   Attributes:
     frame_rate: Output frame rate (Hz) at ONLINE_SAMPLE_RATE.
-    frame_size: Analysis frame size.
+    frame_size: Analysis frame size (CREPE expects 1024 at 16 kHz).
     padding: 'center', 'same' or 'valid' framing.
     compute_power: Compute power_db from the audio (else the features
       carry 'power_db').
-    compute_f0: Run CREPE for f0. Not ported: True raises
-      NotImplementedError; with False the features carry 'f0_hz' and
-      'f0_confidence'.
+    compute_f0: Run CREPE for f0 and its confidence (else the features
+      carry 'f0_hz' and 'f0_confidence').
+    crepe_model_capacity: CREPE size.
+    crepe_weights_path: Optional .npz or .h5 weights (ops/crepe.py).
+    viterbi: Viterbi-decode CREPE's activations.
 
-  Every output must have the frame count of the audio under this framing
+  CREPE's weights are frozen constants, not parameters of this module: the
+  network is held outside the module's state and runs on the audio's
+  device (moved there at its first call). f0 carries no gradient. Every
+  output must have the frame count of the audio under this framing
   (spectral.get_framed_lengths); a mismatch raises.
   """
 
@@ -165,20 +171,22 @@ class OnlineF0PowerPreprocessor(DictModule):
 
   def __init__(self, frame_rate: int = 250, frame_size: int = 1024,
                padding: str = 'center', compute_power: bool = True,
-               compute_f0: bool = True):
+               compute_f0: bool = True, crepe_model_capacity: str = 'tiny',
+               crepe_weights_path: Optional[str] = None,
+               viterbi: bool = False):
     super().__init__()
-    if compute_f0:
-      raise NotImplementedError(
-          'OnlineF0PowerPreprocessor(compute_f0=True) runs CREPE, which '
-          'ddsp_torch has not ported yet (ROADMAP.md, queue 1 item 5: f0 '
-          "and eval); pass compute_f0=False with 'f0_hz' and "
-          "'f0_confidence' in the features.")
     self.frame_rate = frame_rate
     self.frame_size = frame_size
     self.padding = padding
     self.compute_power = compute_power
+    self.compute_f0 = compute_f0
+    self.viterbi = viterbi
     self.sample_rate = ONLINE_SAMPLE_RATE
     self.hop_size = self.sample_rate // frame_rate
+    # PretrainedCrepe is not a Module: no parameters, no state_dict keys.
+    self.crepe = (PretrainedCrepe(
+        model_capacity=crepe_model_capacity, weights_path=crepe_weights_path,
+        hop_size=self.hop_size, device='cpu') if compute_f0 else None)
 
   def forward(self, *args):
     if len(args) == 1 and isinstance(args[0], dict):
@@ -198,7 +206,12 @@ class OnlineF0PowerPreprocessor(DictModule):
                                      frame_rate=self.frame_rate,
                                      frame_size=self.frame_size,
                                      padding=self.padding)
-    if f0_hz is None or f0_confidence is None:
+    if self.compute_f0:
+      if self.crepe.device != audio.device:
+        self.crepe.to(audio.device)
+      f0_hz, f0_confidence = self.crepe.predict_f0_and_confidence(
+          audio, viterbi=self.viterbi, padding=self.padding)
+    elif f0_hz is None or f0_confidence is None:
       raise ValueError('Preprocessor must either have `compute_f0=True`, or'
                        ' be supplied [audio, f0_hz, f0_confidence].')
     pw_db = at_least_3d(pw_db)

@@ -1,12 +1,10 @@
 """Spectral ops: STFT, magnitudes, loudness, power, framing math.
 
-Port of the parts of ddsp_tpu/ops/spectral.py that the training path uses:
-get_framed_lengths, pad, stft, compute_mag, compute_logmag,
-compute_rms_energy, compute_power, a_weighting_np, fft_frequencies and
-compute_loudness. The parity target is the JAX package's jnp.fft branch;
-its DFT-as-GEMM branches route around the TPU's FFT and have no counterpart
-here. compute_mel, compute_mfcc and compute_f0 belong to the encoder and
-eval slices.
+Port of ddsp_tpu/ops/spectral.py: framing, STFT, magnitudes, mel and MFCC,
+loudness, power, pad_or_trim_to_expected_length, the numpy STFT, and
+compute_f0 through CREPE (ops/crepe.py). The parity target is the JAX
+package's jnp.fft branch; its DFT-as-GEMM branches route around the TPU's
+FFT and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -20,8 +18,11 @@ import torch
 from ddsp_torch.ops import fftconv
 from ddsp_torch.ops.core import (DB_RANGE, amplitude_to_db, power_to_db,
                                  safe_log, torch_float32)
+from ddsp_torch.utils.device import DeviceLike, resolve_device
 
 F0_RANGE = 127.0  # MIDI
+_MEL_BREAK_FREQUENCY_HERTZ = 700.0
+_MEL_HIGH_FREQUENCY_Q = 1127.0
 
 
 def get_framed_lengths(input_length: int, frame_size: int, hop_size: int,
@@ -126,6 +127,91 @@ def compute_logmag(audio, size: int = 2048, overlap: float = 0.75,
   return safe_log(compute_mag(audio, size, overlap, pad_end))
 
 
+@functools.lru_cache(maxsize=None)
+def linear_to_mel_matrix_np(num_mel_bins: int = 64,
+                            num_spectrogram_bins: int = 1025,
+                            sample_rate: int = 16000,
+                            lower_edge_hertz: float = 0.0,
+                            upper_edge_hertz: float = 8000.0) -> np.ndarray:
+  """Mel filterbank matrix matching tf.signal.linear_to_mel_weight_matrix.
+
+  HTK mel scale, triangular filters in the mel domain, with the DC bin
+  dropped from the interpolation (first row is zero).
+  """
+  def hz_to_mel(f):
+    return _MEL_HIGH_FREQUENCY_Q * np.log1p(f / _MEL_BREAK_FREQUENCY_HERTZ)
+
+  nyquist = sample_rate / 2.0
+  linear_freqs = np.linspace(0.0, nyquist, num_spectrogram_bins)[1:]
+  spectrogram_bins_mel = hz_to_mel(linear_freqs)[:, np.newaxis]
+
+  band_edges_mel = np.linspace(
+      hz_to_mel(lower_edge_hertz), hz_to_mel(upper_edge_hertz),
+      num_mel_bins + 2)
+  lower_edge_mel = band_edges_mel[np.newaxis, :-2]
+  center_mel = band_edges_mel[np.newaxis, 1:-1]
+  upper_edge_mel = band_edges_mel[np.newaxis, 2:]
+
+  lower_slopes = (spectrogram_bins_mel - lower_edge_mel) / (
+      center_mel - lower_edge_mel)
+  upper_slopes = (upper_edge_mel - spectrogram_bins_mel) / (
+      upper_edge_mel - center_mel)
+  mel_weights = np.maximum(0.0, np.minimum(lower_slopes, upper_slopes))
+
+  # Re-add the DC bin dropped above.
+  return np.pad(mel_weights, [[1, 0], [0, 0]]).astype(np.float32)
+
+
+def compute_mel(audio, lo_hz: float = 0.0, hi_hz: float = 8000.0,
+                bins: int = 64, fft_size: int = 2048, overlap: float = 0.75,
+                pad_end: bool = True,
+                sample_rate: int = 16000) -> torch.Tensor:
+  """Mel spectrogram."""
+  mag = compute_mag(audio, fft_size, overlap, pad_end)
+  mel_matrix = torch.as_tensor(
+      linear_to_mel_matrix_np(bins, int(mag.shape[-1]), sample_rate, lo_hz,
+                              hi_hz), device=mag.device)
+  return torch.tensordot(mag, mel_matrix, dims=1)
+
+
+def compute_logmel(audio, lo_hz: float = 80.0, hi_hz: float = 7600.0,
+                   bins: int = 64, fft_size: int = 2048,
+                   overlap: float = 0.75, pad_end: bool = True,
+                   sample_rate: int = 16000) -> torch.Tensor:
+  """Log mel spectrogram."""
+  return safe_log(compute_mel(audio, lo_hz, hi_hz, bins, fft_size, overlap,
+                              pad_end, sample_rate))
+
+
+@functools.lru_cache(maxsize=None)
+def _dct_ii_matrix_np(n: int) -> np.ndarray:
+  """DCT-II matrix ([n_mels, n_mels]) applied as x @ M.
+
+  tf.signal.mfccs_from_log_mel_spectrograms scales the unnormalized DCT-II
+  by 1/sqrt(2N): like 'ortho' but without the extra 1/sqrt(2) on the DC
+  coefficient.
+  """
+  k = np.arange(n)[np.newaxis, :]
+  i = np.arange(n)[:, np.newaxis]
+  m = np.cos(np.pi * k * (2 * i + 1) / (2 * n)) * np.sqrt(2.0 / n)
+  return m.astype(np.float32)
+
+
+def compute_mfcc(audio, lo_hz: float = 20.0, hi_hz: float = 8000.0,
+                 fft_size: int = 1024, mel_bins: int = 128,
+                 mfcc_bins: int = 13, overlap: float = 0.75,
+                 pad_end: bool = True,
+                 sample_rate: int = 16000) -> torch.Tensor:
+  """Mel-frequency cepstral coefficients: the DCT-II of the log mel
+  spectrogram as tf.signal.mfccs_from_log_mel_spectrograms scales it,
+  truncated to mfcc_bins."""
+  logmel = compute_logmel(audio, lo_hz=lo_hz, hi_hz=hi_hz, bins=mel_bins,
+                          fft_size=fft_size, overlap=overlap,
+                          pad_end=pad_end, sample_rate=sample_rate)
+  dct_m = torch.as_tensor(_dct_ii_matrix_np(mel_bins), device=logmel.device)
+  return torch.tensordot(logmel, dct_m, dims=1)[..., :mfcc_bins]
+
+
 def compute_rms_energy(audio, sample_rate: int = 16000,
                        frame_rate: int = 250, frame_size: int = 512,
                        padding: str = 'center') -> torch.Tensor:
@@ -213,3 +299,104 @@ def compute_loudness(audio, sample_rate: int = 16000, frame_rate: int = 250,
   avg_power = torch.mean(power, dim=-1)
   loudness = power_to_db(avg_power, ref_db=ref_db, range_db=range_db)
   return loudness[0] if is_1d else loudness
+
+
+def pad_or_trim_to_expected_length(vector, expected_len: int,
+                                   pad_value: float = 0.0,
+                                   len_tolerance: int = 20) -> torch.Tensor:
+  """Make vector [(batch,) length] expected_len long: pad the end with
+  pad_value or trim it. Raises if the lengths differ by more than
+  len_tolerance."""
+  vector = torch.as_tensor(vector)
+  original_len = vector.shape[-1]
+  if abs(original_len - expected_len) > len_tolerance:
+    raise ValueError(f'Vector length {original_len} differs from expected '
+                     f'length {expected_len} beyond tolerance '
+                     f'{len_tolerance}.')
+  is_1d = vector.ndim == 1
+  if is_1d:
+    vector = vector[None, :]
+  if original_len < expected_len:
+    vector = torch.nn.functional.pad(
+        vector, (0, expected_len - original_len), value=pad_value)
+  elif original_len > expected_len:
+    vector = vector[..., :expected_len]
+  return vector[0] if is_1d else vector
+
+
+# CREPE networks built by compute_f0, by (capacity, device).
+_CREPE_CACHE = {}
+
+
+def reset_crepe():
+  """Drop the cached CREPE networks (force a rebuild and a weight reload)."""
+  _CREPE_CACHE.clear()
+
+
+def _get_crepe(model_capacity: str, device: torch.device):
+  from ddsp_torch.ops.crepe import PretrainedCrepe  # pylint: disable=g-import-not-at-top
+  key = (model_capacity, device)
+  if key not in _CREPE_CACHE:
+    _CREPE_CACHE[key] = PretrainedCrepe(model_capacity=model_capacity,
+                                        device=device)
+  return _CREPE_CACHE[key]
+
+
+def compute_f0(audio, frame_rate: int, viterbi: bool = True,
+               padding: str = 'center', model_capacity: str = 'tiny',
+               device: DeviceLike = None):
+  """Fundamental frequency by CREPE (ops/crepe.py) on `device`.
+
+  Args:
+    audio: One example [n_samples] or a batch [batch, n_samples] at 16 kHz
+      (numpy or a tensor).
+    frame_rate: Rate of f0 frames in Hz.
+    viterbi: Viterbi-decode the activations.
+    padding: 'same', 'valid', or 'center'.
+    model_capacity: CREPE model size.
+    device: Where CREPE runs: CUDA unless the caller says otherwise (raises
+      without a GPU).
+
+  Returns:
+    f0_hz, f0_confidence: numpy float32, [(batch,) n_frames]; NaN
+    confidences become 0.
+  """
+  device = resolve_device(device)
+  crepe_model = _get_crepe(model_capacity, device)
+  hop_size = crepe_model.sample_rate // frame_rate
+  was_1d = np.ndim(audio) == 1
+  audio = torch_float32(audio).to(device)
+  audio = audio[None] if was_1d else audio
+  f0_hz, f0_confidence = crepe_model.predict_f0_and_confidence(
+      audio, viterbi=viterbi, padding=padding, hop_size=hop_size)
+  f0_hz = f0_hz.cpu().numpy().astype(np.float32)
+  f0_confidence = np.nan_to_num(
+      f0_confidence.cpu().numpy().astype(np.float32))
+  if was_1d:
+    f0_hz, f0_confidence = f0_hz[0], f0_confidence[0]
+  return f0_hz, f0_confidence
+
+
+def stft_np(audio, frame_size: int = 2048, overlap: float = 0.75,
+            pad_end: bool = True):
+  """Non-differentiable numpy STFT with stft()'s frames and window
+  (periodic hann, hop = frame_size * (1 - overlap))."""
+  audio = np.asarray(audio, np.float32)
+  is_1d = audio.ndim == 1
+  if is_1d:
+    audio = audio[np.newaxis, :]
+  hop_size = int(frame_size * (1.0 - overlap))
+  if pad_end:
+    n_frames = int(np.ceil(audio.shape[1] / hop_size))
+    n_pad = max(0, (n_frames - 1) * hop_size + frame_size - audio.shape[1])
+    audio = np.pad(audio, ((0, 0), (0, n_pad)))
+  n_frames = 1 + (audio.shape[1] - frame_size) // hop_size
+  idx = (np.arange(n_frames)[:, None] * hop_size +
+         np.arange(frame_size)[None, :])
+  frames = audio[:, idx]
+  denom = frame_size if frame_size % 2 == 0 else frame_size - 1
+  window = 0.5 - 0.5 * np.cos(
+      2.0 * np.pi * np.arange(frame_size) / max(denom, 1))
+  fft_size = int(2**np.ceil(np.log2(frame_size)))
+  s = np.fft.rfft(frames * window, fft_size)
+  return s[0] if is_1d else s

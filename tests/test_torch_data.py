@@ -313,11 +313,11 @@ def test_experimental_provider(tmp_path, monkeypatch):
 
 
 def test_data_package_exports_match_jax():
-  """What the JAX data/__init__.py imports, but prepare_records."""
+  """What the JAX data/__init__.py imports, prepare_records included."""
   source = ast.parse(open(j_data.__file__).read())
   names = {alias.asname or alias.name for node in ast.walk(source)
            if isinstance(node, ast.ImportFrom) for alias in node.names}
-  assert set(data.__all__) == names - {'prepare_records'}
+  assert set(data.__all__) == names
   for name in data.__all__:
     obj = getattr(data, name)
     assert getattr(obj, '__module__', obj.__name__).startswith(

@@ -175,9 +175,13 @@ def test_load_jax_params_is_strict():
 def test_port_imports_no_jax():
   code = ('import sys, ddsp_torch, ddsp_torch.infer, ddsp_torch.configs, '
           'ddsp_torch.kernels, ddsp_torch.losses, ddsp_torch.train, '
-          'ddsp_torch.data, ddsp_torch.native, ddsp_torch.eval.summaries; '
+          'ddsp_torch.data, ddsp_torch.native, ddsp_torch.eval, '
+          'ddsp_torch.eval.eval_util, ddsp_torch.eval.postprocessing, '
+          'ddsp_torch.data.prepare, ddsp_torch.ops.crepe, ddsp_torch.ops.hmm, '
+          'ddsp_torch.utils.audio_io; '
           "bad = [m for m in sys.modules if m.split('.')[0] in "
-          "('jax', 'flax', 'ddsp_tpu', 'optax', 'orbax')]; print(bad)")
+          "('jax', 'flax', 'ddsp_tpu', 'optax', 'orbax', 'h5py')]; "
+          'print(bad)')
   out = subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True,
                        capture_output=True, text=True)
   assert out.stdout.strip() == '[]'

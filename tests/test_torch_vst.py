@@ -88,6 +88,11 @@ CLIP_AUDIO_ATOL_F32 = 4e-3
 CLIP_AUDIO_REL_L2_BF16 = 5e-2
 # Power in dB of one frame: the same mean of squares in another order.
 POWER_ATOL_DB = 1e-4
+# CREPE's f0 on one frame: activations that agree to ~1e-7, decoded to
+# cents (tests/test_torch_crepe.py holds CREPE itself); f0_scaled and
+# pw_scaled are float32 functions of those values.
+F0_CENTS = 1.0
+F0_SCALED_ATOL = 1e-6
 # Oscillator bank over 4 hops with an initial phase near 1e2 rad: float32
 # sines of h * phase (h <= 8) on phases that agree to a float32 rounding.
 BANK_ATOL = 1e-4
@@ -211,11 +216,38 @@ def test_extract_features_matches_jax(vst, kind):
                                rtol=0)
 
 
-def test_compute_f0_raises(vst):
-  with pytest.raises(NotImplementedError, match='queue 1 item 5'):
-    t_infer.VSTExtractFeatures(vst['float32']['port_dir'], device='cpu')
-  with pytest.raises(NotImplementedError, match='CREPE'):
-    t_pre.OnlineF0PowerPreprocessor(compute_f0=True)
+@pytest.mark.parametrize('kind', ['sine', 'noise'])
+def test_compute_f0_raises(vst, kind):
+  """compute_f0=True (the default) runs CREPE: VSTExtractFeatures() and
+  OnlineF0PowerPreprocessor(compute_f0=True) against the JAX classes."""
+  rng = np.random.RandomState(5)
+  audio = {'noise': 0.1 * rng.randn(1024),
+           'sine': 0.3 * np.sin(2 * np.pi * 440.0 * np.arange(1024) / SR)
+          }[kind].astype(np.float32)
+  want = j_infer.VSTExtractFeatures(vst['jax_dir'])(audio)
+  got = t_infer.VSTExtractFeatures(vst['float32']['port_dir'],
+                                   device='cpu')(torch.from_numpy(audio))
+  cents = 1200 * np.log2(_np(got[0]).astype(np.float64) /
+                         np.asarray(want[0], np.float64))
+  assert np.abs(cents).max() <= F0_CENTS
+  for g, w, atol in zip(got[1:], want[1:],
+                        (F0_SCALED_ATOL, POWER_ATOL_DB, F0_SCALED_ATOL)):
+    assert tuple(g.shape) == (1,) == w.shape
+    np.testing.assert_allclose(_np(g), np.asarray(w), atol=atol, rtol=0)
+  if kind == 'sine':
+    assert abs(_np(got[0])[0] - 440.0) < 10.0
+
+  clip = np.tile(audio, 2)[None]
+  kwargs = dict(frame_rate=FRAME_RATE, padding='same')
+  want = j_pre.OnlineF0PowerPreprocessor(**kwargs).apply({}, {'audio': clip})
+  got = t_pre.OnlineF0PowerPreprocessor(**kwargs)(
+      {'audio': torch.from_numpy(clip)})
+  cents = 1200 * np.log2(_np(got['f0_hz']).astype(np.float64) /
+                         np.asarray(want['f0_hz'], np.float64))
+  assert np.abs(cents).max() <= F0_CENTS
+  np.testing.assert_allclose(_np(got['f0_confidence']),
+                             np.asarray(want['f0_confidence']), atol=1e-5,
+                             rtol=0)
 
 
 def test_online_preprocessor_checks_the_frame_count():
@@ -544,5 +576,6 @@ def test_vst_entry_points_refuse_the_cpu_by_default(vst, monkeypatch):
               t_infer.VSTSynthesizeNoise):
     with pytest.raises(RuntimeError, match='CUDA'):
       cls(port_dir)
-  with pytest.raises(RuntimeError, match='CUDA'):
-    t_infer.VSTExtractFeatures(port_dir, compute_f0=False)
+  for compute_f0 in (False, True):
+    with pytest.raises(RuntimeError, match='CUDA'):
+      t_infer.VSTExtractFeatures(port_dir, compute_f0=compute_f0)
