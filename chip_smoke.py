@@ -58,6 +58,22 @@ Phases (any failed check exits non-zero before the result lines):
      of 440 Hz, the features against the CPU port hop for hop, K2f once a
      hop; print the hop's latency, the extract stage's and CREPE's device
      ms;
+  4d. export phase 4's model as a torch.export program
+     (export_model(fmt='torch_export'), autoencoder.pt2) on the card, load
+     it (load_program) and serve phase 4's four requests through it: one
+     harmonic_fwd and one gru_fwd node in its graph, K1f and K2f once a
+     request inside the program and no backward kernel, the audio against
+     the eager class on the card (the same baked noise) and against the
+     CPU port; time the program's request beside the eager one in turns,
+     and the ops' dispatch beside the launch functions called directly;
+  4e. the six VST programs of phase 4b's export, exported on the card and
+     loaded; the tone streamed for 250 hops through vst_extract_features
+     (CREPE) -> vst_stateless_predict_controls -> vst_synthesize against
+     the eager classes (controls, state, f0, audio), K2f once a hop on its
+     step kernel inside the predict program; vst_predict_controls,
+     vst_synthesize_harmonic and vst_synthesize_noise against theirs; the
+     extract program with TF32 on for the process (its full-float32 pin);
+     per-hop time of the programs beside the eager classes in turns;
   5. the synthesis chain (Harmonic + FilteredNoise + Add + Reverb, batch 16,
      4 s) forward and gradient with respect to every control, f0 included:
      the path of K1p;
@@ -83,6 +99,13 @@ Phases (any failed check exits non-zero before the result lines):
      first batch's audio and its loss's mag term), K1f and K2f once a
      batch, then 'sample' (the wavs); print ms per eval batch and the
      shares of CREPE's network and the Viterbi decode;
+  6f. the CLI in this process (ddsp_torch.run.main, ddsp-torch-run) on
+     phase 6c's records: --mode train (full-width solo_instrument, batch
+     16, 4 steps: K1f, K1t, K2f, K2b and its weight-gradient pass each
+     step; metrics.jsonl and the checkpoint), --mode eval --run_once and
+     --mode sample (one batch through K1f and K2f each), then the train
+     directory exported with fmt='torch_export' and one request served
+     through the program;
   6e. prepare_records of a 20 s wav of harmonic glides on the card (CREPE
      with Viterbi, loudness) into 2 shards, read back with
      TFRecordProvider, against the CPU port's prepare_records of the same
@@ -1513,17 +1536,20 @@ def phase_crepe_precision(torch, dev):
 def vst_stream_own_f0(torch, dev, extract, predict, synth, frames):
   """Stream `frames` [n, 1024] through extract (CREPE on) -> stateless
   predict -> synth, each hop's f0 from the extractor. Returns {'f0': [Hz],
-  'pw_db': [dB], 'audio': [n, 320], 'ms': [ms per hop], 'extract_ms':
-  [ms per extract, synchronized]}; one synchronization per hop, as a
-  plugin hands its audio over."""
+  'pw_db': [dB], 'audio': [n, 320], 'controls': [(amps, hd, noise,
+  state)], 'ms': [ms per hop], 'extract_ms': [ms per extract,
+  synchronized]}; one synchronization per hop, as a plugin hands its audio
+  over."""
   state = predict.initial_state()
   phase = synth.initial_phase()
   prev = None
-  out = {'f0': [], 'pw_db': [], 'audio': [], 'ms': [], 'extract_ms': []}
+  out = {'f0': [], 'pw_db': [], 'audio': [], 'ms': [], 'extract_ms': [],
+         'controls': []}
   for frame in frames:
     t0 = time.perf_counter()
     f0_hz, f0_scaled, pw_db, pw_scaled = extract(frame)
     amps, hd, noise, state = predict(f0_scaled, pw_scaled, state)
+    out['controls'].append((amps, hd, noise, state))
     if prev is None:
       prev = (amps, hd, f0_hz)
     hop, phase = synth(amps, prev[0], hd, prev[1], f0_hz, prev[2], noise,
@@ -1613,6 +1639,262 @@ def phase_vst_f0(torch, dev, export_dir):
                                        'K3')),
         'K2f once a hop on its step kernel, no other kernel (CREPE and the '
         'synth are plain torch, as the JAX package computes them)')
+  return launches
+
+
+# Phases 4d and 4e: the exported programs (infer/export.py,
+# fmt='torch_export'), loaded with load_program and served on the card.
+# The program against the eager classes on the card: the same kernels on
+# the same operands, the rest of the graph as aten ops; the graph may run a
+# composite op as its decomposition (a linear as mm + add), which rounds
+# the last float32 bits otherwise. Audio and controls are ~1e-1; a float32
+# rounding there is ~1e-8, a few of them through the decoder's stacks ~1e-6.
+PROGRAM_ATOL = 1e-5
+# The streamed VST controls and audio of the programs against the eager
+# classes', 250 hops with the GRU state carried through the program: the
+# same per-hop rounding carried by the state (a contraction), no growth.
+VST_PROGRAM_ATOL = 1e-4
+PROGRAM_TIMED_CALLS = 20
+DISPATCH_CALLS = 200
+
+
+def graph_ops(program):
+  """{op name: nodes} of the program's graph, and its node count."""
+  ops = {}
+  for node in program.program.graph.nodes:
+    if node.op == 'call_function':
+      ops[str(node.target)] = ops.get(str(node.target), 0) + 1
+  return ops, len(program.program.graph.nodes)
+
+
+def host_ms_per_call(torch, fn, n):
+  """Median host ms per call of fn over n calls, synchronized every call."""
+  times = []
+  for _ in range(n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    times.append(1e3 * (time.perf_counter() - t0))
+  return float(np.median(times))
+
+
+def op_dispatch_ms(torch, dev):
+  """Host ms per call of each forward op beside its launch function called
+  directly (the wrappers' path before the ops), in turns, at a request's
+  K1f shape and a hop's K2f shape: the cost of the op's dispatch."""
+  from ddsp_torch.kernels import gru as kg
+  from ddsp_torch.kernels import harmonic as kh
+  phase0, f0_env, ham = k1_inputs(torch, 1, N_FRAMES, 3, dev)
+  xp, wh, bn, h0 = k2_inputs(torch, 1, torch.float32, 4, dev, HIDDEN, 1)
+  pairs = {
+      'K1f (B = 1, 64000 samples)': (
+          lambda: kh.harmonic_fwd(phase0, f0_env, ham, float(SR), 'window'),
+          lambda: kh._launch('fwd', (phase0, f0_env, ham),
+                             torch.empty_like(phase0), N_FRAMES,
+                             N_HARMONICS, SR, 'window')),
+      'K2f step (T = 1, B = 1, H = 512)': (
+          lambda: kg.gru_fwd(xp, wh, bn, h0),
+          lambda: kg._launch_fwd(xp, wh, bn, h0))}
+  for name, (op, direct) in pairs.items():
+    runs = {'op': [], 'direct': []}
+    for which in ('direct', 'op', 'op', 'direct'):
+      fn = op if which == 'op' else direct
+      runs[which].append(host_ms_per_call(torch, fn, DISPATCH_CALLS))
+    print(f'  dispatch, {name}: host ms per call through the op '
+          f'{runs["op"]}, the launch function called directly '
+          f'{runs["direct"]} (medians of {DISPATCH_CALLS} calls, '
+          'synchronized each; two turns each)', flush=True)
+
+
+def phase_program(torch, dev, export_dir, port, reqs):
+  """[4d] autoencoder.pt2 of phase 4's export (full-width solo_instrument,
+  reverb kept), exported on the card, loaded and served: phase 4's four
+  requests through the program."""
+  from ddsp_torch.infer import export as ex
+  print('[4d] torch.export program of the autoencoder, on the card',
+        flush=True)
+  t0 = time.time()
+  path = ex.export_model(export_dir, os.path.join(export_dir, 'program'),
+                         fmt='torch_export', length_seconds=4,
+                         remove_reverb=False)
+  export_s = time.time() - t0
+  t0 = time.time()
+  program = ex.load_program(path)
+  load_s = time.time() - t0
+  ops, n_nodes = graph_ops(program)
+  mine = {k: v for k, v in ops.items() if k.startswith('ddsp_torch.')}
+  print(f'  exported in {export_s:.2f} s ({os.path.getsize(path) / 1e6:.2f} '
+        f'MB), loaded in {load_s:.2f} s; {n_nodes} graph nodes, the kernels '
+        f'{mine}')
+  check(mine == {'ddsp_torch.harmonic_fwd.default': 1,
+                 'ddsp_torch.gru_fwd.default': 1},
+        'the program holds one harmonic_fwd and one gru_fwd node')
+  inputs = [tuple(torch.from_numpy(r[k])[None, :, None].to(dev)
+                  for k in ('f0_hz', 'loudness_db')) for r in reqs]
+  program(*inputs[0])  # warm-up, not counted
+  reset_launches()
+  audio = [program(*x) for x in inputs]
+  torch.cuda.synchronize()
+  launches = read_launches()
+  print(f'  launches over {len(reqs)} requests: {launches}')
+  check(launches['K1f'] == launches['K2f'] == len(reqs),
+        'K1f and K2f launched once per request inside the program')
+  check(all(launches[k] == 0 for k in ('K1t', 'K1p', 'K2b', 'K2b_w', 'K3')),
+        'the program launches no backward kernel')
+  eager = [port.get_audio(r) for r in reqs]
+  errs = [(a - e).abs().max().item() for a, e in zip(audio, eager)]
+  print(f'  program against the eager class on the card (the same baked '
+        f'noise): max |diff| per request {errs}')
+  check(all(tuple(a.shape) == (1, N_SAMPLES) and
+            torch.isfinite(a).all().item() for a in audio) and
+        max(errs) <= PROGRAM_ATOL,
+        f'the program renders the eager audio within {PROGRAM_ATOL}')
+  # The CPU port with the same noise.
+  from ddsp_torch.infer import AutoencoderInference
+  cpu_port = AutoencoderInference(export_dir, length_seconds=4,
+                                  remove_reverb=False, device='cpu')
+  noise = {k: v.cpu() for k, v in ex.autoencoder_noise(port).items()}
+  out_cpu = cpu_port(reqs[1], noise=noise)['audio_synth']
+  rel = ((audio[1].cpu() - out_cpu).norm() / out_cpu.norm()).item()
+  print(f'  program on the card against the CPU port, request 1: relative '
+        f'L2 {rel:.3e}')
+  check(rel <= E2E_REL_L2, f'the program within {E2E_REL_L2} of the CPU '
+        'port')
+  ms = {'eager': [], 'program': []}
+  for which in ('eager', 'program', 'program', 'eager'):
+    fn = ((lambda: port.get_audio(reqs[1])) if which == 'eager' else
+          (lambda: program(*inputs[1])))
+    ms[which].append(host_ms_per_call(torch, fn, PROGRAM_TIMED_CALLS))
+  print(f'  ms per 4 s request (host clock, synchronized, median of '
+        f'{PROGRAM_TIMED_CALLS} calls, two turns each): program '
+        f'{ms["program"]}, eager {ms["eager"]}', flush=True)
+  op_dispatch_ms(torch, dev)
+  return launches
+
+
+def phase_vst_programs(torch, dev, export_dir):
+  """[4e] The six VST programs of phase 4b's export, exported on the card
+  and loaded; phase 4b's tone streamed for VST_HOPS hops through
+  vst_extract_features (CREPE) -> vst_stateless_predict_controls ->
+  vst_synthesize against the eager classes; vst_predict_controls and the
+  harmonic and noise programs against theirs; CREPE's pin with TF32 on."""
+  from ddsp_torch import infer
+  from ddsp_torch.infer import export as ex
+  from ddsp_torch.kernels import gru as kg
+  print(f'[4e] the six VST programs, on the card: {VST_HOPS} hops',
+        flush=True)
+  programs = {}
+  for name in ex.INFERENCE_MODELS[1:]:
+    t0 = time.time()
+    path = ex.export_model(export_dir, os.path.join(export_dir, 'programs'),
+                           fmt='torch_export', inference_model=name)
+    programs[name] = ex.load_program(path)
+    ops, n_nodes = graph_ops(programs[name])
+    print(f'  {name}: exported and loaded in {time.time() - t0:.2f} s, '
+          f'{n_nodes} graph nodes, '
+          f'{ {k: v for k, v in ops.items() if "ddsp" in k} }', flush=True)
+  eager = {'extract': infer.VSTExtractFeatures(export_dir),
+           'predict': infer.VSTStatelessPredictControls(export_dir),
+           'synth': infer.VSTSynthesize(export_dir)}
+  prog = {'extract': programs['vst_extract_features'],
+          'predict': programs['vst_stateless_predict_controls'],
+          'synth': programs['vst_synthesize']}
+  prog['predict'].initial_state = eager['predict'].initial_state
+  prog['synth'].initial_phase = eager['synth'].initial_phase
+  tone = vst_tone(VST_FRAME + (VST_HOPS - 1) * VST_HOP)
+  frames = torch.from_numpy(np.stack([
+      tone[i * VST_HOP:i * VST_HOP + VST_FRAME]
+      for i in range(VST_HOPS)])).to(dev)
+  run = lambda side, n=None: vst_stream_own_f0(
+      torch, dev, side['extract'], side['predict'], side['synth'],
+      frames[:n])
+  run(prog, VST_WARMUP_HOPS)  # warm-up, not counted
+  run(eager, VST_WARMUP_HOPS)
+  reset_launches()
+  stream = run(prog)
+  torch.cuda.synchronize()
+  launches = read_launches()
+  n_step = kg.launches['fwd_step']
+  ref = run(eager)
+  print(f'  launches over {VST_HOPS} hops of the programs: {launches}, K2f '
+        f'on the step kernel {n_step}')
+  check(launches['K2f'] == n_step == VST_HOPS and
+        all(launches[k] == 0 for k in ('K1f', 'K1t', 'K1p', 'K2b', 'K2b_w',
+                                       'K3')),
+        'K2f once a hop on its step kernel inside the predict program, no '
+        'other kernel')
+  apart = {'f0 cents': cents_apart(stream['f0'], ref['f0']).max(),
+           'audio': (stream['audio'] - ref['audio']).abs().max().item()}
+  for i, part in enumerate(('amps', 'hd', 'noise', 'state')):
+    apart[part] = max((a[i] - b[i]).abs().max().item() for a, b in zip(
+        stream['controls'], ref['controls']))
+  print(f'  programs against the eager classes, whole clip: max |diff| '
+        f'{apart}')
+  check(apart['f0 cents'] <= VST_F0_CPU_CENTS and
+        max(v for k, v in apart.items() if k != 'f0 cents') <=
+        VST_PROGRAM_ATOL,
+        f'the streamed controls and audio of the programs within '
+        f'{VST_PROGRAM_ATOL} of the eager classes, f0 within '
+        f'{VST_F0_CPU_CENTS} cents')
+  ms = {'eager': [], 'program': []}
+  for which in ('eager', 'program', 'program', 'eager'):
+    side = eager if which == 'eager' else prog
+    ms[which].append(float(np.median(run(side, 50)['ms'])))
+  print(f'  per hop, median ms over 50 hops, one synchronization a hop, two '
+        f'turns each: programs {ms["program"]}, eager {ms["eager"]}')
+
+  # The stateful name exports the stateless signature; the harmonic and
+  # noise programs against their eager classes on the stream's controls.
+  state = eager['predict'].initial_state()
+  stateful = programs['vst_predict_controls']
+  same = True
+  for (amps, hd, noise, want_state), frame in zip(stream['controls'][:20],
+                                                  frames[:20]):
+    _, f0_scaled, _, pw_scaled = prog['extract'](frame)
+    out = stateful(f0_scaled, pw_scaled, state)
+    same &= all(torch.equal(a, b) for a, b in zip(
+        out, prog['predict'](f0_scaled, pw_scaled, state)))
+    state = out[3]
+  check(same, 'vst_predict_controls.pt2 repeats the stateless program bit '
+        'for bit over 20 hops')
+  f0 = torch.full((1,), 440.0, device=dev)
+  amps, hd, noise, _ = stream['controls'][5]
+  phase = torch.full((1,), 1.25, device=dev)
+  for name, cls, args in (
+      ('vst_synthesize_harmonic', infer.VSTSynthesizeHarmonic,
+       (amps, amps, hd, hd, f0, f0, phase)),
+      ('vst_synthesize_noise', infer.VSTSynthesizeNoise, (noise,))):
+    got, want = programs[name](*args), cls(export_dir)(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    print(f'  {name}: max |diff| against the eager class {err:.3e}')
+    check(err <= PROGRAM_ATOL, f'{name}.pt2 within {PROGRAM_ATOL} of its '
+          'eager class')
+
+  # CREPE's pin in the program: TF32 on for the process around the calls.
+  extract = prog['extract']
+  cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+  saved = (cudnn.allow_tf32, matmul.allow_tf32)
+  try:
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    pinned = torch.stack([extract(f)[0] for f in frames]).cpu().numpy()
+    with torch.no_grad():
+      bare = torch.stack([extract.module(f)[0]
+                          for f in frames]).cpu().numpy()
+    flags_after = (cudnn.allow_tf32, matmul.allow_tf32)
+  finally:
+    cudnn.allow_tf32, matmul.allow_tf32 = saved
+  pinned_cents = cents_apart(pinned, ref['f0']).max()
+  bare_cents = cents_apart(bare, ref['f0']).max()
+  print(f'  vst_extract_features.pt2 with TF32 on for the process: f0 '
+        f'{pinned_cents:.4f} cents from the eager class (limit '
+        f'{VST_F0_CPU_CENTS}); its graph called without the pin: '
+        f'{bare_cents:.4f} cents', flush=True)
+  check(flags_after == (True, True) and pinned_cents <= VST_F0_CPU_CENTS,
+        'the extract program keeps CREPE in full float32 with TF32 on and '
+        "restores the process's settings")
   return launches
 
 
@@ -2266,6 +2548,90 @@ def phase_data_train(torch, dev, work_dir):
   print(f'  {os.path.basename(path)}: {len(samples[0])} int16 samples equal '
         'to write_wav of the trained IR')
   return launches, serve_launches
+
+
+# Phase 6f: the CLI (ddsp_torch/run.py, ddsp-torch-run) in this process on
+# phase 6c's records: train, eval, sample, then export the train directory
+# as a program and serve it.
+CLI_STEPS = 4
+
+
+def phase_cli(torch, dev, work_dir, pattern):
+  """[6f] ddsp_torch.run.main: --mode train (solo_instrument at full
+  width, batch 16, CLI_STEPS steps from the records), --mode eval
+  --run_once, --mode sample, then export_model(fmt='torch_export') of the
+  train directory and one request through the program."""
+  import glob
+  from ddsp_torch import run
+  from ddsp_torch.infer import AutoencoderInference
+  from ddsp_torch.infer import export as ex
+  print(f'[6f] the CLI: train {CLI_STEPS} steps (solo_instrument, batch '
+        f'{BATCH}, from the records), eval, sample, export, serve',
+        flush=True)
+  save_dir = os.path.join(work_dir, 'cli')
+  common = ['--save_dir', save_dir, '--data', f'tfrecord:{pattern}',
+            '--batch_size', str(BATCH)]
+  reset_launches()
+  t0 = time.time()
+  state = run.main(['--mode', 'train', '--preset', 'solo_instrument',
+                    '--num_steps', str(CLI_STEPS), '--steps_per_summary',
+                    '2', '--steps_per_save', str(CLI_STEPS)] + common)
+  torch.cuda.synchronize()
+  train_s = time.time() - t0
+  launches = {'train': read_launches()}
+  with open(os.path.join(save_dir, 'metrics.jsonl')) as f:
+    metrics = [json.loads(line) for line in f]
+  print(f'  train: {train_s:.2f} s, step {state.step}, launches '
+        f'{launches["train"]}, metrics {metrics}')
+  check(state.step == CLI_STEPS and
+        all(launches['train'][k] == CLI_STEPS
+            for k in ('K1f', 'K1t', 'K2f', 'K2b', 'K2b_w')) and
+        launches['train']['K1p'] == launches['train']['K3'] == 0,
+        f'the CLI trained {CLI_STEPS} steps, each through K1f, K1t, K2f, K2b '
+        'and its weight-gradient pass')
+  check([m['step'] for m in metrics] == list(range(2, CLI_STEPS + 1, 2)) and
+        all(np.isfinite(m['total_loss']) for m in metrics) and
+        os.path.exists(os.path.join(save_dir, f'ckpt-{CLI_STEPS:08d}.pt')),
+        'metrics.jsonl has finite losses every 2 steps, and the checkpoint '
+        'is written')
+  for mode in ('eval', 'sample'):
+    reset_launches()
+    out = run.main(['--mode', mode, '--run_once', '--num_eval_batches', '1']
+                   + common)
+    torch.cuda.synchronize()
+    launches[mode] = read_launches()
+    print(f'  {mode}: launches {launches[mode]}')
+    check(launches[mode]['K1f'] == launches[mode]['K2f'] == 1 and
+          launches[mode]['K1t'] == launches[mode]['K2b'] == 0,
+          f'--mode {mode} ran one batch through K1f and K2f')
+    if mode == 'eval':
+      print(f'  eval: {out}')
+      check(np.isfinite(out['losses/total_loss']),
+            '--mode eval gave a finite total_loss')
+  wavs = glob.glob(os.path.join(save_dir, 'samples', f'step_{CLI_STEPS}',
+                                '*.wav'))
+  check(wavs, f'--mode sample wrote wavs ({len(wavs)})')
+
+  path = ex.export_model(save_dir, os.path.join(work_dir, 'cli_export'),
+                         fmt='torch_export', length_seconds=N_SAMPLES / SR)
+  program = ex.load_program(path)
+  request = requests()[2]
+  inputs = tuple(torch.from_numpy(request[k])[None, :, None].to(dev)
+                 for k in ('f0_hz', 'loudness_db'))
+  program(*inputs)  # warm-up, not counted
+  reset_launches()
+  audio = program(*inputs)
+  torch.cuda.synchronize()
+  launches['serve'] = read_launches()
+  eager = AutoencoderInference(save_dir, length_seconds=N_SAMPLES / SR)
+  err = (audio - eager.get_audio(request)).abs().max().item()
+  print(f'  the trained directory as a program: launches '
+        f'{launches["serve"]}, max |diff| against the eager class {err:.3e}')
+  check(launches['serve']['K1f'] == launches['serve']['K2f'] == 1 and
+        torch.isfinite(audio).all().item() and err <= PROGRAM_ATOL,
+        f'the program of the CLI\'s train directory serves a request '
+        f'through K1f and K2f within {PROGRAM_ATOL} of the eager class')
+  return launches
 
 
 # Phase 6d: evaluate and sample phase 6c's checkpoint, full width: batch 4,
@@ -3211,12 +3577,16 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as work_dir:
       write_export(torch, work_dir)
       port, reqs, launches['serve'] = phase_serve(torch, work_dir)
+      launches['program'] = phase_program(torch, dev, work_dir, port, reqs)
       launches['vst'], vst_entry = phase_vst(
           torch, dev, os.path.join(work_dir, 'vst'), args.profile)
       phase_crepe_precision(torch, dev)
       launches['vst_f0'] = phase_vst_f0(torch, dev,
                                         os.path.join(work_dir, 'vst'))
-      vst_entry['launches_by_path']['vst_f0'] = launches['vst_f0']['K2f']
+      launches['vst_program'] = phase_vst_programs(
+          torch, dev, os.path.join(work_dir, 'vst'))
+      for path in ('vst_f0', 'vst_program'):
+        vst_entry['launches_by_path'][path] = launches[path]['K2f']
       launches['chain'], _ = phase_chain(torch, dev)
       launches['train'], dense_ms = phase_train(torch, dev, work_dir,
                                                 args.profile)
@@ -3226,6 +3596,10 @@ def main(argv=None):
           torch, dev, work_dir, os.path.join(work_dir, 'dataset',
                                              'train.tfrecord*'),
           os.path.join(work_dir, 'data_train'))
+      cli = phase_cli(torch, dev, work_dir,
+                      os.path.join(work_dir, 'dataset', 'train.tfrecord*'))
+      for mode, counts in cli.items():
+        launches[f'cli_{mode}'] = counts
       phase_prepare(torch, dev, work_dir)
     phase_wide_gru_steps(torch, dev)
     launches['sp_train'], k3_per_step, sp_mesh = phase_sp_train(

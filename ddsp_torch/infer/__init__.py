@@ -1,7 +1,7 @@
 """Inference wrappers and export (port of ddsp_tpu.infer)."""
 
 from ddsp_torch.infer.export import (export_impulse_response, export_model,
-                                     unflatten)
+                                     load_program, unflatten)
 from ddsp_torch.infer.inference import (AutoencoderInference,
                                         VSTExtractFeatures,
                                         VSTPredictControls,
@@ -13,4 +13,4 @@ __all__ = ['AutoencoderInference', 'VSTExtractFeatures', 'VSTPredictControls',
            'VSTStatelessPredictControls', 'VSTSynthesize',
            'VSTSynthesizeHarmonic', 'VSTSynthesizeNoise',
            'export_impulse_response', 'export_model', 'load_params',
-           'unflatten']
+           'load_program', 'unflatten']

@@ -130,6 +130,8 @@ class _VSTBase:
     self.frame_rate = kwargs.get('frame_rate', 50)
     self.frame_size = kwargs.get('frame_size', 1024)
     self.hop_size = self.sample_rate // self.frame_rate
+    self.n_harmonics = kwargs.get('n_harmonics', 60)
+    self.n_noise = kwargs.get('n_noise_magnitudes', 65)
     self.state_size = kwargs.get('rnn_channels', 512)
 
   def _tensor(self, x) -> torch.Tensor:

@@ -2,8 +2,12 @@
 
 Each wrapper is a torch.autograd.Function that launches its kernels for a
 CUDA tensor, forward and backward, or raises; it takes the plain PyTorch
-versions beside them only for a tensor on the CPU. Nothing is built or
-loaded at import: the first launch builds the library with nvcc.
+versions beside them only for a tensor on the CPU. K1's and K2's kernels
+are torch.library ops (ddsp_torch::harmonic_fwd, ::harmonic_bwd_taps,
+::harmonic_bwd_phase, ::gru_fwd, ::gru_bwd; registered when this package
+is imported) with CUDA, CPU and fake implementations, so an exported
+program (infer/export.py) calls them by name. Nothing is built or loaded at
+import: the first launch builds the library with nvcc.
 
   K1f harmonic.fused_harmonic_synthesis  <- ddsp_tpu harmonic.py:_fwd_kernel
   K1t   its backward, amplitude taps     <- harmonic.py:_bwd_taps_kernel

@@ -2,12 +2,14 @@
 launch each way.
 
 Wraps csrc/gru.cu, which replaces ddsp_tpu/ops/pallas_kernels/gru.py:
-_fwd_kernel (K2f) and _bwd_kernel (K2b). `GruSequence` is the
+_fwd_kernel (K2f) and _bwd_kernel (K2b). Each is a torch.library op
+(ddsp_torch::gru_fwd, ::gru_bwd), and `GruSequence` is the
 torch.autograd.Function around them: a CUDA tensor launches the kernels in
 both directions, a CPU tensor takes the plain PyTorch versions beside them
 (`gru_sequence_plain`, `gru_bwd_plain`: Python loops of the same steps in
-the same dtypes). The CPU tests hold the plain versions against the JAX
-package, and chip_smoke.py holds each kernel against its plain version.
+the same dtypes), and torch.export traces a GRU into one gru_fwd node. The
+CPU tests hold the plain versions against the JAX package, and
+chip_smoke.py holds each kernel against its plain version.
 
 K2f takes one of three routes (`fwd_route`). With bf16 streams (the main
 path) the route depends on H (`bf16_route`): up to 512 units the kernels
@@ -33,7 +35,9 @@ import torch
 from ddsp_torch.kernels import _build
 
 # Kernel launches so far, per kernel; a run reads them to show which
-# kernels its path went through.
+# kernels its path went through. Counted where a kernel launches, inside
+# the ops' CUDA implementations: an exported program's run counts its own
+# launches, and a trace (fake tensors) none.
 # 'fwd' and 'bwd' count K2f and K2b launches (one per call, or one per row
 # group on the cooperative route), 'wgrad' K2b's weight-gradient pass (the
 # cluster route only); 'fwd_cooperative' and 'fwd_step' count the K2f
@@ -683,9 +687,60 @@ def _launch_bwd(g, xp, h_prev, wh, bn):
   return _launch_coop_bwd(g, xp, h_prev, wh, bn)
 
 
+# K2f and K2b as torch.library ops, one per launch entry, each with a CUDA
+# implementation (the launches, which count themselves), a CPU one (the
+# plain version) and a fake one (shapes and dtypes only), so torch.export
+# traces a forward on the card into one node per GRU and the exported
+# program launches the kernel itself. The inputs are contiguous, wh at the
+# stream dtype, bn and h0 float32 (GruSequence prepares them).
+
+
+@torch.library.custom_op('ddsp_torch::gru_fwd', mutates_args=(),
+                         device_types='cpu')
+def gru_fwd(xp: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
+            h0: torch.Tensor) -> torch.Tensor:
+  """K2f on its route (`fwd_route`): ys [T, B, H] float32."""
+  return gru_sequence_plain(xp, wh, bn, h0)
+
+
+@gru_fwd.register_kernel('cuda')
+def _gru_fwd_cuda(xp, wh, bn, h0):
+  return _launch_fwd(xp, wh, bn, h0)
+
+
+@gru_fwd.register_fake
+def _gru_fwd_fake(xp, wh, bn, h0):
+  return xp.new_empty((xp.shape[0], h0.shape[0], wh.shape[0]),
+                      dtype=torch.float32)
+
+
+@torch.library.custom_op('ddsp_torch::gru_bwd', mutates_args=(),
+                         device_types='cpu')
+def gru_bwd(g: torch.Tensor, xp: torch.Tensor, h_prev: torch.Tensor,
+            wh: torch.Tensor, bn: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor]:
+  """K2b on its route: (dxp at xp's dtype, dwh, dbn, dh0 float32)."""
+  return gru_bwd_plain(g, xp, h_prev, wh, bn)
+
+
+@gru_bwd.register_kernel('cuda')
+def _gru_bwd_cuda(g, xp, h_prev, wh, bn):
+  return _launch_bwd(g, xp, h_prev, wh, bn)
+
+
+@gru_bwd.register_fake
+def _gru_bwd_fake(g, xp, h_prev, wh, bn):
+  hidden = wh.shape[0]
+  f32 = dict(dtype=torch.float32)
+  return (torch.empty_like(xp), wh.new_empty((hidden, 3 * hidden), **f32),
+          bn.new_empty((hidden,), **f32),
+          g.new_empty((g.shape[1], hidden), **f32))
+
+
 class GruSequence(torch.autograd.Function):
-  """K2 with its backward: kernels on CUDA tensors, plain versions on CPU
-  tensors, the same gradients either way.
+  """K2 with its backward, through the ops above: kernels on CUDA tensors,
+  plain versions on CPU tensors, the same gradients either way.
 
   wh is cast to the stream dtype in here, so dwh comes back float32 for
   the float32 parameter. Saves time-major xp, wh, bn, h0 and ys; backward
@@ -699,10 +754,7 @@ class GruSequence(torch.autograd.Function):
     wh_s = wh.to(stream_dtype(xp.dtype)).contiguous()
     bn = bn.float().contiguous()
     h0 = h0.float().contiguous()
-    if xp.device.type == 'cpu':
-      ys = gru_sequence_plain(xp, wh_s, bn, h0)
-    else:
-      ys = _launch_fwd(xp, wh_s, bn, h0)
+    ys = gru_fwd(xp, wh_s, bn, h0)
     if any(ctx.needs_input_grad):  # nothing is kept when serving
       ctx.save_for_backward(xp, wh_s, bn, h0, ys)
     return ys
@@ -713,11 +765,7 @@ class GruSequence(torch.autograd.Function):
     # autograd may hand over an expanded or strided cotangent.
     g = g.float().contiguous()
     h_prev = h_prev_stream(h0, ys, wh_s.dtype)
-    if xp.device.type == 'cpu':
-      dxp, dwh, dbn, dh0 = gru_bwd_plain(g, xp, h_prev, wh_s, bn)
-    else:
-      dxp, dwh, dbn, dh0 = _launch_bwd(g, xp, h_prev, wh_s, bn)
-    return dxp, dwh, dbn, dh0
+    return gru_bwd(g, xp, h_prev, wh_s, bn)
 
 
 def gru_sequence(xp: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,

@@ -2,13 +2,15 @@
 
 Wraps csrc/harmonic.cu, which replaces the three Pallas kernels of
 ddsp_tpu/ops/pallas_kernels/harmonic.py: _fwd_kernel (K1f), _bwd_taps_kernel
-(K1t) and _bwd_phase_kernel (K1p). `HarmonicSynthesis` is the
-torch.autograd.Function around them: a CUDA tensor launches the kernels in
-both directions, a CPU tensor takes the plain PyTorch versions beside them
-(`harmonic_synthesis_plain`, `harmonic_bwd_taps_plain` + `fold_taps`,
-`harmonic_bwd_phase_plain`). The CPU tests hold the plain versions against
-the JAX package, and chip_smoke.py holds each kernel against its plain
-version.
+(K1t) and _bwd_phase_kernel (K1p). Each kernel is a torch.library op
+(ddsp_torch::harmonic_fwd, ::harmonic_bwd_taps, ::harmonic_bwd_phase), and
+`HarmonicSynthesis` is the torch.autograd.Function around them: a CUDA
+tensor launches the kernels in both directions, a CPU tensor takes the
+plain PyTorch versions beside them (`harmonic_synthesis_plain`,
+`harmonic_bwd_taps_plain` + `fold_taps`, `harmonic_bwd_phase_plain`), and
+torch.export traces the forward into one harmonic_fwd node. The CPU tests
+hold the plain versions against the JAX package, and chip_smoke.py holds
+each kernel against its plain version.
 
 On an H100 the K1 kernels are bound by instruction issue, not by bytes or
 fp32 operations (csrc/harmonic.cu says how). K1f splits each hop over
@@ -43,7 +45,9 @@ from ddsp_torch.ops.resample import resample
 KERNEL_METHODS = ('window', 'linear')
 
 # Kernel launches so far, per kernel; a run reads them to show which
-# kernels its path went through.
+# kernels its path went through. Counted where a kernel launches, inside
+# the ops' CUDA implementations: an exported program's run counts its own
+# launches, and a trace (fake tensors) none.
 launches: Dict[str, int] = {'fwd': 0, 'bwd_taps': 0, 'bwd_phase': 0}
 
 
@@ -198,53 +202,117 @@ def _launch(name, inputs, out, n_frames, n_harmonics, sample_rate,
   return out
 
 
-class HarmonicSynthesis(torch.autograd.Function):
-  """K1 with its backward: kernels on CUDA tensors, plain versions on CPU
-  tensors, the same gradients either way.
+# The kernels as torch.library ops, one per launch entry. Each has three
+# implementations: CUDA (the launch, which counts it), CPU (the plain
+# version) and fake (shapes and dtypes only), so torch.export traces a
+# forward that runs on the card into one node per launch, and the exported
+# program launches the kernels itself. The inputs are contiguous float32
+# (`_check`, and HarmonicSynthesis makes them contiguous).
 
-  Gradients: dham from K1t (on the CPU: per-hop partials, then
-  `fold_taps`; on CUDA the kernel folds them itself), dphase from K1p only
-  when the phase needs one, none for f0_env (the Nyquist mask is piecewise
-  constant).
+
+@torch.library.custom_op('ddsp_torch::harmonic_fwd', mutates_args=(),
+                         device_types='cpu')
+def harmonic_fwd(phase0: torch.Tensor, f0_env: torch.Tensor,
+                 ham: torch.Tensor, sample_rate: float,
+                 amp_resample_method: str) -> torch.Tensor:
+  """K1f: audio [batch, n_samples] float32."""
+  return harmonic_synthesis_plain(phase0, f0_env, ham, sample_rate,
+                                  amp_resample_method)
+
+
+@harmonic_fwd.register_kernel('cuda')
+def _harmonic_fwd_cuda(phase0, f0_env, ham, sample_rate, amp_resample_method):
+  return _launch('fwd', (phase0, f0_env, ham), torch.empty_like(phase0),
+                 ham.shape[1], ham.shape[2], sample_rate, amp_resample_method)
+
+
+@harmonic_fwd.register_fake
+def _harmonic_fwd_fake(phase0, f0_env, ham, sample_rate,
+                       amp_resample_method):
+  return torch.empty_like(phase0)
+
+
+@torch.library.custom_op('ddsp_torch::harmonic_bwd_taps', mutates_args=(),
+                         device_types='cpu')
+def harmonic_bwd_taps(phase0: torch.Tensor, f0_env: torch.Tensor,
+                      g: torch.Tensor, n_frames: int, n_harmonics: int,
+                      sample_rate: float,
+                      amp_resample_method: str) -> torch.Tensor:
+  """K1t: dham [batch, n_frames, H] float32 (on the CPU the per-hop
+  partials, then `fold_taps`; the kernel folds them itself)."""
+  return fold_taps(harmonic_bwd_taps_plain(phase0, f0_env, g, n_frames,
+                                           n_harmonics, sample_rate,
+                                           amp_resample_method))
+
+
+@harmonic_bwd_taps.register_kernel('cuda')
+def _harmonic_bwd_taps_cuda(phase0, f0_env, g, n_frames, n_harmonics,
+                            sample_rate, amp_resample_method):
+  dham = phase0.new_empty((phase0.shape[0], n_frames, n_harmonics))
+  return _launch('bwd_taps', (phase0, f0_env, g), dham, n_frames,
+                 n_harmonics, sample_rate, amp_resample_method)
+
+
+@harmonic_bwd_taps.register_fake
+def _harmonic_bwd_taps_fake(phase0, f0_env, g, n_frames, n_harmonics,
+                            sample_rate, amp_resample_method):
+  return phase0.new_empty((phase0.shape[0], n_frames, n_harmonics))
+
+
+@torch.library.custom_op('ddsp_torch::harmonic_bwd_phase', mutates_args=(),
+                         device_types='cpu')
+def harmonic_bwd_phase(phase0: torch.Tensor, f0_env: torch.Tensor,
+                       ham: torch.Tensor, g: torch.Tensor, sample_rate: float,
+                       amp_resample_method: str) -> torch.Tensor:
+  """K1p: dphase [batch, n_samples] float32."""
+  return harmonic_bwd_phase_plain(phase0, f0_env, ham, g, sample_rate,
+                                  amp_resample_method)
+
+
+@harmonic_bwd_phase.register_kernel('cuda')
+def _harmonic_bwd_phase_cuda(phase0, f0_env, ham, g, sample_rate,
+                             amp_resample_method):
+  return _launch('bwd_phase', (phase0, f0_env, ham, g),
+                 torch.empty_like(phase0), ham.shape[1], ham.shape[2],
+                 sample_rate, amp_resample_method)
+
+
+@harmonic_bwd_phase.register_fake
+def _harmonic_bwd_phase_fake(phase0, f0_env, ham, g, sample_rate,
+                             amp_resample_method):
+  return torch.empty_like(phase0)
+
+
+class HarmonicSynthesis(torch.autograd.Function):
+  """K1 with its backward, through the ops above: kernels on CUDA tensors,
+  plain versions on CPU tensors, the same gradients either way.
+
+  Gradients: dham from K1t, dphase from K1p only when the phase needs one,
+  none for f0_env (the Nyquist mask is piecewise constant).
   """
 
   @staticmethod
   def forward(ctx, phase0, f0_env, ham, sample_rate, amp_resample_method):
-    ctx.sample_rate = sample_rate
+    ctx.sample_rate = float(sample_rate)
     ctx.method = amp_resample_method
     phase0, f0_env, ham = (t.contiguous() for t in (phase0, f0_env, ham))
     if any(ctx.needs_input_grad):  # nothing is kept when serving
       ctx.save_for_backward(phase0, f0_env, ham)
-    if phase0.device.type == 'cpu':
-      return harmonic_synthesis_plain(phase0, f0_env, ham, sample_rate,
-                                      amp_resample_method)
-    return _launch('fwd', (phase0, f0_env, ham), torch.empty_like(phase0),
-                   ham.shape[1], ham.shape[2], sample_rate,
-                   amp_resample_method)
+    return harmonic_fwd(phase0, f0_env, ham, ctx.sample_rate,
+                        amp_resample_method)
 
   @staticmethod
   def backward(ctx, g):
     phase0, f0_env, ham = ctx.saved_tensors
     _, n_frames, n_harmonics = ham.shape
     g = g.contiguous()  # autograd may hand over an expanded cotangent
-    on_cpu = phase0.device.type == 'cpu'
     dphase = dham = None
     if ctx.needs_input_grad[2]:
-      if on_cpu:
-        dham = fold_taps(harmonic_bwd_taps_plain(
-            phase0, f0_env, g, n_frames, n_harmonics, ctx.sample_rate,
-            ctx.method))
-      else:
-        dham = _launch('bwd_taps', (phase0, f0_env, g), torch.empty_like(ham),
-                       n_frames, n_harmonics, ctx.sample_rate, ctx.method)
+      dham = harmonic_bwd_taps(phase0, f0_env, g, n_frames, n_harmonics,
+                               ctx.sample_rate, ctx.method)
     if ctx.needs_input_grad[0]:
-      if on_cpu:
-        dphase = harmonic_bwd_phase_plain(phase0, f0_env, ham, g,
-                                          ctx.sample_rate, ctx.method)
-      else:
-        dphase = _launch('bwd_phase', (phase0, f0_env, ham, g),
-                         torch.empty_like(phase0), n_frames, n_harmonics,
-                         ctx.sample_rate, ctx.method)
+      dphase = harmonic_bwd_phase(phase0, f0_env, ham, g, ctx.sample_rate,
+                                  ctx.method)
     return dphase, None, dham, None, None
 
 

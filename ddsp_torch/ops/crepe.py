@@ -18,10 +18,9 @@ process's TF32 settings (`full_float32`).
 from __future__ import annotations
 
 import contextlib
-import functools
 import logging
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -242,7 +241,7 @@ def activations_to_f0_and_confidence(
   The weighted average of cents over 10 bins around the argmax (or the
   given centers).
   """
-  cent_mapping = _decoding_constants(activations.device)['cents']
+  (cent_mapping,) = _decoding_constants(activations.device, 'cents')
   confidence = torch.amax(activations, dim=-1, keepdim=True)
   if centers is None:
     centers = torch.argmax(activations, dim=-1)
@@ -275,13 +274,31 @@ def _viterbi_tables() -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
   return log_initial, log_transition, log_emission
 
 
-@functools.lru_cache(maxsize=None)
-def _decoding_constants(device: torch.device) -> Dict[str, torch.Tensor]:
-  """The bins' cents and the Viterbi tables on `device`, copied there once
-  (a copy from pageable host memory per call would wait for the stream)."""
-  tables = dict(zip(('log_initial', 'log_transition', 'log_emission'),
+# {(name, device): a decoding constant there}. Filled only outside a
+# trace: a tensor made while torch.export or torch.compile traces is fake,
+# and a later call or trace would find it here.
+_DECODING_CONSTANTS: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+
+def _decoding_constants(device: torch.device,
+                        *names: str) -> List[torch.Tensor]:
+  """The named constants on `device` ('cents' of the bins, the Viterbi
+  tables 'log_initial', 'log_transition', 'log_emission'), each copied
+  there once (a copy from pageable host memory per call would wait for the
+  stream); inside a trace they are made anew, and only the ones the traced
+  code reads become the program's constants."""
+  device = torch.device(device)
+  out = [_DECODING_CONSTANTS.get((name, device)) for name in names]
+  if any(t is None for t in out):
+    host = dict(zip(('log_initial', 'log_transition', 'log_emission'),
                     _viterbi_tables()), cents=_CENT_MAPPING)
-  return {k: torch.as_tensor(v, device=device) for k, v in tables.items()}
+    for i, name in enumerate(names):
+      if out[i] is None:
+        out[i] = torch.as_tensor(np.ascontiguousarray(host[name]),
+                                 device=device)
+        if not torch.compiler.is_compiling():
+          _DECODING_CONSTANTS[(name, device)] = out[i]
+  return out
 
 
 def crepe_viterbi_centers(activations: torch.Tensor) -> torch.Tensor:
@@ -290,12 +307,11 @@ def crepe_viterbi_centers(activations: torch.Tensor) -> torch.Tensor:
   CREPE's decoder: a uniform initial state, a triangular transition kernel
   that favours small jumps, and an emission that boosts the self bin.
   """
-  tables = _decoding_constants(activations.device)
+  log_initial, log_transition, log_emission = _decoding_constants(
+      activations.device, 'log_initial', 'log_transition', 'log_emission')
   with full_float32():
-    obs_ll = torch.einsum('bto,os->bts', activations,
-                          tables['log_emission'])
-  return hmm_ops.viterbi_decode(tables['log_initial'],
-                                tables['log_transition'], obs_ll)
+    obs_ll = torch.einsum('bto,os->bts', activations, log_emission)
+  return hmm_ops.viterbi_decode(log_initial, log_transition, obs_ll)
 
 
 class PretrainedCrepe:
@@ -335,8 +351,10 @@ class PretrainedCrepe:
     self.to(resolve_device(device))
 
   def to(self, device) -> 'PretrainedCrepe':
-    self.device = torch.device(device)
-    self.model.to(self.device)
+    self.model.to(device)
+    # Where the weights landed ('cuda:0' for 'cuda'), so that a caller
+    # comparing it with its audio's device moves nothing when they agree.
+    self.device = next(self.model.parameters()).device
     return self
 
   def batch_frames(self, audio: torch.Tensor,

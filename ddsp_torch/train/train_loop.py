@@ -26,21 +26,38 @@ logger = logging.getLogger('ddsp_torch')
 
 
 class MetricsWriter:
-  """Scalar metrics -> JSONL file (<log_dir>/metrics.jsonl)."""
+  """Scalar metrics -> JSONL file (<log_dir>/metrics.jsonl), plus
+  TensorBoard event files in log_dir where torch.utils.tensorboard imports
+  (it needs the tensorboard package; without it the writer is JSONL only,
+  as the JAX writer is without TensorFlow)."""
 
   def __init__(self, log_dir: str):
     os.makedirs(log_dir, exist_ok=True)
     self._path = os.path.join(log_dir, 'metrics.jsonl')
     self._file = open(self._path, 'a')
+    self._tb = None
+    try:
+      from torch.utils.tensorboard import SummaryWriter  # pylint: disable=g-import-not-at-top
+    except ImportError:
+      logger.info('No tensorboard package: metrics go to %s only.',
+                  self._path)
+    else:
+      self._tb = SummaryWriter(log_dir)
 
   def scalars(self, step: int, values: Dict[str, float]):
     record = {'step': int(step)}
     record.update({k: float(v) for k, v in values.items()})
     self._file.write(json.dumps(record) + '\n')
     self._file.flush()
+    if self._tb is not None:
+      for k, v in values.items():
+        self._tb.add_scalar(k, float(v), int(step))
+      self._tb.flush()
 
   def close(self):
     self._file.close()
+    if self._tb is not None:
+      self._tb.close()
 
 
 def _interval_means(pending: List[Dict[str, torch.Tensor]]) -> Dict[str,

@@ -22,7 +22,8 @@ after the JAX `unflatten`; the JAX model's audio against the port's
 AutoencoderInference on the export (float32, atol 4e-3, as
 tests/test_torch_model.py holds serving), the train directory against the
 export (bit for bit), the impulse response's wav against the JAX
-`write_wav` (byte for byte), and the formats the port does not export yet.
+`write_wav` (byte for byte), the formats the port does not convert to, and
+fmt='params' refusing a vst train directory.
 """
 
 import gc
@@ -359,9 +360,12 @@ def test_impulse_response_wav(train_dir, tmp_path):
 
 
 def test_unported_formats_raise(train_dir, tmp_path):
+  """The JAX package's converted formats raise and name the format the port
+  writes (the 'tfjs' message once named 'savedmodel', which the port
+  refuses too)."""
   save_dir, _ = train_dir
-  for fmt in ('stablehlo', 'savedmodel', 'tflite'):
-    with pytest.raises(NotImplementedError, match='queue 1 item 4'):
+  for fmt in ('stablehlo', 'savedmodel', 'tflite', 'tfjs'):
+    with pytest.raises(NotImplementedError, match="fmt='torch_export'"):
       export_model(save_dir, str(tmp_path), fmt=fmt)
   with pytest.raises(NotImplementedError, match='tensorflowjs'):
     export_model(save_dir, str(tmp_path), fmt='tfjs')
@@ -371,3 +375,13 @@ def test_unported_formats_raise(train_dir, tmp_path):
     export_model(save_dir, str(tmp_path), inference_model='vst_synthesize')
   with pytest.raises(FileNotFoundError, match='ckpt'):
     load_params(str(tmp_path))
+
+
+def test_params_export_refuses_a_vst_directory(tmp_path):
+  """fmt='params' exports an autoencoder; a vst train directory is refused
+  (the JAX export fails on one too) instead of written with the
+  autoencoder's mutations."""
+  save_spec(str(tmp_path / 'vst'), 'vst', rnn_channels=16)
+  with pytest.raises(ValueError, match="fmt='torch_export'"):
+    export_model(str(tmp_path / 'vst'), str(tmp_path / 'out'), device='cpu')
+  assert not (tmp_path / 'out').exists()
