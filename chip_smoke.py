@@ -13,8 +13,8 @@ Phases (any failed check exits non-zero before the result lines):
   1. build the kernels of ddsp_torch/csrc with nvcc (all sources at once);
   2. K1: the fused harmonic synth (K1f) and its backward kernels (K1t
      amplitude taps, K1p phase) against their plain PyTorch versions, both
-     methods, hops 32, 64, 100, 128, 320 and 1280, B in {1, 2, 4}, H in
-     {13, 60, 160, 256}, on wrapped (angular cumsum) and unwrapped
+     methods, hops 32, 64, 100, 128, 320 and 1280, B in {1, 2, 4, 16}, H in
+     {13, 60, 100, 160, 256}, on wrapped (angular cumsum) and unwrapped
      (cumsum) phases; K1t's dham bit-equal across two launches, written
      without fold_taps or a [B, F, 2, H] tensor;
   2c. K3: the halo shift against its plain version, bit for bit, on (1, 4),
@@ -24,7 +24,8 @@ Phases (any failed check exits non-zero before the result lines):
   3. K2: the fused GRU sequence (K2f) and its backward (K2b) against their
      plain PyTorch versions, both dtypes, at H = 512, T = 1000 and B in
      {1, 4, 16, 40, 128} (a ragged tile, and past the old kernels' batch
-     limit) and at H = 64, T = 24; bf16 at H = 96 and 384 (the cluster
+     limit) and at H = 64, T = 24; bf16 at H = 512, T = 125 (the ae
+     encoder's GRU), B in {1, 16}; bf16 at H = 96 and 384 (the cluster
      kernels, zero-padded to 128 and 512) and 1024 (the cooperative
      kernels), B in {1, 16, 40}, and float32 at H = 1024, B = 16; the
      launches of each route; with bf16 streams K2b's two passes, the
@@ -105,7 +106,25 @@ Phases (any failed check exits non-zero before the result lines):
      step; metrics.jsonl and the checkpoint), --mode eval --run_once and
      --mode sample (one batch through K1f and K2f each), then the train
      directory exported with fmt='torch_export' and one request served
-     through the program;
+     through the program; then --preset ae: 2 steps (K1f, K1t once, K2f,
+     K2b and its weight-gradient pass twice a step) and --mode eval
+     --run_once (K1f once, K2f twice); its torch_export skipped, the
+     refusal printed;
+  6g. the ae preset at full width (MFCC-RNN encoder over 125 frames, z of
+     16, 100 harmonics, bf16), one state dict from torch.Generator(0) on
+     the card and on the CPU: 4 reconstruction requests of 4 s at B = 1
+     through the model's forward (audio in, an explicit noise) against
+     the CPU port, K1f once and K2f twice a request and no backward
+     kernel, ms per request; train() 24 steps at batch 16 x 4 s (finite
+     losses; K1f, K1t once, K2f, K2b, K2b's weight-gradient pass twice a
+     step), a B = 2 step against the CPU port with gradients reaching the
+     encoder, ms per step; evaluate_or_sample of the checkpoint, one eval
+     and one sample batch; AutoencoderInference and export_model refuse
+     the directory;
+  6h. the processors without a TPU kernel (TensorToAudio, Wavetable,
+     Sinusoidal, ExpDecayReverb, FIRFilter, ModDelay, Mix) at batch 4 x
+     4 s, forward and gradient on the card against the CPU port, no kernel
+     launched;
   6e. prepare_records of a 20 s wav of harmonic glides on the card (CREPE
      with Viterbi, loudness) into 2 shards, read back with
      TFRecordProvider, against the CPU port's prepare_records of the same
@@ -148,6 +167,10 @@ BATCH = 16            # the training and chain batch
 N_NOISE = 65
 REVERB_LENGTH = 48000
 TRAIN_STEPS = 24
+# The ae preset (phase 6g): its encoder's GRU runs over 125 MFCC frames,
+# its Harmonic has 100 harmonics.
+AE_Z_STEPS = 125
+AE_HARMONICS = 100
 # K1f sums up to 60 harmonics whose sines come from the Chebyshev recurrence
 # against the plain version's sinf of h * phase (the JAX package's tolerance
 # for its Pallas kernel against its jnp path).
@@ -536,6 +559,10 @@ def phase_k1(torch, dev):
   for method, hop, n_harmonics in (('window', 64, 160), ('linear', 100, 256)):
     k1_case(torch, dev, method, N_SAMPLES // hop, 2, n_harmonics, 'cumsum',
             f0_lo=30.0)
+  # The ae preset's 100 harmonics at hop 64, a request's B = 1 and a
+  # step's B = 16, on the plain cumsum phases it serves and trains on.
+  for batch in (1, BATCH):
+    k1_case(torch, dev, 'window', N_FRAMES, batch, AE_HARMONICS, 'cumsum')
 
   # K1t folds the taps inside the kernel, in a fixed order: two launches
   # give the same bits, and the CUDA backward neither calls fold_taps nor
@@ -714,9 +741,10 @@ def k2_route_name(torch, hidden, dtype):
 # K2 cases of phase 3: (H, T, batches, dtypes). H = 512 and 64 are the
 # cluster kernels' own sizes; 96 and 384 run on them zero-padded (to 128
 # and 512); 1024 is past any cluster and takes the cooperative kernels, in
-# bf16 and in float32.
+# bf16 and in float32. T = 125 is the ae encoder's GRU (its MFCC frames).
 K2_CASES = (
     (HIDDEN, N_FRAMES, (1, 4, 16, 40, 128), ('float32', 'bfloat16')),
+    (HIDDEN, AE_Z_STEPS, (1, 16), ('bfloat16',)),
     (64, 24, (1, 4, 16, 40, 128), ('float32', 'bfloat16')),
     (96, N_FRAMES, (1, 16), ('bfloat16',)),
     (96, 24, (40,), ('bfloat16',)),
@@ -731,8 +759,8 @@ K2_CASES = (
 def phase_k2(torch, dev):
   from ddsp_torch.kernels import gru as kg
   print('[3] K2 fused GRU vs plain: forward and backward, both dtypes, '
-        'H in {64, 96, 384, 512, 1024}, B in {1, 4, 16, 40, 128}',
-        flush=True)
+        'H in {64, 96, 384, 512, 1024}, B in {1, 4, 16, 40, 128}, T in '
+        '{24, 125, 1000}', flush=True)
   for hidden in (HIDDEN, 64):
     for backward in (False, True):
       c = kg.pick_cluster(dev, hidden, backward)
@@ -1984,6 +2012,13 @@ def global_norm(torch, grads, part=''):
                               for k, g in grads.items() if part in k)))
 
 
+def flat_grads(torch, grads, part):
+  """The gradients whose names start with `part`, flattened into one
+  float64 vector on the host."""
+  return torch.cat([g.double().flatten().cpu() for k, g in grads.items()
+                    if k.startswith(part)])
+
+
 def rel_l2(a, b):
   """|a - b| / |b| in float64."""
   return ((a.double() - b.double()).norm() / b.double().norm()).item()
@@ -2554,6 +2589,7 @@ def phase_data_train(torch, dev, work_dir):
 # phase 6c's records: train, eval, sample, then export the train directory
 # as a program and serve it.
 CLI_STEPS = 4
+CLI_AE_STEPS = 2
 
 
 def phase_cli(torch, dev, work_dir, pattern):
@@ -2631,7 +2667,406 @@ def phase_cli(torch, dev, work_dir, pattern):
         torch.isfinite(audio).all().item() and err <= PROGRAM_ATOL,
         f'the program of the CLI\'s train directory serves a request '
         f'through K1f and K2f within {PROGRAM_ATOL} of the eager class')
+
+  # The ae preset through the CLI on the same records: train, then one
+  # eval batch. Its encoder reads audio, so its train directory has no
+  # autoencoder program: the export is skipped, and the reason printed.
+  ae_dir = os.path.join(work_dir, 'cli_ae')
+  ae_common = ['--save_dir', ae_dir, '--data', f'tfrecord:{pattern}',
+               '--batch_size', str(BATCH)]
+  reset_launches()
+  state = run.main(['--mode', 'train', '--preset', 'ae', '--num_steps',
+                    str(CLI_AE_STEPS), '--steps_per_summary', '1',
+                    '--steps_per_save', str(CLI_AE_STEPS)] + ae_common)
+  torch.cuda.synchronize()
+  launches['ae_train'] = read_launches()
+  print(f'  ae train: step {state.step}, launches {launches["ae_train"]}')
+  per_step = {'K1f': 1, 'K1t': 1, 'K1p': 0, 'K2f': 2, 'K2b': 2, 'K2b_w': 2,
+              'K3': 0}
+  check(state.step == CLI_AE_STEPS and launches['ae_train'] == {
+      k: v * CLI_AE_STEPS for k, v in per_step.items()},
+        f'the CLI trained ae {CLI_AE_STEPS} steps, each {per_step}')
+  reset_launches()
+  out = run.main(['--mode', 'eval', '--run_once', '--num_eval_batches', '1']
+                 + ae_common)
+  torch.cuda.synchronize()
+  launches['ae_eval'] = read_launches()
+  print(f'  ae eval: launches {launches["ae_eval"]}, {out}')
+  check(launches['ae_eval']['K1f'] == 1 and launches['ae_eval']['K2f'] == 2
+        and launches['ae_eval']['K2b'] == 0 and
+        np.isfinite(out['losses/total_loss']),
+        '--mode eval of ae: one batch through K1f once and K2f twice, a '
+        'finite total_loss')
+  try:
+    ex.export_model(ae_dir, os.path.join(work_dir, 'cli_ae_export'),
+                    fmt='torch_export', length_seconds=N_SAMPLES / SR)
+    reason = ''
+  except ValueError as e:
+    reason = str(e)
+  print(f'  the ae train directory\'s torch_export skipped: {reason}')
+  check('encodes audio' in reason,
+        'the ae train directory is not exported as an autoencoder program '
+        '(the encoder reads audio)')
   return launches
+
+
+# Phase 6g: the ae preset (magenta/ddsp gin/models/ae.gin) at full width:
+# MFCCs of the audio -> instance norm -> a bf16 GRU of 512 over 125 frames
+# -> z (16), resampled to 1000 frames; the decoder with a third FC stack
+# for z; Harmonic(100) + FilteredNoise(65). A request launches K2f twice
+# (encoder, decoder) and K1f once.
+AE_REQUESTS = 4
+
+
+def ae_requests():
+  """AE_REQUESTS clips of 4 s at batch 1 ('audio' [1, 64000], 'f0_hz'
+  [1, 1000]): the training batch's tones from another seed."""
+  clips = training_batch(AE_REQUESTS, seed=11)
+  return [{k: v[i:i + 1] for k, v in clips.items()}
+          for i in range(AE_REQUESTS)]
+
+
+def gru_lengths(torch, model):
+  """Hooks recording the sequence length each FastGRU of the model runs
+  (encoder, decoder); returns (lengths list, remove())."""
+  from ddsp_torch.nn.layers import FastGRU
+  lengths = []
+  handles = [m.register_forward_hook(
+      lambda mod, inputs, out, name=name: lengths.append(
+          (name, int(inputs[0].shape[1]), mod.dtype)))
+             for name, m in model.named_modules() if isinstance(m, FastGRU)]
+  return lengths, lambda: [h.remove() for h in handles]
+
+
+def phase_ae(torch, dev, work_dir, pattern):
+  """[6g] the ae preset: reconstruction requests, training, eval and
+  sample, and the serving classes' refusal. Returns the launches of each
+  ('ae_serve', 'ae_train', 'ae_eval', 'ae_sample')."""
+  from ddsp_torch.data import TFRecordProvider
+  from ddsp_torch.eval import evaluate_or_sample
+  from ddsp_torch.infer import AutoencoderInference, export_model
+  from ddsp_torch.train import Trainer, train
+  from ddsp_torch.utils import build_model, save_spec
+  print(f'[6g] ae (full width, bf16): {AE_REQUESTS} reconstruction requests '
+        f'of 4 s, {TRAIN_STEPS} training steps at batch {BATCH} x 4 s, eval, '
+        'sample', flush=True)
+  # One state dict (torch.Generator(seed 0)) on the card and on the CPU.
+  cpu_model = build_model('ae', device='cpu', seed=0)
+  model = build_model('ae')
+  model.load_state_dict(cpu_model.state_dict())
+  model.eval()
+  reqs = ae_requests()
+  noise = torch.rand((1, N_SAMPLES),
+                     generator=torch.Generator().manual_seed(12)) * 2 - 1
+
+  def request(m, r, d):
+    with torch.no_grad():
+      return m({k: torch.from_numpy(v).to(d) for k, v in r.items()},
+               training=False, noise=noise.to(d))
+
+  lengths, unhook = gru_lengths(torch, model)
+  reset_launches()
+  outs = [request(model, r, dev) for r in reqs]
+  torch.cuda.synchronize()
+  launches = {'ae_serve': read_launches()}
+  unhook()
+  print(f'  launches over {AE_REQUESTS} requests: {launches["ae_serve"]}; '
+        f'FastGRU (module, T, dtype) per request: {lengths[:2]}')
+  want = {'K1f': AE_REQUESTS, 'K2f': 2 * AE_REQUESTS, 'K1t': 0, 'K1p': 0,
+          'K2b': 0, 'K2b_w': 0, 'K3': 0}
+  check(launches['ae_serve'] == want,
+        'each ae request launched K1f once and K2f twice (encoder and '
+        'decoder), no backward kernel')
+  check(lengths[:2] == [('encoder.rnn.FastGRU_0', AE_Z_STEPS, torch.bfloat16),
+                        ('decoder.rnn.FastGRU_0', N_FRAMES, torch.bfloat16)],
+        f'the encoder\'s GRU runs bf16 over {AE_Z_STEPS} MFCC frames, the '
+        f'decoder\'s over {N_FRAMES}')
+  for i, out in enumerate(outs):
+    audio, z = out['audio_synth'], out['z']
+    check(tuple(audio.shape) == (1, N_SAMPLES) and
+          tuple(z.shape) == (1, N_FRAMES, 16) and
+          torch.isfinite(audio).all().item() and
+          audio.abs().max().item() > 0,
+          f'ae request {i}: audio [1, {N_SAMPLES}] and z [1, {N_FRAMES}, 16] '
+          'finite, audio not silent')
+  rels = []
+  for r, out in zip(reqs, outs):
+    cpu_out = request(cpu_model, r, 'cpu')
+    rels.append((rel_l2(out['audio_synth'].cpu(), cpu_out['audio_synth']),
+                 rel_l2(out['z'].cpu(), cpu_out['z'])))
+  print('  card against the CPU port, audio and z relative L2: ' +
+        ', '.join(f'({a:.3e}, {b:.3e})' for a, b in rels))
+  check(max(a for a, _ in rels) <= E2E_REL_L2,
+        f'every ae request\'s audio within {E2E_REL_L2} of the CPU port')
+  times = []
+  for i in range(14):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    request(model, reqs[i % AE_REQUESTS], dev)
+    end.record()
+    torch.cuda.synchronize()
+    times.append(start.elapsed_time(end))
+  times = times[2:]
+  request_ms = float(np.median(times))
+  print(f'  ae request ms: {[round(t, 3) for t in times]}')
+  print(f'  median ms per 4 s ae request: {request_ms:.3f}; audio '
+        f'samples/s: {N_SAMPLES / (request_ms / 1e3):.4e}', flush=True)
+
+  # Training through Trainer and train(), from a train directory with the
+  # spec, as the CLI writes it.
+  save_dir = os.path.join(work_dir, 'ae_train')
+  save_spec(save_dir, 'ae')
+  batch = training_batch()
+  trainer = Trainer(build_model('ae', seed=0), seed=0)
+  reset_launches()
+  state = train(itertools.repeat(batch), trainer, num_steps=TRAIN_STEPS,
+                steps_per_summary=1, steps_per_save=TRAIN_STEPS,
+                save_dir=save_dir)
+  torch.cuda.synchronize()
+  launches['ae_train'] = read_launches()
+  with open(os.path.join(save_dir, 'metrics.jsonl')) as f:
+    losses = [json.loads(line)['total_loss'] for line in f]
+  print(f'  {trainer.param_count(state)} parameters; launches over '
+        f'{TRAIN_STEPS} steps: {launches["ae_train"]}')
+  print(f'  total_loss per step: {[round(l, 3) for l in losses]}; mean of '
+        f'the first five {np.mean(losses[:5]):.4f}, of the last five '
+        f'{np.mean(losses[-5:]):.4f}')
+  check(state.step == TRAIN_STEPS and len(losses) == TRAIN_STEPS and
+        all(np.isfinite(losses)),
+        f'train() took {TRAIN_STEPS} ae steps, every loss finite')
+  want = {'K1f': 1, 'K1t': 1, 'K1p': 0, 'K2f': 2, 'K2b': 2, 'K2b_w': 2,
+          'K3': 0}
+  check(launches['ae_train'] == {k: v * TRAIN_STEPS for k, v in want.items()},
+        f'per ae step: {want} (the encoder\'s and the decoder\'s GRU each '
+        'through K2f, K2b and its weight-gradient pass)')
+
+  # One step on the card against the port on the CPU, B = 2, one state
+  # dict and noise; the gradients reach the encoder.
+  small = {k: torch.as_tensor(v[:2]) for k, v in batch.items()}
+  step_noise = torch.rand((2, N_SAMPLES),
+                          generator=torch.Generator().manual_seed(13)) * 2 - 1
+  gpu_model = build_model('ae')
+  gpu_model.load_state_dict(cpu_model.state_dict())
+  loss_gpu, grads_gpu = one_step_gradients(
+      torch, gpu_model, {k: v.to(dev) for k, v in small.items()},
+      step_noise.to(dev))
+  t0 = time.time()
+  loss_cpu, grads_cpu = one_step_gradients(torch, cpu_model, small,
+                                           step_noise)
+  print(f'  the CPU step took {time.time() - t0:.1f} s')
+  for name in ('encoder.z_norm.scale', 'encoder.z_norm.shift',
+               'encoder.rnn.FastGRU_0.wh', 'encoder.dense_out.kernel',
+               'encoder.dense_out.bias'):
+    g = grads_gpu[name]
+    check(torch.isfinite(g).all().item() and g.abs().max().item() > 0,
+          f'{name}.grad finite and non-zero')
+  check(all(torch.isfinite(g).all().item() for g in grads_gpu.values()),
+        'every ae gradient finite')
+  norm_gpu, norm_cpu = (global_norm(torch, grads_gpu),
+                        global_norm(torch, grads_cpu))
+  print(f'  one ae step, B = 2: total_loss GPU {loss_gpu:.5f} CPU '
+        f'{loss_cpu:.5f}; global gradient norm GPU {norm_gpu:.5f} CPU '
+        f'{norm_cpu:.5f}')
+  check(abs(loss_gpu - loss_cpu) <= STEP_LOSS_RTOL * abs(loss_cpu),
+        f'the ae step\'s total_loss within {STEP_LOSS_RTOL} of the CPU port')
+  check(abs(norm_gpu - norm_cpu) <= STEP_GRAD_NORM_RTOL * norm_cpu,
+        f'the ae step\'s global gradient norm within {STEP_GRAD_NORM_RTOL} '
+        'of the CPU port')
+  # The encoder's gradient reaches it through z and the whole decoder: with
+  # the full loss it is conditioned by the logmag term's 1/|X| on
+  # near-silent bins, as the reverb IR's is (check_ir_gradient), so it is
+  # printed; the step with the mag term alone is held.
+  parts = ('encoder.', 'decoder.')
+  full = {p: rel_l2(flat_grads(torch, grads_gpu, p),
+                    flat_grads(torch, grads_cpu, p)) for p in parts}
+  print(f'  full loss, GPU against CPU, relative L2 (not held): {full}')
+  for m in (gpu_model, cpu_model):
+    m.losses = mag_only_losses(torch, m).to(next(m.parameters()).device)
+  _, mag_gpu = one_step_gradients(
+      torch, gpu_model, {k: v.to(dev) for k, v in small.items()},
+      step_noise.to(dev))
+  _, mag_cpu = one_step_gradients(torch, cpu_model, small, step_noise)
+  rels = {p: rel_l2(flat_grads(torch, mag_gpu, p),
+                    flat_grads(torch, mag_cpu, p)) for p in parts}
+  print(f'  mag term only, GPU against CPU, relative L2: {rels}')
+  check(max(rels.values()) <= IR_MAG_STEP_RTOL,
+        f'the ae step with the mag term only: the encoder\'s and the '
+        f'decoder\'s gradients within {IR_MAG_STEP_RTOL} of the CPU port')
+  times = []
+  for _ in range(12):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, _ = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    times.append(start.elapsed_time(end))
+  step_ms = float(np.median(times))
+  print(f'  ae step ms: {[round(t, 2) for t in times]}')
+  print(f'  median ms per ae training step: {step_ms:.3f}; audio samples/s '
+        f'trained: {BATCH * N_SAMPLES / (step_ms / 1e3):.4e}', flush=True)
+
+  # Eval and sample of the checkpoint: one batch each, on 6c's records.
+  provider = TFRecordProvider(pattern, example_secs=N_SAMPLES / SR)
+  eval_noise = torch.rand((EVAL_BATCH, N_SAMPLES),
+                          generator=torch.Generator().manual_seed(0)) * 2 - 1
+  eval_trainer = Trainer(build_model('ae', seed=1))
+  for mode in ('eval', 'sample'):
+    reset_launches()
+    t0 = time.time()
+    out = evaluate_or_sample(provider, eval_trainer,
+                             os.path.join(work_dir, 'ae_eval'),
+                             restore_dir=save_dir, mode=mode,
+                             batch_size=EVAL_BATCH, num_batches=1,
+                             noise=eval_noise.to(dev))
+    torch.cuda.synchronize()
+    launches[f'ae_{mode}'] = read_launches()
+    print(f'  {mode}: {time.time() - t0:.2f} s, launches '
+          f'{launches[f"ae_{mode}"]}' + (f', {out}' if out else ''))
+    check(launches[f'ae_{mode}']['K1f'] == 1 and
+          launches[f'ae_{mode}']['K2f'] == 2 and
+          launches[f'ae_{mode}']['K2b'] == 0,
+          f'ae {mode}: one batch through K1f once and K2f twice')
+    if mode == 'eval':
+      check(np.isfinite(out['losses/total_loss']),
+            'ae eval gave a finite total_loss')
+  wavs = [f for f in os.listdir(os.path.join(
+      work_dir, 'ae_eval', 'samples', f'step_{TRAIN_STEPS}'))
+          if f.endswith('.wav')]
+  check(wavs, f'ae sample wrote wavs ({len(wavs)})')
+
+  # An ae directory is served by the model's forward, not by the serving
+  # classes: they refuse it, naming the encoder's audio input.
+  for what, call in (
+      ('AutoencoderInference', lambda: AutoencoderInference(save_dir)),
+      ("export_model fmt='params'", lambda: export_model(
+          save_dir, os.path.join(work_dir, 'ae_params'))),
+      ("export_model fmt='torch_export'", lambda: export_model(
+          save_dir, os.path.join(work_dir, 'ae_program'),
+          fmt='torch_export'))):
+    try:
+      call()
+      refused = ''
+    except ValueError as e:
+      refused = str(e)
+    print(f'  {what}: {refused[:160]}')
+    check('encodes audio' in refused and "'audio'" in refused,
+          f'{what} refuses the ae directory with a ValueError naming the '
+          'encoder\'s audio input')
+  return launches
+
+
+# Phase 6h: the processors without a TPU kernel, each on the card against
+# the port on the CPU, forward and gradient with respect to every float
+# input (and ExpDecayReverb's parameters), batch 4 x 4 s.
+PROC_BATCH = 4
+# Held, relative L2 of the output and of each gradient: float32 FFT
+# convolutions (FIRFilter, ExpDecayReverb's 48000-tap IR), interpolation
+# weights (ModDelay, the lookup), sums in another order.
+PROC_RTOL = 1e-4
+# Wavetable and Sinusoidal read a phase summed over 64000 samples and
+# rounded to float32, and a random table's slope turns its last bits into
+# the output (Wavetable on an H100: 6.9e-3 from the CPU port, and 2.0e-3
+# on the card alone for a 1e-7 relative change of its inputs); the
+# serving tolerance.
+PROC_PHASE_RTOL = E2E_REL_L2
+# The gradient with respect to Wavetable's f0 sums the table's slope at a
+# running phase over the clip: a 1e-7 relative change of the inputs moves
+# it by ~2.5e-2 on the card alone (H100), so it is printed beside that
+# response and not held.
+PROC_PERTURBATION = 1e-7
+
+
+def processor_cases(torch):
+  """(name, processor factory, inputs [numpy], kwargs of the call,
+  tolerance, indices of the inputs whose gradient is printed, not held)."""
+  import functools
+  from ddsp_torch import proc
+  from ddsp_torch.ops import core
+  rng = np.random.RandomState(14)
+
+  def x(*shape, scale=1.0, offset=0.0):
+    return (offset + scale * rng.randn(*shape)).astype(np.float32)
+
+  b, n, f = PROC_BATCH, N_SAMPLES, N_FRAMES
+  audio = training_batch(b, seed=15)['audio']
+  f0 = np.abs(x(b, f, 1, scale=30.0, offset=220.0))
+  ir_noise = torch.rand((1, REVERB_LENGTH),
+                        generator=torch.Generator().manual_seed(16)) * 2 - 1
+  return [
+      ('TensorToAudio', proc.TensorToAudio, [x(b, n, 1)], {}, PROC_RTOL, ()),
+      ('Wavetable (256 entries)', functools.partial(proc.Wavetable,
+                                                    n_samples=n),
+       [x(b, f, 1), x(b, f, 256), f0], {}, PROC_PHASE_RTOL, (2,)),
+      ('Sinusoidal (8 x 16 bins)', functools.partial(
+          proc.Sinusoidal, n_samples=n, freq_scale_fn=functools.partial(
+              core.frequencies_softmax, depth=16, hz_max=4000.0)),
+       [x(b, f, 8), x(b, f, 8 * 16)], {}, PROC_PHASE_RTOL, ()),
+      ('ExpDecayReverb (trainable, 48000 taps)', functools.partial(
+          proc.ExpDecayReverb, trainable=True, reverb_length=REVERB_LENGTH),
+       [audio], {'noise': ir_noise}, PROC_RTOL, ()),
+      ('FIRFilter', proc.FIRFilter, [audio, x(b, f, N_NOISE)], {}, PROC_RTOL,
+       ()),
+      ('ModDelay', proc.ModDelay, [audio, x(b, n, 1), x(b, n, 1)], {},
+       PROC_RTOL, ()),
+      ('Mix', proc.Mix, [audio, x(b, n), x(b, f, 1)], {}, PROC_RTOL, ()),
+  ]
+
+
+def processor_run(torch, make, inputs, kwargs, d, perturbation=0.0):
+  """(output, gradients of the inputs and parameters, seconds) of one
+  forward and gradient on device d; the inputs scaled by 1 +
+  perturbation * N(0, 1) first, if given."""
+  module = make().to(d)
+  args = []
+  for i, a in enumerate(inputs):
+    t = torch.from_numpy(a)
+    if perturbation:
+      t = t * (1 + perturbation * torch.randn(
+          t.shape, generator=torch.Generator().manual_seed(40 + i)))
+    args.append(t.to(d).requires_grad_())
+  t0 = time.time()
+  out = module(*args, **{k: v.to(d) for k, v in kwargs.items()})
+  w = torch.randn(out.shape, generator=torch.Generator().manual_seed(17))
+  grads = torch.autograd.grad((out * w.to(d)).sum(),
+                              args + list(module.parameters()))
+  torch.cuda.synchronize()
+  return out.detach().cpu(), [g.cpu() for g in grads], time.time() - t0
+
+
+def phase_processors(torch, dev):
+  """[6h] each processor without a kernel: the card against the CPU port;
+  launches no kernel."""
+  print(f'[6h] the processors without a TPU kernel, batch {PROC_BATCH} x '
+        '4 s: the card against the CPU port, forward and gradient',
+        flush=True)
+  reset_launches()
+  for name, make, inputs, kwargs, rtol, unheld in processor_cases(torch):
+    out_g, grads_g, s_g = processor_run(torch, make, inputs, kwargs, dev)
+    out_c, grads_c, s_c = processor_run(torch, make, inputs, kwargs,
+                                        torch.device('cpu'))
+    errs = [rel_l2(a, b) for a, b in zip(grads_g, grads_c)]
+    print(f'  {name}: output {tuple(out_g.shape)}, relative L2 of the output '
+          f'{rel_l2(out_g, out_c):.3e} and of the gradients '
+          f'{[f"{e:.3e}" for e in errs]}; forward and gradient {s_g:.3f} s '
+          f'on the card, {s_c:.3f} s on the CPU')
+    if unheld:
+      _, grads_p, _ = processor_run(torch, make, inputs, kwargs, dev,
+                                    PROC_PERTURBATION)
+      moved = [f'{rel_l2(grads_p[i], grads_g[i]):.3e}' for i in unheld]
+      print(f'  {name}: gradients {list(unheld)} not held; on the card '
+            f'alone, inputs moved by {PROC_PERTURBATION} (relative), they '
+            f'move by {moved}')
+    held = [e for i, e in enumerate(errs) if i not in unheld]
+    check(all(torch.isfinite(t).all().item() for t in [out_g] + grads_g) and
+          max([rel_l2(out_g, out_c)] + held) <= rtol,
+          f'{name} on the card within {rtol} of the CPU port, forward and '
+          'gradient' + (f' (but input {list(unheld)}\'s)' if unheld else ''))
+  torch.cuda.synchronize()
+  launches = read_launches()
+  check(not any(launches.values()),
+        f'the processors launched no kernel ({launches})')
 
 
 # Phase 6d: evaluate and sample phase 6c's checkpoint, full width: batch 4,
@@ -3242,6 +3677,25 @@ def k1_entries(torch, launches, dev):
         'K1p': lambda: kh._launch('bwd_phase', (p1, f1, a1, g1), o1, *shape)}
   for entry, key in zip(kernels, ('K1f', 'K1t', 'K1p')):
     entry['serving_ms'] = device_ms(torch, b1[key], 100)
+
+  # The ae preset's 100 harmonics (phase 6g) on the plain cumsum phases it
+  # runs on: a training step's B = 16 and a request's B = 1.
+  shape_ae = (N_FRAMES, AE_HARMONICS, SR, 'window')
+  for batch, label in ((BATCH, 'step'), (1, 'request')):
+    (pa, fa, aa), ga, errs_a = k1_case(torch, dev, 'window', N_FRAMES, batch,
+                                       AE_HARMONICS, 'cumsum', seed=9)
+    oa, da = torch.empty_like(pa), torch.empty_like(aa)
+    for entry, key, kernel, fn in (
+        (kernels[0], 'K1f', 'fwd',
+         lambda: kh._launch('fwd', (pa, fa, aa), oa, *shape_ae)),
+        (kernels[1], 'K1t', 'bwd_taps',
+         lambda: kh._launch('bwd_taps', (pa, fa, ga), da, *shape_ae))):
+      entry.setdefault('ae', {})[label] = {
+          'H': AE_HARMONICS, 'B': batch, 'ms': device_ms(torch, fn, 50),
+          'bound_ms': k1_bound(torch, kernel, fa, aa)[0],
+          'max_abs_err': errs_a[key if key == 'K1f' else key + ' abs'],
+          'max_rel_err': errs_a[key if key != 'K1f' else 'K1f rel']}
+  for entry, key in zip(kernels, ('K1f', 'K1t', 'K1p')):
     entry['launches_by_path'] = {path: run[key]
                                  for path, run in launches.items()}
     print_entry(entry)
@@ -3369,6 +3823,39 @@ def k2_entries(torch, launches, dev):
           'route': route, 'ms': device_ms(torch, fn, 5),
           'call_ms': cuda_ms(torch, fn, 5), 'bound_ms': bound_ms,
           'library_ms': lib_ms}
+  # The ae encoder's GRU (phase 6g): bf16 streams, H = 512, T = 125 (its
+  # MFCC frames), at a step's B = 16 and a request's B = 1; cuDNN's
+  # recurrence and torch.matmul of the weight gradient at the same shape
+  # (input width 30, the MFCCs) beside it.
+  lib_ae = library_gru_ms(torch, dev, HIDDEN, seq_len=AE_Z_STEPS, in_dim=30)
+  yard_ae = lib_ae['bfloat16'] if 'rec_fwd_ms' in lib_ae['bfloat16'] else (
+      lib_ae['float32'])
+  for batch in (BATCH, 1):
+    xa, wa, ba, h0a = k2_inputs(torch, batch, torch.bfloat16, 7, dev, HIDDEN,
+                                AE_Z_STEPS)
+    ba, h0a = ba.float().contiguous(), h0a.float().contiguous()
+    ysa = kg._launch_fwd(xa, wa, ba, h0a)
+    ga = torch.randn(ysa.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(11)) / 30.0
+    hpa = kg.h_prev_stream(h0a, ysa, torch.bfloat16)
+    dxa, dhna, dbta, _ = kg._launch_bwd_serial(ga, xa, hpa, wa, ba)
+    hpa2d = hpa.reshape(-1, HIDDEN)
+    dhpa2d = torch.cat([dxa[..., :2 * HIDDEN], dhna], dim=-1).reshape(
+        -1, 3 * HIDDEN)
+    parts = (
+        (kernels[0], 'fwd', lambda: kg._launch_fwd(xa, wa, ba, h0a),
+         yard_ae['rec_fwd_ms']),
+        (kernels[1], 'serial',
+         lambda: kg._launch_bwd_serial(ga, xa, hpa, wa, ba),
+         yard_ae['rec_bwd_ms']),
+        (kernels[2], 'wgrad',
+         lambda: kg._launch_wgrad(hpa, dxa, dhna, dbta),
+         device_ms(torch, lambda: torch.matmul(hpa2d.t(), dhpa2d), 20)))
+    for k, part, fn, lib_ms in parts:
+      k.setdefault('ae_encoder', {})[f'B={batch}'] = {
+          'T': AE_Z_STEPS, 'ms': device_ms(torch, fn, 10),
+          'bound_ms': k2_bound(xa, wa, 'bfloat16', part)[0],
+          'library_ms': lib_ms if batch == BATCH else None}
   for k, key in zip(kernels, ('K2f', 'K2b', 'K2b_w')):
     k['launches_by_path'] = {path: run[key] for path, run in launches.items()}
     print_entry(k)
@@ -3398,7 +3885,9 @@ def print_entry(k):
            if 'issue_floor_ms' in k else '')
         + (f", other H (B = 16, T = 1000, bf16; with K2b both passes) "
            f"{k['by_hidden']}" if 'by_hidden' in k else '')
-        + (f", plan {k['plan']}" if 'plan' in k else ''),
+        + (f", plan {k['plan']}" if 'plan' in k else '')
+        + (f", ae {k['ae']}" if 'ae' in k else '')
+        + (f", ae encoder {k['ae_encoder']}" if 'ae_encoder' in k else ''),
         flush=True)
 
 
@@ -3436,10 +3925,11 @@ def k3_entry(torch, launches, k3_per_step, mesh, dev):
   return entry
 
 
-def library_gru_ms(torch, dev, hidden=HIDDEN):
-  """Yardsticks for K2 from torch.nn.GRU (cuDNN) on the decoder's GRU at
-  B = 16, T = 1000 and H (input width 2 * 512, as solo_instrument's); timed
-  here and used nowhere in the port.
+def library_gru_ms(torch, dev, hidden=HIDDEN, seq_len=N_FRAMES,
+                   in_dim=2 * HIDDEN):
+  """Yardsticks for K2 from torch.nn.GRU (cuDNN) on a GRU at B = 16, T
+  and H (by default the decoder's: T = 1000, input width 2 * 512, as
+  solo_instrument's); timed here and used nowhere in the port.
 
   cuDNN's GRU includes the input projection x @ W_ih^T + b_ih, and its
   backward, which the port hoists out of K2 into one GEMM. So the same
@@ -3453,7 +3943,6 @@ def library_gru_ms(torch, dev, hidden=HIDDEN):
   """
   from torch.nn import functional as F
   from ddsp_torch.nn.layers import FastGRU
-  in_dim = 2 * HIDDEN
   port_gru = FastGRU(in_dim, hidden, compute_dtype='float32').to(dev)
   with torch.no_grad():
     port_gru.bi.normal_(0, 0.1)
@@ -3465,7 +3954,7 @@ def library_gru_ms(torch, dev, hidden=HIDDEN):
     gru.bias_ih_l0.copy_(port_gru.bi)
     gru.bias_hh_l0.zero_()
     gru.bias_hh_l0[2 * hidden:].copy_(port_gru.bn)
-    x = torch.randn((BATCH, N_FRAMES, in_dim), device=dev)
+    x = torch.randn((BATCH, seq_len, in_dim), device=dev)
     err = (gru(x)[0] - port_gru(x)).abs().max().item()
   print(f'  torch.nn.GRU vs port FastGRU (float32, H={hidden}): max |err| '
         f'{err:.3e}')
@@ -3476,8 +3965,8 @@ def library_gru_ms(torch, dev, hidden=HIDDEN):
                       ('bfloat16', torch.bfloat16)):
     gru = gru.to(dtype)
     xx = x.to(dtype).requires_grad_()
-    gy = torch.randn((BATCH, N_FRAMES, hidden), device=dev).to(dtype)
-    gp = torch.randn((BATCH, N_FRAMES, 3 * hidden), device=dev).to(dtype)
+    gy = torch.randn((BATCH, seq_len, hidden), device=dev).to(dtype)
+    gp = torch.randn((BATCH, seq_len, 3 * hidden), device=dev).to(dtype)
     w, b = gru.weight_ih_l0, gru.bias_ih_l0
 
     def gru_fwd():
@@ -3518,7 +4007,7 @@ def library_gru_ms(torch, dev, hidden=HIDDEN):
         gru_fwd()
         torch.cuda.synchronize()
       out[name]['kernels'] = [r[2][:60] for r in device_rows(prof)[:3]]
-    print(f'  torch.nn.GRU {name} H={hidden}: ' + ', '.join(
+    print(f'  torch.nn.GRU {name} H={hidden} T={seq_len}: ' + ', '.join(
         f'{k} {v:.4f}' if isinstance(v, float) else f'{k} {v}'
         for k, v in out[name].items()), flush=True)
   return out
@@ -3600,6 +4089,10 @@ def main(argv=None):
                       os.path.join(work_dir, 'dataset', 'train.tfrecord*'))
       for mode, counts in cli.items():
         launches[f'cli_{mode}'] = counts
+      launches.update(phase_ae(
+          torch, dev, work_dir,
+          os.path.join(work_dir, 'dataset', 'train.tfrecord*')))
+      phase_processors(torch, dev)
       phase_prepare(torch, dev, work_dir)
     phase_wide_gru_steps(torch, dev)
     launches['sp_train'], k3_per_step, sp_mesh = phase_sp_train(

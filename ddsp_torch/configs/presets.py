@@ -1,4 +1,4 @@
-"""Model presets (port of solo_instrument, tiny and vst,
+"""Model presets (port of ae, solo_instrument, tiny and vst,
 ddsp_tpu/configs/presets.py).
 
 Each preset builds its modules on the CPU; utils.build_model moves them to
@@ -12,6 +12,62 @@ from ddsp_torch import losses as losses_lib
 from ddsp_torch import nn, proc
 from ddsp_torch.models import Autoencoder
 from ddsp_torch.utils.registry import register_preset
+
+
+def _synth_dag(n_samples: int, sample_rate: int,
+               use_angular_cumsum: bool = False) -> list:
+  """Harmonic + FilteredNoise -> Add: the autoencoders' synthesizer."""
+  return [
+      (proc.Harmonic(n_samples=n_samples, sample_rate=sample_rate,
+                     use_angular_cumsum=use_angular_cumsum, name='harmonic'),
+       ['amps', 'harmonic_distribution', 'f0_hz']),
+      (proc.FilteredNoise(n_samples=n_samples, window_size=0,
+                          name='filtered_noise'),
+       ['noise_magnitudes']),
+      (proc.Add(name='add'), ['filtered_noise/signal', 'harmonic/signal']),
+  ]
+
+
+@register_preset('ae')
+def ae(n_samples: int = 64000,
+       sample_rate: int = 16000,
+       time_steps: int = 1000,
+       n_harmonics: int = 100,
+       n_noise_magnitudes: int = 65,
+       z_dims: int = 16,
+       z_time_steps: int = 125,
+       rnn_channels: int = 512,
+       ch: int = 512,
+       layers_per_stack: int = 3,
+       compute_loudness_fresh: bool = True,
+       compute_dtype: str = 'bfloat16') -> Autoencoder:
+  """NSynth-style autoencoder decoding from (loudness, f0, z).
+
+  ddsp_tpu/configs/presets.py:22-71 (gin/models/ae.gin). The encoder reads
+  the audio: MFCCs, instance norm, a GRU and a Dense to z at z_time_steps,
+  resampled to time_steps. Its GRU runs in bf16 whatever compute_dtype
+  says, as in the JAX package; compute_dtype sets the decoder's and the
+  loss's. No reverb.
+  """
+  return Autoencoder(
+      preprocessor=nn.F0LoudnessPreprocessor(
+          time_steps=time_steps, sample_rate=sample_rate,
+          compute_loudness_fresh=compute_loudness_fresh),
+      encoder=nn.MfccTimeDistributedRnnEncoder(
+          rnn_channels=rnn_channels, rnn_type='gru', z_dims=z_dims,
+          z_time_steps=z_time_steps),
+      decoder=nn.RnnFcDecoder(
+          rnn_channels=rnn_channels, rnn_type='gru', ch=ch,
+          layers_per_stack=layers_per_stack, compute_dtype=compute_dtype,
+          input_keys=('ld_scaled', 'f0_scaled', 'z'),
+          input_dims=(1, 1, z_dims),
+          output_splits=(('amps', 1),
+                         ('harmonic_distribution', n_harmonics),
+                         ('noise_magnitudes', n_noise_magnitudes))),
+      processor_group=proc.ProcessorGroup(_synth_dag(n_samples, sample_rate)),
+      losses=(losses_lib.SpectralLoss(loss_type='L1', mag_weight=1.0,
+                                      logmag_weight=1.0,
+                                      compute_dtype=compute_dtype),))
 
 
 @register_preset('solo_instrument')
@@ -29,15 +85,7 @@ def solo_instrument(n_samples: int = 64000,
                     compute_loudness_fresh: bool = True,
                     compute_dtype: str = 'bfloat16') -> Autoencoder:
   """Decodes from (loudness, f0) with a trainable reverb."""
-  dag = [
-      (proc.Harmonic(n_samples=n_samples, sample_rate=sample_rate,
-                     use_angular_cumsum=use_angular_cumsum, name='harmonic'),
-       ['amps', 'harmonic_distribution', 'f0_hz']),
-      (proc.FilteredNoise(n_samples=n_samples, window_size=0,
-                          name='filtered_noise'),
-       ['noise_magnitudes']),
-      (proc.Add(name='add'), ['filtered_noise/signal', 'harmonic/signal']),
-  ]
+  dag = _synth_dag(n_samples, sample_rate, use_angular_cumsum)
   if reverb:
     dag.append((proc.Reverb(trainable=True, reverb_length=reverb_length,
                             name='reverb'), ['add/signal']))

@@ -264,7 +264,9 @@ def export_model(save_dir: str, export_dir: str,
       spec json, `_export_program`).
     inference_model: 'autoencoder' or, for 'torch_export', one of the six
       VST signatures (INFERENCE_MODELS). 'params' exports the autoencoder
-      of an autoencoder preset only.
+      of an autoencoder preset only. A model whose encoder reads audio (the
+      ae preset) has no autoencoder artifact: both formats raise
+      AutoencoderInference's ValueError.
     length_seconds: Generation length the exported autoencoder is built
       for.
     **kwargs: Overrides for the inference class (e.g. remove_reverb, or

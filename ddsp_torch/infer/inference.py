@@ -51,6 +51,21 @@ def load_params(save_dir: str) -> Dict[str, np.ndarray]:
           for k, v in restored['params'].items()}
 
 
+def refuse_audio_encoder(model: torch.nn.Module, save_dir: str) -> None:
+  """Raise if the model's encoder reads audio (the ae preset's MFCC
+  encoder): features alone cannot drive it. The JAX package fails on such
+  a directory with a KeyError for 'audio'."""
+  encoder = getattr(model, 'encoder', None)
+  if encoder is not None and 'audio' in getattr(encoder, 'input_keys', ()):
+    raise ValueError(
+        f'The model in {save_dir!r} encodes audio: its encoder '
+        f'({type(encoder).__name__}) reads the input key \'audio\', and '
+        'AutoencoderInference and export_model serve models from (f0_hz, '
+        'loudness_db) features only. Run it on batches that hold the audio, '
+        'through the model\'s forward (model(batch, training=False)) or '
+        'eval.eval_util.evaluate_or_sample.')
+
+
 class AutoencoderInference:
   """Autoencoder rebuilt from a spec, for rendering features.
 
@@ -61,7 +76,9 @@ class AutoencoderInference:
   (n_samples and time_steps from length_seconds), forces the chunked
   angular cumsum (bounded phase error on long renders) and
   compute_loudness_fresh=False (features carry loudness), and optionally
-  removes the room reverb.
+  removes the room reverb. A model whose encoder reads audio (the ae
+  preset) raises a ValueError: it runs through its forward on batches
+  that hold the audio, or evaluate_or_sample.
 
   Call with {'f0_hz': [n_frames], 'loudness_db': [n_frames]}-style features
   (1-D inputs are taken as one unbatched request). With no `noise`,
@@ -98,6 +115,7 @@ class AutoencoderInference:
                 if k.split('/')[0] in _KEYS_WITHOUT_REVERB}
     self.model = registry.model_from_spec(save_dir, device='cpu',
                                           **mutations)
+    refuse_audio_encoder(self.model, save_dir)
     load_jax_params(self.model, params)
     self.model.to(self.device).eval()
 

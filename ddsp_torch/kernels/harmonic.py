@@ -59,10 +59,14 @@ def reset_launches() -> None:
 def harmonic_synthesis_plain(phase0: torch.Tensor, f0_env: torch.Tensor,
                              ham: torch.Tensor, sample_rate: int = 16000,
                              amp_resample_method: str = 'window'):
-  """audio[b, n] = sum_h [f0[n] h < sr/2] A_h[n] sin(h phase0[n]).
+  """audio[b, n] = sum_h [h < hmax[n]] A_h[n] sin(h phase0[n]).
 
   phase0, f0_env: [batch, n_samples]; ham: frame amplitudes
-  [batch, n_frames, n_harmonics]. Materializes [batch, n_samples, H].
+  [batch, n_frames, n_harmonics]. Materializes [batch, n_samples, H]. The
+  Nyquist mask is the kernels' (and the Pallas kernels') rule, `_muted`:
+  the jnp path's f0 * h >= sr / 2 rounds apart from it where a harmonic
+  lies within a rounding of Nyquist, and mutes or keeps that harmonic the
+  other way.
   """
   n_samples = phase0.shape[1]
   n_harmonics = ham.shape[-1]
@@ -70,7 +74,7 @@ def harmonic_synthesis_plain(phase0: torch.Tensor, f0_env: torch.Tensor,
   f_ratios = torch.linspace(1.0, float(n_harmonics), n_harmonics,
                             device=ham.device)
   amplitude_envelopes = torch.where(
-      f0_env[..., None] * f_ratios >= sample_rate / 2.0,
+      _muted(f0_env, f_ratios, sample_rate),
       torch.zeros_like(amplitude_envelopes), amplitude_envelopes)
   wavs = torch.sin(phase0[..., None] * f_ratios)
   return torch.sum(amplitude_envelopes * wavs, dim=-1)
@@ -97,6 +101,16 @@ def _check(phase0, f0_env, ham, amp_resample_method):
       raise ValueError(f'{name} is on {t.device}, phase0 on {phase0.device}.')
 
 
+def _muted(f0_env, ratios, sample_rate):
+  """[batch, n_samples, H]: harmonic h is muted where hmax <= h, hmax =
+  nyquist / max(f0, 1e-20) (ddsp_tpu/ops/pallas_kernels/harmonic.py:218).
+  A true division: scalar / tensor would multiply by a reciprocal, which
+  rounds differently and flips the mask where hmax is an integer."""
+  hmax = torch.full_like(f0_env, sample_rate / 2.0) / torch.clamp(f0_env,
+                                                                  min=1e-20)
+  return hmax[..., None] <= ratios
+
+
 def _sample_terms(phase0, f0_env, n_harmonics, sample_rate, trig):
   """mask * trig(h * wrapped phase), [batch, n_samples, H]: the forward's
   wrapped phase and its mask rule h >= nyquist / max(f0, 1e-20)."""
@@ -105,13 +119,9 @@ def _sample_terms(phase0, f0_env, n_harmonics, sample_rate, trig):
   # Wrapped in float64: float32's `%` would wrap by float32(2 pi), which
   # is 1.75e-7 off, and a training step's cumsum phase makes ~1e3 turns.
   phase = torch.remainder(phase0.double(), 2.0 * np.pi).float()
-  # A true division (scalar / tensor would multiply by a reciprocal, which
-  # rounds differently and flips the mask where hmax is an integer).
-  hmax = torch.full_like(f0_env, sample_rate / 2.0) / torch.clamp(f0_env,
-                                                                  min=1e-20)
   terms = trig(phase[..., None] * ratios)
-  return torch.where(hmax[..., None] <= ratios, torch.zeros_like(terms),
-                     terms), ratios
+  return torch.where(_muted(f0_env, ratios, sample_rate),
+                     torch.zeros_like(terms), terms), ratios
 
 
 def _tap_weights(hop: int, method: str, device) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Neural network building blocks (port of ddsp_tpu/nn/layers.py).
 
 Parameters keep the JAX package's names and layouts (a Dense kernel is
-[in, out], LayerNorm has `scale` and `bias`, FastGRU has wi/wh/bi/bn), and
+[in, out], LayerNorm has `scale` and `bias`, FastGRU has wi/wh/bi/bn,
+flax's cells their Denses ir, hn, if, ...; Normalize's scale and shift
+are [1, 1, 1, ch]), and
 submodules are registered under flax's auto names (Fc_0, Dense_0, ...), so
 a module's `named_parameters()` are the flax tree's 'a/b/c' paths with '.'
 for '/'. utils/convert.py relies on that to load a JAX parameter tree.
@@ -98,24 +100,33 @@ class Dense(nn.Module):
   """flax.linen.Dense: y = x @ kernel + bias, kernel [in, out].
 
   With a bf16 dtype the inputs, kernel and bias are cast to bf16 first.
+  kernel_init is flax's name of the kernel's initializer: 'lecun_normal'
+  (the default) or 'orthogonal' (the recurrent kernels of flax's cells).
   """
 
   def __init__(self, in_features: int, features: int,
-               dtype: torch.dtype = torch.float32):
+               dtype: torch.dtype = torch.float32, use_bias: bool = True,
+               kernel_init: str = 'lecun_normal'):
     super().__init__()
     self.dtype = dtype
+    self.kernel_init = kernel_init
     self.kernel = nn.Parameter(torch.empty(in_features, features))
-    self.bias = nn.Parameter(torch.empty(features))
+    self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
     self.reset_parameters()
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
     with torch.no_grad():
-      lecun_normal_(self.kernel, self.kernel.shape[0], generator)
-      self.bias.zero_()
+      if self.kernel_init == 'orthogonal':
+        nn.init.orthogonal_(self.kernel, generator=generator)
+      else:
+        lecun_normal_(self.kernel, self.kernel.shape[0], generator)
+      if self.bias is not None:
+        self.bias.zero_()
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     dt = self.dtype
-    return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+    y = x.to(dt) @ self.kernel.to(dt)
+    return y if self.bias is None else y + self.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -156,6 +167,7 @@ class Fc(nn.Module):
                compute_dtype: str = 'bfloat16'):
     super().__init__()
     dt = compute_dtype_of(compute_dtype)
+    self.out_features = ch
     self.Dense_0 = Dense(in_features, ch, dtype=dt)
     self.LayerNorm_0 = LayerNorm(ch, epsilon=1e-3, dtype=dt)
     self.act = get_nonlinearity(nonlinearity)
@@ -172,6 +184,7 @@ class FcStack(nn.Module):
                compute_dtype: str = 'bfloat16'):
     super().__init__()
     self.n_layers = layers
+    self.out_features = ch if layers else in_features
     for i in range(layers):
       self.add_module(f'Fc_{i}', Fc(in_features if i == 0 else ch, ch,
                                     nonlinearity, compute_dtype))
@@ -253,39 +266,347 @@ class FastGRU(nn.Module):
     return ys
 
 
-class Rnn(nn.Module):
-  """Single unidirectional GRU layer (FastGRU_0) over [batch, time, ch].
+class GRUCell(nn.Module):
+  """flax.linen.GRUCell: input Denses ir, iz, in with a bias, recurrent
+  Denses hr, hz without one and hn with one (reset-after):
+  n = tanh(in(x) + r * hn(h)), h' = (1 - z) n + z h.
 
-  The JAX package's other cells (LSTM, bidirectional, flax GRUCell) are not
-  on the serving path and are not ported.
+  With a bf16 dtype the Denses and the gate math are bf16, as flax's
+  `dtype` makes them; the carry stays float32 (flax promotes z * h).
+  """
+
+  def __init__(self, in_features: int, features: int,
+               dtype: torch.dtype = torch.float32):
+    super().__init__()
+    self.features = features
+    for name in ('ir', 'iz', 'in'):
+      self.add_module(name, Dense(in_features, features, dtype))
+    for name in ('hr', 'hz', 'hn'):
+      self.add_module(name, Dense(features, features, dtype,
+                                  use_bias=name == 'hn',
+                                  kernel_init='orthogonal'))
+
+  def initial_carry(self, x: torch.Tensor) -> torch.Tensor:
+    return x.new_zeros((x.shape[0], self.features), dtype=torch.float32)
+
+  def input_projection(self, x: torch.Tensor):
+    """Each time step's input terms, [batch, time, features] x 3."""
+    return tuple(getattr(self, n)(x) for n in ('ir', 'iz', 'in'))
+
+  def step(self, carry: torch.Tensor, xp_t):
+    """(h, the step's input terms) -> (h', output h')."""
+    h = carry
+    xr, xz, xn = xp_t
+    r = torch.sigmoid(xr + self.hr(h))
+    z = torch.sigmoid(xz + self.hz(h))
+    n = torch.tanh(xn + r * getattr(self, 'hn')(h))
+    h = (1.0 - z) * n + z * h
+    return h, h
+
+
+class OptimizedLSTMCell(nn.Module):
+  """flax.linen.OptimizedLSTMCell: input Denses ii, if, ig, io without a
+  bias, recurrent Denses hi, hf, hg, ho with one; the carry is (c, h).
+
+  With a bf16 dtype the products and gates are bf16; c and h stay float32
+  (flax promotes f * c and o * tanh(c)).
+  """
+
+  GATES = ('i', 'f', 'g', 'o')
+
+  def __init__(self, in_features: int, features: int,
+               dtype: torch.dtype = torch.float32):
+    super().__init__()
+    self.features = features
+    for gate in self.GATES:
+      self.add_module(f'i{gate}', Dense(in_features, features, dtype,
+                                        use_bias=False))
+      self.add_module(f'h{gate}', Dense(features, features, dtype,
+                                        kernel_init='orthogonal'))
+
+  def initial_carry(self, x: torch.Tensor):
+    zeros = x.new_zeros((x.shape[0], self.features), dtype=torch.float32)
+    return zeros, zeros
+
+  def input_projection(self, x: torch.Tensor):
+    return tuple(getattr(self, f'i{gate}')(x) for gate in self.GATES)
+
+  def step(self, carry, xp_t):
+    c, h = carry
+    pre = [xg + getattr(self, f'h{gate}')(h)
+           for gate, xg in zip(self.GATES, xp_t)]
+    i, f, o = (torch.sigmoid(pre[k]) for k in (0, 1, 3))
+    g = torch.tanh(pre[2])
+    c = f * c + i * g
+    h = o * torch.tanh(c)
+    return (c, h), h
+
+
+_CELLS = {'lstm': OptimizedLSTMCell, 'gru': GRUCell}
+
+
+def _cell(rnn_type: str, in_features: int, dims: int,
+          compute_dtype: str) -> nn.Module:
+  if rnn_type not in _CELLS:
+    raise ValueError(f'rnn_type must be one of {sorted(_CELLS)}, not '
+                     f'{rnn_type!r}.')
+  return _CELLS[rnn_type](in_features, dims, compute_dtype_of(compute_dtype))
+
+
+def run_cell(cell: nn.Module, x: torch.Tensor, carry=None,
+             reverse: bool = False):
+  """flax.linen.RNN over [batch, time, ch]: a step loop (the JAX package's
+  lax.scan). reverse runs from the last step and keeps the outputs in
+  input order (keep_order=True). Returns (final carry, ys [batch, time,
+  features])."""
+  if carry is None:
+    carry = cell.initial_carry(x)
+  xp = cell.input_projection(x)
+  steps = range(x.shape[1] - 1, -1, -1) if reverse else range(x.shape[1])
+  ys = [None] * x.shape[1]
+  for t in steps:
+    carry, ys[t] = cell.step(carry, tuple(p[:, t] for p in xp))
+  return carry, torch.stack(ys, dim=1)
+
+
+class Rnn(nn.Module):
+  """One RNN layer over [batch, time, ch] (port of ddsp_tpu/nn/layers.py
+  Rnn).
+
+  'gru' with use_fast_gru is FastGRU_0 (kernels K2f, K2b on the card).
+  Otherwise flax's cells, as a step loop: GRUCell_0 or OptimizedLSTMCell_0,
+  and with bidir two of them (_0 forward, _1 over reversed time), their
+  outputs concatenated. return_sequences=False keeps the last step. The
+  output is float32.
   """
 
   def __init__(self, in_features: int, dims: int = 512,
-               rnn_type: str = 'gru', compute_dtype: str = 'bfloat16'):
+               rnn_type: str = 'gru', compute_dtype: str = 'bfloat16',
+               return_sequences: bool = True, bidir: bool = False,
+               use_fast_gru: bool = True):
     super().__init__()
-    if rnn_type != 'gru':
-      raise NotImplementedError(
-          f"ddsp_torch's Rnn runs the FastGRU only, not {rnn_type!r}.")
-    self.FastGRU_0 = FastGRU(in_features, dims, compute_dtype)
+    self.return_sequences = return_sequences
+    self.bidir = bidir
+    self.out_features = 2 * dims if bidir else dims
+    if bidir:
+      self.cell_names = []
+      for i in range(2):
+        cell = _cell(rnn_type, in_features, dims, compute_dtype)
+        self.cell_names.append(f'{type(cell).__name__}_{i}')
+        self.add_module(self.cell_names[-1], cell)
+    elif rnn_type == 'gru' and use_fast_gru:
+      self.FastGRU_0 = FastGRU(in_features, dims, compute_dtype)
+    else:
+      cell = _cell(rnn_type, in_features, dims, compute_dtype)
+      self.cell_names = [f'{type(cell).__name__}_0']
+      self.add_module(self.cell_names[0], cell)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return self.FastGRU_0(x).float()
+    if hasattr(self, 'FastGRU_0'):
+      y = self.FastGRU_0(x)
+    elif self.bidir:
+      fwd, bwd = (getattr(self, n) for n in self.cell_names)
+      y = torch.cat([run_cell(fwd, x)[1], run_cell(bwd, x, reverse=True)[1]],
+                    dim=-1)
+    else:
+      y = run_cell(getattr(self, self.cell_names[0]), x)[1]
+    if not self.return_sequences:
+      y = y[:, -1]
+    return y.float()
 
 
 class StatelessRnn(nn.Module):
-  """One GRU layer (FastGRU_0) with its state passed in and out, for
-  streaming (port of ddsp_tpu/nn/layers.py:305, GRU only)."""
+  """One unidirectional RNN layer with its state passed in and out, for
+  streaming (port of ddsp_tpu/nn/layers.py StatelessRnn).
+
+  'gru' is FastGRU_0, state [batch, dims]; 'lstm' is OptimizedLSTMCell_0,
+  state [batch, 2 * dims] packing (c, h). The JAX package's flax-GRUCell
+  branch (use_fast_gru=False) splits the state as an LSTM carry and fails,
+  so it has no counterpart here.
+  """
 
   def __init__(self, in_features: int, dims: int = 512,
-               rnn_type: str = 'gru', compute_dtype: str = 'bfloat16'):
+               rnn_type: str = 'gru', compute_dtype: str = 'bfloat16',
+               use_fast_gru: bool = True):
     super().__init__()
-    if rnn_type != 'gru':
-      raise NotImplementedError(
-          f"ddsp_torch's StatelessRnn runs the FastGRU only, not "
-          f'{rnn_type!r}.')
-    self.FastGRU_0 = FastGRU(in_features, dims, compute_dtype)
+    self.dims = dims
+    self.out_features = dims
+    if rnn_type == 'gru' and use_fast_gru:
+      self.FastGRU_0 = FastGRU(in_features, dims, compute_dtype)
+    elif rnn_type == 'lstm':
+      self.OptimizedLSTMCell_0 = _cell('lstm', in_features, dims,
+                                       compute_dtype)
+    else:
+      raise ValueError(
+          f'StatelessRnn runs FastGRU (rnn_type gru, use_fast_gru) or an '
+          f'LSTM, not rnn_type={rnn_type!r} with use_fast_gru='
+          f'{use_fast_gru}: that flax-GRUCell branch of the JAX package '
+          'fails on its own state.')
 
   def forward(self, x: torch.Tensor, state: torch.Tensor):
-    """x [batch, time, ch], state [batch, dims] -> (y [batch, time, dims],
-    new_state [batch, dims]), both float32."""
-    return self.FastGRU_0(x, initial_state=state, return_state=True)
+    """x [batch, time, ch], state -> (y [batch, time, dims], new_state),
+    both float32."""
+    if hasattr(self, 'FastGRU_0'):
+      return self.FastGRU_0(x, initial_state=state, return_state=True)
+    carry = (state[..., :self.dims].float(), state[..., self.dims:].float())
+    carry, y = run_cell(self.OptimizedLSTMCell_0, x, carry)
+    return y.float(), torch.cat(carry, dim=-1).float()
+
+
+class RnnFc(nn.Module):
+  """n_rnn RNN layers (Rnn_0, ...) -> Fc_0 (sigmoid by default)."""
+
+  def __init__(self, in_features: int, rnn_feat: int = 512,
+               out_feat: int = 512, rnn_type: str = 'lstm',
+               nonlinearity: str = 'sigmoid', bidir: bool = False,
+               n_rnn: int = 1):
+    super().__init__()
+    self.n_rnn = n_rnn
+    self.out_features = out_feat
+    for i in range(n_rnn):
+      rnn = Rnn(in_features, rnn_feat, rnn_type, bidir=bidir)
+      self.add_module(f'Rnn_{i}', rnn)
+      in_features = rnn.out_features
+    self.Fc_0 = Fc(in_features, out_feat, nonlinearity=nonlinearity)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    for i in range(self.n_rnn):
+      x = getattr(self, f'Rnn_{i}')(x)
+    return self.Fc_0(x)
+
+
+class RnnSandwich(nn.Module):
+  """FcStack_0 -> Rnn_0 -> FcStack_1."""
+
+  def __init__(self, in_features: int, fc_stack_ch: int = 256,
+               fc_stack_layers: int = 2, rnn_ch: int = 512,
+               rnn_type: str = 'gru'):
+    super().__init__()
+    self.FcStack_0 = FcStack(in_features, fc_stack_ch, fc_stack_layers)
+    self.Rnn_0 = Rnn(self.FcStack_0.out_features, rnn_ch, rnn_type)
+    self.FcStack_1 = FcStack(rnn_ch, fc_stack_ch, fc_stack_layers)
+    self.out_features = self.FcStack_1.out_features
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return self.FcStack_1(self.Rnn_0(self.FcStack_0(x)))
+
+
+class SingleGru(nn.Module):
+  """Rnn_0 (GRU) -> LayerNorm_0."""
+
+  def __init__(self, in_features: int, gru_dim: int = 128):
+    super().__init__()
+    self.out_features = gru_dim
+    self.Rnn_0 = Rnn(in_features, gru_dim, 'gru')
+    self.LayerNorm_0 = LayerNorm(gru_dim, epsilon=1e-3)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return self.LayerNorm_0(self.Rnn_0(x))
+
+
+class FcStackOut(nn.Module):
+  """FcStack_0 -> a float32 Dense_0 to n_out."""
+
+  def __init__(self, in_features: int, ch: int, layers: int, n_out: int):
+    super().__init__()
+    self.out_features = n_out
+    self.FcStack_0 = FcStack(in_features, ch, layers)
+    self.Dense_0 = Dense(self.FcStack_0.out_features, n_out)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return self.Dense_0(self.FcStack_0(x))
+
+
+class Identity(nn.Module):
+  """Pass-through module (a no-op norm slot)."""
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+class Embed(nn.Module):
+  """flax.linen.Embed: rows of `embedding` [num_embeddings, features]."""
+
+  def __init__(self, num_embeddings: int, features: int):
+    super().__init__()
+    self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+    self.reset_parameters()
+
+  def reset_parameters(self, generator: Optional[torch.Generator] = None):
+    # flax's default: variance scaling 1.0, fan_in = num_embeddings.
+    with torch.no_grad():
+      lecun_normal_(self.embedding, self.embedding.shape[0], generator)
+
+  def forward(self, idx: torch.Tensor) -> torch.Tensor:
+    return self.embedding[idx.long()]
+
+
+class Embedding(nn.Module):
+  """Real-valued embedding of an integer id (Embed_0)."""
+
+  def __init__(self, vocab_size: int = 1024, n_dims: int = 256):
+    super().__init__()
+    self.out_features = n_dims
+    self.Embed_0 = Embed(vocab_size, n_dims)
+
+  def forward(self, idx: torch.Tensor) -> torch.Tensor:
+    return self.Embed_0(idx)
+
+
+def ensure_4d(x: torch.Tensor) -> torch.Tensor:
+  """Add height and width axes: [b, ch] -> [b, 1, 1, ch], [b, t, ch] ->
+  [b, t, 1, ch]."""
+  if x.ndim == 2:
+    return x[:, None, None, :]
+  if x.ndim == 3:
+    return x[:, :, None, :]
+  return x
+
+
+def inv_ensure_4d(x: torch.Tensor, n_dims: int) -> torch.Tensor:
+  """Remove the axes ensure_4d added to a tensor of n_dims dimensions."""
+  if n_dims == 2:
+    return x[:, 0, 0, :]
+  if n_dims == 3:
+    return x[:, :, 0, :]
+  return x
+
+
+def normalize_op(x: torch.Tensor, norm_type: Optional[str] = 'layer',
+                 eps: float = 1e-5) -> torch.Tensor:
+  """Instance, layer or group (32 groups) normalization of
+  [batch, height, width, ch] without learned parameters: statistics over
+  height, width and each group's channels, population variance. None
+  passes x through."""
+  if norm_type is None:
+    return x
+  mb, h, w, ch = x.shape
+  n_groups = {'instance': ch, 'layer': 1, 'group': 32}[norm_type]
+  x = x.reshape(mb, h, w, n_groups, ch // n_groups)
+  mean = x.mean(dim=(1, 2, 4), keepdim=True)
+  var = x.var(dim=(1, 2, 4), keepdim=True, correction=0)
+  x = (x - mean) / torch.sqrt(var + eps)
+  return x.reshape(mb, h, w, ch)
+
+
+class Normalize(nn.Module):
+  """normalize_op then a learned scale and shift, each [1, 1, 1, ch]
+  (norm_type None: the scale and shift alone)."""
+
+  def __init__(self, ch: int, norm_type: Optional[str] = 'layer'):
+    super().__init__()
+    self.norm_type = norm_type
+    self.scale = nn.Parameter(torch.empty(1, 1, 1, ch))
+    self.shift = nn.Parameter(torch.empty(1, 1, 1, ch))
+    self.reset_parameters()
+
+  def reset_parameters(self, generator: Optional[torch.Generator] = None):
+    del generator
+    with torch.no_grad():
+      self.scale.fill_(1.0)
+      self.shift.zero_()
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    n_dims = x.ndim
+    x = normalize_op(ensure_4d(x), self.norm_type)
+    return inv_ensure_4d(x * self.scale + self.shift, n_dims)

@@ -1,0 +1,213 @@
+"""Residual networks (bottleneck ResNet) and FiLM conditional normalization.
+
+Port of ddsp_tpu/nn/resnet.py. Inputs are NHWC [batch, time, freq, ch], as
+there; convolutions stride over frequency (width) only. Conv keeps flax's
+parameters, kernel [kh, kw, in, out] and bias [out], so a JAX tree loads as
+it is (utils/convert.py); forward permutes the kernel to torch's
+[out, in, kh, kw] and pads as flax's 'SAME' does (the smaller half before,
+the larger after).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ddsp_torch.nn.layers import (Dense, Normalize, ensure_4d,
+                                  get_nonlinearity, lecun_normal_,
+                                  normalize_op)
+
+
+def same_padding(size: int, k: int, s: int) -> Tuple[int, int]:
+  """flax/XLA 'SAME' padding (before, after) of one axis."""
+  out = -(-size // s)
+  total = max((out - 1) * s + k - size, 0)
+  return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+  """flax.linen.Conv on NHWC with 'SAME' padding and strides (1, s)."""
+
+  def __init__(self, in_features: int, features: int,
+               kernel_size: Tuple[int, int], strides: Tuple[int, int] = (1, 1)):
+    super().__init__()
+    self.strides = tuple(strides)
+    self.kernel = nn.Parameter(torch.empty(*kernel_size, in_features,
+                                           features))
+    self.bias = nn.Parameter(torch.empty(features))
+    self.reset_parameters()
+
+  def reset_parameters(self, generator: Optional[torch.Generator] = None):
+    kh, kw, cin, _ = self.kernel.shape
+    with torch.no_grad():
+      lecun_normal_(self.kernel, kh * kw * cin, generator)
+      self.bias.zero_()
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    kh, kw = self.kernel.shape[:2]
+    (sh, sw), (h, w) = self.strides, x.shape[1:3]
+    ph, pw = same_padding(h, kh, sh), same_padding(w, kw, sw)
+    x = torch.nn.functional.pad(x.permute(0, 3, 1, 2), pw + ph)
+    y = torch.nn.functional.conv2d(x, self.kernel.permute(3, 2, 0, 1),
+                                   self.bias, stride=self.strides)
+    return y.permute(0, 2, 3, 1)
+
+
+def max_pool_same(x: torch.Tensor, window: Tuple[int, int],
+                  strides: Tuple[int, int]) -> torch.Tensor:
+  """flax.linen.max_pool with 'SAME' padding (padded with -inf) on NHWC."""
+  ph = same_padding(x.shape[1], window[0], strides[0])
+  pw = same_padding(x.shape[2], window[1], strides[1])
+  x = torch.nn.functional.pad(x.permute(0, 3, 1, 2), pw + ph,
+                              value=float('-inf'))
+  y = torch.nn.functional.max_pool2d(x, window, strides)
+  return y.permute(0, 2, 3, 1)
+
+
+class ConditionalScaleAndShift(nn.Module):
+  """FiLM: x * scale + shift with (scale, shift) = Dense_0(z)."""
+
+  def __init__(self, x_ch: int, z_ch: int, shift_only: bool = False):
+    super().__init__()
+    self.shift_only = shift_only
+    self.x_ch = x_ch
+    self.Dense_0 = Dense(z_ch, x_ch if shift_only else 2 * x_ch)
+
+  def forward(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    scale_shift = self.Dense_0(z)
+    if self.shift_only:
+      return x + scale_shift
+    return x * scale_shift[..., :self.x_ch] + scale_shift[..., self.x_ch:]
+
+
+class ConditionalNorm(nn.Module):
+  """normalize_op, then ConditionalScaleAndShift_0 of z."""
+
+  def __init__(self, x_ch: int, z_ch: int, norm_type: str = 'instance',
+               shift_only: bool = False):
+    super().__init__()
+    self.norm_type = norm_type
+    self.ConditionalScaleAndShift_0 = ConditionalScaleAndShift(
+        x_ch, z_ch, shift_only)
+
+  def forward(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    return self.ConditionalScaleAndShift_0(normalize_op(x, self.norm_type), z)
+
+
+class NormReluConv(nn.Module):
+  """Normalize_0 -> ReLU -> Conv_0 (k x k, stride (1, s))."""
+
+  def __init__(self, in_ch: int, ch: int, k: int, s: int, norm_type: str):
+    super().__init__()
+    self.Normalize_0 = Normalize(in_ch, norm_type)
+    self.Conv_0 = Conv(in_ch, ch, (k, k), (1, s))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return self.Conv_0(torch.relu(self.Normalize_0(x)))
+
+
+class ResidualLayer(nn.Module):
+  """One bottleneck layer, 4 * ch channels out; with `shortcut` a strided
+  1x1 projection (conv_proj) after the first norm and ReLU."""
+
+  def __init__(self, in_ch: int, ch: int, stride: int, shortcut: bool,
+               norm_type: str, conditional: bool = False,
+               shift_only: bool = False, z_ch: int = 0):
+    super().__init__()
+    self.conditional = conditional
+    self.shortcut = shortcut
+    ch_out = 4 * ch
+    if conditional:
+      self.ConditionalNorm_0 = ConditionalNorm(in_ch, z_ch, norm_type,
+                                               shift_only)
+    else:
+      self.Normalize_0 = Normalize(in_ch, norm_type)
+    if shortcut:
+      self.conv_proj = Conv(in_ch, ch_out, (1, 1), (1, stride))
+    self.Conv_0 = Conv(in_ch, ch, (1, 1))
+    self.NormReluConv_0 = NormReluConv(ch, ch, 3, stride, norm_type)
+    self.NormReluConv_1 = NormReluConv(ch, ch_out, 1, 1, norm_type)
+
+  def forward(self, x: torch.Tensor,
+              z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    r = x
+    x = ensure_4d(x)
+    if self.conditional:
+      x = torch.relu(self.ConditionalNorm_0(x, ensure_4d(z)))
+    else:
+      x = torch.relu(self.Normalize_0(x))
+    if self.shortcut:
+      r = self.conv_proj(x)
+    x = self.Conv_0(x)
+    x = self.NormReluConv_0(x)
+    return self.NormReluConv_1(x) + r
+
+
+class ResidualStack(nn.Module):
+  """Blocks of residual layers (ResidualLayer_0, ...; the first of each
+  block with the shortcut and stride), then Normalize_0 and the
+  nonlinearity."""
+
+  def __init__(self, in_ch: int, filters: Sequence[int],
+               block_sizes: Sequence[int], strides: Sequence[int],
+               norm_type: str, conditional: bool = False,
+               shift_only: bool = False, nonlinearity: str = 'relu',
+               z_ch: int = 0):
+    super().__init__()
+    self.conditional = conditional
+    self.n_layers = 0
+    for ch, n_layers, stride in zip(filters, block_sizes, strides):
+      for i in range(n_layers):
+        self.add_module(f'ResidualLayer_{self.n_layers}', ResidualLayer(
+            in_ch, ch, stride if i == 0 else 1, i == 0, norm_type,
+            conditional, shift_only, z_ch))
+        self.n_layers += 1
+        in_ch = 4 * ch
+    self.out_features = in_ch
+    self.Normalize_0 = Normalize(in_ch, norm_type)
+    self.act = get_nonlinearity(nonlinearity)
+
+  def forward(self, x: torch.Tensor,
+              z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    for i in range(self.n_layers):
+      layer = getattr(self, f'ResidualLayer_{i}')
+      x = layer(x, z) if self.conditional else layer(x)
+    return self.act(self.Normalize_0(x))
+
+
+class ResNet(nn.Module):
+  """Residual network over spectrogram-like [batch, time, freq, ch] inputs
+  (3-D inputs gain a channel axis); frequency is downsampled 2x by the
+  stem, 2x by the pool and by the stacks' strides.
+
+  in_ch is the input's channel count (1 for a spectrogram), z_ch the
+  conditioning's when conditional.
+  """
+
+  SIZES = {'small': (32, (2, 3, 4)), 'medium': (32, (3, 4, 6)),
+           'large': (64, (3, 4, 6))}
+
+  def __init__(self, size: str = 'large', norm_type: str = 'layer',
+               conditional: bool = False, shift_only: bool = False,
+               in_ch: int = 1, z_ch: int = 0):
+    super().__init__()
+    ch, blocks = self.SIZES[size]
+    self.conditional = conditional
+    self.Conv_0 = Conv(in_ch, 64, (7, 7), (1, 2))
+    self.ResidualStack_0 = ResidualStack(
+        64, [ch, 2 * ch, 4 * ch], blocks, [1, 2, 2], norm_type, conditional,
+        shift_only, z_ch=z_ch)
+    self.ResidualStack_1 = ResidualStack(
+        self.ResidualStack_0.out_features, [8 * ch], [3], [2], norm_type,
+        conditional, shift_only, z_ch=z_ch)
+    self.out_features = self.ResidualStack_1.out_features
+
+  def forward(self, x: torch.Tensor,
+              z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    x = self.Conv_0(ensure_4d(x))
+    x = max_pool_same(x, (1, 3), (1, 2))
+    for stack in (self.ResidualStack_0, self.ResidualStack_1):
+      x = stack(x, z) if self.conditional else stack(x)
+    return x

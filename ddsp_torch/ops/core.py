@@ -1,6 +1,6 @@
-"""Core helpers, unit conversions and the control nonlinearity.
+"""Core helpers, unit conversions and the control nonlinearities.
 
-Port of ddsp_tpu/ops/core.py: the subset the serving and training paths use.
+Port of ddsp_tpu/ops/core.py.
 """
 
 from __future__ import annotations
@@ -85,6 +85,20 @@ def flatten(tree: Dict[str, Any], prefix: str = '') -> Dict[str, Any]:
   return flat
 
 
+def leaf_key(nested_key: str, delimiter: str = '/') -> str:
+  """Last component of a slash-separated key path."""
+  return nested_key.split(delimiter)[-1]
+
+
+def map_shape(x: Dict[str, Any]) -> Dict[str, Any]:
+  """Shape of every tensor leaf in a (nested) dict, as lists."""
+  if isinstance(x, dict):
+    return {k: map_shape(v) for k, v in x.items()}
+  if isinstance(x, (list, tuple)):
+    return type(x)(map_shape(v) for v in x)
+  return list(x.shape) if isinstance(x, torch.Tensor) else list(np.shape(x))
+
+
 def pad_axis(x: torch.Tensor, padding=(0, 0), axis: int = 0) -> torch.Tensor:
   """Zero-pad a single axis by (before, after)."""
   axis = axis % x.ndim
@@ -100,6 +114,11 @@ def diff(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
   axis = axis % x.ndim
   size = x.shape[axis]
   return x.narrow(axis, 1, size - 1) - x.narrow(axis, 0, size - 1)
+
+
+def nan_to_num(x: torch.Tensor, value: float = 0.0) -> torch.Tensor:
+  """Substitute a fixed value wherever x is NaN."""
+  return torch.where(torch.isnan(x), torch.full_like(x, value), x)
 
 
 def safe_divide(numerator: torch.Tensor, denominator: torch.Tensor,
@@ -127,6 +146,37 @@ def log10(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
   return logb(x, base=10.0, eps=eps)
 
 
+def log_scale(x, min_x: float, max_x: float) -> torch.Tensor:
+  """Map [-1, 1] onto [min_x, max_x] with geometric (log-domain) spacing."""
+  x = (torch_float32(x) + 1.0) / 2.0
+  return torch.exp((1.0 - x) * float(np.log(min_x)) +
+                   x * float(np.log(max_x)))
+
+
+def soft_limit(x: torch.Tensor, x_min: float = 0.0,
+               x_max: float = 1.0) -> torch.Tensor:
+  """Smooth double-softplus saturation onto [x_min, x_max]."""
+  softplus = torch.nn.functional.softplus
+  return softplus(x) + x_min - softplus(x - (x_max - x_min))
+
+
+class _GradientReversal(torch.autograd.Function):
+  """Identity forward; the backward negates the gradient."""
+
+  @staticmethod
+  def forward(ctx, x):  # pylint: disable=arguments-differ
+    return x.view_as(x)
+
+  @staticmethod
+  def backward(ctx, grad):  # pylint: disable=arguments-differ
+    return -grad
+
+
+def gradient_reversal(x: torch.Tensor) -> torch.Tensor:
+  """Forward identity whose gradient is negated (adversarial branches)."""
+  return _GradientReversal.apply(x)
+
+
 def amplitude_to_db(amplitude, ref_db: float = 0.0,
                     range_db: float = DB_RANGE) -> torch.Tensor:
   """Converts amplitude in linear scale to power in decibels."""
@@ -141,6 +191,16 @@ def power_to_db(power, ref_db: float = 0.0,
   power = torch.clamp(torch_float32(power), min=pmin)
   db = 10.0 * log10(power) - ref_db
   return torch.clamp(db, min=-range_db)
+
+
+def db_to_amplitude(db) -> torch.Tensor:
+  """Converts power in decibels to amplitude in linear scale."""
+  return db_to_power(torch_float32(db) / 2.0)
+
+
+def db_to_power(db) -> torch.Tensor:
+  """Converts power from decibels to linear scale."""
+  return 10.0**(torch_float32(db) / 10.0)
 
 
 def midi_to_hz(notes, midi_zero_silence: bool = False) -> torch.Tensor:
@@ -160,6 +220,67 @@ def hz_to_midi(frequencies) -> torch.Tensor:
   return torch.where(frequencies <= 0.0, torch.zeros_like(notes), notes)
 
 
+def unit_to_midi(unit, midi_min=20.0, midi_max=90.0,
+                 clip: bool = False) -> torch.Tensor:
+  """Map the unit interval [0, 1] to MIDI notes."""
+  unit = torch_float32(unit)
+  if clip:
+    unit = torch.clamp(unit, 0.0, 1.0)
+  return midi_min + (midi_max - midi_min) * unit
+
+
+def midi_to_unit(midi, midi_min=20.0, midi_max=90.0,
+                 clip: bool = False) -> torch.Tensor:
+  """Map MIDI notes to the unit interval [0, 1]."""
+  unit = (torch_float32(midi) - midi_min) / (midi_max - midi_min)
+  return torch.clamp(unit, 0.0, 1.0) if clip else unit
+
+
+def unit_to_hz(unit, hz_min, hz_max, clip: bool = False) -> torch.Tensor:
+  """Map the unit interval [0, 1] to [hz_min, hz_max], logarithmically."""
+  unit = torch_float32(unit)
+  return midi_to_hz(unit_to_midi(unit,
+                                 midi_min=_midi_of(hz_min, unit),
+                                 midi_max=_midi_of(hz_max, unit), clip=clip))
+
+
+def hz_to_unit(hz, hz_min, hz_max, clip: bool = False) -> torch.Tensor:
+  """Map [hz_min, hz_max] to the unit interval [0, 1], logarithmically."""
+  midi = hz_to_midi(hz)
+  return midi_to_unit(midi, midi_min=_midi_of(hz_min, midi),
+                      midi_max=_midi_of(hz_max, midi), clip=clip)
+
+
+def _midi_of(hz, like: torch.Tensor) -> torch.Tensor:
+  """hz_to_midi of a bound, as a tensor on `like`'s device."""
+  return hz_to_midi(torch_float32(hz, device=like.device).to(like.device))
+
+
+def hz_to_bark(hz) -> torch.Tensor:
+  """Frequency in hertz to Bark scale (Traunmuller 1990)."""
+  return 26.81 / (1.0 + (1960.0 / torch_float32(hz))) - 0.53
+
+
+def bark_to_hz(bark) -> torch.Tensor:
+  """Bark scale to frequency in hertz (Traunmuller 1990)."""
+  return 1960.0 / (26.81 / (torch_float32(bark) + 0.53) - 1.0)
+
+
+def hz_to_mel(hz) -> torch.Tensor:
+  """Frequency in hertz to mel scale (HTK convention)."""
+  return 2595.0 * logb(1.0 + torch_float32(hz) / 700.0, 10.0)
+
+
+def mel_to_hz(mel) -> torch.Tensor:
+  """Mel scale to frequency in hertz (HTK convention)."""
+  return 700.0 * (10.0**(torch_float32(mel) / 2595.0) - 1.0)
+
+
+def hz_to_erb(hz) -> torch.Tensor:
+  """Equivalent Rectangular Bandwidth (Moore & Glasberg 1996)."""
+  return 0.108 * torch_float32(hz) + 24.7
+
+
 # log(exponent) in float32, as jnp.log(jnp_float32(exponent)) gives it.
 def _f32_log(exponent: float) -> float:
   return float(np.log(np.float32(exponent)))
@@ -173,3 +294,97 @@ def exp_sigmoid(x: torch.Tensor, exponent: float = 10.0,
   """
   x = torch_float32(x)
   return max_value * torch.sigmoid(x)**_f32_log(exponent) + threshold
+
+
+def sym_exp_sigmoid(x: torch.Tensor, width: float = 8.0) -> torch.Tensor:
+  """Symmetrical version of exp_sigmoid centered at (0, 1e-7)."""
+  x = torch_float32(x)
+  return exp_sigmoid(width * (torch.abs(x) / 2.0 - 1.0))
+
+
+def _add_depth_axis(freqs: torch.Tensor, depth: int = 1) -> torch.Tensor:
+  """[batch, time, sinusoids * depth] -> [batch, time, sinusoids, depth]."""
+  n_batch, n_time, n_combined = freqs.shape
+  return freqs.reshape(n_batch, n_time, int(n_combined) // depth, depth)
+
+
+def frequencies_softmax(freqs: torch.Tensor, depth: int = 1,
+                        hz_min: float = 20.0,
+                        hz_max: float = 8000.0) -> torch.Tensor:
+  """Softmax over `depth` bins per sinusoid, scaled logarithmically to
+  frequencies in hertz [batch, time, n_sinusoids].
+
+  freqs: [batch, time, n_sinusoids * depth] or [batch, time, n_sinusoids,
+  depth] network outputs.
+  """
+  if freqs.ndim == 3:
+    freqs = _add_depth_axis(freqs, depth)
+  else:
+    depth = int(freqs.shape[-1])
+  f_probs = torch.softmax(freqs, dim=-1)
+  unit_bins = torch.linspace(0.0, 1.0, depth, device=freqs.device)
+  f_unit = torch.sum(unit_bins * f_probs, dim=-1)
+  return unit_to_hz(f_unit, hz_min=hz_min, hz_max=hz_max)
+
+
+def frequencies_sigmoid(freqs: torch.Tensor, depth: int = 1,
+                        hz_min: float = 0.0,
+                        hz_max: float = 8000.0) -> torch.Tensor:
+  """Sum of `depth` sigmoids per sinusoid, each over its own band of a
+  partition of [hz_min, hz_max] in factors of 2, logarithmically scaled;
+  [batch, time, n_sinusoids] in hertz."""
+  if freqs.ndim == 3:
+    freqs = _add_depth_axis(freqs, depth)
+  else:
+    depth = int(freqs.shape[-1])
+  f_probs = torch.sigmoid(freqs)
+  hz_scales = []
+  hz_min_copy = hz_min
+  remainder = hz_max - hz_min
+  scale_factor = remainder**(1.0 / depth)
+  for i in range(depth):
+    if i == depth - 1:
+      # The last component spans the minimum to the remainder.
+      hz_max = remainder
+      hz_min = hz_min_copy
+    else:
+      hz_max = remainder * (1.0 - 1.0 / scale_factor)
+      hz_min = 0
+      remainder -= hz_max
+    hz_scales.append(unit_to_hz(f_probs[..., i], hz_min=hz_min,
+                                hz_max=hz_max))
+  return torch.sum(torch.stack(hz_scales, dim=-1), dim=-1)
+
+
+def get_deviation_hz(midi_interval: float, frequency_hz) -> torch.Tensor:
+  """A MIDI interval as a deviation in hertz at a given frequency."""
+  frequency_hz = torch_float32(frequency_hz)
+  return midi_to_hz(hz_to_midi(frequency_hz) + midi_interval) - frequency_hz
+
+
+def frequencies_critical_bands(freqs: torch.Tensor, depth: int = 1,
+                               depth_scale: float = 10.0,
+                               bandwidth_scale: float = 1.0,
+                               hz_min: float = 20.0, hz_max: float = 8000.0,
+                               scale: str = 'bark') -> torch.Tensor:
+  """Centre frequencies evenly spaced on the bark or mel scale, each moved
+  by a tanh-bounded deviation of one ERB (depth components at scales
+  depth_scale**-i), soft-limited to [hz_min, hz_max]."""
+  if freqs.ndim == 3:
+    freqs = _add_depth_axis(freqs, depth)
+  else:
+    depth = int(freqs.shape[-1])
+  n_sinusoids = int(freqs.shape[-2])
+  dev = freqs.device
+  if scale == 'bark':
+    lo, hi = float(hz_to_bark(hz_min)), float(hz_to_bark(hz_max))
+    f_center = bark_to_hz(torch.linspace(lo, hi, n_sinusoids, device=dev))
+  else:
+    lo, hi = float(hz_to_mel(hz_min)), float(hz_to_mel(hz_max))
+    f_center = mel_to_hz(torch.linspace(lo, hi, n_sinusoids, device=dev))
+  bw = hz_to_erb(f_center)
+  depth_modifier = depth_scale**-torch.arange(depth, dtype=torch.float32,
+                                              device=dev)
+  modifier = torch.sum(torch.tanh(freqs) * depth_modifier, dim=-1)
+  f_modifier = bandwidth_scale * bw * modifier
+  return soft_limit(f_center + f_modifier, hz_min, hz_max)

@@ -1,8 +1,6 @@
 """Time-varying FFT convolution and FIR filter design, on torch.fft.
 
-Port of the parts of ddsp_tpu/ops/fftconv.py the serving and training
-paths use. The
-parity target is the JAX package's jnp.fft branch (its off-TPU route); the
+Port of ddsp_tpu/ops/fftconv.py. The parity target is the JAX package's jnp.fft branch (its off-TPU route); the
 DFT-as-GEMM routes of ddsp_tpu/ops/fft_matmul.py are XLA routing for the
 TPU and have no counterpart here.
 """
@@ -184,4 +182,54 @@ def frequency_filter(audio: torch.Tensor, magnitudes: torch.Tensor,
   """
   impulse_response = frequency_impulse_response(magnitudes,
                                                  window_size=window_size)
+  return fft_convolve(audio, impulse_response, padding=padding)
+
+
+def sinc(x, threshold: float = 1e-20) -> torch.Tensor:
+  """Normalized zero-phase sinc, sin(pi x) / (pi x), 1 at zero."""
+  x = torch_float32(x)
+  x = torch.where(torch.abs(x) < threshold, torch.full_like(x, threshold), x)
+  x = np.pi * x
+  return torch.sin(x) / x
+
+
+def sinc_impulse_response(cutoff_frequency, window_size: int = 512,
+                          sample_rate=None,
+                          high_pass: bool = False) -> torch.Tensor:
+  """Hamming-windowed sinc low-pass IRs of unity gain, [batch, n_time,
+  (window_size // 2) * 2 + 1], for cutoffs [batch, n_time, 1] in Hz (with
+  a sample_rate) or as a ratio of Nyquist; high_pass inverts them."""
+  cutoff_frequency = torch_float32(cutoff_frequency)
+  if sample_rate is not None:
+    cutoff_frequency = cutoff_frequency * 2.0 / float(sample_rate)
+  half_size = window_size // 2
+  full_size = half_size * 2 + 1
+  dev = cutoff_frequency.device
+  idx = torch.arange(-half_size, half_size + 1, dtype=torch.float32,
+                     device=dev)
+  impulse_response = sinc(cutoff_frequency * idx)
+  # Periodic Hamming window; an odd size takes the denominator N - 1, as
+  # hann_window does.
+  denom = full_size if full_size % 2 == 0 else full_size - 1
+  n = torch.arange(full_size, dtype=torch.float32, device=dev)
+  window = 0.54 - 0.46 * torch.cos(2.0 * np.pi * n / denom)
+  impulse_response = window * impulse_response
+  impulse_response = impulse_response / torch.abs(
+      torch.sum(impulse_response, dim=-1, keepdim=True))
+  if high_pass:
+    pass_through = torch.zeros_like(impulse_response)
+    pass_through[..., half_size] = 1.0
+    impulse_response = pass_through - impulse_response
+  return impulse_response
+
+
+def sinc_filter(audio: torch.Tensor, cutoff_frequency,
+                window_size: int = 512, sample_rate=None,
+                padding: str = 'same',
+                high_pass: bool = False) -> torch.Tensor:
+  """Filter audio with a (time-varying) sinc low-pass or high-pass."""
+  impulse_response = sinc_impulse_response(cutoff_frequency,
+                                           window_size=window_size,
+                                           sample_rate=sample_rate,
+                                           high_pass=high_pass)
   return fft_convolve(audio, impulse_response, padding=padding)

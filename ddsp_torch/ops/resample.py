@@ -168,3 +168,12 @@ def resample(inputs: torch.Tensor, n_timesteps: int, method: str = 'linear',
   if is_2d:
     return outputs[:, :, 0]
   return outputs
+
+
+def center_crop(audio: torch.Tensor, frame_size: int) -> torch.Tensor:
+  """Remove the padding of centered framing: frame_size // 2 samples from
+  each end of the time axis (dim 1)."""
+  pad_amount = int(frame_size // 2)
+  if pad_amount == 0:
+    return audio
+  return audio[:, pad_amount:-pad_amount]

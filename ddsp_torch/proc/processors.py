@@ -1,4 +1,5 @@
-"""Processor base class, ProcessorGroup, and the Add and Crop processors.
+"""Processor base class, ProcessorGroup, and the Add, Mix and Crop
+processors.
 
 Port of ddsp_tpu/proc/processors.py. A Processor turns network outputs into
 controls (`get_controls`) and controls into a signal (`get_signal`).
@@ -11,6 +12,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from ddsp_torch.ops.resample import resample
 from ddsp_torch.proc.dags import DAGModule
 
 TensorDict = Dict[str, Any]
@@ -75,6 +77,32 @@ class Add(Processor):
 
   def get_signal(self, signal_one, signal_two) -> torch.Tensor:
     return signal_one + signal_two
+
+
+class Mix(Processor):
+  """Constant-power crossfade between two signals of the same length."""
+
+  def get_controls(self, signal_one, signal_two,
+                   nn_out_mix_level) -> TensorDict:
+    """nn_out_mix_level [batch, frames, 1]: the raw balance, squashed by a
+    sigmoid and resampled to the signals' length."""
+    n_time_one = int(signal_one.shape[1])
+    n_time_two = int(signal_two.shape[1])
+    if n_time_one != n_time_two:
+      raise ValueError(f'Mix needs equal-length signals; got {n_time_one} '
+                       f'vs {n_time_two} samples.')
+    mix_level = resample(torch.sigmoid(nn_out_mix_level), n_time_one)
+    # A [batch, n, 1] level against [batch, n] signals: drop the channel
+    # axis (it would broadcast to [batch, n, n]).
+    if mix_level.ndim == signal_one.ndim + 1:
+      mix_level = mix_level[..., 0]
+    return {'signal_one': signal_one, 'signal_two': signal_two,
+            'mix_level': mix_level}
+
+  def get_signal(self, signal_one, signal_two, mix_level) -> torch.Tensor:
+    mix_level_one = torch.sqrt(torch.abs(mix_level))
+    mix_level_two = 1.0 - torch.sqrt(torch.abs(mix_level - 1.0))
+    return mix_level_one * signal_one + mix_level_two * signal_two
 
 
 class Crop(Processor):

@@ -1,6 +1,7 @@
-"""Synthesizer processors: Harmonic and FilteredNoise.
+"""Synthesizer processors: TensorToAudio, Harmonic, FilteredNoise,
+Wavetable and Sinusoidal.
 
-Port of the serving path's synths in ddsp_tpu/proc/synths.py.
+Port of ddsp_tpu/proc/synths.py.
 """
 
 from __future__ import annotations
@@ -11,8 +12,36 @@ import torch
 
 from ddsp_torch.ops import core as ops_core
 from ddsp_torch.ops import oscillator as osc
+from ddsp_torch.ops import wavetable as wavetable_ops
 from ddsp_torch.ops.fftconv import frequency_filter
+from ddsp_torch.ops.resample import resample
 from ddsp_torch.proc.processors import Processor, TensorDict
+
+
+def uniform_noise(shape, device, noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None):
+  """White noise in [-1, 1) of `shape` on `device`: `noise` itself if
+  given (its shape checked), else a draw from `generator`, else from a
+  generator seeded with 0 (the JAX processors' fixed-key fallback)."""
+  shape = tuple(shape)
+  if noise is None:
+    if generator is None:
+      generator = torch.Generator(device).manual_seed(0)
+    return torch.rand(shape, generator=generator, device=device) * 2.0 - 1.0
+  if tuple(noise.shape) != shape:
+    raise ValueError(f'noise has shape {tuple(noise.shape)}, expected '
+                     f'{shape}.')
+  return noise.to(device)
+
+
+class TensorToAudio(Processor):
+  """Network output samples [batch, time, 1] as audio [batch, time]."""
+
+  def get_controls(self, samples) -> TensorDict:
+    return {'samples': samples}
+
+  def get_signal(self, samples) -> torch.Tensor:
+    return torch.squeeze(samples, 2)
 
 
 class Harmonic(Processor):
@@ -92,15 +121,8 @@ class FilteredNoise(Processor):
                  noise: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None):
     """The white noise [batch, n_samples] on `device` (the rule above)."""
-    shape = (batch_size, self.n_samples)
-    if noise is None:
-      if generator is None:
-        generator = torch.Generator(device).manual_seed(0)
-      return torch.rand(shape, generator=generator, device=device) * 2.0 - 1.0
-    if tuple(noise.shape) != shape:
-      raise ValueError(f'noise has shape {tuple(noise.shape)}, expected '
-                       f'{shape}.')
-    return noise.to(device)
+    return uniform_noise((batch_size, self.n_samples), device, noise,
+                         generator)
 
   def get_signal(self, magnitudes, noise: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None):
@@ -108,3 +130,67 @@ class FilteredNoise(Processor):
     noise = self.draw_noise(int(magnitudes.shape[0]), magnitudes.device,
                             noise, generator)
     return frequency_filter(noise, magnitudes, window_size=self.window_size)
+
+
+class Wavetable(Processor):
+  """Audio from a series of wavetables (scale_fn on the amplitudes and
+  the wavetables)."""
+
+  def __init__(self, n_samples: int = 64000, sample_rate: int = 16000,
+               scale_fn: Optional[Callable] = ops_core.exp_sigmoid,
+               name: Optional[str] = None):
+    super().__init__(name)
+    self.n_samples = n_samples
+    self.sample_rate = sample_rate
+    self.scale_fn = scale_fn
+
+  def get_controls(self, amplitudes, wavetables, f0_hz) -> TensorDict:
+    """amplitudes [b, t, 1], wavetables [b, t, n_wavetable], f0_hz
+    [b, t, 1]."""
+    if self.scale_fn is not None:
+      amplitudes = self.scale_fn(amplitudes)
+      wavetables = self.scale_fn(wavetables)
+    return {'amplitudes': amplitudes, 'wavetables': wavetables,
+            'f0_hz': f0_hz}
+
+  def get_signal(self, amplitudes, wavetables, f0_hz) -> torch.Tensor:
+    """Audio [batch, n_samples]."""
+    wavetables = resample(wavetables, self.n_samples)
+    return wavetable_ops.wavetable_synthesis(
+        frequencies=f0_hz, amplitudes=amplitudes, wavetables=wavetables,
+        n_samples=self.n_samples, sample_rate=self.sample_rate)
+
+
+class Sinusoidal(Processor):
+  """A bank of freely tuned sinusoidal oscillators: amp_scale_fn on the
+  amplitudes, freq_scale_fn from network outputs to hertz (the amplitude
+  of a sinusoid at or above Nyquist is zeroed)."""
+
+  def __init__(self, n_samples: int = 64000, sample_rate: int = 16000,
+               amp_scale_fn: Optional[Callable] = ops_core.exp_sigmoid,
+               freq_scale_fn: Optional[Callable] = (
+                   ops_core.frequencies_softmax),
+               name: Optional[str] = None):
+    super().__init__(name)
+    self.n_samples = n_samples
+    self.sample_rate = sample_rate
+    self.amp_scale_fn = amp_scale_fn
+    self.freq_scale_fn = freq_scale_fn
+
+  def get_controls(self, amplitudes, frequencies) -> TensorDict:
+    """amplitudes [b, t, n_sin], frequencies [b, t, n_sin (* depth)]."""
+    if self.amp_scale_fn is not None:
+      amplitudes = self.amp_scale_fn(amplitudes)
+    if self.freq_scale_fn is not None:
+      frequencies = self.freq_scale_fn(frequencies)
+      amplitudes = osc.remove_above_nyquist(frequencies, amplitudes,
+                                            self.sample_rate)
+    return {'amplitudes': amplitudes, 'frequencies': frequencies}
+
+  def get_signal(self, amplitudes, frequencies) -> torch.Tensor:
+    """Audio [batch, n_samples]."""
+    amplitude_envelopes = resample(amplitudes, self.n_samples,
+                                   method='window')
+    frequency_envelopes = resample(frequencies, self.n_samples)
+    return osc.oscillator_bank(frequency_envelopes, amplitude_envelopes,
+                               sample_rate=self.sample_rate)

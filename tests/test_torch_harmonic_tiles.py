@@ -14,7 +14,8 @@ the plain versions on the card by chip_smoke.py. Here:
   synth op, against the jnp path;
 - a training step's own phase (4 s of plain cumsum), where the port's
   float64 wrap and the Pallas kernel's float32 one part by design;
-- the float32 Chebyshev chain's error at 60, 160 and 256 harmonics;
+- the float32 Chebyshev chain's error at 60, 100 (the ae preset's), 160
+  and 256 harmonics;
 - the endpoint frame of the fold;
 - K1t's order: per-thread sums over 8 samples, a shuffle tree over lane
   groups, rows summed in order, the fold inside the kernel.
@@ -273,8 +274,8 @@ def test_more_than_128_harmonics_match_the_jnp_path(method):
   _scaled_close(dhd_t.numpy(), dhd_j, BWD_RTOL, 'dhd')
 
 
-@pytest.mark.parametrize('n_harmonics,f0_lo', [(60, 80.0), (160, 30.0),
-                                                (256, 30.0)])
+@pytest.mark.parametrize('n_harmonics,f0_lo', [(60, 80.0), (100, 80.0),
+                                                (160, 30.0), (256, 30.0)])
 def test_the_float32_chain_error_grows_with_harmonics(n_harmonics, f0_lo):
   """K1f's forward in torch: the float32 Chebyshev chain (the Pallas
   kernel's, and the kernels' own) against the plain forward's sinf, on
@@ -283,7 +284,7 @@ def test_the_float32_chain_error_grows_with_harmonics(n_harmonics, f0_lo):
   cumsum phases wrapped in float64). cos(phi) rounded to float32 shifts
   the chain's angle by up to ~6e-8 / |sin phi|, which harmonic h
   multiplies by h, so the absolute error grows ~H^2: K1_ATOL (4e-3) holds
-  at 60 harmonics, and past 128 the error stays under 2e-3 of the audio's
+  at 60 and 100 harmonics, and past 128 the error stays under 2e-3 of the audio's
   largest sample (chip_smoke.py's tier for those cases). Run with -s to
   see both errors."""
   batch, n_frames, hop = 2, 1000, 64
@@ -424,3 +425,28 @@ def test_tiled_taps_mirror_matches_the_pallas_vjp(method, hop, n_frames):
                            n_frames, 60, method)
   _, _, dham_p = _pallas(phase0, f0_env, ham, g, method)
   _scaled_close(got.numpy(), dham_p, BWD_RTOL, 'mirror vs Pallas VJP')
+
+
+@pytest.mark.parametrize('n_harmonics,f0', [(18, 444.44443), (9, 888.88885)])
+def test_the_nyquist_mask_is_the_kernels(n_harmonics, f0):
+  """At these float32 f0 the last harmonic's f0 * h rounds below 8000 Hz
+  while 8000 / f0 rounds to h: the jnp path keeps it, the Pallas kernel
+  (and K1f) mute it. The plain forward, the op's CPU implementation that
+  chip_smoke.py holds K1f against, takes the kernels' rule, as the plain
+  backward versions do."""
+  f0 = np.float32(f0)
+  assert np.float32(f0 * np.float32(n_harmonics)) < SR / 2
+  assert np.float32(np.float32(SR / 2) / f0) <= n_harmonics
+  n_frames, hop = 4, 64
+  f0_env = np.full((1, n_frames * hop), f0, np.float32)
+  phase0 = np.cumsum(f0_env.astype(np.float64) * 2 * np.pi / SR,
+                     axis=1).astype(np.float32)
+  ham = np.zeros((1, n_frames, n_harmonics), np.float32)
+  ham[..., -1] = 1.0  # only the harmonic at Nyquist
+  g = _cotangent(phase0)
+  out_t, _, dham_t = _port(phase0, f0_env, ham, g, 'window')
+  out_j, _, dham_j = _pallas(phase0, f0_env, ham, g, 'window')
+  np.testing.assert_array_equal(out_j, 0.0)
+  np.testing.assert_array_equal(out_t, 0.0)
+  np.testing.assert_array_equal(dham_t[..., -1], 0.0)
+  np.testing.assert_array_equal(dham_j[..., -1], 0.0)
