@@ -121,6 +121,22 @@ Phases (any failed check exits non-zero before the result lines):
      encoder, ms per step; evaluate_or_sample of the checkpoint, one eval
      and one sample batch; AutoencoderInference and export_model refuse
      the directory;
+  6i. the midiae preset at full width (dilated-conv synthcoder, MIDI
+     encoder and decoder, 60 harmonics, a trainable FilteredNoiseReverb),
+     float32 with cuDNN's TF32 on for the process (the stacks pin full
+     float32), one state dict from torch.Generator(0) on the card and on
+     the CPU: 4 MIDI requests of 4 s (seeded note sequences through
+     midi_to_audio: K1f once) and 4 reconstruction requests (the forward on
+     phase 6's tones: K1f twice, q_pitch equal to the CPU port's but at
+     ties) against the CPU port, ms per request; 24 Trainer.train_steps at
+     16 x 4 s with a piano roll from the tones' f0 (K1f twice, K1t once a
+     step), step ms beside phase 6's, a B = 2 step against the CPU port
+     (the loss; the MIDI encoder's and decoder's gradients; the
+     synthcoder's and the reverb's with the mag term alone);
+     evaluate_or_sample of the checkpoint with MidiAutoencoderEvaluator and
+     MidiHeuristicEvaluator, the predicted note sequences against the CPU
+     port's, and one sample batch; ddsp-torch-run --preset midiae, 2 steps
+     and an eval; the serving classes refuse the directory;
   6h. the processors without a TPU kernel (TensorToAudio, Wavetable,
      Sinusoidal, ExpDecayReverb, FIRFilter, ModDelay, Mix) at batch 4 x
      4 s, forward and gradient on the card against the CPU port, no kernel
@@ -2957,6 +2973,486 @@ def phase_ae(torch, dev, work_dir, pattern):
   return launches
 
 
+# Phase 6i: the midiae preset (magenta/ddsp gin/models/midiae/midiae.gin) at
+# full width: a dilated-conv synthcoder (ch 128, 2 stacks of 9 layers,
+# dilation up to 256), a HarmonicToMidiEncoder and a MidiToHarmonicDecoder
+# on DilatedConvStacks of 4 x 5 layers, 60 harmonics, 65 noise bands, a
+# trainable FilteredNoiseReverb of 24000 taps; 2 972 799 parameters. A
+# forward runs the processor group twice (the synthcoder's branch and the
+# MIDI branch): K1f twice; a MIDI request (midi_to_audio) once; a training
+# step K1t once (only synth_audio is in a loss) and K1p never (f0 is data,
+# midi_audio in no loss). The dilated stacks pin their convolutions to full
+# float32 (nn/dilated_conv.py), and the phase runs with cuDNN's TF32 turned
+# on, PyTorch's default (main turns it off for the other phases), so the
+# checks below hold float32 tolerances through the pin.
+MIDI_REQUESTS = 4
+MIDIAE_REVERB = 24000  # the preset's FilteredNoiseReverb taps
+# Frames where the CPU port's z_pitch lies within this of a half-integer are
+# ties: round-half-to-even may take either neighbour there on the two
+# devices. The two devices' z_pitch differ by float32 rounding through ~40
+# convolutions and layer norms (1e-5 of pitches near 50: a few 1e-5); the
+# tie band is 100x that. Every other frame's q_pitch must be equal.
+Q_TIE_ATOL = 1e-3
+# The MIDI encoder's and decoder's gradients with the full loss: they get
+# none from the spectral term (the encoder's inputs are stopped, midi_audio
+# is in no loss), only from the f0, amps, hd, noise and margin losses of
+# controls that agree to float32 rounding and sums in another order
+# (1.9e-6 and 4.5e-7 on an H100). A tie of the B = 2 step's 2000 frames
+# rounding the other way on one device would move them past this bound
+# and fail the check, naming it; the step's data is fixed and none does.
+MIDI_NET_GRAD_RTOL = 1e-3
+
+
+def midi_pianoroll(f0_hz, velocity=100.0):
+  """[B, T, 128] piano roll of the nearest MIDI note of f0_hz [B, T]."""
+  notes = np.round(12.0 * np.log2(np.asarray(f0_hz, np.float64) / 440.0)
+                   + 69.0).astype(int)
+  roll = np.zeros(notes.shape + (128,), np.float32)
+  np.put_along_axis(roll, np.clip(notes, 0, 127)[..., None], velocity,
+                    axis=-1)
+  return roll
+
+
+def midi_requests():
+  """MIDI_REQUESTS seeded note sequences of 4 s: q_pitch [1, 1000, 1] of
+  notes 40-80 lasting 0.1-0.6 s, with rests (MIDI 0) between some."""
+  rng = np.random.RandomState(21)
+  out = []
+  for _ in range(MIDI_REQUESTS):
+    pitch = np.zeros(N_FRAMES, np.float32)
+    t = 0
+    while t < N_FRAMES:
+      n = rng.randint(25, 150)
+      pitch[t:t + n] = 0.0 if rng.rand() < 0.2 else float(rng.randint(40, 80))
+      t += n
+    out.append(pitch[None, :, None])
+  return out
+
+
+def midi_noise_dict(torch, batch, seed):
+  """One branch's noise, {processor name: draw in [-1, 1)}, made on the
+  host: FilteredNoise's [batch, 64000] and the reverb IR's [1, 24000]."""
+  gen = torch.Generator().manual_seed(seed)
+  return {'filtered_noise': torch.rand((batch, N_SAMPLES), generator=gen)
+                            * 2 - 1,
+          'reverb': torch.rand((1, MIDIAE_REVERB), generator=gen) * 2 - 1}
+
+
+def on(d, noise):
+  """A noise dict's tensors on device d."""
+  return {k: v.to(d) for k, v in noise.items()}
+
+
+def timed_median(torch, fn, calls=14, skip=2):
+  """(median ms, the ms list) of calls - skip CUDA-event-timed calls."""
+  times = []
+  for _ in range(calls):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    times.append(start.elapsed_time(end))
+  times = times[skip:]
+  return float(np.median(times)), times
+
+
+def check_q_pitch(torch, label, q_gpu, q_cpu, z_cpu):
+  """q_pitch on the card against the CPU port: equal but at ties."""
+  q_gpu, q_cpu, z_cpu = q_gpu.cpu(), q_cpu.cpu(), z_cpu.cpu()
+  ties = (torch.abs(torch.abs(z_cpu - torch.floor(z_cpu)) - 0.5) <
+          Q_TIE_ATOL)
+  differ = q_gpu != q_cpu
+  print(f'  {label}: q_pitch frames that differ from the CPU port '
+        f'{int(differ.sum())} of {differ.numel()}, ties {int(ties.sum())}')
+  check(not bool((differ & ~ties).any()),
+        f'{label}: q_pitch equal to the CPU port\'s at every frame that is '
+        f'not a tie (z_pitch within {Q_TIE_ATOL} of a half-integer)')
+
+
+def midiae_step(torch, model, batch, noise, midi_noise, mag_only=False):
+  """One training forward/backward: (loss, {name: grad}). mag_only: the
+  SpectralLoss of synth_audio with its mag term alone, instead of the
+  preset's losses."""
+  from ddsp_torch.losses import SpectralLoss
+  out, losses = model(batch, training=True, return_losses=True, noise=noise,
+                      midi_noise=midi_noise)
+  loss = losses['total_loss']
+  if mag_only:
+    loss = SpectralLoss(loss_type='L1', mag_weight=1.0, logmag_weight=0.0)(
+        batch['audio'], out['synth_audio'])
+  named = list(model.named_parameters())
+  grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+  return loss.item(), {n: g for (n, _), g in zip(named, grads)
+                       if g is not None}
+
+
+def phase_midiae(torch, dev, work_dir, pattern, dense_ms, profile=False):
+  """[6i] the midiae preset: MIDI requests, reconstruction requests,
+  training, eval and sample with both MIDI evaluators, the CLI, and the
+  serving classes' refusal. Returns the launches of each path
+  ('midi_request', 'midiae_request', 'midiae_train', 'midiae_eval',
+  'midiae_sample', 'cli_midiae_train', 'cli_midiae_eval')."""
+  from ddsp_torch.utils import build_model
+  print(f'[6i] midiae (full width, float32, cuDNN TF32 on for the process): '
+        f'{MIDI_REQUESTS} MIDI requests and {MIDI_REQUESTS} reconstruction '
+        f'requests of 4 s, {TRAIN_STEPS} training steps at batch {BATCH} x '
+        '4 s, eval and sample, the CLI', flush=True)
+  cudnn = torch.backends.cudnn
+  saved_tf32, cudnn.allow_tf32 = cudnn.allow_tf32, True
+  try:
+    # One state dict (torch.Generator(seed 0)) on the card and on the CPU.
+    cpu_model = build_model('midiae', device='cpu', seed=0)
+    model = build_model('midiae')
+    model.load_state_dict(cpu_model.state_dict())
+    model.eval()
+    launches = midiae_requests(torch, dev, model, cpu_model, profile)
+    save_dir = os.path.join(work_dir, 'midiae_train')
+    launches['midiae_train'] = midiae_training(torch, dev, cpu_model,
+                                               save_dir, dense_ms, profile)
+    launches.update(midiae_eval(torch, dev, work_dir, save_dir))
+    launches.update(midiae_cli(torch, work_dir, pattern))
+  finally:
+    cudnn.allow_tf32 = saved_tf32
+  return launches
+
+
+def midiae_requests(torch, dev, model, cpu_model, profile=False):
+  """MIDI requests (midi_to_audio) and reconstruction requests (the
+  forward on audio) at B = 1 against the CPU port; their launches and
+  median ms."""
+  notes = midi_requests()
+  zeros = torch.zeros(1, N_FRAMES, 1)
+
+  def midi_request(m, q, d, seed):
+    with torch.no_grad():
+      return m.midi_to_audio(torch.from_numpy(q).to(d), zeros.to(d),
+                             noise=on(d, midi_noise_dict(torch, 1, seed)))
+
+  reset_launches()
+  audio = [midi_request(model, q, dev, 30 + i) for i, q in enumerate(notes)]
+  torch.cuda.synchronize()
+  launches = {'midi_request': read_launches()}
+  print(f'  launches over {MIDI_REQUESTS} MIDI requests: '
+        f'{launches["midi_request"]}')
+  check(launches['midi_request'] == {
+      'K1f': MIDI_REQUESTS, 'K1t': 0, 'K1p': 0, 'K2f': 0, 'K2b': 0,
+      'K2b_w': 0, 'K3': 0},
+        'each MIDI request launched K1f once and no other kernel')
+  rels = []
+  for i, (q, a) in enumerate(zip(notes, audio)):
+    check(tuple(a.shape) == (1, N_SAMPLES) and torch.isfinite(a).all().item()
+          and a.abs().max().item() > 0,
+          f'MIDI request {i}: audio [1, {N_SAMPLES}] finite, not silent')
+    rels.append(rel_l2(a.cpu(), midi_request(cpu_model, q, 'cpu', 30 + i)))
+  print('  MIDI requests, card against the CPU port, audio relative L2: ' +
+        ', '.join(f'{r:.3e}' for r in rels))
+  check(max(rels) <= E2E_REL_L2,
+        f'every MIDI request\'s audio within {E2E_REL_L2} of the CPU port')
+  midi_ms, times = timed_median(
+      torch, lambda: midi_request(model, notes[1], dev, 31))
+  print(f'  MIDI request ms: {[round(t, 3) for t in times]}')
+  print(f'  median ms per 4 s MIDI request: {midi_ms:.3f}', flush=True)
+
+  # Reconstruction requests: the forward on phase 6's tones, both branches.
+  clips = training_batch(MIDI_REQUESTS, seed=11)
+  clips = [{k: v[i:i + 1] for k, v in clips.items()}
+           for i in range(MIDI_REQUESTS)]
+
+  def request(m, clip, d, seed):
+    with torch.no_grad():
+      return m({k: torch.from_numpy(v).to(d) for k, v in clip.items()},
+               training=False, noise=on(d, midi_noise_dict(torch, 1, seed)),
+               midi_noise=on(d, midi_noise_dict(torch, 1, seed + 100)))
+
+  reset_launches()
+  outs = [request(model, c, dev, 40 + i) for i, c in enumerate(clips)]
+  torch.cuda.synchronize()
+  launches['midiae_request'] = read_launches()
+  print(f'  launches over {MIDI_REQUESTS} reconstruction requests: '
+        f'{launches["midiae_request"]}')
+  check(launches['midiae_request'] == {
+      'K1f': 2 * MIDI_REQUESTS, 'K1t': 0, 'K1p': 0, 'K2f': 0, 'K2b': 0,
+      'K2b_w': 0, 'K3': 0},
+        'each reconstruction request launched K1f twice (the synthcoder\'s '
+        'branch and the MIDI branch) and no other kernel')
+  for i, (clip, out) in enumerate(zip(clips, outs)):
+    cpu_out = request(cpu_model, clip, 'cpu', 40 + i)
+    for key in ('synth_audio', 'midi_audio'):
+      check(torch.isfinite(out[key]).all().item() and
+            out[key].abs().max().item() > 0, f'request {i}: {key} finite')
+    check(tuple(out['pianoroll'].shape) == (1, N_FRAMES, 128),
+          f'request {i}: a piano roll [1, {N_FRAMES}, 128]')
+    check_q_pitch(torch, f'request {i}', out['q_pitch'], cpu_out['q_pitch'],
+                  cpu_out['z_pitch'])
+    # midi_audio of the card's q_pitch on both devices (a tie frame's other
+    # neighbour would be another note, not an error of the synthesis).
+    with torch.no_grad():
+      cpu_midi = cpu_model.midi_to_audio(
+          out['q_pitch'].cpu(), zeros,
+          noise=midi_noise_dict(torch, 1, 140 + i))
+    a, b = (rel_l2(out['synth_audio'].cpu(), cpu_out['synth_audio']),
+            rel_l2(out['midi_audio'].cpu(), cpu_midi))
+    print(f'  request {i}: synth_audio, midi_audio relative L2 to the CPU '
+          f'port {a:.3e}, {b:.3e}')
+    check(max(a, b) <= E2E_REL_L2,
+          f'request {i}: both audios within {E2E_REL_L2} of the CPU port')
+  recon_ms, times = timed_median(torch, lambda: request(model, clips[1], dev,
+                                                        41))
+  print(f'  reconstruction request ms: {[round(t, 3) for t in times]}')
+  print(f'  median ms per 4 s reconstruction request: {recon_ms:.3f}',
+        flush=True)
+  if profile:
+    profile_steps(torch, lambda: midi_request(model, notes[1], dev, 31), 3,
+                  midi_ms, 'MIDI request')
+    profile_steps(torch, lambda: request(model, clips[1], dev, 41), 3,
+                  recon_ms, 'reconstruction request')
+  return launches
+
+
+def midiae_training(torch, dev, cpu_model, save_dir, dense_ms,
+                    profile=False):
+  """TRAIN_STEPS Trainer.train_steps at BATCH x 4 s with a ground-truth
+  piano roll in the batch; a B = 2 step against the CPU port; step ms
+  beside phase 6's; a checkpoint in save_dir. Returns the launches."""
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import build_model, save_spec
+  batch = training_batch()
+  batch['note_active_velocities'] = midi_pianoroll(batch['f0_hz'])
+  save_spec(save_dir, 'midiae')
+  trainer = Trainer(build_model('midiae', seed=0), seed=0)
+  state = trainer.init()
+  reset_launches()
+  losses, times = [], []
+  for _ in range(TRAIN_STEPS):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, step_losses = trainer.train_step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    times.append(start.elapsed_time(end))
+    losses.append({k: v.item() for k, v in step_losses.items()})
+  launches = read_launches()
+  trainer.save(state, save_dir)
+  totals = [l['total_loss'] for l in losses]
+  print(f'  {trainer.param_count(state)} parameters; launches over '
+        f'{TRAIN_STEPS} steps: {launches}')
+  print(f'  loss keys {sorted(losses[0])}; total_loss per step: '
+        f'{[round(l, 3) for l in totals]}')
+  check(sorted(losses[0]) == ['amps_loss', 'f0_loss', 'hd_loss', 'noise_loss',
+                              'qpitch_f0rec_loss', 'synth_spectral_loss',
+                              'total_loss'],
+        'the midiae losses carry the JAX package\'s keys')
+  check(all(np.isfinite(totals)), 'every midiae loss finite')
+  want = {'K1f': 2, 'K1t': 1, 'K1p': 0, 'K2f': 0, 'K2b': 0, 'K2b_w': 0,
+          'K3': 0}
+  check(launches == {k: v * TRAIN_STEPS for k, v in want.items()},
+        f'per midiae step: {want} (both branches forward, only synth_audio '
+        'in a loss)')
+  step_ms = float(np.median(times[TRAIN_STEPS // 2:]))
+  print(f'  midiae step ms: {[round(t, 2) for t in times]}')
+  print(f'  median ms per midiae training step (the last {TRAIN_STEPS // 2})'
+        f': {step_ms:.3f} (phase 6\'s solo_instrument step {dense_ms:.3f}); '
+        f'audio samples/s trained: {BATCH * N_SAMPLES / (step_ms / 1e3):.4e}',
+        flush=True)
+  if profile:
+    profile_steps(torch, lambda: trainer.train_step(state, batch), 3,
+                  step_ms, 'midiae step')
+
+  # One step on the card against the port on the CPU, B = 2, one state
+  # dict and noise.
+  small = {k: torch.as_tensor(v[:2]) for k, v in batch.items()}
+  noise, midi_noise = (midi_noise_dict(torch, 2, 50),
+                       midi_noise_dict(torch, 2, 51))
+  gpu_model = build_model('midiae')
+  gpu_model.load_state_dict(cpu_model.state_dict())
+  gpu_small = {k: v.to(dev) for k, v in small.items()}
+  loss_gpu, grads_gpu = midiae_step(torch, gpu_model, gpu_small,
+                                    on(dev, noise), on(dev, midi_noise))
+  t0 = time.time()
+  loss_cpu, grads_cpu = midiae_step(torch, cpu_model, small, noise,
+                                    midi_noise)
+  print(f'  the CPU step took {time.time() - t0:.1f} s; total_loss GPU '
+        f'{loss_gpu:.5f} CPU {loss_cpu:.5f}')
+  check(all(torch.isfinite(g).all().item() for g in grads_gpu.values()),
+        'every midiae gradient finite')
+  check(abs(loss_gpu - loss_cpu) <= STEP_LOSS_RTOL * abs(loss_cpu),
+        f'the midiae step\'s total_loss within {STEP_LOSS_RTOL} of the CPU '
+        'port')
+  parts = ('synthcoder.', 'midi_encoder.', 'midi_decoder.', 'default_pg.')
+  full = {p: rel_l2(flat_grads(torch, grads_gpu, p),
+                    flat_grads(torch, grads_cpu, p)) for p in parts}
+  print(f'  full loss, GPU against CPU, relative L2: {full}')
+  check(max(full['midi_encoder.'], full['midi_decoder.']) <=
+        MIDI_NET_GRAD_RTOL,
+        f'the MIDI encoder\'s and decoder\'s gradients within '
+        f'{MIDI_NET_GRAD_RTOL} of the CPU port (no spectral term reaches '
+        'them)')
+  # The spectral term reaches the synthcoder and the reverb; with the
+  # logmag term it is conditioned by 1/|X| (check_ir_gradient), so the mag
+  # term alone is held, as phase 6g holds the ae's.
+  _, mag_gpu = midiae_step(torch, gpu_model, gpu_small, on(dev, noise),
+                           on(dev, midi_noise), mag_only=True)
+  _, mag_cpu = midiae_step(torch, cpu_model, small, noise, midi_noise,
+                           mag_only=True)
+  rels = {p: rel_l2(flat_grads(torch, mag_gpu, p),
+                    flat_grads(torch, mag_cpu, p))
+          for p in ('synthcoder.', 'default_pg.')}
+  print(f'  mag term only, GPU against CPU, relative L2: {rels}')
+  check(max(rels.values()) <= IR_MAG_STEP_RTOL,
+        f'the midiae step with the mag term only: the synthcoder\'s and the '
+        f'reverb\'s gradients within {IR_MAG_STEP_RTOL} of the CPU port')
+  return launches
+
+
+class RecordingMidiEvaluators:
+  """Wraps the MIDI evaluators' evaluate() to keep each batch's predicted
+  note sequences (the learned piano roll's, the heuristic's)."""
+
+  def __init__(self, learned, heuristic, frame_rate):
+    from ddsp_torch.eval.metrics import pianoroll_to_note_sequence
+    self.sequences = []
+
+    def learned_eval(batch, outputs, losses, fn=learned.evaluate):
+      self.sequences.append(('learned', [
+          pianoroll_to_note_sequence(p, frame_rate)
+          for p in outputs['pianoroll']]))
+      return fn(batch, outputs, losses)
+
+    def heuristic_eval(batch, outputs, losses, fn=heuristic.evaluate):
+      self.sequences.append(('heuristic',
+                             heuristic.compute_heuristic_notes(outputs)))
+      return fn(batch, outputs, losses)
+
+    learned.evaluate, heuristic.evaluate = learned_eval, heuristic_eval
+
+
+def note_tuples(sequences):
+  return [(kind, [[(n.pitch, n.start_time, n.end_time) for n in s.notes]
+                  for s in seqs]) for kind, seqs in sequences]
+
+
+def midiae_eval(torch, dev, work_dir, save_dir):
+  """evaluate_or_sample of the checkpoint, one batch of EVAL_BATCH of phase
+  6's tones with their piano roll, both MIDI evaluators; the predicted note
+  sequences against the CPU port's."""
+  from ddsp_torch.data import ArrayDataProvider
+  from ddsp_torch.eval import (BasicEvaluator, MidiAutoencoderEvaluator,
+                               MidiHeuristicEvaluator, evaluate_or_sample)
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import build_model
+  tones = training_batch(EVAL_BATCH, seed=3)
+  tones['note_active_velocities'] = midi_pianoroll(tones['f0_hz'])
+  provider = ArrayDataProvider([{k: v[i] for k, v in tones.items()}
+                                for i in range(EVAL_BATCH)])
+  noise = midi_noise_dict(torch, EVAL_BATCH, 60)
+  launches, results = {}, {}
+  for label, d in (('card', dev), ('cpu', torch.device('cpu'))):
+    evs = [BasicEvaluator(audio_key='synth_audio'),
+           MidiAutoencoderEvaluator(), MidiHeuristicEvaluator()]
+    recorder = RecordingMidiEvaluators(evs[1], evs[2], 250)
+    reset_launches()
+    t0 = time.time()
+    scalars = evaluate_or_sample(
+        provider, Trainer(build_model('midiae', seed=1, device=d), device=d),
+        os.path.join(work_dir, 'midiae_eval'), restore_dir=save_dir,
+        evaluators=evs, batch_size=EVAL_BATCH, num_batches=1,
+        noise=on(d, noise))
+    if label == 'card':
+      torch.cuda.synchronize()
+      launches['midiae_eval'] = read_launches()
+    results[label] = (scalars, note_tuples(recorder.sequences))
+    print(f'  eval on the {label}: {time.time() - t0:.2f} s; {scalars}')
+  scalars, sequences = results['card']
+  print(f'  eval launches {launches["midiae_eval"]}; predicted notes per '
+        'example (learned, heuristic): ' + str(
+            [[len(s) for s in seqs] for _, seqs in sequences]))
+  check(launches['midiae_eval']['K1f'] == 2 and
+        launches['midiae_eval']['K1t'] == 0,
+        'midiae eval: one batch through K1f twice, no backward kernel')
+  midi_keys = [k for k in scalars if k.startswith('metrics/midi/')]
+  check(len(midi_keys) == 18 and 'losses/total_loss' in scalars and
+        all(np.isfinite(v) for v in scalars.values()),
+        'midiae eval: the losses and both MIDI evaluators\' 18 metrics, '
+        'finite')
+  check(sequences == results['cpu'][1],
+        'the predicted note sequences (the learned piano roll\'s and the '
+        'heuristic\'s) equal the CPU port\'s')
+  check(scalars == results['cpu'][0] or all(
+      abs(v - results['cpu'][0][k]) <= EVAL_LOSS_RTOL * abs(v)
+      for k, v in scalars.items()),
+        'the eval scalars agree with the CPU port\'s (the MIDI metrics '
+        f'exactly, the losses within {EVAL_LOSS_RTOL})')
+  reset_launches()
+  evaluate_or_sample(provider, Trainer(build_model('midiae', seed=1)),
+                     os.path.join(work_dir, 'midiae_eval'),
+                     restore_dir=save_dir, mode='sample',
+                     batch_size=EVAL_BATCH, num_batches=1,
+                     noise=on(dev, noise))
+  torch.cuda.synchronize()
+  launches['midiae_sample'] = read_launches()
+  files = os.listdir(os.path.join(work_dir, 'midiae_eval', 'samples',
+                                  f'step_{TRAIN_STEPS}'))
+  print(f'  sample: launches {launches["midiae_sample"]}, '
+        f'{len(files)} files')
+  check(launches['midiae_sample']['K1f'] == 2 and
+        '0_midi_audio.wav' in files and '0_synth_audio.wav' in files,
+        'midiae sample: K1f twice, the MIDI and synth wavs written')
+  return launches
+
+
+def midiae_cli(torch, work_dir, pattern):
+  """ddsp-torch-run --preset midiae on phase 6c's records: CLI_AE_STEPS
+  steps, one eval batch; the serving classes refuse the directory."""
+  from ddsp_torch import run
+  from ddsp_torch.infer import AutoencoderInference, export_model
+  cli_dir = os.path.join(work_dir, 'cli_midiae')
+  common = ['--save_dir', cli_dir, '--data', f'tfrecord:{pattern}',
+            '--batch_size', str(BATCH)]
+  reset_launches()
+  state = run.main(['--mode', 'train', '--preset', 'midiae', '--num_steps',
+                    str(CLI_AE_STEPS), '--steps_per_summary', '1',
+                    '--steps_per_save', str(CLI_AE_STEPS)] + common)
+  torch.cuda.synchronize()
+  launches = {'cli_midiae_train': read_launches()}
+  print(f'  CLI midiae train: step {state.step}, launches '
+        f'{launches["cli_midiae_train"]}')
+  per_step = {'K1f': 2, 'K1t': 1, 'K1p': 0, 'K2f': 0, 'K2b': 0, 'K2b_w': 0,
+              'K3': 0}
+  check(state.step == CLI_AE_STEPS and launches['cli_midiae_train'] == {
+      k: v * CLI_AE_STEPS for k, v in per_step.items()},
+        f'the CLI trained midiae {CLI_AE_STEPS} steps, each {per_step}')
+  reset_launches()
+  out = run.main(['--mode', 'eval', '--run_once', '--num_eval_batches', '1']
+                 + common)
+  torch.cuda.synchronize()
+  launches['cli_midiae_eval'] = read_launches()
+  print(f'  CLI midiae eval: launches {launches["cli_midiae_eval"]}, {out}')
+  check(launches['cli_midiae_eval']['K1f'] == 2 and
+        np.isfinite(out['losses/total_loss']),
+        '--mode eval of midiae: one batch through K1f twice, a finite '
+        'total_loss')
+  for what, call in (
+      ('AutoencoderInference', lambda: AutoencoderInference(cli_dir)),
+      ("export_model fmt='params'", lambda: export_model(
+          cli_dir, os.path.join(work_dir, 'midiae_params'))),
+      ("export_model fmt='torch_export'", lambda: export_model(
+          cli_dir, os.path.join(work_dir, 'midiae_program'),
+          fmt='torch_export'))):
+    try:
+      call()
+      refused = ''
+    except ValueError as e:
+      refused = str(e)
+    print(f'  {what}: {refused[:120]}')
+    check('MidiAutoencoder' in refused and 'midi_to_audio' in refused,
+          f'{what} refuses the midiae directory, naming the forward and '
+          'midi_to_audio')
+  return launches
+
+
 # Phase 6h: the processors without a TPU kernel, each on the card against
 # the port on the CPU, forward and gradient with respect to every float
 # input (and ExpDecayReverb's parameters), batch 4 x 4 s.
@@ -4024,7 +4520,8 @@ def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--profile', action='store_true',
                       help='also print per-kernel device time over 3 requests, '
-                      '20 VST hops and 3 training steps')
+                      '20 VST hops and 3 training steps (and 3 midiae '
+                      'requests of each kind and steps)')
   parser.add_argument('--prefetch-pairs', type=int, default=0, metavar='N',
                       help='only time train() from the records with prefetch '
                       '0 against 2 in N pairs (phase 6c\'s timing), then '
@@ -4092,6 +4589,10 @@ def main(argv=None):
       launches.update(phase_ae(
           torch, dev, work_dir,
           os.path.join(work_dir, 'dataset', 'train.tfrecord*')))
+      launches.update(phase_midiae(
+          torch, dev, work_dir,
+          os.path.join(work_dir, 'dataset', 'train.tfrecord*'), dense_ms,
+          args.profile))
       phase_processors(torch, dev)
       phase_prepare(torch, dev, work_dir)
     phase_wide_gru_steps(torch, dev)

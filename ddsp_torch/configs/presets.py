@@ -1,4 +1,4 @@
-"""Model presets (port of ae, solo_instrument, tiny and vst,
+"""Model presets (port of ae, solo_instrument, tiny, vst and midiae,
 ddsp_tpu/configs/presets.py).
 
 Each preset builds its modules on the CPU; utils.build_model moves them to
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from ddsp_torch import losses as losses_lib
 from ddsp_torch import nn, proc
-from ddsp_torch.models import Autoencoder
+from ddsp_torch.models import Autoencoder, MarginLoss, MidiAutoencoder
 from ddsp_torch.utils.registry import register_preset
 
 
@@ -185,3 +185,71 @@ def vst(sample_rate: int = 16000,
       processor_group=proc.ProcessorGroup(dag),
       losses=(losses_lib.SpectralLoss(loss_type='L1', mag_weight=1.0,
                                       logmag_weight=1.0),))
+
+
+@register_preset('midiae')
+def midiae(n_samples: int = 64000,
+           sample_rate: int = 16000,
+           time_steps: int = 1000,
+           n_harmonics: int = 60,
+           n_noise_magnitudes: int = 65,
+           ch: int = 128,
+           layers_per_stack: int = 9,
+           stacks: int = 2,
+           reverb: bool = True,
+           reverb_length: int = 24000,
+           use_midi_encoder: bool = True) -> MidiAutoencoder:
+  """MidiAutoencoder: a dilated-conv synthcoder and a quantized-MIDI
+  bottleneck.
+
+  ddsp_tpu/configs/presets.py:223-287 (gin/models/midiae/midiae.gin and its
+  midi_encoder mixin): DilatedConvDecoder synthcoder (ch, layers_per_stack,
+  stacks, layer norm), HarmonicToMidiEncoder and MidiToHarmonicDecoder on
+  DilatedConvStack(ch, 5 layers, 4 stacks, layer norm), the reconstruction
+  LossGroup (spectral, f0, amps, hd and noise losses) and the q_pitch
+  margin loss; a trainable FilteredNoiseReverb. With
+  use_midi_encoder=False the MIDI comes from
+  features['note_active_velocities'] (URMP-style data).
+  """
+  midi_encoder = None
+  if use_midi_encoder:
+    midi_encoder = nn.HarmonicToMidiEncoder(
+        net=nn.DilatedConvStack(2 + n_harmonics + n_noise_magnitudes, ch=ch,
+                                layers_per_stack=5, stacks=4,
+                                norm_type='layer'))
+  recon_losses = losses_lib.LossGroup(dag=[
+      (losses_lib.SpectralLoss(loss_type='L1', mag_weight=1.0,
+                               logmag_weight=1.0,
+                               name='synth_spectral_loss'),
+       ['audio', 'synth_audio']),
+      (losses_lib.ParamLoss(weight=50.0, loss_type='L2', name='f0_loss'),
+       ['f0_midi', 'f0_midi_pred', 'f0_loss_weights']),
+      (losses_lib.ParamLoss(weight=0.5, name='amps_loss'),
+       ['amps', 'amps_pred']),
+      (losses_lib.ParamLoss(weight=500.0, name='hd_loss'),
+       ['hd', 'hd_pred']),
+      (losses_lib.ParamLoss(weight=0.5, name='noise_loss'),
+       ['noise', 'noise_pred']),
+  ])
+  return MidiAutoencoder(
+      preprocessor=nn.F0LoudnessPreprocessor(time_steps=time_steps,
+                                             sample_rate=sample_rate),
+      synthcoder=nn.DilatedConvDecoder(
+          ch=ch, layers_per_stack=layers_per_stack, stacks=stacks,
+          norm_type='layer', conditioning_keys=(),
+          input_keys=('ld_scaled', 'f0_scaled'),
+          output_splits=(('amplitudes', 1),
+                         ('harmonic_distribution', n_harmonics),
+                         ('magnitudes', n_noise_magnitudes))),
+      midi_encoder=midi_encoder,
+      midi_decoder=nn.MidiToHarmonicDecoder(
+          net=nn.DilatedConvStack(1, ch=ch, layers_per_stack=5, stacks=4,
+                                  norm_type='layer'),
+          f0_residual=True,
+          output_splits=(('f0_midi', 1), ('amplitudes', 1),
+                         ('harmonic_distribution', n_harmonics),
+                         ('magnitudes', n_noise_magnitudes))),
+      reconstruction_losses=recon_losses,
+      qpitch_f0rec_loss=MarginLoss(weight=50.0, margin=0.5),
+      n_samples=n_samples, sample_rate=sample_rate,
+      reverb=reverb, reverb_length=reverb_length)

@@ -12,13 +12,16 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ddsp_torch.eval.evaluators import (BaseEvaluator, BasicEvaluator,
-                                        F0LdEvaluator)
+                                        F0LdEvaluator,
+                                        MidiAutoencoderEvaluator,
+                                        MidiHeuristicEvaluator)
+from ddsp_torch.models.midi_autoencoder import MidiAutoencoder
 from ddsp_torch.parallel import sp_model
 from ddsp_torch.train.train_loop import MetricsWriter
 from ddsp_torch.utils import checkpoints
@@ -64,6 +67,26 @@ def to_host(tree: Any) -> Any:
   return tree
 
 
+def default_evaluators(model, data_provider, device,
+                       batch: Dict[str, Any]) -> List[BaseEvaluator]:
+  """[BasicEvaluator, F0LdEvaluator] on `device`, as in the JAX loop.
+
+  A MidiAutoencoder has no 'audio_synth' (the JAX loop's evaluators fail
+  on its outputs with a KeyError): it gets BasicEvaluator on its audio
+  ('synth_audio'), and MidiAutoencoderEvaluator and MidiHeuristicEvaluator
+  where the batches carry the ground-truth 'note_active_velocities'.
+  """
+  rates = (data_provider.sample_rate, data_provider.frame_rate)
+  if not isinstance(model, MidiAutoencoder):
+    return [BasicEvaluator(*rates), F0LdEvaluator(*rates, device=device)]
+  audio_key = 'midi_audio' if model.midi_decoder is None else 'synth_audio'
+  evaluators = [BasicEvaluator(*rates, audio_key=audio_key)]
+  if 'note_active_velocities' in batch:
+    evaluators += [MidiAutoencoderEvaluator(*rates, db_key=model.db_key),
+                   MidiHeuristicEvaluator(*rates)]
+  return evaluators
+
+
 def evaluate_or_sample(data_provider,
                        trainer,
                        save_dir: str,
@@ -85,8 +108,9 @@ def evaluate_or_sample(data_provider,
     save_dir: Where to write summaries and samples.
     restore_dir: Checkpoint directory (defaults to save_dir).
     mode: 'eval' (metrics) or 'sample' (audio/image artifacts).
-    evaluators: Evaluator instances; default [BasicEvaluator,
-      F0LdEvaluator] on the trainer's device.
+    evaluators: Evaluator instances; default `default_evaluators` (for
+      most models [BasicEvaluator, F0LdEvaluator] on the trainer's
+      device).
     batch_size: Eval batch size.
     num_batches: Batches per checkpoint.
     ckpt_delay_secs: Poll interval.
@@ -111,17 +135,14 @@ def evaluate_or_sample(data_provider,
   if mode not in ('eval', 'sample'):
     raise ValueError(f"mode must be 'eval' or 'sample', got {mode!r}.")
   restore_dir = restore_dir or save_dir
-  if evaluators is None:
-    evaluators = [
-        BasicEvaluator(data_provider.sample_rate, data_provider.frame_rate),
-        F0LdEvaluator(data_provider.sample_rate, data_provider.frame_rate,
-                      device=trainer.device),
-    ]
 
   # A fixed evaluation set: the same batches for every checkpoint, so the
   # metric curve follows the model, not the data.
   iterator = data_provider.get_batch(batch_size, shuffle=False, repeats=-1)
   eval_batches = [next(iterator) for _ in range(num_batches)]
+  if evaluators is None:
+    evaluators = default_evaluators(trainer.model, data_provider,
+                                    trainer.device, eval_batches[0])
   state = trainer.init(eval_batches[0])
   writer = MetricsWriter(os.path.join(save_dir, mode))
   model = trainer.model

@@ -1,16 +1,19 @@
 """Evaluator classes dispatched by the eval loop.
 
-Port of ddsp_tpu/eval/evaluators.py: BaseEvaluator, BasicEvaluator and
-F0LdEvaluator. Evaluators take host (numpy) batches and outputs.
+Port of ddsp_tpu/eval/evaluators.py: BaseEvaluator, BasicEvaluator,
+F0LdEvaluator, MidiAutoencoderEvaluator and MidiHeuristicEvaluator.
+Evaluators take host (numpy) batches and outputs.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from typing import Any, Dict
 
 import numpy as np
 
+from ddsp_torch.eval import heuristics
 from ddsp_torch.eval import metrics as metrics_lib
 from ddsp_torch.eval import summaries
 from ddsp_torch.utils.device import DeviceLike
@@ -52,18 +55,21 @@ class BaseEvaluator:
 
 
 class BasicEvaluator(BaseEvaluator):
-  """Mean losses + audio sample artifacts."""
+  """Mean losses + audio sample artifacts (of outputs[audio_key]; the
+  MIDI autoencoders' audio is 'synth_audio')."""
 
-  def __init__(self, sample_rate=16000, frame_rate=250):
+  def __init__(self, sample_rate=16000, frame_rate=250,
+               audio_key: str = 'audio_synth'):
     super().__init__(sample_rate, frame_rate)
     self._loss_sums: Dict[str, list] = {}
+    self._audio_key = audio_key
 
   def evaluate(self, batch, outputs, losses):
     for k, v in losses.items():
       self._loss_sums.setdefault(k, []).append(float(v))
 
   def sample(self, batch, outputs, save_dir, step):
-    audio_gen = np.asarray(outputs['audio_synth'])
+    audio_gen = np.asarray(outputs[self._audio_key])
     offset = self._next_sample_offset(step, len(audio_gen))
     summaries.sample_batch(save_dir, step, batch, audio_gen,
                            self._sample_rate, offset=offset)
@@ -146,3 +152,71 @@ class F0LdEvaluator(BaseEvaluator):
     if self._f0_gen_metrics is not None:
       results.update(self._f0_gen_metrics.flush(step))
     return results
+
+
+class MidiAutoencoderEvaluator(BaseEvaluator):
+  """MIDI note metrics of the model's piano roll, and audio and plot
+  artifacts, for the MidiAutoencoder. The ground truth is the outputs'
+  'note_active_velocities' (the batch's, passed through the model)."""
+
+  def __init__(self, sample_rate=16000, frame_rate=250,
+               db_key='loudness_db', f0_key='f0_hz'):
+    super().__init__(sample_rate, frame_rate)
+    self._midi_metrics = metrics_lib.MidiMetrics(
+        frames_per_second=frame_rate, tag='learned')
+    self._db_key = db_key
+    self._f0_key = f0_key
+
+  def evaluate(self, batch, outputs, losses):
+    del losses
+    self._midi_metrics.update_state(outputs,
+                                    np.asarray(outputs['pianoroll']))
+
+  def sample(self, batch, outputs, save_dir, step):
+    offset = self._next_sample_offset(step, len(batch['audio']))
+    for k in ['midi_audio', 'synth_audio']:
+      if k in outputs and outputs[k] is not None:
+        summaries.sample_batch(save_dir, step, batch,
+                               np.asarray(outputs[k]), self._sample_rate,
+                               name=k, offset=offset)
+    # Pitch, loudness and synth-control plots, numbered by the same global
+    # offset so that successive eval batches keep their figures.
+    out_dir = os.path.join(save_dir, 'samples', f'step_{step}')
+    if self._f0_key in batch:
+      summaries.midiae_f0_summary(out_dir, np.asarray(batch[self._f0_key]),
+                                  outputs, offset=offset)
+    if self._db_key in batch:
+      summaries.midiae_ld_summary(out_dir, np.asarray(batch[self._db_key]),
+                                  outputs, db_key=self._db_key,
+                                  offset=offset)
+    summaries.midiae_sp_summary(out_dir, outputs, offset=offset)
+
+  def flush(self, step):
+    return self._midi_metrics.flush(step)
+
+
+class MidiHeuristicEvaluator(BaseEvaluator):
+  """MIDI note metrics of notes segmented by heuristics from the synth
+  controls (midi_heuristic, mean f0, median amplitude)."""
+
+  def __init__(self, sample_rate=16000, frame_rate=250):
+    super().__init__(sample_rate, frame_rate)
+    self._midi_metrics = metrics_lib.MidiMetrics(
+        tag='heuristic', frames_per_second=frame_rate)
+
+  def compute_heuristic_notes(self, outputs):
+    """One heuristics.NoteSequence per example of the outputs."""
+    return heuristics.segment_notes_batch(
+        binarize_f=heuristics.midi_heuristic,
+        pick_f0_f=heuristics.mean_f0,
+        pick_amps_f=heuristics.median_amps,
+        controls_batch=outputs,
+        frame_rate=self._frame_rate)
+
+  def evaluate(self, batch, outputs, losses):
+    del losses
+    self._midi_metrics.update_state(outputs,
+                                    self.compute_heuristic_notes(outputs))
+
+  def flush(self, step):
+    return self._midi_metrics.flush(step)

@@ -1,14 +1,15 @@
-"""Evaluation metrics: loudness and f0 (numpy-side, outside the model).
+"""Evaluation metrics: loudness, f0 and MIDI (numpy-side, outside the model).
 
-Port of the f0 and loudness half of ddsp_tpu/eval/metrics.py. Loudness and
-CREPE's f0 are computed by the port's torch ops on the metric's `device`
-(CUDA unless the caller says otherwise); YIN, the distances and RPA/RCA
+Port of ddsp_tpu/eval/metrics.py. Loudness and CREPE's f0 are computed by
+the port's torch ops on the metric's `device` (CUDA unless the caller says
+otherwise); YIN, the distances, RPA/RCA and the MIDI note and frame counts
 are numpy. Raw/chroma pitch accuracy follow mir_eval.melody's definition
-(50-cent tolerance).
+(50-cent tolerance), note matching mir_eval.transcription's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Any, Dict, Optional
 
@@ -27,6 +28,10 @@ OUTLIER_MIDI_THRESH = 12
 
 def _hz_to_midi(f0_hz) -> np.ndarray:
   return ops_core.hz_to_midi(np.asarray(f0_hz)).numpy()
+
+
+def _midi_to_hz(notes) -> np.ndarray:
+  return ops_core.midi_to_hz(np.asarray(notes)).numpy()
 
 
 def _loudness(audio, sample_rate: int, frame_rate: int, device,
@@ -389,3 +394,259 @@ class F0CrepeMetrics(F0GenMetrics):
                device: DeviceLike = None):
     super().__init__(sample_rate, frame_rate, name, estimator='crepe',
                      device=device)
+
+
+# ------------------------------------------------------------------------------
+# MIDI transcription metrics (mir_eval.transcription semantics, native)
+# ------------------------------------------------------------------------------
+@dataclasses.dataclass
+class EvalCounts:
+  """Aggregated true-positive / false-positive / false-negative counts."""
+
+  tp: int
+  fp: int
+  fn: int
+
+  def add(self, other: 'EvalCounts'):
+    self.tp += other.tp
+    self.fp += other.fp
+    self.fn += other.fn
+
+  @property
+  def precision(self) -> float:
+    return self.tp / max(self.tp + self.fp, 1)
+
+  @property
+  def recall(self) -> float:
+    return self.tp / max(self.tp + self.fn, 1)
+
+  @property
+  def f1(self) -> float:
+    # Note: the reference clamps the denominator to 1 (metrics.py:374-377),
+    # which understates F1 whenever precision + recall < 1; this only
+    # guards division by zero.
+    return (2 * self.precision * self.recall) / max(
+        self.precision + self.recall, 1e-8)
+
+
+def match_notes(ref_intervals: np.ndarray, ref_pitches_hz: np.ndarray,
+                est_intervals: np.ndarray, est_pitches_hz: np.ndarray,
+                onset_tolerance: float = 0.05,
+                pitch_tolerance: float = 50.0,
+                offset_ratio: Optional[float] = 0.2,
+                offset_min_tolerance: float = 0.05) -> list:
+  """Match reference and estimated notes (mir_eval.transcription semantics).
+
+  A pair matches when onsets are within onset_tolerance seconds, pitches
+  within pitch_tolerance cents, and (if offset_ratio is not None) offsets
+  within max(offset_min_tolerance, offset_ratio * ref duration). Maximum
+  bipartite matching via scipy.
+
+  Returns:
+    List of (ref_idx, est_idx) matched pairs.
+  """
+  from scipy.sparse import csr_matrix  # pylint: disable=g-import-not-at-top
+  from scipy.sparse.csgraph import maximum_bipartite_matching  # pylint: disable=g-import-not-at-top
+
+  n_ref, n_est = len(ref_pitches_hz), len(est_pitches_hz)
+  if n_ref == 0 or n_est == 0:
+    return []
+
+  onset_ok = (np.abs(ref_intervals[:, 0][:, None] -
+                     est_intervals[:, 0][None, :]) <= onset_tolerance)
+  cents = 1200 * np.abs(np.log2(
+      np.maximum(est_pitches_hz[None, :], 1e-8) /
+      np.maximum(ref_pitches_hz[:, None], 1e-8)))
+  pitch_ok = cents <= pitch_tolerance
+  hits = onset_ok & pitch_ok
+  if offset_ratio is not None:
+    durations = ref_intervals[:, 1] - ref_intervals[:, 0]
+    offset_tol = np.maximum(offset_ratio * durations, offset_min_tolerance)
+    offset_ok = (np.abs(ref_intervals[:, 1][:, None] -
+                        est_intervals[:, 1][None, :]) <=
+                 offset_tol[:, None])
+    hits = hits & offset_ok
+
+  if not hits.any():
+    return []
+  graph = csr_matrix(hits)
+  match = maximum_bipartite_matching(graph, perm_type='column')
+  return [(i, int(match[i])) for i in range(n_ref) if match[i] != -1]
+
+
+def sequence_to_intervals(sequence):
+  """NoteSequence -> (intervals [n, 2], pitches [n], velocities [n])."""
+  notes = sequence.notes
+  intervals = np.zeros((len(notes), 2))
+  pitches = np.zeros(len(notes))
+  velocities = np.zeros(len(notes))
+  for i, note in enumerate(notes):
+    intervals[i] = [note.start_time, note.end_time]
+    pitches[i] = note.pitch
+    velocities[i] = note.velocity
+  return intervals, pitches, velocities
+
+
+def compute_note_metrics(gt_sequence, pred_sequence):
+  """(onset-only, onset+offset) EvalCounts between two NoteSequences."""
+  gt_intervals, gt_pitches, _ = sequence_to_intervals(gt_sequence)
+  pred_intervals, pred_pitches, _ = sequence_to_intervals(pred_sequence)
+  gt_hz = _midi_to_hz(gt_pitches)
+  pred_hz = _midi_to_hz(pred_pitches)
+
+  onset_matching = match_notes(gt_intervals, gt_hz, pred_intervals, pred_hz,
+                               offset_ratio=None)
+  onset_counts = EvalCounts(tp=len(onset_matching),
+                            fp=len(pred_pitches) - len(onset_matching),
+                            fn=len(gt_pitches) - len(onset_matching))
+
+  offset_matching = match_notes(gt_intervals, gt_hz, pred_intervals,
+                                pred_hz)
+  full_counts = EvalCounts(tp=len(offset_matching),
+                           fp=len(pred_pitches) - len(offset_matching),
+                           fn=len(gt_pitches) - len(offset_matching))
+  return onset_counts, full_counts
+
+
+def compute_frame_metrics(gt_pianoroll: np.ndarray,
+                          pred_pianoroll: np.ndarray) -> EvalCounts:
+  """Framewise note-activity counts (assumes monophonic audio)."""
+  gt_arr = np.squeeze(gt_pianoroll).max(axis=1)
+  pred_arr = np.squeeze(pred_pianoroll).max(axis=1)
+  assert gt_arr.shape == pred_arr.shape
+  tp = int(np.logical_and(pred_arr > 0, gt_arr > 0).sum())
+  fp = int(np.logical_and(pred_arr > 0, gt_arr == 0).sum())
+  fn = int(np.logical_and(pred_arr == 0, gt_arr > 0).sum())
+  return EvalCounts(tp, fp, fn)
+
+
+def pianoroll_to_note_sequence(pianoroll: np.ndarray, frames_per_second):
+  """Monophonic-ish pianoroll [time, 128] -> heuristics.NoteSequence."""
+  from ddsp_torch.eval.heuristics import Note, NoteSequence  # pylint: disable=g-import-not-at-top
+  pianoroll = np.asarray(pianoroll)
+  sequence = NoteSequence(total_time=pianoroll.shape[0] / frames_per_second)
+  for pitch in range(pianoroll.shape[1]):
+    active = pianoroll[:, pitch] > 0
+    if not active.any():
+      continue
+    edges = np.diff(np.concatenate([[0], active.astype(int), [0]]))
+    starts = np.where(edges == 1)[0]
+    ends = np.where(edges == -1)[0]
+    for s, e in zip(starts, ends):
+      sequence.notes.append(Note(pitch=pitch,
+                                 start_time=s / frames_per_second,
+                                 end_time=e / frames_per_second))
+  sequence.notes.sort(key=lambda n: n.start_time)
+  return sequence
+
+
+def note_sequence_to_pianoroll(sequence, frames_per_second,
+                               n_frames: Optional[int] = None,
+                               n_pitches: int = 128) -> np.ndarray:
+  """heuristics.NoteSequence -> binary pianoroll [time, n_pitches]."""
+  if n_frames is None:
+    n_frames = int(np.ceil(sequence.total_time * frames_per_second))
+  roll = np.zeros((n_frames, n_pitches), np.float32)
+  for note in sequence.notes:
+    s = int(round(note.start_time * frames_per_second))
+    e = int(round(note.end_time * frames_per_second))
+    if 0 <= note.pitch < n_pitches:
+      roll[s:e, note.pitch] = 1.0
+  return roll
+
+
+class MidiMetrics:
+  """Note on/off and framewise P/R/F1 for MIDI predictions.
+
+  Reference metrics.py:437 (MidiMetrics): accepts NoteSequences or
+  pianorolls for predictions, aligns ground-truth note boundaries to the
+  extracted f0 track, and reports onset / full-note / frame metrics.
+  """
+
+  def __init__(self, frames_per_second, tag: str,
+               align_midi_with_f0: bool = True):
+    self.tag = tag
+    self.note_counts = EvalCounts(0, 0, 0)
+    self.note_offset_counts = EvalCounts(0, 0, 0)
+    self.frame_counts = EvalCounts(0, 0, 0)
+    self._frames_per_second = frames_per_second
+    self._align_midi_with_f0 = align_midi_with_f0
+
+  def _to_sequence(self, representation):
+    from ddsp_torch.eval.heuristics import NoteSequence  # pylint: disable=g-import-not-at-top
+    if isinstance(representation, NoteSequence):
+      return representation
+    return pianoroll_to_note_sequence(np.asarray(representation),
+                                      self._frames_per_second)
+
+  def _to_pianoroll(self, representation, n_frames=None):
+    if isinstance(representation, np.ndarray):
+      return representation
+    if hasattr(representation, 'notes'):
+      return note_sequence_to_pianoroll(representation,
+                                        self._frames_per_second, n_frames)
+    return np.asarray(representation)
+
+  def align_midi_with_f0(self, gt_sequence, f0):
+    """Snap ground-truth note boundaries to matching f0 frames."""
+    sr = self._frames_per_second
+    f0_midi = np.round(_hz_to_midi(np.squeeze(f0)))
+    notes = gt_sequence.notes
+    for i, note in enumerate(notes):
+      lower = int(notes[i - 1].end_time * sr) if i > 0 else 0
+      upper = int(note.end_time * sr)
+      for j in range(lower, min(upper, len(f0_midi))):
+        if int(f0_midi[j]) == note.pitch:
+          note.start_time = float(j) / sr
+          break
+      lower = int(note.start_time * sr)
+      upper = (int(notes[i + 1].start_time * sr) if i < len(notes) - 1
+               else len(f0_midi) - 1)
+      for j in range(min(upper, len(f0_midi) - 1), lower, -1):
+        if int(f0_midi[j]) == note.pitch:
+          note.end_time = float(j) / sr
+          break
+    return gt_sequence
+
+  def update_state(self, controls_batch: Dict[str, Any], pred_seq_batch,
+                   gt_key: str = 'note_active_velocities', ch=None):
+    gt_pianoroll_batch = np.asarray(controls_batch[gt_key])
+    for i in range(len(pred_seq_batch)):
+      if ch is None:
+        pred = pred_seq_batch[i]
+        gt_pianoroll = gt_pianoroll_batch[i]
+      else:
+        pred = pred_seq_batch[i][..., ch]
+        gt_pianoroll = gt_pianoroll_batch[i][..., ch]
+
+      gt_sequence = self._to_sequence(gt_pianoroll)
+      pred_sequence = self._to_sequence(pred)
+      if self._align_midi_with_f0 and 'f0_hz' in controls_batch:
+        gt_sequence = self.align_midi_with_f0(
+            gt_sequence, np.asarray(controls_batch['f0_hz'])[i])
+
+      onset_counts, full_counts = compute_note_metrics(gt_sequence,
+                                                       pred_sequence)
+      self.note_counts.add(onset_counts)
+      self.note_offset_counts.add(full_counts)
+
+      gt_len = np.asarray(gt_pianoroll).shape[0]
+      pred_pianoroll = self._to_pianoroll(pred_sequence, n_frames=gt_len)
+      self.frame_counts.add(compute_frame_metrics(
+          np.asarray(gt_pianoroll), pred_pianoroll[:gt_len]))
+
+  def flush(self, step: int) -> Dict[str, float]:
+    results = {}
+    for counts, prefix in [
+        (self.note_counts, f'metrics/midi/{self.tag}/onset'),
+        (self.note_offset_counts, f'metrics/midi/{self.tag}/full_note'),
+        (self.frame_counts, f'metrics/midi/{self.tag}/frame')]:
+      results[f'{prefix}/f1'] = counts.f1
+      results[f'{prefix}/precision'] = counts.precision
+      results[f'{prefix}/recall'] = counts.recall
+      logger.info('step %d %s f1=%.3f p=%.3f r=%.3f', step, prefix,
+                  counts.f1, counts.precision, counts.recall)
+    self.note_counts = EvalCounts(0, 0, 0)
+    self.note_offset_counts = EvalCounts(0, 0, 0)
+    self.frame_counts = EvalCounts(0, 0, 0)
+    return results

@@ -51,10 +51,26 @@ def load_params(save_dir: str) -> Dict[str, np.ndarray]:
           for k, v in restored['params'].items()}
 
 
-def refuse_audio_encoder(model: torch.nn.Module, save_dir: str) -> None:
-  """Raise if the model's encoder reads audio (the ae preset's MFCC
-  encoder): features alone cannot drive it. The JAX package fails on such
-  a directory with a KeyError for 'audio'."""
+def refuse_audio_input(model: torch.nn.Module, save_dir: str) -> None:
+  """Raise if features alone cannot drive the model.
+
+  Two kinds: a model whose encoder reads audio (the ae preset's MFCC
+  encoder), on which the JAX package fails with a KeyError for 'audio';
+  and a MidiAutoencoder (the midiae preset), whose preprocessor computes
+  loudness from the audio (the JAX class drops the compute_loudness_fresh
+  mutation, as the preset does not take it, and fails with the same
+  KeyError).
+  """
+  # pylint: disable=g-import-not-at-top
+  from ddsp_torch.models.midi_autoencoder import MidiAutoencoder
+  if isinstance(model, MidiAutoencoder):
+    raise ValueError(
+        f'The model in {save_dir!r} is a MidiAutoencoder (the midiae '
+        'preset): its preprocessor computes loudness from \'audio\', and '
+        'AutoencoderInference and export_model serve models from (f0_hz, '
+        'loudness_db) features only. Reconstruct audio through the model\'s '
+        'forward (model(batch, training=False)) on batches that hold the '
+        'audio, or render notes with model.midi_to_audio(q_pitch, q_vel).')
   encoder = getattr(model, 'encoder', None)
   if encoder is not None and 'audio' in getattr(encoder, 'input_keys', ()):
     raise ValueError(
@@ -77,8 +93,9 @@ class AutoencoderInference:
   angular cumsum (bounded phase error on long renders) and
   compute_loudness_fresh=False (features carry loudness), and optionally
   removes the room reverb. A model whose encoder reads audio (the ae
-  preset) raises a ValueError: it runs through its forward on batches
-  that hold the audio, or evaluate_or_sample.
+  preset), or a MidiAutoencoder (midiae), raises a ValueError: it runs
+  through its forward on batches that hold the audio, or evaluate_or_sample
+  (and midiae renders notes through its midi_to_audio).
 
   Call with {'f0_hz': [n_frames], 'loudness_db': [n_frames]}-style features
   (1-D inputs are taken as one unbatched request). With no `noise`,
@@ -115,7 +132,7 @@ class AutoencoderInference:
                 if k.split('/')[0] in _KEYS_WITHOUT_REVERB}
     self.model = registry.model_from_spec(save_dir, device='cpu',
                                           **mutations)
-    refuse_audio_encoder(self.model, save_dir)
+    refuse_audio_input(self.model, save_dir)
     load_jax_params(self.model, params)
     self.model.to(self.device).eval()
 

@@ -1,6 +1,11 @@
 """Network modules (port of ddsp_tpu.nn)."""
 
-from ddsp_torch.nn.decoders import RnnFcDecoder
+from ddsp_torch.nn import stops
+from ddsp_torch.nn.decoders import (DilatedConvDecoder, FcStackDecoder,
+                                    MidiDecoder, MidiToHarmonicDecoder,
+                                    RnnFcDecoder)
+from ddsp_torch.nn.dilated_conv import (DilatedConvStack, PolyphaseResample,
+                                        SpectralNorm, polyphase_resample)
 from ddsp_torch.nn.encoders import (AggregateFeaturesEncoder,
                                     ExpressionEncoder, HarmonicToMidiEncoder,
                                     MfccEncoder, MfccRnnEncoder,
@@ -20,8 +25,12 @@ from ddsp_torch.nn.preprocessing import (F0LoudnessPreprocessor,
 from ddsp_torch.nn.resnet import (ConditionalNorm, ConditionalScaleAndShift,
                                   NormReluConv, ResidualLayer, ResidualStack,
                                   ResNet)
+from ddsp_torch.nn.vq import VectorQuantization
 
-__all__ = ['RnnFcDecoder', 'AggregateFeaturesEncoder', 'ExpressionEncoder',
+__all__ = ['stops', 'DilatedConvDecoder', 'FcStackDecoder', 'MidiDecoder',
+           'MidiToHarmonicDecoder', 'RnnFcDecoder', 'DilatedConvStack',
+           'PolyphaseResample', 'SpectralNorm', 'polyphase_resample',
+           'VectorQuantization', 'AggregateFeaturesEncoder', 'ExpressionEncoder',
            'HarmonicToMidiEncoder', 'MfccEncoder', 'MfccRnnEncoder',
            'MfccTimeDistributedRnnEncoder', 'MidiEncoder', 'OneHotEncoder',
            'ResnetSinusoidalEncoder', 'SinusoidalToHarmonicEncoder',

@@ -71,17 +71,21 @@ class DictModule(nn.Module):
   Subclasses set `input_keys` / `output_keys` and implement
   `compute(*tensors)` returning a tuple (matched to output_keys) or a dict.
   Calling the module with a features dict looks the inputs up by key.
+  `training` reaches compute only where a subclass sets takes_training, as
+  the JAX modules take it (or drop it into **unused_kwargs).
   """
 
   input_keys: Tuple[str, ...] = ()
   output_keys: Tuple[str, ...] = ()
+  takes_training = False
 
-  def forward(self, *args) -> TensorDict:
+  def forward(self, *args, training: bool = False) -> TensorDict:
     if len(args) == 1 and isinstance(args[0], dict):
       inputs = [nested_lookup(k, args[0]) for k in self.input_keys]
     else:
       inputs = list(args)
-    outputs = self.compute(*inputs)
+    kwargs = {'training': training} if self.takes_training else {}
+    outputs = self.compute(*inputs, **kwargs)
     if isinstance(outputs, dict):
       return outputs
     if not isinstance(outputs, (tuple, list)):

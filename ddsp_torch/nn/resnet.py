@@ -10,6 +10,7 @@ the larger after).
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -18,6 +19,7 @@ from torch import nn
 from ddsp_torch.nn.layers import (Dense, Normalize, ensure_4d,
                                   get_nonlinearity, lecun_normal_,
                                   normalize_op)
+from ddsp_torch.ops.core import full_float32
 
 
 def same_padding(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -27,31 +29,127 @@ def same_padding(size: int, k: int, s: int) -> Tuple[int, int]:
   return total // 2, total - total // 2
 
 
+def transpose_same_padding(k: int, s: int) -> Tuple[int, int]:
+  """lax.conv_transpose's 'SAME' padding (before, after) of one axis of the
+  stride-dilated input."""
+  pad_len = k + s - 2
+  pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
+  return pad_a, pad_len - pad_a
+
+
+def init_kernel_(kernel: torch.Tensor, kernel_init: str = 'lecun_normal',
+                 generator: Optional[torch.Generator] = None):
+  """flax's initializers of a [..., in, out] kernel: 'lecun_normal',
+  'glorot_uniform' (fans over the receptive field) or 'orthogonal' (the
+  kernel as a [prod(shape[:-1]), out] matrix)."""
+  receptive = math.prod(kernel.shape[:-2])
+  fan_in, fan_out = receptive * kernel.shape[-2], receptive * kernel.shape[-1]
+  with torch.no_grad():
+    if kernel_init == 'lecun_normal':
+      lecun_normal_(kernel, fan_in, generator)
+    elif kernel_init == 'glorot_uniform':
+      limit = math.sqrt(6.0 / (fan_in + fan_out))
+      kernel.uniform_(-limit, limit, generator=generator)
+    elif kernel_init == 'orthogonal':
+      matrix = torch.empty(fan_in, kernel.shape[-1])
+      nn.init.orthogonal_(matrix, generator=generator)
+      kernel.copy_(matrix.reshape(kernel.shape))
+    else:
+      raise ValueError(f'Unknown kernel_init {kernel_init!r}.')
+
+
+class _Float32Conv2d(torch.autograd.Function):
+  """conv2d (no padding) whose forward and backward both run in full float32
+  (`full_float32`): the process's TF32 setting reaches neither."""
+
+  @staticmethod
+  def forward(ctx, x, weight, bias, stride, dilation):
+    ctx.save_for_backward(x, weight)
+    ctx.conf = (stride, dilation)
+    with full_float32():
+      return torch.nn.functional.conv2d(x, weight, bias, stride, 0, dilation)
+
+  @staticmethod
+  def backward(ctx, grad):
+    x, weight = ctx.saved_tensors
+    stride, dilation = ctx.conf
+    with full_float32():
+      gx, gw, gb = torch.ops.aten.convolution_backward(
+          grad, x, weight, [weight.shape[0]], list(stride), [0, 0],
+          list(dilation), False, [0, 0], 1, list(ctx.needs_input_grad[:3]))
+    return gx, gw, gb, None, None
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           stride=(1, 1), dilation=(1, 1),
+           float32: bool = False) -> torch.Tensor:
+  """torch conv2d of NCHW x (already padded); pinned to full float32 both
+  ways when `float32` is set."""
+  if float32:
+    return _Float32Conv2d.apply(x, weight, bias, tuple(stride),
+                                tuple(dilation))
+  return torch.nn.functional.conv2d(x, weight, bias, stride, 0, dilation)
+
+
 class Conv(nn.Module):
-  """flax.linen.Conv on NHWC with 'SAME' padding and strides (1, s)."""
+  """flax.linen.Conv on NHWC with 'SAME' padding, strides and kernel
+  dilation. kernel_init names flax's initializer; full_float32 pins the
+  convolution's precision both ways (`conv2d`)."""
 
   def __init__(self, in_features: int, features: int,
-               kernel_size: Tuple[int, int], strides: Tuple[int, int] = (1, 1)):
+               kernel_size: Tuple[int, int], strides: Tuple[int, int] = (1, 1),
+               kernel_dilation: Tuple[int, int] = (1, 1),
+               kernel_init: str = 'lecun_normal', full_float32: bool = False):
     super().__init__()
     self.strides = tuple(strides)
+    self.kernel_dilation = tuple(kernel_dilation)
+    self.kernel_init = kernel_init
+    self.full_float32 = full_float32
     self.kernel = nn.Parameter(torch.empty(*kernel_size, in_features,
                                            features))
     self.bias = nn.Parameter(torch.empty(features))
     self.reset_parameters()
 
   def reset_parameters(self, generator: Optional[torch.Generator] = None):
-    kh, kw, cin, _ = self.kernel.shape
+    init_kernel_(self.kernel, self.kernel_init, generator)
     with torch.no_grad():
-      lecun_normal_(self.kernel, kh * kw * cin, generator)
       self.bias.zero_()
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    kh, kw = self.kernel.shape[:2]
-    (sh, sw), (h, w) = self.strides, x.shape[1:3]
-    ph, pw = same_padding(h, kh, sh), same_padding(w, kw, sw)
+  def forward(self, x: torch.Tensor,
+              kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x [B, H, W, in] -> [B, H', W', out]; `kernel` replaces the
+    parameter (a spectrally normalized one)."""
+    kernel = self.kernel if kernel is None else kernel
+    kh, kw = kernel.shape[:2]
+    (sh, sw), (dh, dw) = self.strides, self.kernel_dilation
+    h, w = x.shape[1:3]
+    ph = same_padding(h, (kh - 1) * dh + 1, sh)
+    pw = same_padding(w, (kw - 1) * dw + 1, sw)
     x = torch.nn.functional.pad(x.permute(0, 3, 1, 2), pw + ph)
-    y = torch.nn.functional.conv2d(x, self.kernel.permute(3, 2, 0, 1),
-                                   self.bias, stride=self.strides)
+    y = conv2d(x, kernel.permute(3, 2, 0, 1), self.bias, self.strides,
+               self.kernel_dilation, self.full_float32)
+    return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(Conv):
+  """flax.linen.ConvTranspose (lax.conv_transpose, transpose_kernel=False)
+  on NHWC with 'SAME' padding: the input dilated by the strides, padded as
+  lax pads it and correlated with the kernel as stored, unflipped. An
+  input of H x W gives H * sh x W * sw."""
+
+  def forward(self, x: torch.Tensor,
+              kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    kernel = self.kernel if kernel is None else kernel
+    kh, kw = kernel.shape[:2]
+    (sh, sw), (dh, dw) = self.strides, self.kernel_dilation
+    b, h, w, c = x.shape
+    dilated = x.new_zeros(b, c, (h - 1) * sh + 1, (w - 1) * sw + 1)
+    dilated[:, :, ::sh, ::sw] = x.permute(0, 3, 1, 2)
+    pads = (transpose_same_padding((kw - 1) * dw + 1, sw) +
+            transpose_same_padding((kh - 1) * dh + 1, sh))
+    y = conv2d(torch.nn.functional.pad(dilated, pads),
+               kernel.permute(3, 2, 0, 1), self.bias,
+               dilation=self.kernel_dilation, float32=self.full_float32)
     return y.permute(0, 2, 3, 1)
 
 

@@ -5,12 +5,26 @@ Port of ddsp_tpu/ops/core.py.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
 
 DB_RANGE = 80.0
+
+
+@contextlib.contextmanager
+def full_float32():
+  """cuDNN convolutions and matmuls in full float32 (no TF32) inside the
+  block, whatever the process set; the settings are restored after."""
+  cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+  saved = (cudnn.allow_tf32, matmul.allow_tf32)
+  cudnn.allow_tf32 = matmul.allow_tf32 = False
+  try:
+    yield
+  finally:
+    cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def torch_float32(x: Any, device=None) -> torch.Tensor:

@@ -17,7 +17,6 @@ process's TF32 settings (`full_float32`).
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 from typing import Any, Dict, List, Optional, Tuple
@@ -28,6 +27,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ddsp_torch.ops import hmm as hmm_ops
+from ddsp_torch.ops.core import full_float32
 from ddsp_torch.utils.device import DeviceLike, resolve_device
 
 CREPE_SAMPLE_RATE = 16000
@@ -218,19 +218,6 @@ def load_weights(path: str, model_capacity: str = 'tiny') -> Dict[str, Any]:
         f'Weights file {path!r} has {got} conv1 filters but capacity '
         f'{model_capacity!r} expects {expected}.')
   return variables
-
-
-@contextlib.contextmanager
-def full_float32():
-  """cuDNN convolutions and matmuls in full float32 (no TF32) inside the
-  block, whatever the process set; the settings are restored after."""
-  cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-  saved = (cudnn.allow_tf32, matmul.allow_tf32)
-  cudnn.allow_tf32 = matmul.allow_tf32 = False
-  try:
-    yield
-  finally:
-    cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def activations_to_f0_and_confidence(
