@@ -25,7 +25,8 @@ Phases (any failed check exits non-zero before the result lines):
      plain PyTorch versions, both dtypes, at H = 512, T = 1000 and B in
      {1, 4, 16, 40, 128} (a ragged tile, and past the old kernels' batch
      limit) and at H = 64, T = 24; bf16 at H = 512, T = 125 (the ae
-     encoder's GRU), B in {1, 16}; bf16 at H = 96 and 384 (the cluster
+     encoder's GRU), B in {1, 16}, and T = 250 (the inverse_synthesis
+     RnnSandwich's GRU), B in {1, 16, 32}; bf16 at H = 96 and 384 (the cluster
      kernels, zero-padded to 128 and 512) and 1024 (the cooperative
      kernels), B in {1, 16, 40}, and float32 at H = 1024, B = 16; the
      launches of each route; with bf16 streams K2b's two passes, the
@@ -137,6 +138,23 @@ Phases (any failed check exits non-zero before the result lines):
      MidiHeuristicEvaluator, the predicted note sequences against the CPU
      port's, and one sample batch; ddsp-torch-run --preset midiae, 2 steps
      and an eval; the serving classes refuse the directory;
+  6j. the inverse_synthesis preset at full width (a ResNet sinusoidal
+     encoder over 250 log-mel frames, 100 sinusoids, an RnnSandwich's GRU
+     of 512 over the 250 frames, 100 harmonics), full float32 pinned for
+     the process, one state dict from torch.Generator(0) on the card and on
+     the CPU: 4 requests of 4 s at B = 1 on phase 6's tones (K2f once),
+     their controls against the CPU port and each level's audio against the
+     CPU port's synthesis of the card's controls (the audio against the CPU
+     port's own printed), ms per request; 24 Trainer.train_steps at
+     16 x 4 s on each of three feeds (phase 6's tones; synthetic notes at
+     250 frames; both zipped, 32 rows), K2f, K2b and its weight-gradient
+     pass once a step, median ms, peak memory, the ratio to phase 6's step;
+     a zipped step of 2 + 2 rows against the CPU port (every loss term; the
+     encoders' gradients with the mag term alone); evaluate_or_sample of
+     the self-supervised checkpoint with the default evaluators
+     (BasicEvaluator, TWMEvaluator), the TWM f0 on the card against the
+     CPU; ddsp-torch-run --preset inverse_synthesis --data synthetic_notes,
+     2 steps and an eval; the serving classes refuse the directory;
   6h. the processors without a TPU kernel (TensorToAudio, Wavetable,
      Sinusoidal, ExpDecayReverb, FIRFilter, ModDelay, Mix) at batch 4 x
      4 s, forward and gradient on the card against the CPU port, no kernel
@@ -187,6 +205,9 @@ TRAIN_STEPS = 24
 # its Harmonic has 100 harmonics.
 AE_Z_STEPS = 125
 AE_HARMONICS = 100
+# The inverse_synthesis preset (phase 6j): its RnnSandwich's GRU runs over
+# the encoder's log-mel frames at 4 s (hop 256).
+INV_FRAMES = 250
 # K1f sums up to 60 harmonics whose sines come from the Chebyshev recurrence
 # against the plain version's sinf of h * phase (the JAX package's tolerance
 # for its Pallas kernel against its jnp path).
@@ -757,10 +778,13 @@ def k2_route_name(torch, hidden, dtype):
 # K2 cases of phase 3: (H, T, batches, dtypes). H = 512 and 64 are the
 # cluster kernels' own sizes; 96 and 384 run on them zero-padded (to 128
 # and 512); 1024 is past any cluster and takes the cooperative kernels, in
-# bf16 and in float32. T = 125 is the ae encoder's GRU (its MFCC frames).
+# bf16 and in float32. T = 125 is the ae encoder's GRU (its MFCC frames),
+# T = 250 the inverse_synthesis RnnSandwich's at a request's, a step's and
+# a zipped step's batch.
 K2_CASES = (
     (HIDDEN, N_FRAMES, (1, 4, 16, 40, 128), ('float32', 'bfloat16')),
     (HIDDEN, AE_Z_STEPS, (1, 16), ('bfloat16',)),
+    (HIDDEN, INV_FRAMES, (1, 16, 32), ('bfloat16',)),
     (64, 24, (1, 4, 16, 40, 128), ('float32', 'bfloat16')),
     (96, N_FRAMES, (1, 16), ('bfloat16',)),
     (96, 24, (40,), ('bfloat16',)),
@@ -775,8 +799,8 @@ K2_CASES = (
 def phase_k2(torch, dev):
   from ddsp_torch.kernels import gru as kg
   print('[3] K2 fused GRU vs plain: forward and backward, both dtypes, '
-        'H in {64, 96, 384, 512, 1024}, B in {1, 4, 16, 40, 128}, T in '
-        '{24, 125, 1000}', flush=True)
+        'H in {64, 96, 384, 512, 1024}, B in {1, 4, 16, 32, 40, 128}, T in '
+        '{24, 125, 250, 1000}', flush=True)
   for hidden in (HIDDEN, 64):
     for backward in (False, True):
       c = kg.pick_cluster(dev, hidden, backward)
@@ -3453,6 +3477,574 @@ def midiae_cli(torch, work_dir, pattern):
   return launches
 
 
+# Phase 6j: the inverse_synthesis preset (magenta/ddsp
+# gin/papers/icml2020/pretrain_model.gin, DDSP-INV) at full width: a
+# ResnetSinusoidalEncoder ('small') over a 229-bin log mel of 250 frames at
+# 4 s with heads of 100 x 64 frequency logits, 100 amplitudes and 65 noise
+# bands; a SinusoidalToHarmonicEncoder on an RnnSandwich (FcStacks of 256,
+# a GRU of 512 over the 250 frames: K2f, and K2b with its weight-gradient
+# pass in a step) with 100 harmonics; a Sinusoidal + FilteredNoise group
+# run at both levels (plain torch: no TPU kernel computes it); SpectralLoss,
+# KDE, harmonic and filtered-noise consistency; 60 583 882 parameters. The
+# phase pins full float32 for the process (cuDNN's and the matmuls' TF32
+# off) and restores the settings after: the 6400-wide frequency head's
+# logits pass through a softmax over 64 bins into every sinusoid's
+# frequency, and a relative departure of a frequency is multiplied by the
+# phase it integrates (~1e4 rad at 4 s).
+INV_REQUESTS = 4
+INV_SINUSOIDS = 100
+INV_NOISE = 65
+INV_STEP_BATCH = 2    # the rows of each half of the step held against the CPU
+# The controls of the card against the CPU port, relative L2: the sinusoidal
+# level's (ResNet and heads in full float32: sums in another order; 1.8e-6
+# at most on an H100) and the harmonic level's (the RnnSandwich's GRU on
+# bf16 streams, K2 against its plain version, whose h agree to
+# K2_ATOL['bfloat16']: f0_hz 3.7e-4, harm_amp 5.3e-4 at most on an H100).
+# harm_dist is held on the frames where both devices mute the same
+# harmonics: normalize_harmonics mutes a harmonic at or above Nyquist and
+# renormalizes the frame, so a harmonic within f0's departure of 8 kHz is
+# muted on one device only and moves its whole frame (1.7e-3 without such
+# a frame, 1.7e-2 and 3.5e-2 over all frames with one, on an H100). The
+# frames muted apart are counted and their f0 held at this tolerance.
+INV_SIN_CONTROLS_RTOL = 1e-3
+INV_HARM_CONTROLS_RTOL = 2e-2
+# The audio of the card's controls against the CPU port's synthesis of the
+# same controls: the same plain torch code, but the two devices round the
+# resampled frequency envelopes apart by an ulp (1e-7), which the float64
+# phase sum carries into up to ~2e5 rad (8 kHz over 4 s): ~1e-2 rad at the
+# top, and the phase's own float32 spacing there is 7.8e-3 rad (3.6e-4
+# and 2.1e-3 measured on an H100 at the two levels).
+INV_SYNTH_RTOL = 1e-2
+# The B = 2 + 2 zipped step's gradients, card against the CPU port. The
+# synthesis departs between the devices (INV_SYNTH_RTOL), and two paths
+# magnify it, so these are printed and not held: the harmonic encoder's
+# gradient through the SpectralLoss reaches f0 through the phase of every
+# harmonic, and the card's f0 departs by ~3.5e-4 (the GRU's bf16 streams),
+# which moves an upper harmonic's phase by radians over 4 s (harm_audio
+# departs by ~0.6, the mag term's gradient of the harmonic encoder by 3.2
+# on an H100); and the synthetic rows' audio, synthesized on each device,
+# reaches the sinusoidal encoder, whose self-supervised KDE gradient
+# (gaussians of 0.1 semitone) departs by 4.4e-2. Held at IR_MAG_STEP_RTOL:
+# the sinusoidal encoder with the mag term (1.5e-3), the harmonic encoder
+# with the consistency losses alone (the controls against each other and
+# the ground truth, no phase: 2.0e-3), and the harmonic level's mag term
+# from one set of controls, the card's, on both devices: its gradient with
+# respect to f0_hz, harm_amp and harm_dist (inv_harm_mag_witness; the same
+# gradient from the CPU port's own controls, and from the card's with the
+# CPU port's f0 alone, is printed beside it as the measure of the cause).
+# The TWM f0 of one eval example's sinusoids, card against CPU: the frames
+# whose f0 differs (a near-tie of two candidates' losses can go either way).
+INV_TWM_FRAMES_ATOL = 0.01
+
+
+def inv_noise(torch, batch, seed):
+  """One processor-group call's FilteredNoise draw, [batch, 64000] in
+  [-1, 1), made on the host."""
+  return torch.rand((batch, N_SAMPLES),
+                    generator=torch.Generator().manual_seed(seed)) * 2 - 1
+
+
+def inv_notes(batch, seed):
+  """Self-supervised controls at the encoder's 250 frames (the preset's 100
+  sinusoids and harmonics, 65 noise bands) from SyntheticNotesProvider,
+  made on the host."""
+  from ddsp_torch.data.multi import SyntheticNotesProvider
+  provider = SyntheticNotesProvider(INV_FRAMES, INV_SINUSOIDS, INV_NOISE,
+                                    n_examples=batch, seed=seed,
+                                    device='cpu')
+  return next(provider.get_batch(batch, shuffle=False))
+
+
+def inv_on(torch, feats, d):
+  """A feed (a dict, or a tuple of dicts) as float32 tensors on d."""
+  if isinstance(feats, tuple):
+    return tuple(inv_on(torch, f, d) for f in feats)
+  return {k: torch.as_tensor(np.asarray(v, np.float32)).to(d)
+          for k, v in feats.items()}
+
+
+def inv_harm_dist(torch, out, cpu_out):
+  """harm_dist of the card against the CPU port: (relative L2 over the
+  frames where both devices mute the same harmonics at Nyquist, the frames
+  muted apart, the largest relative f0 departure on those frames)."""
+  nyquist = SR / 2.0
+  muted_g = out['harm_freqs'].cpu() >= nyquist
+  muted_c = cpu_out['harm_freqs'] >= nyquist
+  same = (muted_g == muted_c).all(dim=-1)
+  rel = rel_l2(out['harm_dist'].cpu()[same], cpu_out['harm_dist'][same])
+  f0_g, f0_c = out['f0_hz'].cpu()[..., 0].double(), cpu_out['f0_hz'][
+      ..., 0].double()
+  apart = ~same
+  f0_apart = ((f0_g[apart] - f0_c[apart]).abs() / f0_c[apart]).max().item() \
+      if apart.any() else 0.0
+  return rel, int(apart.sum()), f0_apart
+
+
+def inv_resynthesize(torch, cpu_model, out, level, noise):
+  """The CPU port's processor group on the card's controls of one level."""
+  amps, freqs = (('sin_amps', 'sin_freqs') if level == 'sin' else
+                 ('harm_amps', 'harm_freqs'))
+  with torch.no_grad():
+    return cpu_model.processor_group({
+        'amplitudes': out[amps].cpu(), 'frequencies': out[freqs].cpu(),
+        'noise_magnitudes': out['noise_magnitudes'].cpu()}, noise=noise)
+
+
+def phase_inverse_synthesis(torch, dev, work_dir, dense_ms, profile=False):
+  """[6j] the inverse_synthesis preset: requests, training on the plain,
+  self-supervised and zipped feeds, a B = 2 step against the CPU port, an
+  eval batch (TWMEvaluator and the default evaluators), the CLI, and the
+  serving classes' refusal. Returns the launches of each path."""
+  from ddsp_torch.utils import build_model
+  print(f'[6j] inverse_synthesis (full width, float32 pinned, the GRU on '
+        f'bf16 streams): {INV_REQUESTS} requests of 4 s, {TRAIN_STEPS} '
+        f'training steps at {BATCH} x 4 s on each of three feeds, a B = '
+        f'{INV_STEP_BATCH} step against the CPU port, eval, the CLI',
+        flush=True)
+  saved = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  try:
+    cpu_model = build_model('inverse_synthesis', device='cpu', seed=0)
+    model = build_model('inverse_synthesis')
+    model.load_state_dict(cpu_model.state_dict())
+    model.eval()
+    launches = inv_requests(torch, dev, model, cpu_model, profile)
+    save_dir = os.path.join(work_dir, 'inv_train')
+    launches.update(inv_training(torch, dev, cpu_model, save_dir, dense_ms,
+                                 profile))
+    inv_step_against_cpu(torch, dev, cpu_model)
+    launches.update(inv_eval(torch, dev, work_dir, save_dir))
+    launches.update(inv_cli(torch, work_dir))
+  finally:
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+  return launches
+
+
+def inv_requests(torch, dev, model, cpu_model, profile=False):
+  """INV_REQUESTS requests of 4 s at B = 1 on phase 6's tones: the forward
+  of both levels (audio in, explicit noise), against the CPU port."""
+  clips = training_batch(INV_REQUESTS, seed=11)['audio']
+
+  def request(m, i, d):
+    with torch.no_grad():
+      return m({'audio': torch.from_numpy(clips[i:i + 1]).to(d)},
+               training=False, noise=inv_noise(torch, 1, 70 + i).to(d),
+               harmonic_noise=inv_noise(torch, 1, 80 + i).to(d))
+
+  lengths, unhook = gru_lengths(torch, model)
+  reset_launches()
+  outs = [request(model, i, dev) for i in range(INV_REQUESTS)]
+  torch.cuda.synchronize()
+  launches = {'inv_request': read_launches()}
+  unhook()
+  print(f'  launches over {INV_REQUESTS} requests: '
+        f'{launches["inv_request"]}; FastGRU (module, T, dtype): '
+        f'{lengths[:1]}')
+  check(launches['inv_request'] == {
+      'K1f': 0, 'K1t': 0, 'K1p': 0, 'K2f': INV_REQUESTS, 'K2b': 0,
+      'K2b_w': 0, 'K3': 0},
+        'each inverse_synthesis request launched K2f once (the '
+        'RnnSandwich\'s GRU) and no other kernel')
+  check(lengths[:1] == [('harmonic_encoder.net.Rnn_0.FastGRU_0', INV_FRAMES,
+                         torch.bfloat16)],
+        f'the RnnSandwich\'s GRU runs bf16 over the encoder\'s {INV_FRAMES} '
+        'frames')
+  for i, out in enumerate(outs):
+    cpu_out = request(cpu_model, i, 'cpu')
+    for key in ('sin_audio', 'harm_audio'):
+      check(tuple(out[key].shape) == (1, N_SAMPLES) and
+            torch.isfinite(out[key]).all().item() and
+            out[key].abs().max().item() > 0,
+            f'request {i}: {key} [1, {N_SAMPLES}] finite, not silent')
+    check(tuple(out['sin_freqs'].shape) == (1, INV_FRAMES, INV_SINUSOIDS) and
+          tuple(out['f0_hz'].shape) == (1, INV_FRAMES, 1),
+          f'request {i}: {INV_SINUSOIDS} sinusoids and an f0 at '
+          f'{INV_FRAMES} frames')
+    controls = {k: rel_l2(out[k].cpu(), cpu_out[k])
+                for k in ('sin_freqs', 'sin_amps', 'noise_magnitudes',
+                          'f0_hz', 'harm_amp', 'harm_dist')}
+    dist_same, n_apart, f0_apart = inv_harm_dist(torch, out, cpu_out)
+    sin_c = max(controls['sin_freqs'], controls['sin_amps'],
+                controls['noise_magnitudes'])
+    harm_c = max(controls['f0_hz'], controls['harm_amp'], dist_same,
+                 f0_apart)
+    audio = {k: rel_l2(out[k].cpu(), cpu_out[k])
+             for k in ('sin_audio', 'harm_audio')}
+    synth = {lv: rel_l2(out[f'{lv}_audio'].cpu(), inv_resynthesize(
+        torch, cpu_model, out, lv, inv_noise(
+            torch, 1, (70 if lv == 'sin' else 80) + i)))
+             for lv in ('sin', 'harm')}
+    cpu_f0 = rel_l2(inv_resynthesize(torch, cpu_model, dict(
+        out, harm_freqs=cpu_out['harm_freqs']), 'harm', inv_noise(
+            torch, 1, 80 + i)), inv_resynthesize(
+                torch, cpu_model, out, 'harm', inv_noise(torch, 1, 80 + i)))
+    print(f'  request {i}, card against the CPU port, relative L2: '
+          'controls ' + ', '.join(f'{k} {v:.3e}' for k, v in controls.items())
+          + f' (harm_dist {dist_same:.3e} on the frames muted alike, '
+          f'{n_apart} frame(s) muted apart, their f0 {f0_apart:.3e} apart)'
+          '; audio '
+          f'(printed) sin_audio {audio["sin_audio"]:.3e}, harm_audio '
+          f'{audio["harm_audio"]:.3e}; the card\'s controls re-synthesized '
+          f'on the CPU: sin {synth["sin"]:.3e}, harm {synth["harm"]:.3e}; '
+          f'(printed) with the CPU port\'s harmonic frequencies in place of '
+          f'the card\'s, harm {cpu_f0:.3e}')
+    check(sin_c <= INV_SIN_CONTROLS_RTOL and harm_c <= INV_HARM_CONTROLS_RTOL,
+          f'request {i}: the sinusoidal controls within '
+          f'{INV_SIN_CONTROLS_RTOL} and the harmonic ones (f0_hz, harm_amp, '
+          f'harm_dist on the frames muted alike, f0 on those muted apart) '
+          f'within {INV_HARM_CONTROLS_RTOL} of the CPU port')
+    check(max(synth.values()) <= INV_SYNTH_RTOL,
+          f'request {i}: both levels\' audio within {INV_SYNTH_RTOL} of the '
+          'CPU port\'s synthesis of the same controls')
+  request_ms, times = timed_median(torch, lambda: request(model, 1, dev))
+  print(f'  inverse_synthesis request ms: {[round(t, 3) for t in times]}')
+  print(f'  median ms per 4 s inverse_synthesis request: {request_ms:.3f}',
+        flush=True)
+  if profile:
+    profile_steps(torch, lambda: request(model, 1, dev), 3, request_ms,
+                  'inverse_synthesis request')
+  return launches
+
+
+def inv_feeds():
+  """The three training feeds at BATCH x 4 s: phase 6's tones, synthetic
+  notes at the encoder's frames, and both zipped (2 x BATCH rows)."""
+  audio = {'audio': training_batch()['audio']}
+  notes = inv_notes(BATCH, seed=5)
+  return {'plain': audio, 'self_supervised': notes,
+          'zipped': (audio, notes)}
+
+
+def inv_training(torch, dev, cpu_model, save_dir, dense_ms, profile=False):
+  """TRAIN_STEPS Trainer.train_steps on each feed from the same start;
+  median ms, peak memory and launches per feed; the self-supervised run's
+  checkpoint in save_dir. Returns the launches ('inv_train_<feed>')."""
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import build_model, save_spec
+  save_spec(save_dir, 'inverse_synthesis')
+  model = build_model('inverse_synthesis')
+  launches = {}
+  ss_keys = ['harm_spectral_loss', 'kde_consistency_loss',
+             'sin_spectral_loss', 'ss_f0_hz_loss',
+             'ss_filtered_noise_consistency_loss', 'ss_harm_amp_loss',
+             'ss_harm_dist_loss', 'ss_kde_consistency_loss', 'total_loss']
+  keys = {'plain': ['harm_spectral_loss', 'kde_consistency_loss',
+                    'sin_spectral_loss', 'total_loss'],
+          'self_supervised': ss_keys, 'zipped': ss_keys}
+  for feed, batch in inv_feeds().items():
+    model.load_state_dict(cpu_model.state_dict())
+    trainer = Trainer(model, seed=0)
+    state = trainer.init()
+    batch = inv_on(torch, batch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      state, step_losses = trainer.train_step(state, batch)
+      end.record()
+      torch.cuda.synchronize()
+      times.append(start.elapsed_time(end))
+      losses.append({k: v.item() for k, v in step_losses.items()})
+    launches[f'inv_train_{feed}'] = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    totals = [l['total_loss'] for l in losses]
+    step_ms = float(np.median(times[TRAIN_STEPS // 2:]))
+    rows = 2 * BATCH if feed == 'zipped' else BATCH
+    print(f'  {feed} ({rows} rows): launches over {TRAIN_STEPS} steps '
+          f'{launches[f"inv_train_{feed}"]}; loss keys {sorted(losses[0])}')
+    print(f'  {feed}: total_loss per step {[round(l, 2) for l in totals]}')
+    print(f'  {feed}: step ms {[round(t, 2) for t in times]}')
+    print(f'  {feed}: median ms per step (the last {TRAIN_STEPS // 2}) '
+          f'{step_ms:.3f}, {step_ms / dense_ms:.3f}x phase 6\'s '
+          f'solo_instrument step ({dense_ms:.3f}); peak device memory '
+          f'{peak_gb:.2f} GiB (torch.cuda.max_memory_allocated)', flush=True)
+    check(sorted(losses[0]) == keys[feed],
+          f'the {feed} feed\'s losses carry the JAX package\'s keys')
+    check(all(np.isfinite(totals)), f'every {feed} loss finite')
+    want = {'K1f': 0, 'K1t': 0, 'K1p': 0, 'K2f': 1, 'K2b': 1, 'K2b_w': 1,
+            'K3': 0}
+    check(launches[f'inv_train_{feed}'] == {k: v * TRAIN_STEPS
+                                            for k, v in want.items()},
+          f'per {feed} step: {want} (one forward of all rows, the GRU '
+          'through K2f, K2b and its weight-gradient pass)')
+    if profile:
+      profile_steps(torch, lambda: trainer.train_step(state, batch), 3,
+                    step_ms, f'inverse_synthesis {feed} step')
+    if feed == 'self_supervised':
+      trainer.save(state, save_dir)
+  return launches
+
+
+def inv_step(torch, model, feats, noise, terms='all'):
+  """One zipped training forward/backward: (losses, {name: grad}). terms:
+  'all' (the preset's losses), 'mag' (the SpectralLoss with its mag term
+  only, the consistency losses kept) or 'consistency' (no SpectralLoss)."""
+  saved = model.losses
+  if terms == 'mag':
+    model.losses = mag_only_losses(torch, model).to(
+        next(model.parameters()).device)
+  elif terms == 'consistency':
+    model.losses = torch.nn.ModuleList()
+  try:
+    _, losses = model(feats, training=True, return_losses=True, **noise)
+  finally:
+    model.losses = saved
+  named = list(model.named_parameters())
+  grads = torch.autograd.grad(losses['total_loss'], [p for _, p in named],
+                              allow_unused=True)
+  return ({k: v.item() for k, v in losses.items()},
+          {n: g for (n, _), g in zip(named, grads) if g is not None})
+
+
+def inv_harm_level(torch, model, feats, noise):
+  """The zipped step's harmonic level on the model's device, every row, no
+  gradient: (the audio its loss compares against, the controls)."""
+  real, synthetic = model.parse_zipped_features(feats)
+  with torch.no_grad():
+    audio = torch.cat([real['audio'], model.generate_synthetic_audio(
+        synthetic, noise['synthetic_noise'])], dim=0)
+    out = model.forward_levels({'audio': audio}, training=True,
+                               noise=noise['noise'],
+                               harmonic_noise=noise['harmonic_noise'])
+  return audio, {k: out[k] for k in ('f0_hz', 'harm_amp', 'harm_dist',
+                                     'noise_magnitudes')}
+
+
+def inv_harm_mag_grads(torch, model, target, controls, noise):
+  """d (the SpectralLoss's mag term on the harmonic level's audio) /
+  d (f0_hz, harm_amp, harm_dist), from the given controls on the model's
+  device, flattened into one float64 vector each on the host."""
+  from ddsp_torch.ops.oscillator import get_harmonic_frequencies
+  leaves = {k: controls[k].detach().clone().requires_grad_(True)
+            for k in ('f0_hz', 'harm_amp', 'harm_dist')}
+  audio = model.processor_group({
+      'frequencies': get_harmonic_frequencies(
+          leaves['f0_hz'], int(leaves['harm_dist'].shape[-1])),
+      'amplitudes': leaves['harm_amp'] * leaves['harm_dist'],
+      'noise_magnitudes': controls['noise_magnitudes']}, noise=noise)
+  loss = mag_only_losses(torch, model).to(target.device)[0](target, audio)
+  grads = torch.autograd.grad(loss, list(leaves.values()))
+  return {k: g.double().flatten().cpu() for k, g in zip(leaves, grads)}
+
+
+def inv_harm_mag_witness(torch, gpu_model, cpu_model, gpu_feats, cpu_feats,
+                         gpu_noise, noise):
+  """The harmonic level's mag-term gradient with respect to its controls,
+  card against the CPU port from the card's controls (held at
+  IR_MAG_STEP_RTOL); printed beside it, the CPU port's from its own
+  controls and from the card's with its own f0 alone."""
+  target_g, controls_g = inv_harm_level(torch, gpu_model, gpu_feats,
+                                        gpu_noise)
+  target_c, controls_c = inv_harm_level(torch, cpu_model, cpu_feats, noise)
+  card_on_cpu = {k: v.cpu() for k, v in controls_g.items()}
+  card = inv_harm_mag_grads(torch, gpu_model, target_g, controls_g,
+                            gpu_noise['harmonic_noise'])
+  same = inv_harm_mag_grads(torch, cpu_model, target_g.cpu(), card_on_cpu,
+                            noise['harmonic_noise'])
+  own = inv_harm_mag_grads(torch, cpu_model, target_c, controls_c,
+                           noise['harmonic_noise'])
+  cpu_f0 = inv_harm_mag_grads(
+      torch, cpu_model, target_g.cpu(),
+      dict(card_on_cpu, f0_hz=controls_c['f0_hz']), noise['harmonic_noise'])
+  rels = {name: {k: rel_l2(g[k], same[k]) for k in same}
+          for name, g in (('card', card), ('cpu_own_controls', own),
+                          ('cpu_f0_only', cpu_f0))}
+  f0_rel = rel_l2(controls_g['f0_hz'].cpu(), controls_c['f0_hz'])
+  print('  the harmonic level\'s mag-term gradient with respect to its '
+        'controls, relative L2 against the CPU port\'s from the card\'s '
+        f'controls: the card\'s {rels["card"]}; (printed) the CPU port\'s '
+        f'from its own controls {rels["cpu_own_controls"]}, from the card\'s '
+        f'with its own f0 (f0_hz {f0_rel:.3e} apart) '
+        f'{rels["cpu_f0_only"]}', flush=True)
+  check(max(rels['card'].values()) <= IR_MAG_STEP_RTOL,
+        'the harmonic level\'s mag-term gradient with respect to f0_hz, '
+        f'harm_amp and harm_dist within {IR_MAG_STEP_RTOL} of the CPU '
+        'port\'s from the same controls')
+
+
+def inv_step_against_cpu(torch, dev, cpu_model):
+  """A zipped step of INV_STEP_BATCH + INV_STEP_BATCH rows on the card
+  against the CPU port, one state dict and noise: every loss term; the
+  sinusoidal encoder's gradients with the SpectralLoss's mag term alone,
+  the harmonic encoder's with the consistency losses alone, and the
+  harmonic level's mag-term gradient with respect to its controls from
+  the same controls (the others printed; the comment above
+  INV_TWM_FRAMES_ATOL says why)."""
+  from ddsp_torch.utils import build_model
+  b = INV_STEP_BATCH
+  feats = ({'audio': training_batch(b, seed=21)['audio']},
+           inv_notes(b, seed=22))
+  noise = {'synthetic_noise': inv_noise(torch, b, 90),
+           'noise': inv_noise(torch, 2 * b, 91),
+           'harmonic_noise': inv_noise(torch, 2 * b, 92)}
+  gpu_model = build_model('inverse_synthesis')
+  gpu_model.load_state_dict(cpu_model.state_dict())
+  gpu_feats, gpu_noise = inv_on(torch, feats, dev), {
+      k: v.to(dev) for k, v in noise.items()}
+  results = {}
+  for terms in ('all', 'mag', 'consistency'):
+    t0 = time.time()
+    cpu = inv_step(torch, cpu_model, inv_on(torch, feats, 'cpu'), noise,
+                   terms)
+    cpu_s = time.time() - t0
+    results[terms] = (inv_step(torch, gpu_model, gpu_feats, gpu_noise,
+                               terms), cpu)
+    print(f'  the CPU step ({terms} terms) took {cpu_s:.1f} s')
+  (losses_gpu, grads_gpu), (losses_cpu, _) = results['all']
+  rels = {k: abs(losses_gpu[k] - v) / abs(v) for k, v in losses_cpu.items()}
+  print('  zipped step, B = 2 + 2, each loss term GPU (CPU, relative): ' +
+        ', '.join(f'{k} {losses_gpu[k]:.5f} ({v:.5f}, {rels[k]:.2e})'
+                  for k, v in losses_cpu.items()))
+  check(sorted(losses_gpu) == sorted(losses_cpu) and
+        max(rels.values()) <= STEP_LOSS_RTOL,
+        f'every loss term of the zipped step within {STEP_LOSS_RTOL} of the '
+        'CPU port')
+  check(all(torch.isfinite(g).all().item() for g in grads_gpu.values()),
+        'every inverse_synthesis gradient finite')
+  parts = ('sinusoidal_encoder.', 'harmonic_encoder.')
+  grad_rels = {}
+  for terms, ((_, g_gpu), (_, g_cpu)) in results.items():
+    grad_rels[terms] = {p: rel_l2(flat_grads(torch, g_gpu, p),
+                                  flat_grads(torch, g_cpu, p))
+                        for p in parts}
+    print(f'  {terms} terms, gradients GPU against CPU, relative L2: '
+          f'{grad_rels[terms]}')
+  check(grad_rels['mag']['sinusoidal_encoder.'] <= IR_MAG_STEP_RTOL,
+        f'the zipped step with the mag term only: the sinusoidal encoder\'s '
+        f'gradients within {IR_MAG_STEP_RTOL} of the CPU port')
+  check(grad_rels['consistency']['harmonic_encoder.'] <= IR_MAG_STEP_RTOL,
+        f'the zipped step with the consistency losses only: the harmonic '
+        f'encoder\'s gradients within {IR_MAG_STEP_RTOL} of the CPU port')
+  inv_harm_mag_witness(torch, gpu_model, cpu_model, gpu_feats,
+                       inv_on(torch, feats, 'cpu'), gpu_noise, noise)
+
+
+def inv_eval(torch, dev, work_dir, save_dir):
+  """evaluate_or_sample of the self-supervised checkpoint: one batch of
+  EVAL_BATCH synthetic notes at the encoder's frames through the default
+  evaluators (BasicEvaluator on harm_audio, TWMEvaluator on the card); the
+  TWM f0 of one example on the card against the CPU."""
+  from ddsp_torch.data.multi import SyntheticNotesProvider
+  from ddsp_torch.eval import evaluate_or_sample
+  from ddsp_torch.eval import eval_util
+  from ddsp_torch.losses import TWMLoss
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import build_model
+  provider = SyntheticNotesProvider(INV_FRAMES, INV_SINUSOIDS, INV_NOISE,
+                                    n_examples=EVAL_BATCH, seed=23,
+                                    device='cpu')
+  trainer = Trainer(build_model('inverse_synthesis', seed=1))
+  chosen = eval_util.default_evaluators(
+      trainer.model, provider, dev,
+      next(provider.get_batch(EVAL_BATCH, shuffle=False)))
+  reset_launches()
+  t0 = time.time()
+  scalars = evaluate_or_sample(provider, trainer,
+                               os.path.join(work_dir, 'inv_eval'),
+                               restore_dir=save_dir, evaluators=chosen,
+                               batch_size=EVAL_BATCH, num_batches=1,
+                               noise=inv_noise(torch, EVAL_BATCH, 93).to(dev))
+  torch.cuda.synchronize()
+  seconds = time.time() - t0
+  launches = {'inv_eval': read_launches()}
+  print(f'  eval: {seconds:.2f} s, evaluators '
+        f'{[type(e).__name__ for e in chosen]}, launches '
+        f'{launches["inv_eval"]}, {scalars}')
+  check([type(e).__name__ for e in chosen] == ['BasicEvaluator',
+                                               'TWMEvaluator'] and
+        launches['inv_eval']['K2f'] == 1 and
+        launches['inv_eval']['K2b'] == 0,
+        'inverse_synthesis eval: the default evaluators (BasicEvaluator, '
+        'TWMEvaluator), one batch through K2f once')
+  check('metrics/f0_twm/raw_pitch_accuracy' in scalars and
+        all(np.isfinite(v) for v in scalars.values()),
+        'inverse_synthesis eval: the losses and the TWM f0 metrics, finite')
+  # The TWM f0 of one example's sinusoids on the card against the CPU.
+  batch = next(provider.get_batch(1, shuffle=False))
+  with torch.no_grad():
+    out = trainer.model(inv_on(torch, batch, dev), training=False,
+                        noise=inv_noise(torch, 1, 94).to(dev))
+  controls = out['sinusoidal']['controls']
+  freqs, amps = controls['frequencies'], controls['amplitudes']
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  f0_card = TWMLoss().predict_f0(freqs, freqs, amps)
+  end.record()
+  torch.cuda.synchronize()
+  f0_cpu = TWMLoss().predict_f0(freqs.cpu(), freqs.cpu(), amps.cpu())
+  differ = float(np.mean(f0_card != f0_cpu))
+  print(f'  TWM f0 of one example ({INV_FRAMES} frames x {INV_SINUSOIDS} '
+        f'candidates): {start.elapsed_time(end):.2f} ms on the card; frames '
+        f'whose f0 differs from the CPU\'s: {differ:.4f}')
+  check(differ <= INV_TWM_FRAMES_ATOL,
+        f'the TWM f0 on the card equals the CPU\'s at all but '
+        f'{INV_TWM_FRAMES_ATOL} of the frames')
+  return launches
+
+
+def inv_cli(torch, work_dir):
+  """ddsp-torch-run --preset inverse_synthesis --data synthetic_notes
+  (the notes generated on the card at the encoder's frames): CLI_AE_STEPS
+  steps and one eval batch; the serving classes refuse the directory."""
+  from ddsp_torch import run
+  from ddsp_torch.infer import AutoencoderInference, export_model
+  cli_dir = os.path.join(work_dir, 'cli_inv')
+  common = ['--save_dir', cli_dir, '--data', 'synthetic_notes',
+            '--batch_size', str(BATCH)]
+  reset_launches()
+  state = run.main(['--mode', 'train', '--preset', 'inverse_synthesis',
+                    '--num_steps', str(CLI_AE_STEPS), '--steps_per_summary',
+                    '1', '--steps_per_save', str(CLI_AE_STEPS)] + common)
+  torch.cuda.synchronize()
+  launches = {'cli_inv_train': read_launches()}
+  print(f'  CLI inverse_synthesis train: step {state.step}, launches '
+        f'{launches["cli_inv_train"]}')
+  per_step = {'K1f': 0, 'K1t': 0, 'K1p': 0, 'K2f': 1, 'K2b': 1, 'K2b_w': 1,
+              'K3': 0}
+  check(state.step == CLI_AE_STEPS and launches['cli_inv_train'] == {
+      k: v * CLI_AE_STEPS for k, v in per_step.items()},
+        f'the CLI trained inverse_synthesis {CLI_AE_STEPS} steps, each '
+        f'{per_step}')
+  reset_launches()
+  out = run.main(['--mode', 'eval', '--run_once', '--num_eval_batches', '1']
+                 + common)
+  torch.cuda.synchronize()
+  launches['cli_inv_eval'] = read_launches()
+  print(f'  CLI inverse_synthesis eval: launches '
+        f'{launches["cli_inv_eval"]}, {out}')
+  check(launches['cli_inv_eval']['K2f'] == 1 and
+        np.isfinite(out['losses/total_loss']) and
+        'metrics/f0_twm/raw_pitch_accuracy' in out,
+        '--mode eval of inverse_synthesis: one batch through K2f once, a '
+        'finite total_loss and the TWM f0 metrics')
+  for what, call in (
+      ('AutoencoderInference', lambda: AutoencoderInference(cli_dir)),
+      ("export_model fmt='params'", lambda: export_model(
+          cli_dir, os.path.join(work_dir, 'inv_params'))),
+      ("export_model fmt='torch_export'", lambda: export_model(
+          cli_dir, os.path.join(work_dir, 'inv_program'),
+          fmt='torch_export'))):
+    try:
+      call()
+      refused = ''
+    except ValueError as e:
+      refused = str(e)
+    print(f'  {what}: {refused[:120]}')
+    check('encodes audio' in refused and
+          'ResnetSinusoidalEncoder' in refused,
+          f'{what} refuses the inverse_synthesis directory, naming the '
+          'sinusoidal encoder\'s audio input')
+  return launches
+
+
 # Phase 6h: the processors without a TPU kernel, each on the card against
 # the port on the CPU, forward and gradient with respect to every float
 # input (and ExpDecayReverb's parameters), batch 4 x 4 s.
@@ -4323,16 +4915,39 @@ def k2_entries(torch, launches, dev):
   # MFCC frames), at a step's B = 16 and a request's B = 1; cuDNN's
   # recurrence and torch.matmul of the weight gradient at the same shape
   # (input width 30, the MFCCs) beside it.
-  lib_ae = library_gru_ms(torch, dev, HIDDEN, seq_len=AE_Z_STEPS, in_dim=30)
-  yard_ae = lib_ae['bfloat16'] if 'rec_fwd_ms' in lib_ae['bfloat16'] else (
-      lib_ae['float32'])
-  for batch in (BATCH, 1):
-    xa, wa, ba, h0a = k2_inputs(torch, batch, torch.bfloat16, 7, dev, HIDDEN,
-                                AE_Z_STEPS)
+  k2_other_shape(torch, dev, kernels, 'ae_encoder', AE_Z_STEPS, 30,
+                 (BATCH, 1), 7)
+  # The inverse_synthesis RnnSandwich's GRU (phase 6j): bf16 streams,
+  # H = 512, T = 250 (the encoder's log-mel frames), at a request's B = 1,
+  # a plain or self-supervised step's 16 and a zipped step's 32; the
+  # yardsticks at B = 16 (input width 256, the first FcStack's).
+  k2_other_shape(torch, dev, kernels, 'inv', INV_FRAMES, 256,
+                 (1, BATCH, 2 * BATCH), 8)
+  for k, key in zip(kernels, ('K2f', 'K2b', 'K2b_w')):
+    k['launches_by_path'] = {path: run[key] for path, run in launches.items()}
+    print_entry(k)
+  return kernels
+
+
+def k2_other_shape(torch, dev, kernels, key, seq_len, in_dim, batches,
+                   seed):
+  """K2f, K2b's serial pass and its weight-gradient pass (kernels[0:3]) at
+  H = 512, bf16 streams, T = seq_len and each batch: device ms and bound
+  under kernels[i][key]['B=<b>'], with cuDNN's recurrence and torch.matmul
+  of the weight gradient at B = 16 (library_gru_ms, input width in_dim);
+  None at other batches."""
+  from ddsp_torch.kernels import gru as kg
+  lib = library_gru_ms(torch, dev, HIDDEN, seq_len=seq_len, in_dim=in_dim)
+  yard = lib['bfloat16'] if 'rec_fwd_ms' in lib['bfloat16'] else (
+      lib['float32'])
+  for batch in batches:
+    xa, wa, ba, h0a = k2_inputs(torch, batch, torch.bfloat16, seed, dev,
+                                HIDDEN, seq_len)
     ba, h0a = ba.float().contiguous(), h0a.float().contiguous()
     ysa = kg._launch_fwd(xa, wa, ba, h0a)
     ga = torch.randn(ysa.shape, device=dev,
-                     generator=torch.Generator(dev).manual_seed(11)) / 30.0
+                     generator=torch.Generator(dev).manual_seed(seed + 4)
+                     ) / 30.0
     hpa = kg.h_prev_stream(h0a, ysa, torch.bfloat16)
     dxa, dhna, dbta, _ = kg._launch_bwd_serial(ga, xa, hpa, wa, ba)
     hpa2d = hpa.reshape(-1, HIDDEN)
@@ -4340,22 +4955,18 @@ def k2_entries(torch, launches, dev):
         -1, 3 * HIDDEN)
     parts = (
         (kernels[0], 'fwd', lambda: kg._launch_fwd(xa, wa, ba, h0a),
-         yard_ae['rec_fwd_ms']),
+         yard['rec_fwd_ms']),
         (kernels[1], 'serial',
          lambda: kg._launch_bwd_serial(ga, xa, hpa, wa, ba),
-         yard_ae['rec_bwd_ms']),
+         yard['rec_bwd_ms']),
         (kernels[2], 'wgrad',
          lambda: kg._launch_wgrad(hpa, dxa, dhna, dbta),
          device_ms(torch, lambda: torch.matmul(hpa2d.t(), dhpa2d), 20)))
     for k, part, fn, lib_ms in parts:
-      k.setdefault('ae_encoder', {})[f'B={batch}'] = {
-          'T': AE_Z_STEPS, 'ms': device_ms(torch, fn, 10),
+      k.setdefault(key, {})[f'B={batch}'] = {
+          'T': seq_len, 'ms': device_ms(torch, fn, 10),
           'bound_ms': k2_bound(xa, wa, 'bfloat16', part)[0],
           'library_ms': lib_ms if batch == BATCH else None}
-  for k, key in zip(kernels, ('K2f', 'K2b', 'K2b_w')):
-    k['launches_by_path'] = {path: run[key] for path, run in launches.items()}
-    print_entry(k)
-  return kernels
 
 
 def print_entry(k):
@@ -4383,7 +4994,8 @@ def print_entry(k):
            f"{k['by_hidden']}" if 'by_hidden' in k else '')
         + (f", plan {k['plan']}" if 'plan' in k else '')
         + (f", ae {k['ae']}" if 'ae' in k else '')
-        + (f", ae encoder {k['ae_encoder']}" if 'ae_encoder' in k else ''),
+        + (f", ae encoder {k['ae_encoder']}" if 'ae_encoder' in k else '')
+        + (f", inverse_synthesis {k['inv']}" if 'inv' in k else ''),
         flush=True)
 
 
@@ -4521,7 +5133,8 @@ def main(argv=None):
   parser.add_argument('--profile', action='store_true',
                       help='also print per-kernel device time over 3 requests, '
                       '20 VST hops and 3 training steps (and 3 midiae '
-                      'requests of each kind and steps)')
+                      'requests of each kind and steps, 3 inverse_synthesis '
+                      'requests and steps of each feed)')
   parser.add_argument('--prefetch-pairs', type=int, default=0, metavar='N',
                       help='only time train() from the records with prefetch '
                       '0 against 2 in N pairs (phase 6c\'s timing), then '
@@ -4593,6 +5206,8 @@ def main(argv=None):
           torch, dev, work_dir,
           os.path.join(work_dir, 'dataset', 'train.tfrecord*'), dense_ms,
           args.profile))
+      launches.update(phase_inverse_synthesis(torch, dev, work_dir,
+                                              dense_ms, args.profile))
       phase_processors(torch, dev)
       phase_prepare(torch, dev, work_dir)
     phase_wide_gru_steps(torch, dev)

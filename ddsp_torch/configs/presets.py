@@ -1,5 +1,5 @@
-"""Model presets (port of ae, solo_instrument, tiny, vst and midiae,
-ddsp_tpu/configs/presets.py).
+"""Model presets (port of ae, solo_instrument, tiny, vst, midiae and
+inverse_synthesis, ddsp_tpu/configs/presets.py).
 
 Each preset builds its modules on the CPU; utils.build_model moves them to
 the device. SpectralLoss has no parameters, so a JAX parameter tree loads
@@ -10,7 +10,8 @@ from __future__ import annotations
 
 from ddsp_torch import losses as losses_lib
 from ddsp_torch import nn, proc
-from ddsp_torch.models import Autoencoder, MarginLoss, MidiAutoencoder
+from ddsp_torch.models import (Autoencoder, InverseSynthesis, MarginLoss,
+                               MidiAutoencoder)
 from ddsp_torch.utils.registry import register_preset
 
 
@@ -253,3 +254,47 @@ def midiae(n_samples: int = 64000,
       qpitch_f0rec_loss=MarginLoss(weight=50.0, margin=0.5),
       n_samples=n_samples, sample_rate=sample_rate,
       reverb=reverb, reverb_length=reverb_length)
+
+
+@register_preset('inverse_synthesis')
+def inverse_synthesis(n_samples: int = 64000,
+                      sample_rate: int = 16000,
+                      n_sinusoids: int = 100,
+                      freq_depth: int = 64,
+                      n_harmonics: int = 100,
+                      n_noise_magnitudes: int = 65,
+                      resnet_size: str = 'small',
+                      reverb: bool = False) -> InverseSynthesis:
+  """DDSP-INV, the self-supervised hierarchical model.
+
+  ddsp_tpu/configs/presets.py:289-326 (gin/papers/icml2020/
+  pretrain_model.gin): ResnetSinusoidalEncoder (a log mel of 229 bins,
+  1024-point frames at hop 256: 250 frames at 4 s) with heads of
+  n_sinusoids * freq_depth frequency logits, n_sinusoids amplitudes and
+  n_noise_magnitudes noise bands; SinusoidalToHarmonicEncoder on an
+  RnnSandwich (FcStacks of 256, a GRU of 512: K2 at T = 250);
+  SpectralLoss (L1 mag + logmag); KDE sinusoidal consistency, harmonic
+  and filtered-noise consistency.
+  """
+  return InverseSynthesis(
+      sinusoidal_encoder=nn.ResnetSinusoidalEncoder(
+          output_splits=(('frequencies', n_sinusoids * freq_depth),
+                         ('amplitudes', n_sinusoids),
+                         ('noise_magnitudes', n_noise_magnitudes)),
+          size=resnet_size),
+      harmonic_encoder=nn.SinusoidalToHarmonicEncoder(
+          nn.RnnSandwich(2 * n_sinusoids), n_harmonics=n_harmonics,
+          f0_depth=freq_depth),
+      losses=(losses_lib.SpectralLoss(loss_type='L1', mag_weight=1.0,
+                                      logmag_weight=1.0),),
+      sinusoidal_consistency_losses=(
+          losses_lib.KDEConsistencyLoss(weight_a=1.0, weight_b=1.0,
+                                        scale_a=0.1, scale_b=0.1),),
+      harmonic_consistency_losses=(
+          losses_lib.HarmonicConsistencyLoss(amp_weight=1.0,
+                                             dist_weight=1.0,
+                                             f0_weight=1.0),),
+      filtered_noise_consistency_loss=(
+          losses_lib.FilteredNoiseConsistencyLoss(weight=1.0)),
+      freq_depth=freq_depth,
+      n_samples=n_samples, sample_rate=sample_rate, reverb=reverb)

@@ -12,3 +12,4 @@ from ddsp_torch.eval.evaluators import BasicEvaluator  # noqa: F401
 from ddsp_torch.eval.evaluators import F0LdEvaluator  # noqa: F401
 from ddsp_torch.eval.evaluators import MidiAutoencoderEvaluator  # noqa: F401
 from ddsp_torch.eval.evaluators import MidiHeuristicEvaluator  # noqa: F401
+from ddsp_torch.eval.evaluators import TWMEvaluator  # noqa: F401

@@ -20,7 +20,8 @@ import torch
 from ddsp_torch.eval.evaluators import (BaseEvaluator, BasicEvaluator,
                                         F0LdEvaluator,
                                         MidiAutoencoderEvaluator,
-                                        MidiHeuristicEvaluator)
+                                        MidiHeuristicEvaluator, TWMEvaluator)
+from ddsp_torch.models.inverse_synthesis import InverseSynthesis
 from ddsp_torch.models.midi_autoencoder import MidiAutoencoder
 from ddsp_torch.parallel import sp_model
 from ddsp_torch.train.train_loop import MetricsWriter
@@ -75,8 +76,20 @@ def default_evaluators(model, data_provider, device,
   on its outputs with a KeyError): it gets BasicEvaluator on its audio
   ('synth_audio'), and MidiAutoencoderEvaluator and MidiHeuristicEvaluator
   where the batches carry the ground-truth 'note_active_velocities'.
+  Likewise an InverseSynthesis model (its audio 'harm_audio', or
+  'sin_audio' without a harmonic encoder) gets BasicEvaluator, and
+  TWMEvaluator on its sinusoids where the batches carry an 'f0_hz' at its
+  control frames (a self-supervised batch's).
   """
   rates = (data_provider.sample_rate, data_provider.frame_rate)
+  if isinstance(model, InverseSynthesis):
+    audio_key = 'sin_audio' if model.harmonic_encoder is None else (
+        'harm_audio')
+    evaluators = [BasicEvaluator(*rates, audio_key=audio_key)]
+    f0_hz = batch.get('f0_hz')
+    if f0_hz is not None and np.shape(f0_hz)[1] == model.n_frames:
+      evaluators.append(TWMEvaluator(*rates, device=device))
+    return evaluators
   if not isinstance(model, MidiAutoencoder):
     return [BasicEvaluator(*rates), F0LdEvaluator(*rates, device=device)]
   audio_key = 'midi_audio' if model.midi_decoder is None else 'synth_audio'

@@ -1,8 +1,8 @@
 """Evaluator classes dispatched by the eval loop.
 
 Port of ddsp_tpu/eval/evaluators.py: BaseEvaluator, BasicEvaluator,
-F0LdEvaluator, MidiAutoencoderEvaluator and MidiHeuristicEvaluator.
-Evaluators take host (numpy) batches and outputs.
+F0LdEvaluator, TWMEvaluator, MidiAutoencoderEvaluator and
+MidiHeuristicEvaluator. Evaluators take host (numpy) batches and outputs.
 """
 
 from __future__ import annotations
@@ -12,11 +12,12 @@ import os
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from ddsp_torch.eval import heuristics
 from ddsp_torch.eval import metrics as metrics_lib
 from ddsp_torch.eval import summaries
-from ddsp_torch.utils.device import DeviceLike
+from ddsp_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger('ddsp_torch')
 
@@ -71,6 +72,10 @@ class BasicEvaluator(BaseEvaluator):
   def sample(self, batch, outputs, save_dir, step):
     audio_gen = np.asarray(outputs[self._audio_key])
     offset = self._next_sample_offset(step, len(audio_gen))
+    if 'audio' not in batch:
+      # A self-supervised batch holds controls: its original is the audio
+      # the model synthesized from them (outputs['audio']).
+      batch = dict(batch, audio=outputs['audio'])
     summaries.sample_batch(save_dir, step, batch, audio_gen,
                            self._sample_rate, offset=offset)
 
@@ -152,6 +157,47 @@ class F0LdEvaluator(BaseEvaluator):
     if self._f0_gen_metrics is not None:
       results.update(self._f0_gen_metrics.flush(step))
     return results
+
+
+class TWMEvaluator(BaseEvaluator):
+  """F0 metrics of f0s that the TWM heuristic picks from the sinusoids.
+
+  Every predicted sinusoid frequency is an f0 candidate, and
+  TWMLoss.predict_f0 picks the best. The processor group's controls
+  (outputs[processor_name]['controls']) go to `device` (CUDA unless the
+  caller says otherwise), where the [batch, time, candidate, partial,
+  component] mixture terms are evaluated (1.2 GB at 4 x 250 frames of 100
+  sinusoids); only the per-candidate losses come back to the host.
+  """
+
+  def __init__(self, sample_rate=16000, frame_rate=250,
+               processor_name: str = 'sinusoidal', noisy: bool = False,
+               device: DeviceLike = None):
+    super().__init__(sample_rate, frame_rate)
+    self._noisy = noisy
+    self._processor_name = processor_name
+    self._device = resolve_device(device)
+    self._f0_twm_metrics = metrics_lib.F0Metrics(
+        sample_rate=sample_rate, frame_rate=frame_rate, name='f0_twm')
+
+  def compute_twm_f0(self, outputs) -> np.ndarray:
+    """The TWM f0 of each frame, [batch, time, 1] on the host."""
+    from ddsp_torch.losses import TWMLoss  # pylint: disable=g-import-not-at-top
+    controls = outputs[self._processor_name]['controls']
+    freqs = np.asarray(controls['frequencies'], np.float32)
+    amps = np.asarray(controls['amplitudes'], np.float32)
+    if self._noisy:
+      amps = amps * (1.0 - np.asarray(controls['noise_ratios'], np.float32))
+    freqs = torch.from_numpy(freqs).to(self._device)
+    return TWMLoss().predict_f0(freqs, freqs,
+                                torch.from_numpy(amps).to(self._device))
+
+  def evaluate(self, batch, outputs, losses):
+    del losses
+    self._f0_twm_metrics.update_state(batch, self.compute_twm_f0(outputs))
+
+  def flush(self, step):
+    return self._f0_twm_metrics.flush(step)
 
 
 class MidiAutoencoderEvaluator(BaseEvaluator):

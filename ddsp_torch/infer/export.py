@@ -265,8 +265,9 @@ def export_model(save_dir: str, export_dir: str,
     inference_model: 'autoencoder' or, for 'torch_export', one of the six
       VST signatures (INFERENCE_MODELS). 'params' exports the autoencoder
       of an autoencoder preset only. A model whose encoder reads audio (the
-      ae preset), or a MidiAutoencoder (midiae), has no autoencoder
-      artifact: both formats raise AutoencoderInference's ValueError.
+      ae and inverse_synthesis presets), or a MidiAutoencoder (midiae),
+      has no autoencoder artifact: both formats raise
+      AutoencoderInference's ValueError.
     length_seconds: Generation length the exported autoencoder is built
       for.
     **kwargs: Overrides for the inference class (e.g. remove_reverb, or

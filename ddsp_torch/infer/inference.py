@@ -55,11 +55,11 @@ def refuse_audio_input(model: torch.nn.Module, save_dir: str) -> None:
   """Raise if features alone cannot drive the model.
 
   Two kinds: a model whose encoder reads audio (the ae preset's MFCC
-  encoder), on which the JAX package fails with a KeyError for 'audio';
-  and a MidiAutoencoder (the midiae preset), whose preprocessor computes
-  loudness from the audio (the JAX class drops the compute_loudness_fresh
-  mutation, as the preset does not take it, and fails with the same
-  KeyError).
+  encoder, the inverse_synthesis preset's sinusoidal encoder), on which
+  the JAX package fails with a KeyError for 'audio'; and a MidiAutoencoder
+  (the midiae preset), whose preprocessor computes loudness from the audio
+  (the JAX class drops the compute_loudness_fresh mutation, as the preset
+  does not take it, and fails with the same KeyError).
   """
   # pylint: disable=g-import-not-at-top
   from ddsp_torch.models.midi_autoencoder import MidiAutoencoder
@@ -72,6 +72,8 @@ def refuse_audio_input(model: torch.nn.Module, save_dir: str) -> None:
         'forward (model(batch, training=False)) on batches that hold the '
         'audio, or render notes with model.midi_to_audio(q_pitch, q_vel).')
   encoder = getattr(model, 'encoder', None)
+  if encoder is None:
+    encoder = getattr(model, 'sinusoidal_encoder', None)
   if encoder is not None and 'audio' in getattr(encoder, 'input_keys', ()):
     raise ValueError(
         f'The model in {save_dir!r} encodes audio: its encoder '

@@ -1,7 +1,23 @@
-"""Losses (port of ddsp_tpu.losses): multi-scale spectral and parameter."""
+"""Losses (port of ddsp_tpu.losses): multi-scale spectral, parameter,
+consistency, TWM, HMM and CREPE-embedding families."""
 
+from ddsp_torch.losses.consistency import (FilteredNoiseConsistencyLoss,
+                                           HarmonicConsistencyLoss,
+                                           KDEConsistencyLoss,
+                                           WassersteinConsistencyLoss,
+                                           amp_loss, freq_loss,
+                                           mixture_log_prob, normal_log_prob,
+                                           wasserstein_distance)
+from ddsp_torch.losses.crepe_embedding import (EmbeddingLoss,
+                                               PretrainedCREPEEmbeddingLoss)
+from ddsp_torch.losses.hmm_transcriber import HmmTranscriber
 from ddsp_torch.losses.spectral import (Loss, LossGroup, ParamLoss,
                                         SpectralLoss, mean_difference)
+from ddsp_torch.losses.twm import TWMLoss
 
-__all__ = ['Loss', 'LossGroup', 'ParamLoss', 'SpectralLoss',
-           'mean_difference']
+__all__ = ['EmbeddingLoss', 'FilteredNoiseConsistencyLoss',
+           'HarmonicConsistencyLoss', 'HmmTranscriber', 'KDEConsistencyLoss',
+           'Loss', 'LossGroup', 'ParamLoss', 'PretrainedCREPEEmbeddingLoss',
+           'SpectralLoss', 'TWMLoss', 'WassersteinConsistencyLoss',
+           'amp_loss', 'freq_loss', 'mean_difference', 'mixture_log_prob',
+           'normal_log_prob', 'wasserstein_distance']

@@ -323,9 +323,19 @@ class ResnetSinusoidalEncoder(nn_layers.DictModule):
     for name, size_out in self.output_splits:
       self.add_module(f'dense_{name}', nn_layers.Dense(in_features, size_out))
 
+  fft_size = 1024
+  overlap = 0.75
+
+  def n_frames(self, n_samples: int) -> int:
+    """Frames of the log mel (and so of every output) for n_samples of
+    audio: ceil(n_samples / hop), 250 at 4 s."""
+    hop = int(self.fft_size * (1.0 - self.overlap))
+    return -(-n_samples // hop)
+
   def compute(self, audio):
     mag = spectral.compute_logmel(audio, lo_hz=0.0, hi_hz=8000.0, bins=229,
-                                  fft_size=1024, overlap=0.75)
+                                  fft_size=self.fft_size,
+                                  overlap=self.overlap)
     x = self.resnet(mag[:, :, :, None])
     x = x.reshape(x.shape[0], x.shape[1], -1)
     return {name: getattr(self, f'dense_{name}')(x)

@@ -33,7 +33,8 @@ from ddsp_torch.utils.device import DeviceLike
 
 def build_data_provider(spec: str, n_samples: int, sample_rate: int,
                         frame_rate: int, model_kwargs=None,
-                        device: DeviceLike = None):
+                        device: DeviceLike = None,
+                        control_frames: Optional[int] = None):
   """Data spec -> DataProvider.
 
   Specs: 'synthetic[:n]' (sinusoids), 'tfrecord:<pattern>',
@@ -41,6 +42,12 @@ def build_data_provider(spec: str, n_samples: int, sample_rate: int,
   fly on `device` when no pattern is given), 'urmp:<dir>[:instrument]'
   (MIDI-annotated), 'nsynth[:split[:data_dir]]',
   'tfds:<name>[:<version>]:<split>[:data_dir]'.
+
+  synthetic_notes' controls have model_kwargs' 'time_steps' frames, else
+  `control_frames` (the model's: InverseSynthesis.n_frames, 250 at 4 s),
+  else 125. (The JAX CLI takes 125 where the preset has no time_steps, and
+  the inverse_synthesis preset's losses then fail on 125 frames against
+  its encoder's 250.)
   """
   model_kwargs = model_kwargs or {}
   kind, _, arg = spec.partition(':')
@@ -55,7 +62,7 @@ def build_data_provider(spec: str, n_samples: int, sample_rate: int,
         sample_rate=sample_rate, frame_rate=frame_rate)
   if kind == 'synthetic_notes':
     return data_lib.SyntheticNotesProvider(
-        n_timesteps=model_kwargs.get('time_steps', 125),
+        n_timesteps=model_kwargs.get('time_steps', control_frames or 125),
         n_harmonics=model_kwargs.get('n_harmonics',
                                      model_kwargs.get('n_sinusoids', 100)),
         n_mags=model_kwargs.get('n_noise_magnitudes', 65),
@@ -228,7 +235,9 @@ def main(argv: Optional[List[str]] = None):
   resolved, n_samples, sample_rate, frame_rate = provider_geometry(
       preset_name, model_kwargs, args.sample_rate, args.frame_rate)
   provider = build_data_provider(args.data, n_samples, sample_rate,
-                                 frame_rate, resolved, device=device)
+                                 frame_rate, resolved, device=device,
+                                 control_frames=getattr(model, 'n_frames',
+                                                        None))
 
   mesh = create_mesh(n_data=len(devices) // args.time_shards,
                      n_time=args.time_shards, devices=devices)

@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +32,9 @@ from ddsp_torch.utils.device import DeviceLike, resolve_device
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
+
+# A batch: a dict of features, or a tuple or list of such dicts.
+Batch = Union[Dict[str, Any], Sequence[Dict[str, Any]]]
 
 @dataclasses.dataclass
 class TrainState:
@@ -135,8 +138,12 @@ class Trainer:
   # ----------------------------------------------------------------------
   # Train step
   # ----------------------------------------------------------------------
-  def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The batch as float32 tensors on the trainer's device."""
+  def to_device(self, batch: Batch) -> Batch:
+    """The batch as float32 tensors on the trainer's device: a dict, or a
+    tuple or list of dicts (ZippedProvider's batches), as the JAX Trainer
+    takes any pytree."""
+    if isinstance(batch, (tuple, list)):
+      return type(batch)(self.to_device(b) for b in batch)
     out = {}
     for k, v in batch.items():
       if not isinstance(v, torch.Tensor):
@@ -144,13 +151,17 @@ class Trainer:
       out[k] = v.to(self.device, torch.float32, non_blocking=True)
     return out
 
-  def train_step(self, state: TrainState, batch: Dict[str, Any],
-                 noise: Optional[torch.Tensor] = None
+  def train_step(self, state: TrainState, batch: Batch,
+                 noise: Optional[torch.Tensor] = None, **noise_kwargs
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step; returns (state, losses on the device).
 
-    `noise` ([batch, n_samples], uniform in [-1, 1)) replaces the draw of
-    the step's generator, for tests that hand over another framework's.
+    `batch` is a dict of features, or a tuple of them (an InverseSynthesis
+    model's zipped batch). `noise` ([batch, n_samples], uniform in
+    [-1, 1)) replaces the draw of the step's generator, for tests that hand
+    over another framework's; `noise_kwargs` hand over the draws of a
+    model's other processor-group calls (InverseSynthesis's
+    harmonic_noise and synthetic_noise, MidiAutoencoder's midi_noise).
     """
     batch = self.to_device(batch)
     self._generator.manual_seed(self.seed + 2 + state.step)
@@ -160,7 +171,8 @@ class Trainer:
           training=True, noise=noise, generator=self._generator)
     else:
       _, losses = self.model(batch, training=True, return_losses=True,
-                             noise=noise, generator=self._generator)
+                             noise=noise, generator=self._generator,
+                             **noise_kwargs)
     params = [p for p in state.params.values() if p.requires_grad]
     grads = torch.autograd.grad(losses['total_loss'], params,
                                 allow_unused=True)
