@@ -19,14 +19,16 @@ Phases (any failed check exits non-zero before the result lines):
      without fold_taps or a [B, F, 2, H] tensor;
   2c. K3: the halo shift against its plain version, bit for bit, on (1, 4),
      (2, 4) and (1, 8) meshes of one card, both directions, values and
-     gradients, at the main path's three blocks; the (2 data x 2 time)
-     row rule through the time-sharded fft_convolve;
+     gradients, at the main path's three blocks and the long-audio step's
+     two; the (2 data x 2 time) row rule through the time-sharded
+     fft_convolve;
   3. K2: the fused GRU sequence (K2f) and its backward (K2b) against their
      plain PyTorch versions, both dtypes, at H = 512, T = 1000 and B in
      {1, 4, 16, 40, 128} (a ragged tile, and past the old kernels' batch
      limit) and at H = 64, T = 24; bf16 at H = 512, T = 125 (the ae
      encoder's GRU), B in {1, 16}, and T = 250 (the inverse_synthesis
-     RnnSandwich's GRU), B in {1, 16, 32}; bf16 at H = 96 and 384 (the cluster
+     RnnSandwich's GRU), B in {1, 16, 32}, and T = 7500 (the long-audio
+     step's decoder, 30 s), B = 2; bf16 at H = 96 and 384 (the cluster
      kernels, zero-padded to 128 and 512) and 1024 (the cooperative
      kernels), B in {1, 16, 40}, and float32 at H = 1024, B = 16; the
      launches of each route; with bf16 streams K2b's two passes, the
@@ -170,7 +172,19 @@ Phases (any failed check exits non-zero before the result lines):
      the kernels' launches per step (K3 as counted from the code, K1 none),
      the first step against the dense step, the sharded loss against the
      dense SpectralLoss, and a step against the same SP step on the CPU
-     (the reverb IR's gradient too, and against the dense step);
+     (the reverb IR's gradient too, and against the dense step); the
+     trained state is saved for 6k;
+  6k. long audio on one card: parallel.make_sp_train_step with
+     solo_instrument's decoder and torch.optim.Adam on the long-audio
+     example's target at 30 s, B = 2, on a (1 x 4) mesh of the card (K2f,
+     K2b at T = 7500, K3): the mag term's decoder gradient and the first
+     loss against the dense pipeline on the card, the first loss against
+     the CPU port at 2 s, the loss falling, the launches per step, ms per
+     step and peak memory; evaluate_or_sample of 6b's checkpoint on its
+     mesh ('eval': the scalars and the mag term against the dense eval,
+     K2f once and K3 per batch; 'sample': the dense run's files), ms per
+     eval batch beside the dense one; a ProcessorGroup with FIRFilter on
+     the mesh against the dense group (K3 only);
   7. report per-request and per-step times, the kernels line and the device
      line.
 
@@ -208,6 +222,10 @@ AE_HARMONICS = 100
 # The inverse_synthesis preset (phase 6j): its RnnSandwich's GRU runs over
 # the encoder's log-mel frames at 4 s (hop 256).
 INV_FRAMES = 250
+# The long-audio step (phase 6k): 30 s at 250 frames/s, B = 2.
+LONG_SECONDS = 30
+LONG_FRAMES = LONG_SECONDS * 250
+LONG_BATCH = 2
 # K1f sums up to 60 harmonics whose sines come from the Chebyshev recurrence
 # against the plain version's sinf of h * phase (the JAX package's tolerance
 # for its Pallas kernel against its jnp path).
@@ -638,11 +656,13 @@ def phase_k1(torch, dev):
 
 
 def k3_blocks(torch, n_shards, dtype, dev, seed):
-  """The main path's three K3 blocks per shard, as (name, leaves, shards,
+  """The main path's K3 blocks per shard, as (name, leaves, shards,
   embed): the reverb's tail carry [16, 64000]; the STFT halo, a strided
   [16, 2047] view of a [16, 16000] shard; the delta-time boundary frame, slot
-  31 of [16, 32, 1025] magnitudes. embed(adj) puts a block's cotangent where
-  its leaf holds the block."""
+  31 of [16, 32, 1025] magnitudes; and the long-audio step's (phase 6k,
+  B = 2, 30 s over 4 shards): the noise filter's tail carry [2, 120000] and
+  the STFT halo, a [2, 2047] view of a [2, 120000] shard. embed(adj) puts a
+  block's cotangent where its leaf holds the block."""
   gen = torch.Generator(dev).manual_seed(seed)
   rand = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(dtype)
 
@@ -656,13 +676,23 @@ def k3_blocks(torch, n_shards, dtype, dev, seed):
   carry = [rand(BATCH, 4 * SR).requires_grad_() for _ in range(n_shards)]
   audio = [rand(BATCH, SR).requires_grad_() for _ in range(n_shards)]
   mags = [rand(BATCH, 32, 1025).requires_grad_() for _ in range(n_shards)]
+  long_t = LONG_FRAMES * (SR // 250) // 4
+  long_carry = [rand(LONG_BATCH, long_t).requires_grad_()
+                for _ in range(n_shards)]
+  long_audio = [rand(LONG_BATCH, long_t).requires_grad_()
+                for _ in range(n_shards)]
   halo_cols = (slice(None), slice(0, 2047))
   slot = (slice(None), slice(31, 32))
   return [('reverb carry', carry, carry, lambda adj: adj),
           ('STFT halo view', audio, [a[halo_cols] for a in audio],
            zeros_but(audio[0], halo_cols)),
           ('boundary frame', mags, [m[slot] for m in mags],
-           zeros_but(mags[0], slot))]
+           zeros_but(mags[0], slot)),
+          ('long-audio noise carry', long_carry, long_carry,
+           lambda adj: adj),
+          ('long-audio STFT halo view', long_audio,
+           [a[halo_cols] for a in long_audio],
+           zeros_but(long_audio[0], halo_cols))]
 
 
 def phase_k3(torch, dev):
@@ -780,11 +810,12 @@ def k2_route_name(torch, hidden, dtype):
 # and 512); 1024 is past any cluster and takes the cooperative kernels, in
 # bf16 and in float32. T = 125 is the ae encoder's GRU (its MFCC frames),
 # T = 250 the inverse_synthesis RnnSandwich's at a request's, a step's and
-# a zipped step's batch.
+# a zipped step's batch, T = 7500 the long-audio step's (30 s, phase 6k).
 K2_CASES = (
     (HIDDEN, N_FRAMES, (1, 4, 16, 40, 128), ('float32', 'bfloat16')),
     (HIDDEN, AE_Z_STEPS, (1, 16), ('bfloat16',)),
     (HIDDEN, INV_FRAMES, (1, 16, 32), ('bfloat16',)),
+    (HIDDEN, LONG_FRAMES, (LONG_BATCH,), ('bfloat16',)),
     (64, 24, (1, 4, 16, 40, 128), ('float32', 'bfloat16')),
     (96, N_FRAMES, (1, 16), ('bfloat16',)),
     (96, 24, (40,), ('bfloat16',)),
@@ -799,8 +830,8 @@ K2_CASES = (
 def phase_k2(torch, dev):
   from ddsp_torch.kernels import gru as kg
   print('[3] K2 fused GRU vs plain: forward and backward, both dtypes, '
-        'H in {64, 96, 384, 512, 1024}, B in {1, 4, 16, 32, 40, 128}, T in '
-        '{24, 125, 250, 1000}', flush=True)
+        'H in {64, 96, 384, 512, 1024}, B in {1, 2, 4, 16, 32, 40, 128}, T '
+        'in {24, 125, 250, 1000, 7500}', flush=True)
   for hidden in (HIDDEN, 64):
     for backward in (False, True):
       c = kg.pick_cluster(dev, hidden, backward)
@@ -4486,24 +4517,37 @@ def phase_wide_gru_steps(torch, dev):
           f'{what}: K1f, K1t once, K2 {expected}')
 
 
-def sp_k3_launches_per_step(t_local, noise_ir_size, fft_sizes):
-  """K3 launches in one SP training step of solo_instrument, counted from
-  the code of parallel/time_shard.py.
+def k3_convolve_launches(t_local, frame, ir_size, delay):
+  """K3 launches of one time-sharded fft_convolve's forward, counted from
+  the code of parallel/time_shard.py: local_fft_convolve_same shifts its
+  tail right ceil(tail / t_local) times and its head left
+  ceil(delay / t_local) times. A frame past the shard splits into
+  shard-sized sub-frames."""
+  frame = min(frame, t_local)
+  fft_size = int(2**np.ceil(np.log2(frame + ir_size - 1)))
+  tail = (t_local // frame - 1) * frame + fft_size - delay - t_local
+  return -(-tail // t_local) + -(-delay // t_local)
 
-  local_fft_convolve_same shifts its tail right ceil(tail / t_local) times
-  and its head left ceil(delay / t_local) times; every one of those carries
-  a gradient back (the IR, and the reverb's audio, need one), so each runs
-  again in the backward. local_stft_mag shifts one right halo left per FFT
-  size and signal; only the synthesized audio's needs a gradient.
-  """
-  def fft_convolve(frame, ir_size, delay):
-    fft_size = int(2**np.ceil(np.log2(frame + ir_size - 1)))
-    tail = (t_local // frame - 1) * frame + fft_size - delay - t_local
-    return -(-tail // t_local) + -(-delay // t_local)
-  reverb = fft_convolve(t_local, REVERB_LENGTH, 0)  # sub-frame = shard
-  noise = fft_convolve(N_SAMPLES // N_FRAMES, noise_ir_size,
-                       (noise_ir_size - 1) // 2 - 1)
-  return 2 * (reverb + noise) + 3 * len(fft_sizes)
+
+def sp_k3_launches(convolutions, fft_sizes, backward=True):
+  """K3 launches of one time-sharded forward (and its backward): each
+  convolution's (k3_convolve_launches) and, per FFT size, one left shift of
+  a right halo for the target and one for the synthesized audio
+  (local_stft_mag). In the backward every shift of a tensor that needs a
+  gradient runs once more: the convolutions' (the IR, and the reverb's
+  audio, need one) and the synthesized audio's halos."""
+  conv = sum(k3_convolve_launches(*c) for c in convolutions)
+  stft = len(fft_sizes)
+  return 2 * conv + 3 * stft if backward else conv + 2 * stft
+
+
+def solo_instrument_convolutions(t_local):
+  """(t_local, frame, ir_size, delay) of solo_instrument's time-sharded
+  convolutions: the reverb (one IR frame, no delay) and the filtered noise
+  (65 bands: 128-tap IRs of 64-sample frames, delay 62)."""
+  noise_ir = 2 * (N_NOISE - 1)
+  return [(t_local, N_SAMPLES, REVERB_LENGTH, 0),
+          (t_local, N_SAMPLES // N_FRAMES, noise_ir, (noise_ir - 1) // 2 - 1)]
 
 
 def sp_step_gradients(torch, model, batch, noise, mesh):
@@ -4517,9 +4561,10 @@ def sp_step_gradients(torch, model, batch, noise, mesh):
   return losses['total_loss'].item(), dict(zip(names, grads))
 
 
-def phase_sp_train(torch, dev, dense_ms, profile):
+def phase_sp_train(torch, dev, dense_ms, profile, save_dir):
   """Sequence-parallel training of full-width solo_instrument on a (1 x 4)
-  mesh whose shards share the card: the path of K3."""
+  mesh whose shards share the card: the path of K3. The trained state is
+  saved to save_dir (phase 6k evaluates it)."""
   from ddsp_torch.losses import SpectralLoss
   from ddsp_torch.parallel import (create_mesh, sp_forward_with_losses,
                                    time_shard)
@@ -4532,9 +4577,8 @@ def phase_sp_train(torch, dev, dense_ms, profile):
   batch = training_batch()
   model = build_model('solo_instrument', seed=0)
   fft_sizes = model.losses[0].fft_sizes
-  noise_ir = 2 * (N_NOISE - 1)
-  expected_k3 = sp_k3_launches_per_step(N_SAMPLES // SP_MESH[1], noise_ir,
-                                        fft_sizes)
+  expected_k3 = sp_k3_launches(
+      solo_instrument_convolutions(N_SAMPLES // SP_MESH[1]), fft_sizes)
 
   # The first step's loss against the dense step: same parameters, noise.
   on_dev = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -4579,6 +4623,7 @@ def phase_sp_train(torch, dev, dense_ms, profile):
     losses.append(step['total_loss'].item())
   launches = read_launches()
   peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  trainer.save(state, save_dir)
   print(f'  launches over {SP_STEPS} steps: {launches}; K3 counted from the '
         f'code: {expected_k3} per step')
   print(f'  total_loss per step: {[round(l, 3) for l in losses]}')
@@ -4642,6 +4687,405 @@ def phase_sp_train(torch, dev, dense_ms, profile):
   check_ir_gradient(torch, dev, 'B = 2 SP step', gpu_model, cpu_model,
                     small, noise, grads_gpu, grads_cpu, (mesh, cpu_mesh))
   return launches, expected_k3, mesh
+
+
+# Phase 6k: long audio on one card. The long-audio example's target
+# (examples/train_long_audio.py: a 220 Hz tone with a 5 Hz vibrato under a
+# loudness arc, and a noise floor) at 16 kHz and 250 frames/s, B = 2,
+# trained by parallel.make_sp_train_step on a (1 x 4) mesh of the card with
+# solo_instrument's decoder and torch.optim.Adam(1e-3): 30 s is 480000
+# samples and 7500 frames, 120000 samples and 1875 frames a shard.
+LONG_LR = 1e-3
+LONG_WARMUP, LONG_STEPS = 2, 8
+# The same step on the CPU port, at a length the CPU takes in seconds (a
+# shard must hold whole 64-sample frames and one 2048-sample STFT frame).
+LONG_CPU_SECONDS = 2
+# The first step's loss against the dense pipeline on the card
+# (harmonic_synthesis + frequency_impulse_response + fft_convolve +
+# SpectralLoss on the global tensors): the shards' own phase sums, which
+# the logmag term's 1/|X| amplifies on quiet bins; the JAX package holds
+# this pair at 2e-2 (tests/test_time_shard.py,
+# test_sp_loss_matches_unsharded_pipeline).
+LONG_DENSE_RTOL = 2e-2
+# The witness of the float32 phase's rounding: the same dense pipeline
+# with the harmonic phase kept in float64 through the plain synthesis
+# (dense_synth_and_loss's phase64). The dense float32 phase reaches
+# 2 pi 220 30 = 4.1e4 rad (half an ulp 2e-3 rad, 0.12 rad at the 60th
+# harmonic); a shard's stays under 1.1e4 (4.9e-4 rad, 2.9e-2 at the 60th),
+# to which sin(phase * h) adds the rounding of its float32 product (up to
+# 6.6e5 rad: half an ulp 3.1e-2 rad). So the first sharded loss lies
+# nearer the float64-phase loss than the dense float32 one does. Neither
+# is held to it: the rounding's noise under the harmonics fills the quiet
+# bins that the logmag term weighs, and moves the loss by 2e-2-4e-2 at
+# 30 s (an H100 measurement).
+# The decoder's gradient of the mag term alone, sharded against dense,
+# relative L2 over all its parameters: the two audios ~1e-3 apart, L1
+# signs flipping where two magnitudes meet (IR_MAG_STEP_RTOL's reasons).
+LONG_MAG_GRAD_RTOL = IR_MAG_STEP_RTOL
+# The card's first loss against the CPU port's at LONG_CPU_SECONDS from the
+# same parameters and noise: STEP_LOSS_RTOL's reasons (bf16 GRU streams
+# rounded at the same places, the kernels' sums in another order, the
+# logmag term).
+LONG_CPU_RTOL = STEP_LOSS_RTOL
+# FIRFilter on a (1 x 4) mesh against the dense FIRFilter on the card: the
+# same 256-point FFTs of the same 64-sample frames, overlap-added per shard
+# and then across shards through K3, relative to the largest output: the
+# sums' order only.
+FIR_SP_RTOL = 1e-5
+
+
+def long_audio_batch(seconds, batch=LONG_BATCH):
+  """examples/train_long_audio.py's batch at `seconds`: 'audio' [B, n],
+  'f0_hz', 'ld_scaled', 'f0_scaled' [B, frames, 1] (numpy, seed 0)."""
+  hop = SR // 250
+  n_frames = int(seconds * 250)
+  n_samples = n_frames * hop
+  rng = np.random.RandomState(0)
+  t = np.arange(n_samples) / SR
+  f0 = 220.0 * (1 + 0.005 * np.sin(2 * np.pi * 5 * t))
+  phase = 2 * np.pi * np.cumsum(f0) / SR
+  env = 0.5 + 0.4 * np.sin(2 * np.pi * t / seconds)
+  target = (0.4 * env * np.sin(phase) +
+            3e-3 * rng.randn(n_samples)).astype(np.float32)
+  fi = np.arange(n_frames) * hop
+  frames = lambda x: np.tile(x[fi].astype(np.float32)[None, :, None],
+                             (batch, 1, 1))
+  return {'audio': np.stack([target] * batch), 'f0_hz': frames(f0),
+          'ld_scaled': frames(env),
+          'f0_scaled': np.full((batch, n_frames, 1), 0.55, np.float32)}
+
+
+def dense_synth_and_loss(torch, batch, controls, noise, fft_sizes,
+                         logmag_weight=1.0, phase64=False):
+  """sp_synth_and_loss's function on the global tensors, without shards.
+  With phase64, the harmonic phase is summed and kept in float64 through
+  the plain synthesis (K1's plain version), rounded to float32 as audio."""
+  from ddsp_torch.kernels import harmonic as kh
+  from ddsp_torch.losses import SpectralLoss
+  from ddsp_torch.ops import core, fftconv, oscillator
+  from ddsp_torch.ops.resample import resample
+  n_samples = batch['audio'].shape[1]
+  amps = core.exp_sigmoid(controls['amps'])
+  harm_dist = core.exp_sigmoid(controls['harmonic_distribution'])
+  if phase64:
+    f0_env = resample(batch['f0_hz'], n_samples)
+    phase0 = torch.cumsum((f0_env * (2 * np.pi) / SR).double(), dim=1)
+    harm = kh.harmonic_synthesis_plain(phase0[..., 0], f0_env[..., 0],
+                                       amps * harm_dist, SR).float()
+  else:
+    harm = oscillator.harmonic_synthesis(
+        batch['f0_hz'], amps, harmonic_distribution=harm_dist,
+        n_samples=n_samples, sample_rate=SR)
+  ir = fftconv.frequency_impulse_response(
+      core.exp_sigmoid(controls['noise_magnitudes'] - 5.0), window_size=0)
+  audio = harm + fftconv.fft_convolve(noise, ir, padding='same')
+  return SpectralLoss(fft_sizes=fft_sizes, mag_weight=1.0,
+                      logmag_weight=logmag_weight)(batch['audio'], audio)
+
+
+def long_audio_step(torch, d, seconds, noise):
+  """(decoder, train_step, batch, noise, mesh, fft_sizes): make_sp_train_step
+  around solo_instrument's decoder (seed 0) on a (1 x 4) mesh of d."""
+  from ddsp_torch.parallel import create_mesh, make_sp_train_step
+  from ddsp_torch.utils import build_model
+  mesh = create_mesh(*SP_MESH, devices=[d] * (SP_MESH[0] * SP_MESH[1]))
+  model = build_model('solo_instrument', seed=0, device=d)
+  decoder, fft_sizes = model.decoder, tuple(model.losses[0].fft_sizes)
+  train_step, shard_batch = make_sp_train_step(
+      mesh, decoder, torch.optim.Adam(decoder.parameters(), lr=LONG_LR),
+      n_samples=noise.shape[1], sample_rate=SR, fft_sizes=fft_sizes)
+  batch, noise = shard_batch(long_audio_batch(seconds), noise)
+  return decoder, train_step, batch, noise, mesh, fft_sizes
+
+
+def phase_long_audio(torch, dev, profile):
+  """[6k] long audio: make_sp_train_step at 30 s, B = 2, on a (1 x 4) mesh
+  of the card, held against the dense pipeline and the CPU port."""
+  from ddsp_torch.parallel import sp_synth_and_loss
+  n_samples = LONG_SECONDS * SR
+  print(f'[6k] long audio: make_sp_train_step, solo_instrument\'s decoder '
+        f'(bf16), {LONG_SECONDS} s x B = {LONG_BATCH} ({n_samples} samples, '
+        f'{LONG_SECONDS * 250} frames) on a {SP_MESH} mesh of one card, '
+        f'Adam({LONG_LR}), {LONG_WARMUP} + {LONG_STEPS} steps', flush=True)
+  noise = torch.rand((LONG_BATCH, n_samples),
+                     generator=torch.Generator().manual_seed(41)) * 2 - 1
+  decoder, train_step, batch, noise, mesh, fft_sizes = long_audio_step(
+      torch, dev, LONG_SECONDS, noise)
+  # The noise filter's convolution only: the step has no reverb.
+  expected_k3 = sp_k3_launches(
+      solo_instrument_convolutions(n_samples // mesh.n_time)[1:], fft_sizes)
+
+  # Before any step: the loss and the mag term's gradient, dense and
+  # sharded, from the same parameters and noise.
+  params = list(decoder.parameters())
+  with torch.no_grad():
+    controls = decoder(batch)
+    dense = dense_synth_and_loss(torch, batch, controls, noise,
+                                 fft_sizes).item()
+    phase64 = dense_synth_and_loss(torch, batch, controls, noise, fft_sizes,
+                                   phase64=True).item()
+  grads, mags = {}, {}
+  for kind in ('dense', 'sharded'):
+    controls = decoder(batch, training=True)
+    if kind == 'dense':
+      mag = dense_synth_and_loss(torch, batch, controls, noise, fft_sizes,
+                                 logmag_weight=0.0)
+    else:
+      mag = sp_synth_and_loss(
+          mesh, batch['audio'], batch['f0_hz'], controls['amps'],
+          controls['harmonic_distribution'], controls['noise_magnitudes'],
+          noise, n_samples=n_samples, sample_rate=SR, fft_sizes=fft_sizes,
+          logmag_weight=0.0)
+    grads[kind] = torch.cat([g.double().flatten() for g in
+                             torch.autograd.grad(mag, params)])
+    mags[kind] = mag.item()
+  grad_rel = rel_l2(grads['sharded'], grads['dense'])
+  print(f'  the mag term alone: sharded {mags["sharded"]:.6f}, dense '
+        f'{mags["dense"]:.6f} '
+        f'({abs(mags["sharded"] - mags["dense"]) / mags["dense"]:.3e} '
+        f'apart); its decoder gradient, sharded against dense: relative L2 '
+        f'{grad_rel:.3e} (|dense| {grads["dense"].norm():.4e})')
+  check(torch.isfinite(grads['sharded']).all().item() and
+        grad_rel <= LONG_MAG_GRAD_RTOL,
+        f'the sharded mag-term gradient within {LONG_MAG_GRAD_RTOL} of the '
+        'dense pipeline\'s')
+  del grads
+
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches()
+  times, losses = [], []
+  for _ in range(LONG_WARMUP + LONG_STEPS):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss = train_step(batch, noise)
+    end.record()
+    torch.cuda.synchronize()
+    times.append(start.elapsed_time(end))
+    losses.append(loss.item())
+  launches = read_launches()
+  peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  n_steps = LONG_WARMUP + LONG_STEPS
+  apart = lambda a, b: abs(a - b) / abs(b)
+  print(f'  first step: loss {losses[0]:.5f}, the dense pipeline {dense:.5f} '
+        f'({apart(losses[0], dense):.3e} apart), with a float64 phase '
+        f'{phase64:.5f} ({apart(losses[0], phase64):.3e} apart; the dense '
+        f'float32 phase {apart(dense, phase64):.3e} from it)')
+  check(apart(losses[0], dense) <= LONG_DENSE_RTOL,
+        f'the first step\'s loss within {LONG_DENSE_RTOL} of the dense '
+        'pipeline')
+  check(apart(losses[0], phase64) < apart(dense, phase64),
+        'the first step\'s loss nearer the float64-phase pipeline than the '
+        'dense float32 pipeline is')
+  print(f'  loss per step: {[round(l, 4) for l in losses]}')
+  check(all(np.isfinite(losses)) and
+        np.mean(losses[-3:]) < np.mean(losses[:3]),
+        'the long-audio loss is finite and falls: the last three steps '
+        'below the first three')
+  print(f'  launches over {n_steps} steps: {launches}; K3 counted from the '
+        f'code: {expected_k3} per step')
+  check(launches['K2f'] == launches['K2b'] == launches['K2b_w'] == n_steps,
+        'K2f, K2b and its weight-gradient pass each launched once per '
+        'long-audio step')
+  check(launches['K3'] == expected_k3 * n_steps > 0,
+        f'K3 launched {expected_k3} times per long-audio step')
+  check(launches['K1f'] == launches['K1t'] == launches['K1p'] == 0,
+        'the long-audio step launches no K1 (the shards synthesize in plain '
+        'torch)')
+  median_ms = float(np.median(times[LONG_WARMUP:]))
+  print(f'  step ms: {[round(t, 2) for t in times]}')
+  print(f'  median ms per long-audio step: {median_ms:.3f}; audio samples/s '
+        f'trained: {LONG_BATCH * n_samples / (median_ms / 1e3):.4e}; peak '
+        f'device memory {peak_gib:.3f} GiB')
+  if profile:
+    profile_steps(torch, lambda: train_step(batch, noise), 3, median_ms,
+                  'long-audio step')
+  del batch, noise
+
+  # The first step on the card against the CPU port at LONG_CPU_SECONDS.
+  n_short = LONG_CPU_SECONDS * SR
+  short_noise = torch.rand((LONG_BATCH, n_short),
+                           generator=torch.Generator().manual_seed(42)) * 2 - 1
+  first = {}
+  for name, d in (('card', dev), ('cpu', torch.device('cpu'))):
+    dec, step, b, nz, _, _ = long_audio_step(torch, d, LONG_CPU_SECONDS,
+                                             short_noise)
+    initial = {k: v.detach().cpu().clone()
+               for k, v in dec.state_dict().items()}
+    first[name] = (step(b, nz).item(), initial)
+  (g_loss, g_state), (c_loss, c_state) = first['card'], first['cpu']
+  check(all(torch.equal(g_state[k], v) for k, v in c_state.items()),
+        'the card and the CPU port start from the same decoder parameters')
+  print(f'  {LONG_CPU_SECONDS} s: first step loss card {g_loss:.5f}, CPU port '
+        f'{c_loss:.5f} ({abs(g_loss - c_loss) / abs(c_loss):.3e} apart)')
+  check(abs(g_loss - c_loss) <= LONG_CPU_RTOL * abs(c_loss),
+        f'the first long-audio loss within {LONG_CPU_RTOL} of the CPU port')
+  return launches
+
+
+def phase_sp_eval(torch, dev, work_dir, ckpt_dir, mesh):
+  """[6k] evaluate_or_sample of phase 6b's SP checkpoint on its (1 x 4)
+  mesh against the dense eval of the same checkpoint, batches and noise."""
+  from ddsp_torch.data import ArrayDataProvider
+  from ddsp_torch.eval import BaseEvaluator, BasicEvaluator, evaluate_or_sample
+  from ddsp_torch.losses import SpectralLoss
+  from ddsp_torch.parallel import sp_model
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import build_model
+  print(f'[6k] SP eval and sample of phase 6b\'s checkpoint on its {SP_MESH} '
+        f'mesh: {EVAL_BATCHES} batches of {EVAL_BATCH} x 4 s against the '
+        'dense eval', flush=True)
+
+  class AudioRecorder(BaseEvaluator):
+    """Keeps each batch's target and synthesized audio."""
+
+    def __init__(self):
+      super().__init__(SR, 250)
+      self.audio = []
+
+    def evaluate(self, batch, outputs, losses):
+      self.audio.append((batch['audio'], outputs['audio_synth']))
+
+  provider = ArrayDataProvider(training_batch(), sample_rate=SR,
+                               frame_rate=250)
+  noise = (torch.rand((EVAL_BATCH, N_SAMPLES),
+                      generator=torch.Generator().manual_seed(43)) * 2 -
+           1).to(dev)
+  runs = {}
+  for name, m in (('sp', mesh), ('dense', None)):
+    trainer = Trainer(build_model('solo_instrument', seed=1), mesh=m,
+                      device=dev, halo_impl='pallas')
+    fft_sizes = tuple(trainer.model.losses[0].fft_sizes)
+    mag = SpectralLoss(fft_sizes=fft_sizes, mag_weight=1.0)
+    kwargs = dict(restore_dir=ckpt_dir, batch_size=EVAL_BATCH, noise=noise)
+    evaluate_or_sample(provider, trainer, os.path.join(work_dir, f'w_{name}'),
+                       evaluators=[BasicEvaluator(SR, 250)], num_batches=1,
+                       **kwargs)
+    log, recorder = [], AudioRecorder()
+    owner, attr = (sp_model, 'sp_forward_with_losses') if m else (
+        trainer.model, 'forward')
+    original = timed_calls(torch, owner, attr, log)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+      scalars = evaluate_or_sample(
+          provider, trainer, os.path.join(work_dir, f'eval_{name}'),
+          evaluators=[BasicEvaluator(SR, 250), recorder],
+          num_batches=EVAL_BATCHES, **kwargs)
+    finally:
+      setattr(owner, attr, original)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    with torch.no_grad():
+      mags = [mag(torch.as_tensor(t, device=dev),
+                  torch.as_tensor(a, device=dev)).item()
+              for t, a in recorder.audio]
+    runs[name] = {'scalars': scalars, 'launches': launches,
+                  'loop_ms': 1e3 * seconds / EVAL_BATCHES,
+                  'forward_ms': 1e3 * float(np.median(log)),
+                  'mag': float(np.mean(mags)), 'trainer': trainer}
+    print(f'  {name}: ms per eval batch {runs[name]["loop_ms"]:.3f} (the '
+          f'loop), {runs[name]["forward_ms"]:.3f} (the forward, median); '
+          f'launches {launches}; scalars {scalars}; mean mag term '
+          f'{runs[name]["mag"]:.6f}', flush=True)
+  sp, dense = runs['sp'], runs['dense']
+  expected_k3 = sp_k3_launches(
+      solo_instrument_convolutions(N_SAMPLES // mesh.n_time), fft_sizes,
+      backward=False)
+  check(set(sp['scalars']) == set(dense['scalars']) and all(
+      np.isfinite(v) for v in sp['scalars'].values()),
+        'the SP eval reports the dense eval\'s scalars, finite')
+  a, b = sp['scalars']['losses/total_loss'], dense['scalars'][
+      'losses/total_loss']
+  check(abs(a - b) <= SP_DENSE_RTOL * abs(b),
+        f'SP eval total_loss within {SP_DENSE_RTOL} of the dense eval\'s')
+  mag_rel = abs(sp['mag'] - dense['mag']) / abs(dense['mag'])
+  print(f'  total_loss SP {a:.5f}, dense {b:.5f} ({abs(a - b) / abs(b):.3e} '
+        f'apart); the mag term of the audio the evaluators saw '
+        f'{mag_rel:.3e} apart')
+  check(mag_rel <= EVAL_MAG_LOSS_RTOL,
+        f'SP eval mag term within {EVAL_MAG_LOSS_RTOL} of the dense eval\'s')
+  check(sp['launches']['K2f'] == EVAL_BATCHES and
+        sp['launches']['K3'] == expected_k3 * EVAL_BATCHES and
+        all(sp['launches'][k] == 0
+            for k in ('K1f', 'K1t', 'K1p', 'K2b', 'K2b_w')),
+        f'SP eval: K2f once and K3 {expected_k3} times per batch (counted '
+        'from the code), no K1 and no backward kernel')
+  check(dense['launches']['K1f'] == dense['launches']['K2f'] ==
+        EVAL_BATCHES and dense['launches']['K3'] == 0,
+        'dense eval: K1f and K2f once per batch, no K3')
+
+  names = {}
+  for name in ('sp', 'dense'):
+    sample_dir = os.path.join(work_dir, f'sample_{name}')
+    evaluate_or_sample(provider, runs[name]['trainer'], sample_dir,
+                       restore_dir=ckpt_dir, mode='sample',
+                       batch_size=EVAL_BATCH, num_batches=EVAL_BATCHES,
+                       noise=noise)
+    names[name] = sorted(
+        os.path.relpath(os.path.join(root, f), sample_dir)
+        for root, _, files in os.walk(sample_dir) for f in files
+        if not f.startswith('events.'))
+  print(f'  sample: {len(names["sp"])} files, SP against dense '
+        f'{"the same" if names["sp"] == names["dense"] else "apart"}')
+  check(names['sp'] == names['dense'] and any(
+      n.endswith('_synth.wav') for n in names['sp']),
+        'SP sample writes the files the dense sample writes')
+  return sp['launches']
+
+
+def phase_fir_sp(torch, dev):
+  """[6k] a ProcessorGroup with FIRFilter on a (1 x 4) mesh of the card
+  against the dense group, batch 16 x 4 s."""
+  from ddsp_torch import proc
+  from ddsp_torch.parallel import create_mesh, sp_model
+  print(f'[6k] FIRFilter on a {SP_MESH} mesh of the card, {BATCH} x 4 s, '
+        f'{N_NOISE} bands', flush=True)
+  mesh = create_mesh(*SP_MESH, devices=[dev] * (SP_MESH[0] * SP_MESH[1]))
+  gen = torch.Generator(dev).manual_seed(44)
+  inputs = {'audio': 0.3 * torch.randn((BATCH, N_SAMPLES), generator=gen,
+                                       device=dev),
+            'magnitudes': torch.randn((BATCH, N_FRAMES, N_NOISE),
+                                      generator=gen, device=dev)}
+  fir = proc.FIRFilter(name='fir')
+  pg = proc.ProcessorGroup(dag=[(fir, ['audio', 'magnitudes'])])
+  expected_k3 = k3_convolve_launches(
+      *solo_instrument_convolutions(N_SAMPLES // mesh.n_time)[1])
+  with torch.no_grad():
+    dense = pg(inputs, return_outputs_dict=True)['signal']
+    reset_launches()
+    out = sp_model.sp_run_dag(pg, inputs, mesh, halo_impl='pallas')
+    torch.cuda.synchronize()
+    launches = read_launches()
+  err = ((out['out']['signal'] - dense).abs().max() /
+         dense.abs().max()).item()
+  print(f'  SP against dense: max |err| / max |dense| {err:.3e}; launches '
+        f'{launches}')
+  check(err <= FIR_SP_RTOL,
+        f'FIRFilter\'s SP branch within {FIR_SP_RTOL} of the dense filter')
+  check(launches['K3'] == expected_k3 > 0 and
+        sum(launches.values()) == launches['K3'],
+        f'FIRFilter\'s SP branch launched K3 {expected_k3} times, nothing '
+        'else')
+  return launches
+
+
+# The paths whose launches the kernels line also gives per unit (phase
+# 6k): {path: (unit, units in the path's count)}.
+PER_UNIT = {'long_audio': ('long_audio_step', LONG_WARMUP + LONG_STEPS),
+            'sp_eval': ('sp_eval_batch', EVAL_BATCHES)}
+
+
+def add_launches(entry, launches, key):
+  """entry's launches of the kernel counted under key, by path, and per
+  unit of PER_UNIT's paths."""
+  entry['launches_by_path'] = {path: run[key]
+                               for path, run in launches.items()}
+  entry['launches_per'] = {unit: launches[path][key] / n
+                           for path, (unit, n) in PER_UNIT.items()}
 
 
 def profile_steps(torch, fn, n, median_ms, what):
@@ -4784,8 +5228,7 @@ def k1_entries(torch, launches, dev):
           'max_abs_err': errs_a[key if key == 'K1f' else key + ' abs'],
           'max_rel_err': errs_a[key if key != 'K1f' else 'K1f rel']}
   for entry, key in zip(kernels, ('K1f', 'K1t', 'K1p')):
-    entry['launches_by_path'] = {path: run[key]
-                                 for path, run in launches.items()}
+    add_launches(entry, launches, key)
     print_entry(entry)
   return kernels
 
@@ -4920,11 +5363,15 @@ def k2_entries(torch, launches, dev):
   # The inverse_synthesis RnnSandwich's GRU (phase 6j): bf16 streams,
   # H = 512, T = 250 (the encoder's log-mel frames), at a request's B = 1,
   # a plain or self-supervised step's 16 and a zipped step's 32; the
-  # yardsticks at B = 16 (input width 256, the first FcStack's).
+  # yardsticks at each (input width 256, the first FcStack's).
   k2_other_shape(torch, dev, kernels, 'inv', INV_FRAMES, 256,
                  (1, BATCH, 2 * BATCH), 8)
+  # The long-audio step's decoder GRU (phase 6k): bf16 streams, H = 512,
+  # T = 7500 (30 s), B = 2 (input width 1024, the decoder's).
+  k2_other_shape(torch, dev, kernels, 'long_audio', LONG_FRAMES, 2 * HIDDEN,
+                 (LONG_BATCH,), 9)
   for k, key in zip(kernels, ('K2f', 'K2b', 'K2b_w')):
-    k['launches_by_path'] = {path: run[key] for path, run in launches.items()}
+    add_launches(k, launches, key)
     print_entry(k)
   return kernels
 
@@ -4933,14 +5380,15 @@ def k2_other_shape(torch, dev, kernels, key, seq_len, in_dim, batches,
                    seed):
   """K2f, K2b's serial pass and its weight-gradient pass (kernels[0:3]) at
   H = 512, bf16 streams, T = seq_len and each batch: device ms and bound
-  under kernels[i][key]['B=<b>'], with cuDNN's recurrence and torch.matmul
-  of the weight gradient at B = 16 (library_gru_ms, input width in_dim);
-  None at other batches."""
+  under kernels[i][key]['B=<b>'], with cuDNN's recurrence
+  (library_gru_ms, input width in_dim) and torch.matmul of the weight
+  gradient at the same batch."""
   from ddsp_torch.kernels import gru as kg
-  lib = library_gru_ms(torch, dev, HIDDEN, seq_len=seq_len, in_dim=in_dim)
-  yard = lib['bfloat16'] if 'rec_fwd_ms' in lib['bfloat16'] else (
-      lib['float32'])
   for batch in batches:
+    lib = library_gru_ms(torch, dev, HIDDEN, seq_len=seq_len, in_dim=in_dim,
+                         batch=batch)
+    yard = lib['bfloat16'] if 'rec_fwd_ms' in lib['bfloat16'] else (
+        lib['float32'])
     xa, wa, ba, h0a = k2_inputs(torch, batch, torch.bfloat16, seed, dev,
                                 HIDDEN, seq_len)
     ba, h0a = ba.float().contiguous(), h0a.float().contiguous()
@@ -4953,6 +5401,7 @@ def k2_other_shape(torch, dev, kernels, key, seq_len, in_dim, batches,
     hpa2d = hpa.reshape(-1, HIDDEN)
     dhpa2d = torch.cat([dxa[..., :2 * HIDDEN], dhna], dim=-1).reshape(
         -1, 3 * HIDDEN)
+    matmul = lambda: torch.matmul(hpa2d.t(), dhpa2d)
     parts = (
         (kernels[0], 'fwd', lambda: kg._launch_fwd(xa, wa, ba, h0a),
          yard['rec_fwd_ms']),
@@ -4961,12 +5410,16 @@ def k2_other_shape(torch, dev, kernels, key, seq_len, in_dim, batches,
          yard['rec_bwd_ms']),
         (kernels[2], 'wgrad',
          lambda: kg._launch_wgrad(hpa, dxa, dhna, dbta),
-         device_ms(torch, lambda: torch.matmul(hpa2d.t(), dhpa2d), 20)))
+         device_ms(torch, matmul, 20)))
     for k, part, fn, lib_ms in parts:
       k.setdefault(key, {})[f'B={batch}'] = {
           'T': seq_len, 'ms': device_ms(torch, fn, 10),
           'bound_ms': k2_bound(xa, wa, 'bfloat16', part)[0],
-          'library_ms': lib_ms if batch == BATCH else None}
+          'library_ms': lib_ms}
+    # The profiler's sum can miss part of cuBLAS's work (a time below the
+    # bound); the call's time between CUDA events stands beside it.
+    kernels[2][key][f'B={batch}']['library_call_ms'] = cuda_ms(torch, matmul,
+                                                               20)
 
 
 def print_entry(k):
@@ -4995,7 +5448,8 @@ def print_entry(k):
         + (f", plan {k['plan']}" if 'plan' in k else '')
         + (f", ae {k['ae']}" if 'ae' in k else '')
         + (f", ae encoder {k['ae_encoder']}" if 'ae_encoder' in k else '')
-        + (f", inverse_synthesis {k['inv']}" if 'inv' in k else ''),
+        + (f", inverse_synthesis {k['inv']}" if 'inv' in k else '')
+        + (f", long audio {k['long_audio']}" if 'long_audio' in k else ''),
         flush=True)
 
 
@@ -5027,16 +5481,15 @@ def k3_entry(torch, launches, k3_per_step, mesh, dev):
   flush = torch.empty(2**26, dtype=torch.int32, device=dev)
   entry['cold_ms'] = kernel_ms(torch, lambda: kk._launch(shards, mesh, +1),
                                50, 'halo_shift', before=flush.zero_)
-  entry['launches_by_path'] = {path: run['K3']
-                               for path, run in launches.items()}
+  add_launches(entry, launches, 'K3')
   print_entry(entry)
   return entry
 
 
 def library_gru_ms(torch, dev, hidden=HIDDEN, seq_len=N_FRAMES,
-                   in_dim=2 * HIDDEN):
-  """Yardsticks for K2 from torch.nn.GRU (cuDNN) on a GRU at B = 16, T
-  and H (by default the decoder's: T = 1000, input width 2 * 512, as
+                   in_dim=2 * HIDDEN, batch=BATCH):
+  """Yardsticks for K2 from torch.nn.GRU (cuDNN) on a GRU at B, T and H
+  (by default the decoder's: B = 16, T = 1000, input width 2 * 512, as
   solo_instrument's); timed here and used nowhere in the port.
 
   cuDNN's GRU includes the input projection x @ W_ih^T + b_ih, and its
@@ -5062,19 +5515,22 @@ def library_gru_ms(torch, dev, hidden=HIDDEN, seq_len=N_FRAMES,
     gru.bias_ih_l0.copy_(port_gru.bi)
     gru.bias_hh_l0.zero_()
     gru.bias_hh_l0[2 * hidden:].copy_(port_gru.bn)
-    x = torch.randn((BATCH, seq_len, in_dim), device=dev)
+    x = torch.randn((batch, seq_len, in_dim), device=dev)
     err = (gru(x)[0] - port_gru(x)).abs().max().item()
   print(f'  torch.nn.GRU vs port FastGRU (float32, H={hidden}): max |err| '
         f'{err:.3e}')
   check(err <= K2_ATOL['float32'],
         'torch.nn.GRU yardstick computes the same GRU')
+  # One profiled call past the decoder's T: the profiler's own cost grows
+  # with cuDNN's launches, a few per step.
+  iters = 3 if seq_len <= N_FRAMES else 1
   out = {}
   for name, dtype in (('float32', torch.float32),
                       ('bfloat16', torch.bfloat16)):
     gru = gru.to(dtype)
     xx = x.to(dtype).requires_grad_()
-    gy = torch.randn((BATCH, seq_len, hidden), device=dev).to(dtype)
-    gp = torch.randn((BATCH, seq_len, 3 * hidden), device=dev).to(dtype)
+    gy = torch.randn((batch, seq_len, hidden), device=dev).to(dtype)
+    gp = torch.randn((batch, seq_len, 3 * hidden), device=dev).to(dtype)
     w, b = gru.weight_ih_l0, gru.bias_ih_l0
 
     def gru_fwd():
@@ -5101,8 +5557,8 @@ def library_gru_ms(torch, dev, hidden=HIDDEN, seq_len=N_FRAMES,
       out[name] = {'refused': str(e).splitlines()[0][:200]}
       print(f'  torch.nn.GRU {name}: refused ({out[name]["refused"]})')
       continue
-    fwd = device_ms(torch, gru_fwd, 3)
-    both = device_ms(torch, gru_fwd_bwd, 3)
+    fwd = device_ms(torch, gru_fwd, iters)
+    both = device_ms(torch, gru_fwd_bwd, iters)
     p_fwd = device_ms(torch, proj_fwd, 20)
     p_both = device_ms(torch, proj_fwd_bwd, 20)
     out[name] = {'gru_fwd_ms': fwd, 'gru_bwd_ms': both - fwd,
@@ -5115,7 +5571,8 @@ def library_gru_ms(torch, dev, hidden=HIDDEN, seq_len=N_FRAMES,
         gru_fwd()
         torch.cuda.synchronize()
       out[name]['kernels'] = [r[2][:60] for r in device_rows(prof)[:3]]
-    print(f'  torch.nn.GRU {name} H={hidden} T={seq_len}: ' + ', '.join(
+    print(f'  torch.nn.GRU {name} H={hidden} T={seq_len} B={batch}: '
+          + ', '.join(
         f'{k} {v:.4f}' if isinstance(v, float) else f'{k} {v}'
         for k, v in out[name].items()), flush=True)
   return out
@@ -5211,8 +5668,13 @@ def main(argv=None):
       phase_processors(torch, dev)
       phase_prepare(torch, dev, work_dir)
     phase_wide_gru_steps(torch, dev)
-    launches['sp_train'], k3_per_step, sp_mesh = phase_sp_train(
-        torch, dev, dense_ms, args.profile)
+    with tempfile.TemporaryDirectory() as sp_dir:
+      launches['sp_train'], k3_per_step, sp_mesh = phase_sp_train(
+          torch, dev, dense_ms, args.profile, os.path.join(sp_dir, 'train'))
+      launches['long_audio'] = phase_long_audio(torch, dev, args.profile)
+      launches['sp_eval'] = phase_sp_eval(
+          torch, dev, sp_dir, os.path.join(sp_dir, 'train'), sp_mesh)
+      launches['fir_sp'] = phase_fir_sp(torch, dev)
     kernels = phase_report(torch, port, reqs, launches, dev, args.profile)
     kernels.append(k3_entry(torch, launches, k3_per_step, sp_mesh, dev))
     kernels.append(vst_entry)

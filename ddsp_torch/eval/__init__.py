@@ -1,5 +1,5 @@
-"""Evaluation: metrics, evaluators, summaries, heuristics, postprocessing
-and the eval loop (port of ddsp_tpu.eval)."""
+"""Evaluation: metrics, evaluators, summaries, heuristics, postprocessing,
+plotting and the eval loop (port of ddsp_tpu.eval)."""
 
 from ddsp_torch.eval import eval_util  # noqa: F401
 from ddsp_torch.eval import heuristics  # noqa: F401
@@ -13,3 +13,4 @@ from ddsp_torch.eval.evaluators import F0LdEvaluator  # noqa: F401
 from ddsp_torch.eval.evaluators import MidiAutoencoderEvaluator  # noqa: F401
 from ddsp_torch.eval.evaluators import MidiHeuristicEvaluator  # noqa: F401
 from ddsp_torch.eval.evaluators import TWMEvaluator  # noqa: F401
+from ddsp_torch.eval import plotting  # noqa: F401

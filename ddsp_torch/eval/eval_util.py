@@ -3,8 +3,9 @@
 Port of ddsp_tpu/eval/eval_util.py: poll a train directory for new
 checkpoints (the port's ckpt-<step>.pt, utils/checkpoints.py), restore each
 with Trainer.restore, run a fixed set of batches through the model in eval
-mode on the trainer's device, hand them to the evaluators, and write their
-scalars to <save_dir>/<mode>/metrics.jsonl.
+mode on the trainer's device (through the sequence-parallel forward when
+the trainer's mesh shards time), hand them to the evaluators, and write
+their scalars to <save_dir>/<mode>/metrics.jsonl.
 """
 
 from __future__ import annotations
@@ -137,17 +138,19 @@ def evaluate_or_sample(data_provider,
     The scalars of the last checkpoint evaluated ({} in 'sample' mode).
 
   Raises:
-    NotImplementedError: for a trainer whose mesh shards time (the
-      sequence-parallel forward of eval is not ported).
+    ValueError: for a trainer whose mesh shards time and a model that the
+      sharded forward does not take (parallel.sp_model.check_sp_model).
   """
-  if sp_model.has_time_sharding(getattr(trainer, 'mesh', None)):
-    raise NotImplementedError(
-        'evaluate_or_sample on a mesh that shards time runs the '
-        'sequence-parallel forward, which ddsp_torch has not ported for '
-        'eval (ROADMAP.md, queue 1 item 8: SP eval).')
   if mode not in ('eval', 'sample'):
     raise ValueError(f"mode must be 'eval' or 'sample', got {mode!r}.")
   restore_dir = restore_dir or save_dir
+  # On a mesh that shards time the batches go through the training step's
+  # sequence-parallel forward, so a model trained at audio lengths that
+  # need the shards is evaluated at that length too.
+  mesh = getattr(trainer, 'mesh', None)
+  use_sp = sp_model.has_time_sharding(mesh)
+  if use_sp:
+    sp_model.check_sp_model(trainer.model)
 
   # A fixed evaluation set: the same batches for every checkpoint, so the
   # metric curve follows the model, not the data.
@@ -174,9 +177,15 @@ def evaluate_or_sample(data_provider,
         # training=False; the losses are computed all the same
         # (return_losses=True), as the JAX loop computes them.
         with torch.no_grad():
-          outputs, losses = model(trainer.to_device(batch), training=False,
-                                  return_losses=True, noise=noise,
-                                  generator=generator)
+          if use_sp:
+            outputs, losses = sp_model.sp_forward_with_losses(
+                model, trainer.to_device(batch), mesh,
+                halo_impl=trainer.halo_impl, training=False, noise=noise,
+                generator=generator)
+          else:
+            outputs, losses = model(trainer.to_device(batch),
+                                    training=False, return_losses=True,
+                                    noise=noise, generator=generator)
         outputs = to_host(outputs)
         losses = {k: float(v) for k, v in losses.items()}
         logger.info('Predictions for batch %d/%d took %.2fs',

@@ -13,13 +13,14 @@ through the time-sharded kernels of parallel/time_shard.py:
                             noise, drawn globally from the same generator,
                             in the same order, as the dense path
   * Reverb               -> time_sharded_fft_convolve, delay 0, dry mask
+  * FIRFilter            -> FIR design + time_sharded_fft_convolve
   * anything else        -> the processor's own signal on global tensors
   * SpectralLoss (L1)    -> time_sharded_spectral_loss (all six terms)
   * other losses         -> called on the global tensors
 
-FIRFilter's branch comes with FIRFilter (ROADMAP.md queue 1 item 6). As in
-the JAX package, the sharded loss is float32 whatever the SpectralLoss's
-compute_dtype.
+As in the JAX package, the sharded loss is float32 whatever the
+SpectralLoss's compute_dtype, and only an Autoencoder-style model takes the
+sharded forward (`check_sp_model`).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ddsp_torch.losses.spectral import SpectralLoss
+from ddsp_torch.models.autoencoder import Autoencoder
 from ddsp_torch.ops import fftconv as fftconv_ops
 from ddsp_torch.ops.core import nested_lookup, to_dict, torch_float32
 from ddsp_torch.parallel import time_shard
@@ -44,6 +46,21 @@ TensorDict = Dict[str, Any]
 def has_time_sharding(mesh: Optional[Mesh]) -> bool:
   """True when the mesh actually shards the audio time axis."""
   return mesh is not None and mesh.n_time > 1
+
+
+def check_sp_model(model) -> None:
+  """Raise a ValueError unless the sharded forward takes the model.
+
+  It runs an Autoencoder's encode, decoder, processor group and losses. A
+  MidiAutoencoder or an InverseSynthesis model has no `encode` (the JAX
+  package's sharded forward fails on it with an AttributeError).
+  """
+  if not isinstance(model, Autoencoder):
+    raise ValueError(
+        f'The time-sharded forward takes an Autoencoder (preprocessor, '
+        f'encoder, decoder, processor group, losses); got '
+        f'{type(model).__name__}. Evaluate or train it on a mesh that does '
+        'not shard time.')
 
 
 def _sp_get_signal(module, controls: TensorDict, mesh: Mesh, halo_impl: str,
@@ -75,7 +92,16 @@ def _sp_get_signal(module, controls: TensorDict, mesh: Mesh, halo_impl: str,
                                                halo_impl=halo_impl)
     return (wet + audio) if module.add_dry else wet
 
-  # Elementwise routing (Add) works on the global tensors as it is.
+  if isinstance(module, effects_lib.FIRFilter):
+    ir = fftconv_ops.frequency_impulse_response(
+        controls['magnitudes'], window_size=module.window_size)
+    return time_shard.time_sharded_fft_convolve(mesh, controls['audio'], ir,
+                                                halo_impl=halo_impl)
+
+  # Elementwise routing (Add, Mix, TensorToAudio) is shape-preserving and
+  # works on the global tensors as they are; anything else (Wavetable,
+  # Sinusoidal, ModDelay) falls back to its dense implementation on the
+  # global tensors: the values are the same, only the node is not sharded.
   return module.render(controls, noise=noise, generator=generator)
 
 
@@ -138,8 +164,10 @@ def sp_forward_with_losses(model, features: TensorDict, mesh: Mesh,
   decoder, processor_group, losses) and features on the mesh's first
   device; noise/generator feed FilteredNoise as in the dense forward.
   Returns (outputs, losses_dict with 'total_loss'), the contract of
-  model(features, return_losses=True).
+  model(features, return_losses=True). Raises a ValueError for a model that
+  is not an Autoencoder (`check_sp_model`).
   """
+  check_sp_model(model)
   features = model.encode(features, training=training)
   features = dict(features)
   features.update(model.decoder(features))

@@ -1,16 +1,20 @@
-"""Sequence-parallel synthesis and loss from raw decoder outputs.
+"""Sequence-parallel training on audio longer than one shard holds.
 
-Port of `sp_synth_and_loss` of ddsp_tpu/parallel/sp_train.py: harmonic
+Port of ddsp_tpu/parallel/sp_train.py. `sp_synth_and_loss` runs harmonic
 synthesis (phase-carry exchange), filtered noise (overlap-add halo
-exchange) and the multi-scale spectral loss (STFT halos and sums), with
-every [batch, n_samples] intermediate time-sharded. The JAX module's
-`make_sp_train_step` makes a jitted step around an optax optimizer; the
-port's sequence-parallel training goes through `train.Trainer(mesh=...)`,
-and its own `make_sp_train_step` is listed in ROADMAP.md queue 1 item 8.
+exchange) and the multi-scale spectral loss (STFT halos and sums) from raw
+decoder outputs, with every [batch, n_samples] intermediate time-sharded.
+`make_sp_train_step` wraps it into a training step around a decoder and a
+torch.optim optimizer: the long-audio step of the JAX package (a decoder
+on frame-rate features, no preprocessor, no reverb), beside the full-model
+sequence-parallel step of `train.Trainer(mesh=...)`.
 """
 
 from __future__ import annotations
 
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
 import torch
 
 from ddsp_torch.ops import core as ops_core
@@ -55,3 +59,63 @@ def sp_synth_and_loss(mesh: Mesh, target_audio: torch.Tensor,
   return time_shard.time_sharded_spectral_loss(
       mesh, target_audio, harm + noise, fft_sizes=fft_sizes,
       mag_weight=mag_weight, logmag_weight=logmag_weight)
+
+
+def make_sp_train_step(mesh: Mesh, decoder: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer, n_samples: int,
+                       sample_rate: int = 16000,
+                       fft_sizes=(2048, 1024, 512, 256, 128, 64)
+                       ) -> Tuple[Callable[..., torch.Tensor], Callable]:
+  """A sequence-parallel training step.
+
+  The decoder (a DictModule such as RnnFcDecoder or FcStackDecoder,
+  emitting 'amps', 'harmonic_distribution' and 'noise_magnitudes') runs on
+  the frame-rate features on the mesh's first device; everything
+  audio-rate stays time-sharded (`sp_synth_and_loss`).
+
+  Args:
+    mesh: Mesh(('data', 'time')).
+    decoder: Control network; its parameters lie on the mesh's first
+      device.
+    optimizer: A torch.optim optimizer over the decoder's parameters
+      (torch.optim.Adam makes optax.adam's update).
+    n_samples: Global audio length per example.
+    sample_rate: Hz.
+    fft_sizes: Spectral loss sizes.
+
+  Returns:
+    (train_step, shard_batch): train_step(batch, noise) runs the forward,
+    the backward and optimizer.step(), updating the parameters in place,
+    and returns the loss (a scalar tensor on the device); shard_batch(batch,
+    noise) returns the host arrays as float32 tensors on the mesh's first
+    device, where the time-sharded functions split them over the mesh.
+  """
+  device = mesh.first_device
+  for name, p in decoder.named_parameters():
+    if p.device != device:
+      raise ValueError(f'The decoder parameter {name} lies on {p.device}, '
+                       f'the mesh on {device}; move the decoder there '
+                       'before making its optimizer.')
+
+  def train_step(batch: Dict[str, torch.Tensor],
+                 noise: torch.Tensor) -> torch.Tensor:
+    optimizer.zero_grad(set_to_none=True)
+    controls = decoder(batch, training=True)
+    loss = sp_synth_and_loss(
+        mesh, batch['audio'], batch['f0_hz'], controls['amps'],
+        controls['harmonic_distribution'], controls['noise_magnitudes'],
+        noise, n_samples=n_samples, sample_rate=sample_rate,
+        fft_sizes=fft_sizes)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+  def to_device(v: Any) -> torch.Tensor:
+    if not isinstance(v, torch.Tensor):
+      v = torch.from_numpy(np.asarray(v, np.float32))
+    return v.to(device, torch.float32)
+
+  def shard_batch(batch: Dict[str, Any], noise: Any):
+    return {k: to_device(v) for k, v in batch.items()}, to_device(noise)
+
+  return train_step, shard_batch

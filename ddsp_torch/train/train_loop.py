@@ -78,6 +78,7 @@ def train(data_iterator: Iterator[Dict[str, Any]],
           save_dir: Optional[str] = None,
           restore_dir: Optional[str] = None,
           early_stop_loss_value: Optional[float] = None,
+          report_loss_to_hypertune: bool = False,
           profile_dir: Optional[str] = None,
           profile_start: int = 10,
           profile_steps: int = 10,
@@ -97,6 +98,9 @@ def train(data_iterator: Iterator[Dict[str, Any]],
     restore_dir: Where to restore from (defaults to save_dir).
     early_stop_loss_value: Stop early when the interval mean of total_loss
       is <= this value (checked at summary intervals).
+    report_loss_to_hypertune: Accepted as the JAX loop accepts it (a
+      placeholder there); not read. utils.cloud.report_metric_to_hypertune
+      reports a metric.
     profile_dir: Capture a torch.profiler trace (chrome trace JSON) into
       this directory.
     profile_start: First step of the trace window.

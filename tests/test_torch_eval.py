@@ -28,7 +28,6 @@ from ddsp_torch.eval import evaluators as t_evaluators
 from ddsp_torch.eval import metrics as t_metrics
 from ddsp_torch.eval import postprocessing as t_post
 from ddsp_torch.eval import summaries as t_summaries
-from ddsp_torch.parallel import create_mesh
 from ddsp_torch.train import Trainer
 from ddsp_torch.utils import build_model, checkpoints, save_spec
 
@@ -305,13 +304,6 @@ def test_evaluate_or_sample_end_to_end(train_dir, tmp_path):
   names = os.listdir(os.path.join(save_dir, 'samples', 'step_2'))
   assert {f'{i}_{kind}.wav' for i in range(4)
           for kind in ('original', 'synth')} <= set(names)
-
-
-def test_evaluate_or_sample_refuses_a_time_sharded_mesh(train_dir):
-  mesh = create_mesh(1, 2, devices=['cpu'] * 2)
-  trainer = Trainer(build_model('tiny', device='cpu', seed=0), mesh=mesh)
-  with pytest.raises(NotImplementedError, match='queue 1 item 8'):
-    t_eval.evaluate_or_sample(_tiny_provider(), trainer, train_dir)
 
 
 def test_default_evaluators_run_on_cuda(monkeypatch):
