@@ -29,17 +29,19 @@ Phases (any failed check exits non-zero before the result lines):
      encoder's GRU), B in {1, 16}, and T = 250 (the inverse_synthesis
      RnnSandwich's GRU), B in {1, 16, 32}, and T = 7500 (the long-audio
      step's decoder, 30 s), B = 2; bf16 at H = 96 and 384 (the cluster
-     kernels, zero-padded to 128 and 512) and 1024 (the cooperative
-     kernels), B in {1, 16, 40}, and float32 at H = 1024, B = 16; the
-     launches of each route; with bf16 streams K2b's two passes, the
-     serial reverse-time kernel and the weight-gradient kernel, each against
-     its own plain version; the clusters chosen; gradients through FastGRU
+     kernels, zero-padded to 128 and 512) and 640, 768 and 1024 (the
+     cooperative kernels), B in {1, 16, 40}, and float32 at H = 768 and
+     1024, B = 16; the launches of each route; with bf16 streams K2b's two
+     passes, the serial reverse-time kernel (cluster or cooperative) and the
+     weight-gradient kernel, each against its own plain version; the
+     clusters and the cooperative plans chosen; gradients through FastGRU
      and harmonic_synthesis on the card against the port on the CPU;
   3c. K2b's weight-gradient kernel (TMA + wgmma, split K over a cluster per
      output tile) against its plain version at H = 512, T = 1000, B in
      {1, 16, 40, 128}, at H = 64 and through the padded H = 96 and 384,
      with its plan and bit-equal repeats; K2f's step kernel (float32,
-     T = 1, no grid barrier) against its plain version at B in {1, 4, 40}
+     T = 1, no exchange between CTAs) against its plain version at B in
+     {1, 4, 40}
      and H in {64, 512, 1024} with a non-zero h0;
   4. serve 4 requests of 4 s through the full-width solo_instrument
      autoencoder (AutoencoderInference on a params-format export), check the
@@ -167,6 +169,11 @@ Phases (any failed check exits non-zero before the result lines):
      file; print the seconds of audio prepared per second;
   6a. one B = 2 training step at rnn_channels 384 and 1024 against the port
      on the CPU, with the launches of each GRU route;
+  6l. the training step of full-width solo_instrument at 16 x 4 s through
+     Trainer.train_step at compute_dtype='float32' and at rnn_channels=1024
+     (bf16), both on the cooperative K2 kernels: median ms of 12 steps
+     after 3, launches per step, beside phase 6's bf16 step (device busy
+     under --profile);
   6b. train the same model sequence-parallel: Trainer on a (1 data x 4 time)
      mesh whose shards share the card, halo_impl='pallas'; check the losses,
      the kernels' launches per step (K3 as counted from the code, K1 none),
@@ -763,18 +770,20 @@ def k2_backward(torch, xp, wh, bn, h0, g):
 
 def k2_passes(torch, xp, wh, bn, h0, g):
   """bf16 K2b's two kernels, each against its plain version on the same
-  inputs: {name: relative max err}. The serial pass takes the plain
-  forward's h_prev stream; the weight-gradient pass takes the serial
-  kernel's outputs."""
+  inputs: {name: relative max err}. The serial pass (the cluster kernel, or
+  the cooperative one past 512 units) takes the plain forward's h_prev
+  stream; the weight-gradient pass takes the serial kernel's outputs."""
   from ddsp_torch.kernels import gru as kg
   bn32, h032 = bn.float().contiguous(), h0.float().contiguous()
   ys = kg.gru_sequence_plain(xp, wh, bn, h0)
   h_prev = kg.h_prev_stream(h032, ys, torch.bfloat16)
-  got = kg._launch_bwd_serial(g, xp, h_prev, wh, bn32)
+  serial = (kg._launch_bwd_serial if wh.shape[0] in kg.CLUSTER_HIDDEN else
+            kg._launch_coop_bwd)
+  got = serial(g, xp, h_prev, wh, bn32)
   want = kg.gru_bwd_serial_plain(g, xp, h_prev, wh, bn)
   errs = {f'serial {k}': rel_err(a, b) for k, a, b in
           zip(('dxp', 'dhn', 'dbn tiles', 'dh0'), got, want)}
-  dwh, dbn = kg._launch_wgrad(h_prev, *got[:3])
+  dwh, dbn = kg._launch_wgrad_any(h_prev, *got[:3])
   want_w = kg.gru_wgrad_plain(h_prev, *got[:3])
   errs.update({f'wgrad {k}': rel_err(a, b) for k, a, b in
                zip(('dwh', 'dbn'), (dwh, dbn), want_w)})
@@ -784,17 +793,17 @@ def k2_passes(torch, xp, wh, bn, h0, g):
 def k2_expected_launches(torch, hidden, batch, dtype, dev):
   """{'K2f', 'K2b', 'K2b_w'}: the launches one forward and backward of K2
   make on this route (the cluster route: one each, both passes of K2b;
-  the cooperative route: one K2f and one K2b per row group, no
-  weight-gradient pass)."""
+  the cooperative route: one K2f and one K2b per launch of its plan, and
+  with bf16 streams one weight-gradient pass)."""
   from ddsp_torch.kernels import gru as kg
-  if dtype == torch.bfloat16 and kg.bf16_route(hidden)[0] == 'cluster':
+  bf16 = dtype == torch.bfloat16
+  if bf16 and kg.bf16_route(hidden)[0] == 'cluster':
     return {'K2f': 1, 'K2b': 1, 'K2b_w': 1}
-  groups = {}
-  for backward in (False, True):
-    _, rows = kg.pick_cooperative(dev, hidden, batch, backward,
-                                  dtype == torch.bfloat16)
-    groups[backward] = -(-batch // rows)
-  return {'K2f': groups[False], 'K2b': groups[True], 'K2b_w': 0}
+  return {'K2f': kg.pick_cooperative(dev, hidden, batch, False,
+                                     bf16)['launches'],
+          'K2b': kg.pick_cooperative(dev, hidden, batch, True,
+                                     bf16)['launches'],
+          'K2b_w': 1 if bf16 else 0}
 
 
 def k2_route_name(torch, hidden, dtype):
@@ -807,8 +816,10 @@ def k2_route_name(torch, hidden, dtype):
 
 # K2 cases of phase 3: (H, T, batches, dtypes). H = 512 and 64 are the
 # cluster kernels' own sizes; 96 and 384 run on them zero-padded (to 128
-# and 512); 1024 is past any cluster and takes the cooperative kernels, in
-# bf16 and in float32. T = 125 is the ae encoder's GRU (its MFCC frames),
+# and 512); 640, 768 and 1024 are past any cluster and take the cooperative
+# kernels (768: the widest H at which the JAX package runs its Pallas
+# kernel), in bf16 and in float32 (float32 takes them at every H, here
+# 512, 64, 768 and 1024). T = 125 is the ae encoder's GRU (its MFCC frames),
 # T = 250 the inverse_synthesis RnnSandwich's at a request's, a step's and
 # a zipped step's batch, T = 7500 the long-audio step's (30 s, phase 6k).
 K2_CASES = (
@@ -821,6 +832,11 @@ K2_CASES = (
     (96, 24, (40,), ('bfloat16',)),
     (384, N_FRAMES, (1, 16), ('bfloat16',)),
     (384, 24, (40,), ('bfloat16',)),
+    (640, N_FRAMES, (1, 16), ('bfloat16',)),
+    (640, 24, (40,), ('bfloat16',)),
+    (768, N_FRAMES, (1, 16), ('bfloat16',)),
+    (768, 24, (40,), ('bfloat16',)),
+    (768, N_FRAMES, (16,), ('float32',)),
     (1024, N_FRAMES, (1, 16), ('bfloat16',)),
     (1024, 24, (40,), ('bfloat16',)),
     (1024, N_FRAMES, (16,), ('float32',)),
@@ -830,8 +846,8 @@ K2_CASES = (
 def phase_k2(torch, dev):
   from ddsp_torch.kernels import gru as kg
   print('[3] K2 fused GRU vs plain: forward and backward, both dtypes, '
-        'H in {64, 96, 384, 512, 1024}, B in {1, 2, 4, 16, 32, 40, 128}, T '
-        'in {24, 125, 250, 1000, 7500}', flush=True)
+        'H in {64, 96, 384, 512, 640, 768, 1024}, B in {1, 2, 4, 16, 32, 40, '
+        '128}, T in {24, 125, 250, 1000, 7500}', flush=True)
   for hidden in (HIDDEN, 64):
     for backward in (False, True):
       c = kg.pick_cluster(dev, hidden, backward)
@@ -839,6 +855,15 @@ def phase_k2(torch, dev):
             f"cluster of {c['cluster']} CTAs x u = {c['units']} units, "
             f"{c['smem_bytes']} B shared memory per CTA, at most "
             f"{c['max_active_clusters']} clusters resident", flush=True)
+  for name, hidden, batch in (('bfloat16', 640, 40), ('bfloat16', 768, 16),
+                              ('bfloat16', 1024, 16), ('bfloat16', 1024, 40),
+                              ('float32', HIDDEN, 16), ('float32', HIDDEN, 128),
+                              ('float32', 1024, 16)):
+    for backward in (False, True):
+      plan = kg.pick_cooperative(dev, hidden, batch, backward,
+                                 name == 'bfloat16')
+      print(f"  cooperative {name} {'K2b' if backward else 'K2f'} "
+            f"H={hidden} B={batch}: plan {plan}", flush=True)
   for hidden, seq_len, batches, dtypes in K2_CASES:
     for name in dtypes:
       dtype = getattr(torch, name)
@@ -875,7 +900,8 @@ def phase_k2(torch, dev):
         check(launches == expected,
               f'K2 {what}: launches {expected}, the kernels of its route '
               '(no plain version)')
-        if dtype == torch.bfloat16 and hidden in kg.CLUSTER_HIDDEN:
+        if dtype == torch.bfloat16 and (hidden in kg.CLUSTER_HIDDEN or
+                                        hidden > kg.CLUSTER_HIDDEN[-1]):
           passes = k2_passes(torch, xp, wh, bn, h0, g)
           print('  K2b passes ' + ', '.join(f'{k} {v:.3e}'
                                             for k, v in passes.items()))
@@ -1258,8 +1284,8 @@ def k2f_one_hop_entry(torch, dev, predict, frame_state, launches):
   bf16-rounded wi^T, bias_ih = bi, weight_hh = wh^T, bias_hh = [0, 0,
   bn]); it includes the input projection, which the port runs as a GEMM
   beside K2f, so the port's whole FastGRU step is timed beside it. The
-  earlier design, the cooperative kernel with its grid barrier (still the
-  float32 route from T = 2), is timed on the same operands."""
+  cooperative kernel (the float32 route from T = 2) is timed on the same
+  operands."""
   from ddsp_torch.kernels import gru as kg
   gru = predict.model.decoder.rnn.FastGRU_0
   seen = {}
@@ -1317,8 +1343,8 @@ def k2f_one_hop_entry(torch, dev, predict, frame_state, launches):
   print_entry(entry)
   print(f"  one FastGRU step of the port (projection GEMM + K2f): "
         f"{entry['port_step_ms']:.4f} ms device; GRUCell per call with host "
-        f"{entry['library_call_ms']:.4f} ms; the earlier design (the "
-        f"cooperative kernel) {entry['cooperative_ms']:.4f} ms device, "
+        f"{entry['library_call_ms']:.4f} ms; the cooperative kernel "
+        f"{entry['cooperative_ms']:.4f} ms device, "
         f"{entry['cooperative_call_ms']:.4f} ms per call", flush=True)
   return entry
 
@@ -4517,6 +4543,72 @@ def phase_wide_gru_steps(torch, dev):
           f'{what}: K1f, K1t once, K2 {expected}')
 
 
+# Phase 6l: full-width training steps on the cooperative K2 kernels.
+WIDE_STEP_CASES = (('float32', dict(compute_dtype='float32')),
+                   ('rnn_channels=1024', dict(rnn_channels=1024)))
+WIDE_WARMUP_STEPS, WIDE_TIMED_STEPS = 3, 12
+
+
+def phase_wide_train_steps(torch, dev, dense_ms, profile):
+  """Trainer.train_step of full-width solo_instrument at 16 x 4 s with
+  compute_dtype='float32' and with rnn_channels=1024 (bf16): both run K2f
+  and K2b on the cooperative kernels once each way per step. Median ms of
+  WIDE_TIMED_STEPS steps after WIDE_WARMUP_STEPS, between CUDA events, and
+  the launches of one step; beside phase 6's bf16 step."""
+  from ddsp_torch.kernels import gru as kg
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import build_model
+  print(f'[6l] training steps of solo_instrument on the cooperative K2 '
+        f'kernels (batch {BATCH} x 4 s)', flush=True)
+  batch = training_batch()
+  paths = {}
+  for label, kwargs in WIDE_STEP_CASES:
+    trainer = Trainer(build_model('solo_instrument', seed=0, **kwargs),
+                      seed=0)
+    state = trainer.init()
+    for _ in range(WIDE_WARMUP_STEPS):
+      state, losses = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    state, losses = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    hidden = kwargs.get('rnn_channels', HIDDEN)
+    bf16 = kwargs.get('compute_dtype', 'bfloat16') == 'bfloat16'
+    expected = k2_expected_launches(
+        torch, hidden, BATCH, torch.bfloat16 if bf16 else torch.float32, dev)
+    check(np.isfinite(losses['total_loss'].item()),
+          f'solo_instrument ({label}): the loss is finite')
+    check({k: launches[k] for k in expected} == expected and
+          launches['K1f'] == launches['K1t'] == 1 and
+          kg.fwd_route(torch.bfloat16 if bf16 else torch.float32, N_FRAMES,
+                       hidden) == 'cooperative',
+          f'solo_instrument ({label}): K1f, K1t once and K2 {expected} a '
+          'step, on the cooperative kernels')
+    times = []
+    for _ in range(WIDE_TIMED_STEPS):
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      state, losses = trainer.train_step(state, batch)
+      end.record()
+      torch.cuda.synchronize()
+      times.append(start.elapsed_time(end))
+    median_ms = float(np.median(times))
+    print(f'  solo_instrument ({label}) step ms: '
+          f'{[round(t, 2) for t in times]}')
+    print(f'  median ms per training step ({label}): {median_ms:.3f} '
+          f'({median_ms / dense_ms:.2f}x phase 6\'s bf16 step of '
+          f'{dense_ms:.3f} ms); audio samples/s trained '
+          f'{BATCH * N_SAMPLES / (median_ms / 1e3):.4e}; launches a step '
+          f'{launches}', flush=True)
+    if profile:
+      profile_steps(torch, lambda: trainer.train_step(state, batch), 3,
+                    median_ms, f'training step ({label})')
+    paths[label] = launches
+  return paths
+
+
 def k3_convolve_launches(t_local, frame, ir_size, delay):
   """K3 launches of one time-sharded fft_convolve's forward, counted from
   the code of parallel/time_shard.py: local_fft_convolve_same shifts its
@@ -5326,34 +5418,35 @@ def k2_entries(torch, launches, dev):
   kernels[1]['max_rel_err'] = serial_rel
   kernels[1]['k2b_max_rel_err'] = max(errs)  # both passes vs gru_bwd_plain
   kernels[2]['max_rel_err'] = max(wgrad_errs)
-  # Other widths, bf16, B = 16, T = 1000 (held in phase 3): H = 384 on the
-  # cluster kernels zero-padded to 512, 1024 on the cooperative kernels;
-  # K2b whole (both passes where the route has two), and cuDNN's bf16
-  # recurrence at the same H beside them.
-  for hidden in (384, 1024):
-    xph, whh, bnh, h0h = k2_inputs(torch, BATCH, torch.bfloat16, 6, dev,
-                                   hidden)
-    bnh, h0h = bnh.float().contiguous(), h0h.float().contiguous()
-    ysh = kg._launch_fwd(xph, whh, bnh, h0h)
-    gh = torch.randn(ysh.shape, device=dev,
-                     generator=torch.Generator(dev).manual_seed(10)) / 30.0
-    hph = kg.h_prev_stream(h0h, ysh, torch.bfloat16)
-    libh = library_gru_ms(torch, dev, hidden)
-    yardh = libh['bfloat16'] if 'rec_fwd_ms' in libh['bfloat16'] else libh[
-        'float32']
-    route = k2_route_name(torch, hidden, torch.bfloat16)
-    fwd = lambda: kg._launch_fwd(xph, whh, bnh, h0h)
-    bwd = lambda: kg._launch_bwd(gh, xph, hph, whh, bnh)
-    serial = k2_bound(xph, whh, 'bfloat16', 'serial')[0]
-    for k, fn, bound_ms, lib_ms in (
-        (kernels[0], fwd, k2_bound(xph, whh, 'bfloat16')[0],
-         yardh['rec_fwd_ms']),
-        (kernels[1], bwd, serial + k2_bound(xph, whh, 'bfloat16', 'wgrad')[0],
-         yardh['rec_bwd_ms'])):
-      k.setdefault('by_hidden', {})[str(hidden)] = {
-          'route': route, 'ms': device_ms(torch, fn, 5),
-          'call_ms': cuda_ms(torch, fn, 5), 'bound_ms': bound_ms,
-          'library_ms': lib_ms}
+  # Another width, bf16, B = 16, T = 1000 (held in phase 3): H = 384 on the
+  # cluster kernels zero-padded to 512; K2b whole (both passes), and
+  # cuDNN's bf16 recurrence at the same H beside them.
+  xph, whh, bnh, h0h = k2_inputs(torch, BATCH, torch.bfloat16, 6, dev, 384)
+  bnh, h0h = bnh.float().contiguous(), h0h.float().contiguous()
+  ysh = kg._launch_fwd(xph, whh, bnh, h0h)
+  gh = torch.randn(ysh.shape, device=dev,
+                   generator=torch.Generator(dev).manual_seed(10)) / 30.0
+  hph = kg.h_prev_stream(h0h, ysh, torch.bfloat16)
+  libh = library_gru_ms(torch, dev, 384)
+  yardh = libh['bfloat16'] if 'rec_fwd_ms' in libh['bfloat16'] else libh[
+      'float32']
+  for k, fn, bound_ms, lib_ms in (
+      (kernels[0], lambda: kg._launch_fwd(xph, whh, bnh, h0h),
+       k2_bound(xph, whh, 'bfloat16')[0], yardh['rec_fwd_ms']),
+      (kernels[1], lambda: kg._launch_bwd(gh, xph, hph, whh, bnh),
+       k2_bound(xph, whh, 'bfloat16', 'serial')[0] +
+       k2_bound(xph, whh, 'bfloat16', 'wgrad')[0], yardh['rec_bwd_ms'])):
+    k['by_hidden'] = {'384': {
+        'route': k2_route_name(torch, 384, torch.bfloat16),
+        'ms': device_ms(torch, fn, 5), 'call_ms': cuda_ms(torch, fn, 5),
+        'bound_ms': bound_ms, 'library_ms': lib_ms}}
+  # The cooperative kernels at B = 16, T = 1000: (a) bf16 H = 1024, (b)
+  # bf16 H = 768, (c) float32 H = 512 (solo_instrument(compute_dtype=
+  # 'float32')'s decoder GRU), with cuDNN's recurrence at the same shape.
+  for key, name, hidden in COOP_SHAPES:
+    coop = k2_cooperative_shape(torch, dev, name, hidden)
+    kernels[0].setdefault('cooperative', {})[key] = coop['fwd']
+    kernels[1].setdefault('cooperative', {})[key] = coop['bwd']
   # The ae encoder's GRU (phase 6g): bf16 streams, H = 512, T = 125 (its
   # MFCC frames), at a step's B = 16 and a request's B = 1; cuDNN's
   # recurrence and torch.matmul of the weight gradient at the same shape
@@ -5422,6 +5515,83 @@ def k2_other_shape(torch, dev, kernels, key, seq_len, in_dim, batches,
                                                                20)
 
 
+# The kernels line's cooperative shapes: (key, stream dtype, H), B = 16,
+# T = 1000.
+COOP_SHAPES = (('a', 'bfloat16', 1024), ('b', 'bfloat16', 768),
+               ('c', 'float32', HIDDEN))
+
+
+def k2_cooperative_shape(torch, dev, name, hidden):
+  """K2f and K2b whole (the serial pass and, with bf16 streams, the
+  weight-gradient pass) on the cooperative kernels at B = 16, T = 1000:
+  device and call ms, us per step, bound (float32 at the CUDA cores' peak,
+  not TF32's), the launches of one call each, the plan, and cuDNN's
+  recurrence at the same shape (full float32, and TF32, for float32
+  streams)."""
+  from ddsp_torch.kernels import gru as kg
+  dtype = getattr(torch, name)
+  xp, wh, bn, h0 = k2_inputs(torch, BATCH, dtype, 6, dev, hidden)
+  bn, h0 = bn.float().contiguous(), h0.float().contiguous()
+  ys = kg._launch_fwd(xp, wh, bn, h0)
+  err = (ys - kg.gru_sequence_plain(xp, wh, bn, h0)).abs().max().item()
+  g = torch.randn(ys.shape, device=dev,
+                  generator=torch.Generator(dev).manual_seed(10)) / 30.0
+  h_prev = kg.h_prev_stream(h0, ys, dtype)
+  got = kg._launch_bwd(g, xp, h_prev, wh, bn)
+  want = kg.gru_bwd_plain(g, xp, h_prev, wh, bn)
+  bwd_err = max(rel_err(a, b) for a, b in zip(got, want))
+  what = f'K2 {name} H={hidden} B={BATCH} T={N_FRAMES} (cooperative)'
+  check(err <= K2_ATOL[name] and bwd_err <= K2_BWD_RTOL[name],
+        f'{what}: K2f within {K2_ATOL[name]}, K2b within '
+        f'{K2_BWD_RTOL[name]} relative')
+  lib = library_gru_ms(torch, dev, hidden, tf32=name == 'float32')
+  yard = lib[name]
+  fwd = lambda: kg._launch_fwd(xp, wh, bn, h0)
+  bwd = lambda: kg._launch_bwd(g, xp, h_prev, wh, bn)
+  bounds = {'fwd': k2_bound(xp, wh, name),
+            'bwd': (k2_bound(xp, wh, name, 'serial')[0] +
+                    k2_bound(xp, wh, name, 'wgrad')[0],
+                    k2_bound(xp, wh, name, 'serial')[1])}
+  out = {}
+  for part, fn, err_part in (('fwd', fwd, err), ('bwd', bwd, bwd_err)):
+    reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in read_launches().items() if k.startswith('K2')}
+    ms, call_ms = device_ms(torch, fn, 5), cuda_ms(torch, fn, 5)
+    for _ in range(2):
+      # A profiler session now and then loses a cooperative launch (seen:
+      # 0.0317 ms of device time against 5.3 ms between CUDA events): the
+      # device time of one launch cannot be below half its call's.
+      if ms >= 0.5 * call_ms:
+        break
+      print(f'  note: device {ms:.4f} ms against {call_ms:.4f} ms per call; '
+            'repeating the profile', flush=True)
+      ms = device_ms(torch, fn, 5)
+    if ms < 0.5 * call_ms:
+      print('  note: timing with CUDA events', flush=True)
+      ms = call_ms
+    out[part] = {
+        'ms': ms, 'call_ms': call_ms,
+        'us_per_step': 1e3 * ms / N_FRAMES, 'bound_ms': bounds[part][0],
+        'bound_by': bounds[part][1],
+        'peak': f"{PEAK_FLOPS[name] / 1e12:g} TFLOP/s ({name}"
+                + (', CUDA cores' if name == 'float32' else ', tensor cores')
+                + ')',
+        'launches': counts, 'max_err': err_part,
+        'plan': kg.pick_cooperative(dev, hidden, BATCH, part == 'bwd',
+                                    name == 'bfloat16'),
+        'library_ms': yard[f'rec_{part}_ms']}
+    if name == 'float32':
+      out[part]['library_tf32_ms'] = lib['float32_tf32'][f'rec_{part}_ms']
+  print(f"  {what}: K2f {out['fwd']['ms']:.4f} ms device "
+        f"({out['fwd']['us_per_step']:.3f} us a step) against cuDNN "
+        f"{out['fwd']['library_ms']:.4f}; K2b {out['bwd']['ms']:.4f} "
+        f"({out['bwd']['us_per_step']:.3f} us a step) against "
+        f"{out['bwd']['library_ms']:.4f}", flush=True)
+  return out
+
+
 def print_entry(k):
   print(f"  {k['name']}: device {k['ms']:.4f} ms (per call with host "
         f"{k['call_ms']:.4f}), plain {k['plain_ms']:.4f} ms (per call "
@@ -5445,6 +5615,9 @@ def print_entry(k):
            if 'issue_floor_ms' in k else '')
         + (f", other H (B = 16, T = 1000, bf16; with K2b both passes) "
            f"{k['by_hidden']}" if 'by_hidden' in k else '')
+        + (f", cooperative kernels (B = 16, T = 1000; (a) bf16 H = 1024, "
+           f"(b) bf16 H = 768, (c) float32 H = 512; K2b whole) "
+           f"{k['cooperative']}" if 'cooperative' in k else '')
         + (f", plan {k['plan']}" if 'plan' in k else '')
         + (f", ae {k['ae']}" if 'ae' in k else '')
         + (f", ae encoder {k['ae_encoder']}" if 'ae_encoder' in k else '')
@@ -5487,7 +5660,7 @@ def k3_entry(torch, launches, k3_per_step, mesh, dev):
 
 
 def library_gru_ms(torch, dev, hidden=HIDDEN, seq_len=N_FRAMES,
-                   in_dim=2 * HIDDEN, batch=BATCH):
+                   in_dim=2 * HIDDEN, batch=BATCH, tf32=False):
   """Yardsticks for K2 from torch.nn.GRU (cuDNN) on a GRU at B, T and H
   (by default the decoder's: B = 16, T = 1000, input width 2 * 512, as
   solo_instrument's); timed here and used nowhere in the port.
@@ -5496,14 +5669,29 @@ def library_gru_ms(torch, dev, hidden=HIDDEN, seq_len=N_FRAMES,
   backward, which the port hoists out of K2 into one GEMM. So the same
   projection is timed alone at the same shapes (F.linear), and the
   recurrence is the GRU minus the projection ('rec_fwd_ms', 'rec_bwd_ms'),
-  beside the raw times. float32 (checked against the port's float32
-  FastGRU first) and bfloat16 where cuDNN takes it ('refused' where not);
+  beside the raw times. float32 in full float32 (ops.core.full_float32;
+  checked against the port's float32 FastGRU first), with tf32 also
+  'float32_tf32' (cuDNN and the projection allowed TF32), and bfloat16
+  where cuDNN takes it ('refused' where not);
   'kernels' names the top device kernels of one bf16 GRU forward, to show
   which implementation ran. Backward = forward-and-backward minus
   forward, x needing a gradient in both.
   """
+  import contextlib
   from torch.nn import functional as F
   from ddsp_torch.nn.layers import FastGRU
+  from ddsp_torch.ops.core import full_float32
+
+  @contextlib.contextmanager
+  def allow_tf32():
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+      yield
+    finally:
+      cudnn.allow_tf32, matmul.allow_tf32 = saved
+
   port_gru = FastGRU(in_dim, hidden, compute_dtype='float32').to(dev)
   with torch.no_grad():
     port_gru.bi.normal_(0, 0.1)
@@ -5525,57 +5713,69 @@ def library_gru_ms(torch, dev, hidden=HIDDEN, seq_len=N_FRAMES,
   # with cuDNN's launches, a few per step.
   iters = 3 if seq_len <= N_FRAMES else 1
   out = {}
-  for name, dtype in (('float32', torch.float32),
-                      ('bfloat16', torch.bfloat16)):
-    gru = gru.to(dtype)
-    xx = x.to(dtype).requires_grad_()
-    gy = torch.randn((batch, seq_len, hidden), device=dev).to(dtype)
-    gp = torch.randn((batch, seq_len, 3 * hidden), device=dev).to(dtype)
-    w, b = gru.weight_ih_l0, gru.bias_ih_l0
-
-    def gru_fwd():
-      with torch.no_grad():
-        gru(xx)
-
-    def gru_fwd_bwd():
-      gru.zero_grad(set_to_none=True)
-      xx.grad = None
-      gru(xx)[0].backward(gy)
-
-    def proj_fwd():
-      with torch.no_grad():
-        F.linear(xx, w, b)
-
-    def proj_fwd_bwd():
-      gru.zero_grad(set_to_none=True)
-      xx.grad = None
-      F.linear(xx, w, b).backward(gp)
-
-    try:
-      gru_fwd()
-    except RuntimeError as e:
-      out[name] = {'refused': str(e).splitlines()[0][:200]}
-      print(f'  torch.nn.GRU {name}: refused ({out[name]["refused"]})')
-      continue
-    fwd = device_ms(torch, gru_fwd, iters)
-    both = device_ms(torch, gru_fwd_bwd, iters)
-    p_fwd = device_ms(torch, proj_fwd, 20)
-    p_both = device_ms(torch, proj_fwd_bwd, 20)
-    out[name] = {'gru_fwd_ms': fwd, 'gru_bwd_ms': both - fwd,
-                 'proj_fwd_ms': p_fwd, 'proj_bwd_ms': p_both - p_fwd,
-                 'rec_fwd_ms': fwd - p_fwd,
-                 'rec_bwd_ms': (both - fwd) - (p_both - p_fwd)}
-    if dtype == torch.bfloat16:
-      from torch.profiler import ProfilerActivity, profile
-      with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        gru_fwd()
-        torch.cuda.synchronize()
-      out[name]['kernels'] = [r[2][:60] for r in device_rows(prof)[:3]]
-    print(f'  torch.nn.GRU {name} H={hidden} T={seq_len} B={batch}: '
-          + ', '.join(
-        f'{k} {v:.4f}' if isinstance(v, float) else f'{k} {v}'
-        for k, v in out[name].items()), flush=True)
+  runs = [('float32', torch.float32, full_float32)]
+  if tf32:
+    runs.append(('float32_tf32', torch.float32, allow_tf32))
+  runs.append(('bfloat16', torch.bfloat16, full_float32))
+  for name, dtype, precision in runs:
+    with precision():
+      library_gru_run(torch, gru, x, dtype, name, batch, seq_len, hidden,
+                      iters, out)
   return out
+
+
+def library_gru_run(torch, gru, x, dtype, name, batch, seq_len, hidden,
+                    iters, out):
+  """One dtype's timings of library_gru_ms into out[name]."""
+  from torch.nn import functional as F
+  gru = gru.to(dtype)
+  xx = x.to(dtype).requires_grad_()
+  gy = torch.randn((batch, seq_len, hidden), device=x.device).to(dtype)
+  gp = torch.randn((batch, seq_len, 3 * hidden), device=x.device).to(dtype)
+  w, b = gru.weight_ih_l0, gru.bias_ih_l0
+
+  def gru_fwd():
+    with torch.no_grad():
+      gru(xx)
+
+  def gru_fwd_bwd():
+    gru.zero_grad(set_to_none=True)
+    xx.grad = None
+    gru(xx)[0].backward(gy)
+
+  def proj_fwd():
+    with torch.no_grad():
+      F.linear(xx, w, b)
+
+  def proj_fwd_bwd():
+    gru.zero_grad(set_to_none=True)
+    xx.grad = None
+    F.linear(xx, w, b).backward(gp)
+
+  try:
+    gru_fwd()
+  except RuntimeError as e:
+    out[name] = {'refused': str(e).splitlines()[0][:200]}
+    print(f'  torch.nn.GRU {name}: refused ({out[name]["refused"]})')
+    return
+  fwd = device_ms(torch, gru_fwd, iters)
+  both = device_ms(torch, gru_fwd_bwd, iters)
+  p_fwd = device_ms(torch, proj_fwd, 20)
+  p_both = device_ms(torch, proj_fwd_bwd, 20)
+  out[name] = {'gru_fwd_ms': fwd, 'gru_bwd_ms': both - fwd,
+               'proj_fwd_ms': p_fwd, 'proj_bwd_ms': p_both - p_fwd,
+               'rec_fwd_ms': fwd - p_fwd,
+               'rec_bwd_ms': (both - fwd) - (p_both - p_fwd)}
+  if dtype == torch.bfloat16:
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      gru_fwd()
+      torch.cuda.synchronize()
+    out[name]['kernels'] = [r[2][:60] for r in device_rows(prof)[:3]]
+  print(f'  torch.nn.GRU {name} H={hidden} T={seq_len} B={batch}: '
+        + ', '.join(
+      f'{k} {v:.4f}' if isinstance(v, float) else f'{k} {v}'
+      for k, v in out[name].items()), flush=True)
 
 
 def card_line():
@@ -5668,6 +5868,9 @@ def main(argv=None):
       phase_processors(torch, dev)
       phase_prepare(torch, dev, work_dir)
     phase_wide_gru_steps(torch, dev)
+    wide = phase_wide_train_steps(torch, dev, dense_ms, args.profile)
+    launches['train_float32'] = wide['float32']
+    launches['train_rnn1024'] = wide['rnn_channels=1024']
     with tempfile.TemporaryDirectory() as sp_dir:
       launches['sp_train'], k3_per_step, sp_mesh = phase_sp_train(
           torch, dev, dense_ms, args.profile, os.path.join(sp_dir, 'train'))

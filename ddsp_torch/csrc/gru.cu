@@ -90,26 +90,22 @@
 //   wh rows and columns, bn and h0, so they stay exactly 0 and add exact
 //   zeros to every real unit's sums.
 //
-// float32 streams (compute_dtype='float32', a parity mode), and bf16 streams
-// past H = 512, where no cluster of at most 16 CTAs holds wh (at H = 1024
-// bf16 wh alone is 6.3 MB against 16 x 227 KB): cooperative launches of
-// H / u blocks, one per SM, each owning u units with their 3u columns of
-// wh in shared memory at the stream type, one software grid barrier per
-// step (a monotonic arrival counter). CUDA-core dot products with float32
-// accumulation (exact float32 products, which TF32 tensor cores would not
-// hold to the float32 tolerance; with bf16 streams h and dhp are rounded to
-// bf16 first, as the cluster kernels and the plain versions round them);
-// gates and carries are float32. The forward sends h through
-// L2; the backward reduce-scatters dhp @ wh^T: each block writes its
-// columns' partial for every unit and sums the partials of its own units
-// after the barrier, so a block holds one copy of wh (and its float32 dwh
-// columns), which fits H = 1024 in float32 for up to 19 rows a launch.
-// Rows never interact, so a batch whose carries do not fit beside them runs
-// as row groups, one launch each, in sequence (the wrapper plans them).
-// Tiles of kBatchTile rows keep the rest of the footprint fixed. A float32
-// forward of one step (T = 1, the VST hop) takes neither: gru_step_kernel
-// is an ordinary launch without a grid barrier (one step exchanges
-// nothing between steps).
+// float32 streams (compute_dtype='float32', the TPU kernel's float32 path,
+// the precision the TF reference trains in), from two steps, and bf16
+// streams past H = 512, where no cluster of at most 16 CTAs holds wh (at
+// H = 1024 bf16 wh alone is 6.3 MB against 16 x 227 KB): cooperative
+// launches of H_pad / U CTAs per tile of 16 rows (U = 8 or 16 units each,
+// H zero-padded inside the kernels), the products on tensor cores (bf16
+// mma, or 3xTF32 for float32), the step's operand exchanged through L2 as
+// stamped word pairs in the consumers' fragment layout, so each CTA waits
+// only for what it reads (no grid barrier); the backward all-gathers dhp
+// and keeps a row slice of wh beside the column slice. With bf16 streams
+// K2b (b) computes dwh and dbn; with float32 streams each CTA keeps its
+// dwh columns in registers. See "Cooperative kernels" below. Tiles that
+// do not fit one co-resident grid run as later launches (the wrapper plans
+// them). A float32 forward of one step (T = 1, the VST hop) takes neither:
+// gru_step_kernel is an ordinary launch (one step exchanges nothing
+// between steps).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -117,6 +113,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -131,12 +128,8 @@ __device__ __forceinline__ float gate_sigmoid(float x) {
 }
 
 // ------------------------------------------------------------------------
-// Cooperative kernels with a software grid barrier: float32 streams, and
-// bf16 streams past the clusters' 512 units. T is the stream type of xp,
-// wh, h_prev and dxp.
+// Stream types. T is the stream type of xp, wh, h_prev and dxp.
 // ------------------------------------------------------------------------
-
-constexpr int kBatchTile = 8;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -156,388 +149,11 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-// Bytes of a block's [cols][hidden] slice of wh at the stream type, rounded
-// up so the float arrays after it stay 16-byte aligned.
-__host__ __device__ inline size_t slice_bytes(int cols, int hidden,
-                                              size_t item) {
-  return ((size_t)cols * hidden * item + 15) & ~(size_t)15;
-}
-
-// All blocks arrive once per step; step t waits for gridDim.x * (t + 1)
-// arrivals in total. The counter starts at 0 for each launch.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter,
-                                             unsigned int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(counter, 1u);
-    while (*((volatile unsigned int*)counter) < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// out[b][c] = sum_k h_s[b][k] w_s[c][k] for b < nb, c < cols: one warp per
-// column c, its lanes striding k, every row of the tile at once (each w
-// element is read once a tile), then a shuffle sum per output. The order
-// of each output's sum does not depend on nb.
-template <typename TW>
-__device__ __forceinline__ void warp_dots(const float* h_s, const TW* w_s,
-                                          float* out, int nb, int cols,
-                                          int hidden) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int c = warp; c < cols; c += kThreads / 32) {
-    const TW* wv = w_s + (size_t)c * hidden;
-    float acc[kBatchTile];
-#pragma unroll
-    for (int b = 0; b < kBatchTile; ++b) acc[b] = 0.f;
-    for (int k = lane; k < hidden; k += 32) {
-      const float w = to_f(wv[k]);
-#pragma unroll
-      for (int b = 0; b < kBatchTile; ++b) {
-        if (b < nb) acc[b] = fmaf(h_s[b * hidden + k], w, acc[b]);
-      }
-    }
-#pragma unroll
-    for (int b = 0; b < kBatchTile; ++b) {
-      float a = acc[b];
-      for (int off = 16; off > 0; off >>= 1) {
-        a += __shfl_xor_sync(0xffffffffu, a, off);
-      }
-      if (lane == 0 && b < nb) out[b * cols + c] = a;
-    }
-  }
-}
-
-// Rows b of a launch are rows b0 + b of the caller's tensors: xp, ys, g,
-// hprev and dxp step by ld rows per timestep (ld >= batch), h0 and dh0 are
-// [batch, H] at the group's first row.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
-               const float* __restrict__ bn, const float* __restrict__ h0,
-               float* ys, unsigned int* barrier, int seq_len, int batch,
-               int ld, int hidden, int u) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int cols = 3 * u;
-  T* w_s = reinterpret_cast<T*>(smem);  // [cols][hidden]
-  float* h_s = reinterpret_cast<float*>(
-      smem + slice_bytes(cols, hidden, sizeof(T)));  // [kBatchTile][hidden]
-  float* hp_s = h_s + kBatchTile * hidden;           // [kBatchTile][cols]
-  float* carry = hp_s + kBatchTile * cols;           // [batch][u]
-  const int j = blockIdx.x;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < cols * hidden; i += kThreads) {
-    const int c = i / hidden;
-    const int k = i - c * hidden;
-    const int gate = c / u;
-    w_s[i] = wh[(size_t)k * 3 * hidden + gate * hidden + j * u + (c - gate * u)];
-  }
-  for (int i = tid; i < batch * u; i += kThreads) {
-    const int b = i / u;
-    carry[i] = h0[(size_t)b * hidden + j * u + (i - b * u)];
-  }
-
-  for (int t = 0; t < seq_len; ++t) {
-    // h_{t-1} was written by other blocks during this launch: read it
-    // through L2 (ld.global.cg), never from a possibly stale L1 line.
-    const float* h_prev = t == 0 ? h0 : ys + (size_t)(t - 1) * ld * hidden;
-    const T* xp_t = xp + (size_t)t * ld * 3 * hidden;
-    float* ys_t = ys + (size_t)t * ld * hidden;
-    for (int b0 = 0; b0 < batch; b0 += kBatchTile) {
-      const int nb = min(kBatchTile, batch - b0);
-      __syncthreads();  // the previous tile's h_s and hp_s are consumed
-      for (int i = tid; i < nb * hidden; i += kThreads) {
-        h_s[i] = round_to<T>(__ldcg(h_prev + (size_t)b0 * hidden + i));
-      }
-      __syncthreads();
-      warp_dots(h_s, w_s, hp_s, nb, cols, hidden);
-      __syncthreads();
-      for (int i = tid; i < nb * u; i += kThreads) {
-        const int b = i / u;
-        const int uu = i - b * u;
-        const int unit = j * u + uu;
-        const T* x = xp_t + (size_t)(b0 + b) * 3 * hidden;
-        const float* hp = hp_s + b * cols;
-        const float r = gate_sigmoid(to_f(x[unit]) + hp[uu]);
-        const float z = gate_sigmoid(to_f(x[hidden + unit]) + hp[u + uu]);
-        const float n = tanhf(to_f(x[2 * hidden + unit]) +
-                              r * (hp[2 * u + uu] + bn[unit]));
-        float* c = carry + (b0 + b) * u + uu;
-        const float h = (1.f - z) * n + z * *c;
-        *c = h;
-        ys_t[(size_t)(b0 + b) * hidden + unit] = h;
-      }
-    }
-    grid_barrier(barrier, gridDim.x * (unsigned int)(t + 1));
-  }
-}
-
-// g [T, ld, H], xp, hprev, dxp at the stream type; exchange: scratch of
-// 2 * gridDim.x * batch * H floats, each block's partial dh for every unit
-// ([gridDim.x][batch][H], double-buffered by step); dwh [H, 3H] and dbn [H]
-// are added to (the caller zeroes them), dh0 [batch, H] written.
-//
-// Per step, block j owns u units, i.e. 3u columns of wh (w_col, in shared
-// memory): it recomputes hp for them from h_prev, forms dxp and
-// dhp_own = [dr_pre, dz, dhn] for its units, adds h_prev^T dhp_own into its
-// columns of dwh (shared memory, float32), and computes its partial
-// dhp_own @ w_col^T for all H units. After the grid barrier it sums the
-// blocks' partials for its own units: a reduce-scatter through L2, as the
-// cluster kernel does over DSMEM. One copy of wh a block.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gru_bwd_kernel(const float* __restrict__ g, const T* __restrict__ xp,
-               const T* __restrict__ hprev, const T* __restrict__ wh,
-               const float* __restrict__ bn, T* __restrict__ dxp,
-               float* exchange, float* __restrict__ dwh,
-               float* __restrict__ dbn, float* __restrict__ dh0,
-               unsigned int* barrier, int seq_len, int batch, int ld,
-               int hidden, int u) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int cols = 3 * u;
-  const int three_h = 3 * hidden;
-  T* w_col = reinterpret_cast<T*>(smem);  // [cols][hidden]
-  float* dwh_s = reinterpret_cast<float*>(
-      smem + slice_bytes(cols, hidden, sizeof(T)));  // [cols][hidden]
-  float* h_s = dwh_s + cols * hidden;            // [kBatchTile][hidden]
-  float* hp_s = h_s + kBatchTile * hidden;       // [kBatchTile][cols]
-  float* dhp_own = hp_s + kBatchTile * cols;     // [kBatchTile][cols]
-  float* dhn_s = dhp_own + kBatchTile * cols;    // [kBatchTile][u]
-  float* dh_s = dhn_s + kBatchTile * u;          // [batch][u], the carry
-  float* dhz_s = dh_s + batch * u;               // [batch][u], dht * z
-  float* dbn_s = dhz_s + batch * u;              // [u]
-  const int j = blockIdx.x;
-  const int n_blocks = gridDim.x;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < cols * hidden; i += kThreads) {
-    const int c = i / hidden;
-    const int k = i - c * hidden;
-    const int gate = c / u;
-    w_col[i] = wh[(size_t)k * three_h + gate * hidden + j * u + (c - gate * u)];
-    dwh_s[i] = 0.f;
-  }
-  for (int i = tid; i < batch * u; i += kThreads) dh_s[i] = 0.f;
-  for (int i = tid; i < u; i += kThreads) dbn_s[i] = 0.f;
-  __syncthreads();
-
-  for (int step = 0; step < seq_len; ++step) {
-    const int t = seq_len - 1 - step;
-    const T* xp_t = xp + (size_t)t * ld * three_h;
-    const T* hprev_t = hprev + (size_t)t * ld * hidden;
-    const float* g_t = g + (size_t)t * ld * hidden;
-    T* dxp_t = dxp + (size_t)t * ld * three_h;
-    float* ex = exchange + (size_t)(step & 1) * n_blocks * batch * hidden;
-    float* ex_own = ex + (size_t)j * batch * hidden;
-
-    for (int b0 = 0; b0 < batch; b0 += kBatchTile) {
-      const int nb = min(kBatchTile, batch - b0);
-      // h_{t-1} of this tile (an input of the launch: plain loads).
-      for (int i = tid; i < nb * hidden; i += kThreads) {
-        h_s[i] = to_f(hprev_t[(size_t)b0 * hidden + i]);
-      }
-      __syncthreads();
-      warp_dots(h_s, w_col, hp_s, nb, cols, hidden);
-      __syncthreads();
-      for (int i = tid; i < nb * u; i += kThreads) {
-        const int b = i / u;
-        const int uu = i - b * u;
-        const int unit = j * u + uu;
-        const size_t row = (size_t)(b0 + b);
-        const T* x = xp_t + row * three_h;
-        const float* hp = hp_s + b * cols;
-        const float hpn = hp[2 * u + uu] + bn[unit];
-        const float r = gate_sigmoid(to_f(x[unit]) + hp[uu]);
-        const float z = gate_sigmoid(to_f(x[hidden + unit]) + hp[u + uu]);
-        const float n = tanhf(to_f(x[2 * hidden + unit]) + r * hpn);
-        const float h_prev = h_s[b * hidden + unit];
-        const float dht = dh_s[row * u + uu] + g_t[row * hidden + unit];
-        const float dn_pre = dht * (1.f - z) * (1.f - n * n);
-        const float dz = dht * (h_prev - n) * z * (1.f - z);
-        const float dr_pre = dn_pre * hpn * r * (1.f - r);
-        const float dhn = dn_pre * r;
-        T* dx = dxp_t + row * three_h;
-        dx[unit] = from_f<T>(dr_pre);
-        dx[hidden + unit] = from_f<T>(dz);
-        dx[2 * hidden + unit] = from_f<T>(dn_pre);
-        // dhp at the stream type, as both products take it.
-        float* own = dhp_own + b * cols;
-        own[uu] = round_to<T>(dr_pre);
-        own[u + uu] = round_to<T>(dz);
-        own[2 * u + uu] = round_to<T>(dhn);
-        dhn_s[i] = dhn;
-        dhz_s[row * u + uu] = dht * z;
-      }
-      __syncthreads();
-      // Per k: dwh[k, own columns] += h_{t-1}[:, k]^T dhp_own, and the
-      // partial dh[:, k] = dhp_own . w_col[:, k] for this tile's rows.
-      for (int k = tid; k < hidden; k += kThreads) {
-        float hv[kBatchTile], pd[kBatchTile];
-#pragma unroll
-        for (int b = 0; b < kBatchTile; ++b) {
-          hv[b] = b < nb ? h_s[b * hidden + k] : 0.f;
-          pd[b] = 0.f;
-        }
-        for (int c = 0; c < cols; ++c) {
-          const float w = to_f(w_col[c * hidden + k]);
-          float acc = dwh_s[c * hidden + k];
-#pragma unroll
-          for (int b = 0; b < kBatchTile; ++b) {
-            if (b < nb) {
-              const float d = dhp_own[b * cols + c];
-              acc = fmaf(hv[b], d, acc);
-              pd[b] = fmaf(d, w, pd[b]);
-            }
-          }
-          dwh_s[c * hidden + k] = acc;
-        }
-#pragma unroll
-        for (int b = 0; b < kBatchTile; ++b) {
-          if (b < nb) ex_own[(size_t)(b0 + b) * hidden + k] = pd[b];
-        }
-      }
-      if (tid < u) {
-        float acc = dbn_s[tid];
-        for (int b = 0; b < nb; ++b) acc += dhn_s[b * u + tid];
-        dbn_s[tid] = acc;
-      }
-      __syncthreads();
-    }
-
-    grid_barrier(barrier, n_blocks * (unsigned int)(step + 1));
-
-    // dh_{t-1}[b, own units] = dht z + the blocks' partials, read through
-    // L2 (other blocks wrote them in this launch).
-    for (int i = tid; i < batch * u; i += kThreads) {
-      const int b = i / u;
-      const float* p = ex + (size_t)b * hidden + j * u + (i - b * u);
-      float s = dhz_s[i];
-      for (int jj = 0; jj < n_blocks; ++jj) {
-        s += __ldcg(p + (size_t)jj * batch * hidden);
-      }
-      dh_s[i] = s;
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < cols * hidden; i += kThreads) {
-    const int c = i / hidden;
-    const int k = i - c * hidden;
-    const int gate = c / u;
-    dwh[(size_t)k * three_h + gate * hidden + j * u + (c - gate * u)] +=
-        dwh_s[i];
-  }
-  for (int i = tid; i < u; i += kThreads) dbn[j * u + i] += dbn_s[i];
-  for (int i = tid; i < batch * u; i += kThreads) {
-    const int b = i / u;
-    dh0[(size_t)b * hidden + j * u + (i - b * u)] = dh_s[i];
-  }
-}
-
-size_t fwd_smem_bytes(int hidden, int batch, int u, size_t item) {
-  const size_t cols = 3 * (size_t)u;
-  return slice_bytes((int)cols, hidden, item) +
-         sizeof(float) * ((size_t)kBatchTile * (hidden + cols) +
-                          (size_t)batch * u);
-}
-
-size_t bwd_smem_bytes(int hidden, int batch, int u, size_t item) {
-  const size_t cols = 3 * (size_t)u;
-  return slice_bytes((int)cols, hidden, item) +
-         sizeof(float) * (cols * hidden +
-                          (size_t)kBatchTile * (hidden + 2 * cols + u) +
-                          2 * (size_t)batch * u + u);
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <typename Kernel>
-int occupancy(Kernel kernel, size_t smem, int* blocks_per_sm, int* n_sms) {
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // a refused size is an answer, not a pending error
-    return (int)e;
-  }
-  int dev = 0;
-  e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel, kThreads, smem);
-}
-
-template <typename Kernel>
-int launch_cooperative(Kernel kernel, size_t smem, int n_blocks, void** args,
-                       void* stream) {
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(n_blocks),
-                                  dim3(kThreads), args, smem,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int coop_occupancy(int hidden, int batch, int u, int bwd, int* blocks_per_sm,
-                   int* n_sms) {
-  return bwd ? occupancy(gru_bwd_kernel<T>,
-                         bwd_smem_bytes(hidden, batch, u, sizeof(T)),
-                         blocks_per_sm, n_sms)
-             : occupancy(gru_fwd_kernel<T>,
-                         fwd_smem_bytes(hidden, batch, u, sizeof(T)),
-                         blocks_per_sm, n_sms);
-}
-
-template <typename T>
-int coop_fwd(const void* xp, const void* wh, const void* bn, const void* h0,
-             void* ys, void* barrier, int seq_len, int batch, int ld,
-             int hidden, int u, void* stream) {
-  const T* xp_t = (const T*)xp;
-  const T* wh_t = (const T*)wh;
-  const float* bn_f = (const float*)bn;
-  const float* h0_f = (const float*)h0;
-  float* ys_f = (float*)ys;
-  unsigned int* bar = (unsigned int*)barrier;
-  void* args[] = {&xp_t, &wh_t, &bn_f, &h0_f, &ys_f, &bar,
-                  &seq_len, &batch, &ld, &hidden, &u};
-  return launch_cooperative(gru_fwd_kernel<T>,
-                            fwd_smem_bytes(hidden, batch, u, sizeof(T)),
-                            hidden / u, args, stream);
-}
-
-template <typename T>
-int coop_bwd(const void* g, const void* xp, const void* hprev, const void* wh,
-             const void* bn, void* dxp, void* exchange, void* dwh, void* dbn,
-             void* dh0, void* barrier, int seq_len, int batch, int ld,
-             int hidden, int u, void* stream) {
-  const float* g_f = (const float*)g;
-  const T* xp_t = (const T*)xp;
-  const T* hprev_t = (const T*)hprev;
-  const T* wh_t = (const T*)wh;
-  const float* bn_f = (const float*)bn;
-  T* dxp_t = (T*)dxp;
-  float* ex_f = (float*)exchange;
-  float* dwh_f = (float*)dwh;
-  float* dbn_f = (float*)dbn;
-  float* dh0_f = (float*)dh0;
-  unsigned int* bar = (unsigned int*)barrier;
-  void* args[] = {&g_f, &xp_t, &hprev_t, &wh_t, &bn_f, &dxp_t, &ex_f,
-                  &dwh_f, &dbn_f, &dh0_f, &bar, &seq_len, &batch, &ld,
-                  &hidden, &u};
-  return launch_cooperative(gru_bwd_kernel<T>,
-                            bwd_smem_bytes(hidden, batch, u, sizeof(T)),
-                            hidden / u, args, stream);
 }
 
 // ------------------------------------------------------------------------
@@ -1221,6 +837,927 @@ gru_bwd_cluster(const float* __restrict__ g, const bf16* __restrict__ xp,
 }
 
 // ------------------------------------------------------------------------
+// Cooperative kernels: float32 streams from two steps, bf16 streams past
+// the clusters' 512 units.
+// ------------------------------------------------------------------------
+//
+// A grid of H_pad / U CTAs per tile of 16 batch rows, all co-resident (a
+// cooperative launch). CTA j owns units j U ... j U + U - 1
+// (U = 8 or 16; H is zero-padded inside the kernels to H_pad, a multiple
+// of U and of the mma's K, so padded units stay exactly 0) and keeps its
+// slices of wh in shared memory at the stream type, K contiguous.
+//
+// The exchange between CTAs goes through L2 with no grid barrier. Each CTA
+// publishes its share of the step's operand (h forward, dhp backward) as
+// 16-byte word pairs {value, stamp, value, stamp} (st.relaxed.gpu), each
+// 8-byte half carrying its own step stamp, laid out as the consumers' mma
+// A fragments: one column group (half a k-tile) is 32 lanes x 16 bytes,
+// lane (g, c) holding rows g and g + 8. A consumer warp loads the word
+// pairs of its k-tiles straight into registers (ld.relaxed.gpu, no shared
+// memory, no flag round trip) and reloads a pair until both stamps equal
+// the step it waits for: it waits only for the data it reads. Two buffers
+// alternate by step; a CTA can only refill a buffer after every CTA has
+// published the step between, i.e. after every CTA has finished reading
+// it. The buffers are zeroed before a launch, so a stamp (step + 1, never
+// 0) is never stale. A wait of more than kSpinLimit polling rounds traps,
+// so a fault ends the launch instead of hanging the card.
+//
+// Products on tensor cores. bf16: mma.m16n8k16 (bf16 x bf16, float32 sums:
+// the reference's dot). float32: 3xTF32, mma.m16n8k8 on the big and small
+// TF32 halves of each operand (a = big + small + O(2^-22 a); the small x
+// small term is dropped), float32 sums, within float32's rounding of the
+// products.
+//
+// K2f: per step, each warp takes k-tiles warp, warp + 8, ... of h_{t-1}
+// [16, H_pad] @ w_col [H_pad, 3U]; the eight K-partials are added in warp
+// order by 16 U gate threads (row, unit), which write ys (float32) and the
+// next h slice (rounded to the stream type) for the exchange.
+//
+// K2b (a): the all-gather of dhp = [dr_pre, dz, dhn] at the stream type.
+// Each CTA keeps a row slice of wh, w_row [U, 3 H_pad], beside the column
+// slice w_col, so dh for its own units is dhz + dhp [16, 3 H_pad] @
+// w_row^T, one product over the gathered operand; no partials cross CTAs.
+// After it has published its dhp, a CTA recomputes hp for the next step
+// from h_prev (an input, read through L2) while the others' dhp arrive,
+// and, with float32 streams, adds h_prev^T dhp into its dwh columns, held
+// in registers for the whole sequence (one tile of rows each; the caller
+// adds the tiles' dwh in order). With bf16 streams
+// it writes the dhn stream and the tiles' dbn sums instead, and K2b (b)
+// computes dwh and dbn.
+//
+// What bounds them: the latency of the step-to-step exchange and the
+// bytes each CTA pulls from L2 per step (forward 16 x H_pad words of 8
+// bytes, half of them stamps; backward three times as many, plus the
+// recompute's h_prev), and the mma's issue, not FLOPs or device memory
+// (per phase on an H100 at bf16 H = 1024: a backward step waits ~1.6 us
+// for the gather and ~2 us on the recompute). Shared memory bounds U: the
+// backward holds two slices of wh, 2 x 3 U H_pad elements.
+
+constexpr int kCoopRows = 16;  // batch rows per tile: mma's M
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kSpinLimit = 1u << 24;
+
+// Per stream type: the mma's K and the exchange's column group.
+template <typename T>
+struct CoopType;
+template <>
+struct CoopType<bf16> {
+  static constexpr int kK = 16;
+  static constexpr int kGroup = 8;
+};
+template <>
+struct CoopType<float> {
+  static constexpr int kK = 8;
+  static constexpr int kGroup = 4;
+};
+
+// Row stride (floats) of a [16][n] partial: 64-bit stores of the mma
+// accumulator layout without bank conflicts.
+__host__ __device__ constexpr int padded_ld(int n) {
+  return n + ((n / 8) % 2 == 0 ? 8 : 0);
+}
+
+// Row stride (elements) of a [n][k] weight slice: a 32-bit word stride
+// that is 4 mod 32, so the B fragments' loads hit 32 banks.
+template <typename T>
+__host__ __device__ constexpr int coop_ld(int k) {
+  return ((k * (int)sizeof(T) / 4 + 31) / 32 * 32 + 4) * 4 / (int)sizeof(T);
+}
+
+__host__ __device__ constexpr size_t align16(size_t n) {
+  return (n + 15) & ~(size_t)15;
+}
+
+template <typename T, int U>
+struct CoopShape {
+  static constexpr int kK = CoopType<T>::kK;
+  static constexpr int kGroup = CoopType<T>::kGroup;
+  static constexpr int kCols = 3 * U;     // columns of wh a CTA owns
+  static constexpr int kNt = kCols / 8;   // their n-tiles
+  static constexpr int kNtDh = U / 8;     // n-tiles of dh (own units)
+  static constexpr int kLocalGroups = U / kGroup;  // column groups a gate
+  static constexpr int kGates = kCoopRows * U;     // gate threads
+  static constexpr int kLdp = padded_ld(kCols);
+  static constexpr int kLdpDh = padded_ld(U);
+  // The warps' K-partials of hp ([8][16][kLdp]; dh's [8][16][kLdpDh] fit in
+  // the same floats).
+  static constexpr int kPart = kWarps * kCoopRows * kLdp;
+  // m-tiles of dwh a warp holds (float32 backward): H_pad <= 128 kMtw.
+  static constexpr int kMtw = U == 8 ? 8 : 4;
+  static_assert(U % 8 == 0 && U % kGroup == 0 && kGates <= kThreads,
+                "units per CTA");
+};
+
+template <typename T, int U>
+size_t coop_fwd_smem(int h_pad) {
+  using S = CoopShape<T, U>;
+  return align16((size_t)S::kCols * coop_ld<T>(h_pad) * sizeof(T)) +
+         sizeof(float) * ((size_t)S::kPart + kCoopRows * U);
+}
+
+template <typename T, int U>
+size_t coop_bwd_smem(int h_pad) {
+  using S = CoopShape<T, U>;
+  return align16((size_t)S::kCols * coop_ld<T>(h_pad) * sizeof(T)) +
+         align16((size_t)U * coop_ld<T>(3 * h_pad) * sizeof(T)) +
+         sizeof(float) * ((size_t)S::kPart + kCoopRows * S::kCols);
+}
+
+__device__ __forceinline__ uint32_t tf32_of(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, both TF32, to within 2^-22 of x.
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& big,
+                                           uint32_t& small) {
+  const float f = __uint_as_float(x);
+  big = tf32_of(f);
+  small = tf32_of(f - __uint_as_float(big));
+}
+
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 operands, float32 sum.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment of one k-tile: a0 (row g), a1 (g + 8) of the tile's first
+// column group, a2, a3 of its second. float32 keeps both TF32 halves.
+template <typename T>
+struct AFrag;
+
+template <>
+struct AFrag<bf16> {
+  uint32_t a[4];
+  __device__ __forceinline__ void set(uint32_t a0, uint32_t a1, uint32_t a2,
+                                      uint32_t a3) {
+    a[0] = a0;
+    a[1] = a1;
+    a[2] = a2;
+    a[3] = a3;
+  }
+};
+
+template <>
+struct AFrag<float> {
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ void set(uint32_t a0, uint32_t a1, uint32_t a2,
+                                      uint32_t a3) {
+    split_tf32(a0, big[0], small[0]);
+    split_tf32(a1, big[1], small[1]);
+    split_tf32(a2, big[2], small[2]);
+    split_tf32(a3, big[3], small[3]);
+  }
+};
+
+// The B fragment of k-tile k0 for the n-tile column whose [n][k] row is
+// `row` (lane (g, c) passes the row of column g).
+__device__ __forceinline__ void load_b(const bf16* row, int k0, int c,
+                                       uint32_t& b0, uint32_t& b1) {
+  b0 = *reinterpret_cast<const uint32_t*>(row + k0 + 2 * c);
+  b1 = *reinterpret_cast<const uint32_t*>(row + k0 + 8 + 2 * c);
+}
+
+__device__ __forceinline__ void load_b(const float* row, int k0, int c,
+                                       uint32_t& b0, uint32_t& b1) {
+  b0 = __float_as_uint(row[k0 + c]);
+  b1 = __float_as_uint(row[k0 + c + 4]);
+}
+
+// The sums of a warp's mma: bf16 one set; float32 (3xTF32) the big x big
+// products and the cross terms apart, added at the end (`total`), so the
+// three passes of one k-tile feed different accumulators.
+template <typename T, int NT>
+struct Acc;
+
+template <int NT>
+struct Acc<bf16, NT> {
+  float d[NT][4] = {};
+  __device__ __forceinline__ float total(int nt, int e) const {
+    return d[nt][e];
+  }
+};
+
+template <int NT>
+struct Acc<float, NT> {
+  float big[NT][4] = {}, corr[NT][4] = {};
+  __device__ __forceinline__ float total(int nt, int e) const {
+    return big[nt][e] + corr[nt][e];
+  }
+};
+
+// acc += a x B for the NT n-tiles of the [n][k] array b_s (rows ldb apart)
+// at k-tile k0. All B fragments are loaded first and consecutive mma feed
+// different accumulators, so the warp does not stall on an mma's result.
+template <int NT>
+__device__ __forceinline__ void mma_row(Acc<bf16, NT>& acc,
+                                        const AFrag<bf16>& a, const bf16* b_s,
+                                        int ldb, int k0, int g, int c) {
+  uint32_t b[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    load_b(b_s + (size_t)(nt * 8 + g) * ldb, k0, c, b[nt][0], b[nt][1]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) mma_bf16(acc.d[nt], a.a, b[nt][0], b[nt][1]);
+}
+
+// 3xTF32 with the B fragments split here: b = big + small.
+template <int NT>
+__device__ __forceinline__ void mma_split(Acc<float, NT>& acc,
+                                          const AFrag<float>& a,
+                                          const uint32_t (&big)[NT][2],
+                                          const uint32_t (&small)[NT][2]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    mma_tf32(acc.corr[nt], a.small, big[nt][0], big[nt][1]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    mma_tf32(acc.big[nt], a.big, big[nt][0], big[nt][1]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    mma_tf32(acc.corr[nt], a.big, small[nt][0], small[nt][1]);
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void mma_row(Acc<float, NT>& acc,
+                                        const AFrag<float>& a,
+                                        const float* b_s, int ldb, int k0,
+                                        int g, int c) {
+  uint32_t big[NT][2], small[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    uint32_t b0, b1;
+    load_b(b_s + (size_t)(nt * 8 + g) * ldb, k0, c, b0, b1);
+    split_tf32(b0, big[nt][0], small[nt][0]);
+    split_tf32(b1, big[nt][1], small[nt][1]);
+  }
+  mma_split(acc, a, big, small);
+}
+
+// Element (r, k) of a row-major array with rows `stride` apart, zero past
+// `rows` rows or `cols` columns.
+template <typename T>
+__device__ __forceinline__ T elem(const T* base, int stride, int r, int k,
+                                  int rows, int cols) {
+  return (r < rows && k < cols) ? base[(size_t)r * stride + k]
+                                : from_f<T>(0.f);
+}
+
+// Columns k, k + 1 of row r as one word (zero outside the array); rows
+// whose stride is even are 4-byte aligned, and k is even.
+__device__ __forceinline__ uint32_t pair(const bf16* base, int stride, int r,
+                                         int k, int rows, int cols) {
+  if (stride % 2 == 0) {
+    return (r < rows && k < cols)
+               ? *reinterpret_cast<const uint32_t*>(base + (size_t)r * stride +
+                                                    k)
+               : 0u;
+  }
+  return pack_raw(elem(base, stride, r, k, rows, cols),
+                  elem(base, stride, r, k + 1, rows, cols));
+}
+
+// The A fragment of k-tile k0 of a [16, K] row-major array in memory.
+__device__ __forceinline__ void load_a(AFrag<bf16>& a, const bf16* base,
+                                       int stride, int rows, int cols, int k0,
+                                       int g, int c) {
+  const int k = k0 + 2 * c;
+  if (stride % 2 == 0) {
+    a.set(pair(base, stride, g, k, rows, cols),
+          pair(base, stride, g + 8, k, rows, cols),
+          pair(base, stride, g, k + 8, rows, cols),
+          pair(base, stride, g + 8, k + 8, rows, cols));
+    return;
+  }
+  a.set(pack_raw(elem(base, stride, g, k, rows, cols),
+                 elem(base, stride, g, k + 1, rows, cols)),
+        pack_raw(elem(base, stride, g + 8, k, rows, cols),
+                 elem(base, stride, g + 8, k + 1, rows, cols)),
+        pack_raw(elem(base, stride, g, k + 8, rows, cols),
+                 elem(base, stride, g, k + 9, rows, cols)),
+        pack_raw(elem(base, stride, g + 8, k + 8, rows, cols),
+                 elem(base, stride, g + 8, k + 9, rows, cols)));
+}
+
+__device__ __forceinline__ void load_a(AFrag<float>& a, const float* base,
+                                       int stride, int rows, int cols, int k0,
+                                       int g, int c) {
+  const int k = k0 + c;
+  a.set(__float_as_uint(elem(base, stride, g, k, rows, cols)),
+        __float_as_uint(elem(base, stride, g + 8, k, rows, cols)),
+        __float_as_uint(elem(base, stride, g, k + 4, rows, cols)),
+        __float_as_uint(elem(base, stride, g + 8, k + 4, rows, cols)));
+}
+
+// Lane `lane`'s values of the column group at column col0 of a [16][lds]
+// float array (values already at the stream type): rows g and g + 8.
+template <typename T>
+__device__ __forceinline__ void pack_group(const float* s, int lds, int col0,
+                                           int lane, uint32_t& w0,
+                                           uint32_t& w1);
+
+template <>
+__device__ __forceinline__ void pack_group<bf16>(const float* s, int lds,
+                                                 int col0, int lane,
+                                                 uint32_t& w0, uint32_t& w1) {
+  const int g = lane >> 2, k = col0 + 2 * (lane & 3);
+  w0 = pack_bf16(s[g * lds + k], s[g * lds + k + 1]);
+  w1 = pack_bf16(s[(g + 8) * lds + k], s[(g + 8) * lds + k + 1]);
+}
+
+template <>
+__device__ __forceinline__ void pack_group<float>(const float* s, int lds,
+                                                  int col0, int lane,
+                                                  uint32_t& w0, uint32_t& w1) {
+  const int g = lane >> 2, k = col0 + (lane & 3);
+  w0 = __float_as_uint(s[g * lds + k]);
+  w1 = __float_as_uint(s[(g + 8) * lds + k]);
+}
+
+__device__ __forceinline__ uint4 ll_load(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.relaxed.gpu.global.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void ll_store(uint4* p, uint32_t w0, uint32_t w1,
+                                         uint32_t stamp) {
+  asm volatile("st.relaxed.gpu.global.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
+               "r"(w0), "r"(stamp), "r"(w1), "r"(stamp)
+               : "memory");
+}
+
+__device__ __forceinline__ bool ll_ready(const uint4& v, uint32_t stamp) {
+  return v.y == stamp && v.w == stamp;
+}
+
+// acc[NT] += A B over k-tiles warp, warp + 8, ... < n_kt. A is an exchanged
+// [16, K] operand: the lane's word pair of column group q at base + 32 q,
+// of stamp `stamp`. B is a [n][k] array at the stream type, rows ldb
+// apart, one row per column of the NT n-tiles. The loads of kBatch k-tiles
+// are issued together, and the stale ones reloaded together, so a round of
+// polling costs one L2 round trip however many words it waits for.
+template <typename T, int NT, int kBatch>
+__device__ __forceinline__ void gather_product(const uint4* base,
+                                               uint32_t stamp, int n_kt,
+                                               const T* b_s, int ldb,
+                                               float (&acc)[NT][4]) {
+  constexpr int kK = CoopType<T>::kK;
+  // Rows of fewer than 4 n-tiles alternate two sets of accumulators.
+  constexpr int kSets = NT < 4 ? 2 : 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  Acc<T, NT> part[kSets];
+  for (int kt0 = warp; kt0 < n_kt; kt0 += kBatch * kWarps) {
+    uint4 w[kBatch][2];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int kt = kt0 + i * kWarps;
+      w[i][0] = w[i][1] = make_uint4(0, stamp, 0, stamp);  // past n_kt: zero
+      if (kt < n_kt) {
+        w[i][0] = ll_load(base + (size_t)64 * kt);
+        w[i][1] = ll_load(base + (size_t)64 * kt + 32);
+      }
+    }
+    for (unsigned spins = 0;; ++spins) {
+      bool ready = true;
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        ready = ready && ll_ready(w[i][0], stamp) && ll_ready(w[i][1], stamp);
+      }
+      if (ready) break;
+      if (spins > kSpinLimit) __trap();
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int kt = kt0 + i * kWarps;
+        if (!ll_ready(w[i][0], stamp)) w[i][0] = ll_load(base + (size_t)64 * kt);
+        if (!ll_ready(w[i][1], stamp)) {
+          w[i][1] = ll_load(base + (size_t)64 * kt + 32);
+        }
+      }
+    }
+    __syncwarp();
+    // Straight-line over the batch: k-tiles past n_kt multiply zeros by
+    // the last k-tile's B.
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int kt = min(kt0 + i * kWarps, n_kt - 1);
+      AFrag<T> a;
+      a.set(w[i][0].x, w[i][0].z, w[i][1].x, w[i][1].z);
+      mma_row(part[i % kSets], a, b_s, ldb, kt * kK, g, c);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sum = part[0].total(nt, e);
+#pragma unroll
+      for (int q = 1; q < kSets; ++q) sum += part[q].total(nt, e);
+      acc[nt][e] += sum;
+    }
+  }
+}
+
+// A warp's [16, 8 NT] accumulators into a [16][ldp] partial at column col0.
+template <int NT>
+__device__ __forceinline__ void store_acc(float* part, int ldp, int col0,
+                                          const float (&acc)[NT][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int col = col0 + nt * 8 + 2 * c;
+    *reinterpret_cast<float2*>(part + g * ldp + col) =
+        make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(part + (g + 8) * ldp + col) =
+        make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
+// K2f, cooperative. Grid (H_pad / U, tiles); rows b of the launch are rows
+// b0 + b of the caller's tensors: xp and ys step by ld rows per timestep,
+// h0 is [batch, H] at the launch's first row. xbuf: per tile, two buffers
+// of H_pad / kGroup column groups x 32 lanes x 16 bytes, zeroed.
+template <typename T, int U>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_coop_fwd(const T* __restrict__ xp, const T* __restrict__ wh,
+             const float* __restrict__ bn, const float* __restrict__ h0,
+             float* __restrict__ ys, uint4* xbuf, int seq_len, int batch,
+             int ld, int hidden, int h_pad) {
+  using S = CoopShape<T, U>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldw = coop_ld<T>(h_pad);
+  T* w_s = reinterpret_cast<T*>(smem);  // [3U][ldw]: w_s[n][k] = wh[k][col n]
+  float* part = reinterpret_cast<float*>(
+      smem + align16((size_t)S::kCols * ldw * sizeof(T)));  // [8][16][kLdp]
+  float* stage = part + S::kPart;  // [16][U], the step's h slice
+  const int j = blockIdx.x;
+  const int row0 = blockIdx.y * kCoopRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t three_h = 3 * (size_t)hidden;
+  const int n_groups = h_pad / S::kGroup;
+  uint4* xb = xbuf + (size_t)blockIdx.y * 2 * n_groups * 32;
+
+  for (int i = tid; i < S::kCols * h_pad; i += kThreads) {
+    const int k = i / S::kCols, n = i - k * S::kCols;
+    const int unit = j * U + n % U;
+    w_s[n * ldw + k] = (k < hidden && unit < hidden)
+                           ? wh[(size_t)k * three_h + (n / U) * hidden + unit]
+                           : from_f<T>(0.f);
+  }
+
+  // Gate thread tid < 16 U: row gr of the tile, unit gi of the CTA.
+  const bool is_gate = tid < S::kGates;
+  const int gr = tid / U, gi = tid % U;
+  const int row = row0 + gr, unit = j * U + gi;
+  const bool live = is_gate && row < batch;
+  const bool valid = live && unit < hidden;
+  float carry = valid ? h0[(size_t)row * hidden + unit] : 0.f;
+  const float bnv = (is_gate && unit < hidden) ? bn[unit] : 0.f;
+  // xp of the next step, kept at the stream type until the gates use it
+  // (a conversion here would wait for the load).
+  T x[3] = {from_f<T>(0.f), from_f<T>(0.f), from_f<T>(0.f)};
+  auto load_x = [&](int t) {
+    if (valid) {
+      const T* src = xp + ((size_t)t * ld + row) * three_h + unit;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) x[q] = src[(size_t)q * hidden];
+    }
+  };
+  // The CTA's [16, U] slice in `stage` as exchange e (h_{e-1}; e = 0: h0).
+  auto publish = [&](int e) {
+    uint4* dst =
+        xb + ((size_t)(e & 1) * n_groups + j * S::kLocalGroups) * 32;
+    for (int i = tid; i < S::kLocalGroups * 32; i += kThreads) {
+      uint32_t w0, w1;
+      pack_group<T>(stage, U, (i >> 5) * S::kGroup, i & 31, w0, w1);
+      ll_store(dst + i, w0, w1, (uint32_t)e + 1);
+    }
+  };
+
+  if (is_gate) stage[gr * U + gi] = live ? round_to<T>(carry) : 0.f;
+  load_x(0);
+  __syncthreads();
+  publish(0);
+  for (int t = 0; t < seq_len; ++t) {
+    float acc[S::kNt][4] = {};
+    gather_product<T, S::kNt, 8>(
+        xb + (size_t)(t & 1) * n_groups * 32 + lane, (uint32_t)t + 1,
+        h_pad / S::kK, w_s, ldw, acc);
+    store_acc(part + warp * kCoopRows * S::kLdp, S::kLdp, 0, acc);
+    __syncthreads();
+    if (is_gate) {
+      float hp[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          s += part[(w * kCoopRows + gr) * S::kLdp + q * U + gi];
+        }
+        hp[q] = s;
+      }
+      const float r = gate_sigmoid(to_f(x[0]) + hp[0]);
+      const float z = gate_sigmoid(to_f(x[1]) + hp[1]);
+      const float n = tanhf(to_f(x[2]) + r * (hp[2] + bnv));
+      const float h = (1.f - z) * n + z * carry;
+      carry = h;
+      if (valid) ys[((size_t)t * ld + row) * hidden + unit] = h;
+      stage[gr * U + gi] = live ? round_to<T>(h) : 0.f;
+    }
+    __syncthreads();
+    if (t + 1 < seq_len) {
+      publish(t + 1);
+      load_x(t + 1);
+    }
+  }
+}
+
+// K2b (a), cooperative. Grid as the forward; g [T, ld, H] float32, xp,
+// hprev, dxp [T, ld, *] at the stream type, dh0 [batch, H] float32 at the
+// launch's first row; dbn_tiles [tiles, H] and, with float32 streams,
+// dwh_tiles [tiles, H, 3H] at the launch's first tile; with bf16 streams
+// dhn [T, ld, H]. xbuf: per tile, two buffers of 3 H_pad / kGroup column
+// groups, zeroed.
+template <typename T, int U>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_coop_bwd(const float* __restrict__ g, const T* __restrict__ xp,
+             const T* __restrict__ hprev, const T* __restrict__ wh,
+             const float* __restrict__ bn, T* __restrict__ dxp,
+             bf16* __restrict__ dhn_out, float* __restrict__ dbn_tiles,
+             float* __restrict__ dwh_tiles, float* __restrict__ dh0,
+             uint4* xbuf, int seq_len, int batch, int ld, int hidden,
+             int h_pad) {
+  using S = CoopShape<T, U>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ldc = coop_ld<T>(h_pad), ldr = coop_ld<T>(3 * h_pad);
+  T* w_c = reinterpret_cast<T*>(smem);  // [3U][ldc]: w_c[n][k] = wh[k][col n]
+  unsigned char* p = smem + align16((size_t)S::kCols * ldc * sizeof(T));
+  // [U][ldr]: w_r[n][q H_pad + u] = wh[unit n][q H + u]
+  T* w_r = reinterpret_cast<T*>(p);
+  p += align16((size_t)U * ldr * sizeof(T));
+  float* part = reinterpret_cast<float*>(p);  // K-partials of hp or dh
+  float* dhp_s = part + S::kPart;             // [16][3U], the step's dhp
+  const int j = blockIdx.x, tile = blockIdx.y;
+  const int row0 = tile * kCoopRows;
+  const int rows = batch - row0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, cq = lane & 3;
+  const size_t three_h = 3 * (size_t)hidden;
+  const int n_groups = 3 * h_pad / S::kGroup;
+  uint4* xb = xbuf + (size_t)tile * 2 * n_groups * 32;
+
+  for (int i = tid; i < S::kCols * h_pad; i += kThreads) {
+    const int k = i / S::kCols, n = i - k * S::kCols;
+    const int unit = j * U + n % U;
+    w_c[n * ldc + k] = (k < hidden && unit < hidden)
+                           ? wh[(size_t)k * three_h + (n / U) * hidden + unit]
+                           : from_f<T>(0.f);
+  }
+  for (int i = tid; i < U * 3 * h_pad; i += kThreads) {
+    const int n = i / (3 * h_pad), k = i - n * 3 * h_pad;
+    const int q = k / h_pad, u = k - q * h_pad, r = j * U + n;
+    w_r[n * ldr + k] = (r < hidden && u < hidden)
+                           ? wh[(size_t)r * three_h + q * hidden + u]
+                           : from_f<T>(0.f);
+  }
+
+  const bool is_gate = tid < S::kGates;
+  const int gr = tid / U, gi = tid % U;
+  const int row = row0 + gr, unit = j * U + gi;
+  const bool valid = is_gate && row < batch && unit < hidden;
+  const float bnv = (is_gate && unit < hidden) ? bn[unit] : 0.f;
+  // The next step's operands, at the stream type until the gates use them.
+  T x[3] = {from_f<T>(0.f), from_f<T>(0.f), from_f<T>(0.f)};
+  T hv = from_f<T>(0.f);
+  float gv = 0.f, hp[3] = {0.f, 0.f, 0.f};
+  auto load_step = [&](int t) {
+    if (valid) {
+      const size_t at = (size_t)t * ld + row;
+      const T* src = xp + at * three_h + unit;
+#pragma unroll
+      for (int q = 0; q < 3; ++q) x[q] = src[(size_t)q * hidden];
+      gv = g[at * hidden + unit];
+      hv = hprev[at * hidden + unit];
+    }
+  };
+  // hp for step t into the gate threads' hp: h_prev[t] @ w_col, the warps'
+  // K-partials added in order.
+  auto recompute = [&](int t) {
+    const T* hb = hprev + ((size_t)t * ld + row0) * hidden;
+    const int n_kt = h_pad / S::kK;
+    Acc<T, S::kNt> acc;
+    // kLoads k-tiles' A fragments are loaded (from L2) before their
+    // products, so their latencies overlap; k-tiles past n_kt load zeros.
+    constexpr int kLoads = 8;
+    for (int kt0 = warp; kt0 < n_kt; kt0 += kLoads * kWarps) {
+      AFrag<T> a[kLoads];
+#pragma unroll
+      for (int l = 0; l < kLoads; ++l) {
+        load_a(a[l], hb, hidden, rows, hidden, (kt0 + l * kWarps) * S::kK, gq,
+               cq);
+      }
+#pragma unroll
+      for (int l = 0; l < kLoads; ++l) {
+        const int kt = min(kt0 + l * kWarps, n_kt - 1);
+        mma_row(acc, a[l], w_c, ldc, kt * S::kK, gq, cq);
+      }
+    }
+    float sums[S::kNt][4];
+#pragma unroll
+    for (int nt = 0; nt < S::kNt; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sums[nt][e] = acc.total(nt, e);
+    }
+    store_acc(part + warp * kCoopRows * S::kLdp, S::kLdp, 0, sums);
+    __syncthreads();
+    if (is_gate) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          s += part[(w * kCoopRows + gr) * S::kLdp + q * U + gi];
+        }
+        hp[q] = s;
+      }
+    }
+    __syncthreads();
+  };
+  // The CTA's [16, 3U] dhp in dhp_s as exchange e (step e's).
+  auto publish = [&](int e) {
+    uint4* dst = xb + (size_t)(e & 1) * n_groups * 32;
+    for (int i = tid; i < 3 * S::kLocalGroups * 32; i += kThreads) {
+      const int lq = i >> 5, l = i & 31;
+      const int q = lq / S::kLocalGroups, within = lq % S::kLocalGroups;
+      const int grp = (q * h_pad + j * U) / S::kGroup + within;
+      uint32_t w0, w1;
+      pack_group<T>(dhp_s, S::kCols, lq * S::kGroup, l, w0, w1);
+      ll_store(dst + (size_t)grp * 32 + l, w0, w1, (uint32_t)e + 1);
+    }
+  };
+  // float32: dwh[:, own columns] += h_prev[t]^T dhp, warp w holding m-tiles
+  // (rows of wh) w, w + 8, ..., in registers.
+  float dacc[S::kMtw][S::kNt][4] = {};
+  // The step's product starts from zero and is added to the running sum
+  // with a float32 add: the tensor cores' accumulation does not round to
+  // nearest, which over T steps of one chained sum drifts by ~1e-4.
+  auto add_dwh = [&](int t) {
+    const float* hb = reinterpret_cast<const float*>(hprev) +
+                      ((size_t)t * ld + row0) * hidden;
+    // B: dhp_s as the k8 x n8 fragments of batch rows kk*8 ..., both TF32
+    // halves, shared by every m-tile.
+    uint32_t bbig[2][S::kNt][2], bsmall[2][S::kNt][2];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < S::kNt; ++nt) {
+        const int b = kk * 8 + cq, n = nt * 8 + gq;
+        split_tf32(__float_as_uint(dhp_s[b * S::kCols + n]), bbig[kk][nt][0],
+                   bsmall[kk][nt][0]);
+        split_tf32(__float_as_uint(dhp_s[(b + 4) * S::kCols + n]),
+                   bbig[kk][nt][1], bsmall[kk][nt][1]);
+      }
+    }
+    constexpr int kGroupM = 4;  // m-tiles whose loads are issued together
+#pragma unroll
+    for (int m0 = 0; m0 < S::kMtw; m0 += kGroupM) {
+      float hv4[kGroupM][2][4];
+#pragma unroll
+      for (int mi = 0; mi < kGroupM; ++mi) {
+        const int k0 = (warp + kWarps * (m0 + mi)) * 16;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const int b = kk * 8 + cq;
+          hv4[mi][kk][0] = elem(hb, hidden, b, k0 + gq, rows, hidden);
+          hv4[mi][kk][1] = elem(hb, hidden, b, k0 + gq + 8, rows, hidden);
+          hv4[mi][kk][2] = elem(hb, hidden, b + 4, k0 + gq, rows, hidden);
+          hv4[mi][kk][3] = elem(hb, hidden, b + 4, k0 + gq + 8, rows, hidden);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < kGroupM; ++mi) {
+        const int m = m0 + mi;
+        if (m < S::kMtw && (warp + kWarps * m) * 16 < h_pad) {
+          Acc<float, S::kNt> step;
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            AFrag<float> a;
+            a.set(__float_as_uint(hv4[mi][kk][0]),
+                  __float_as_uint(hv4[mi][kk][1]),
+                  __float_as_uint(hv4[mi][kk][2]),
+                  __float_as_uint(hv4[mi][kk][3]));
+            mma_split(step, a, bbig[kk], bsmall[kk]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < S::kNt; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dacc[m][nt][e] += step.total(nt, e);
+          }
+        }
+      }
+    }
+  };
+
+  __syncthreads();  // the slices of wh are in place
+  const int t_last = seq_len - 1;
+  load_step(t_last);
+  recompute(t_last);
+  float dh = 0.f, dhz = 0.f, dbn_acc = 0.f;
+  for (int s = 0; s <= seq_len; ++s) {
+    const int t = t_last - s;
+    if (s > 0) {
+      // dh_t = dht z (of the step before) + dhp @ w_row^T over all CTAs'
+      // dhp (exchange s - 1).
+      float acc[S::kNtDh][4] = {};
+      gather_product<T, S::kNtDh, kF32 ? 8 : 12>(
+          xb + (size_t)((s - 1) & 1) * n_groups * 32 + lane, (uint32_t)s,
+          3 * h_pad / S::kK, w_r, ldr, acc);
+      store_acc(part + warp * kCoopRows * S::kLdpDh, S::kLdpDh, 0, acc);
+      __syncthreads();
+      if (is_gate) {
+        float sum = dhz;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          sum += part[(w * kCoopRows + gr) * S::kLdpDh + gi];
+        }
+        dh = sum;
+      }
+    }
+    if (s == seq_len) break;
+    if (is_gate) {
+      const float hpn = hp[2] + bnv;
+      const float r = gate_sigmoid(to_f(x[0]) + hp[0]);
+      const float z = gate_sigmoid(to_f(x[1]) + hp[1]);
+      const float n = tanhf(to_f(x[2]) + r * hpn);
+      const float dht = dh + gv;
+      const float dn_pre = dht * (1.f - z) * (1.f - n * n);
+      const float dz = dht * (to_f(hv) - n) * z * (1.f - z);
+      const float dr_pre = dn_pre * hpn * r * (1.f - r);
+      const float dhn = dn_pre * r;
+      if (valid) {
+        T* dx = dxp + ((size_t)t * ld + row) * three_h + unit;
+        dx[0] = from_f<T>(dr_pre);
+        dx[hidden] = from_f<T>(dz);
+        dx[2 * (size_t)hidden] = from_f<T>(dn_pre);
+        if constexpr (!kF32) {
+          dhn_out[((size_t)t * ld + row) * hidden + unit] = from_f<bf16>(dhn);
+        }
+      }
+      dhz = dht * z;
+      dbn_acc += dhn;
+      float* own = dhp_s + gr * S::kCols + gi;
+      own[0] = round_to<T>(dr_pre);
+      own[U] = round_to<T>(dz);
+      own[2 * U] = round_to<T>(dhn);
+    }
+    __syncthreads();
+    publish(s);
+    if constexpr (kF32) add_dwh(t);
+    if (t > 0) {
+      // The next step's hp does not depend on dh: overlap the exchange.
+      load_step(t - 1);
+      recompute(t - 1);
+    }
+  }
+
+  __syncthreads();  // every warp is done with `part`
+  if (valid) dh0[(size_t)row * hidden + unit] = dh;
+  if (is_gate) part[gr * U + gi] = dbn_acc;  // zero on rows past the batch
+  __syncthreads();
+  if (tid < U && j * U + tid < hidden) {
+    float s = 0.f;
+    for (int r = 0; r < kCoopRows; ++r) s += part[r * U + tid];
+    dbn_tiles[(size_t)tile * hidden + j * U + tid] = s;
+  }
+  if constexpr (kF32) {
+    float* out = dwh_tiles + (size_t)tile * hidden * three_h;
+#pragma unroll
+    for (int m = 0; m < S::kMtw; ++m) {
+      const int k0 = (warp + kWarps * m) * 16;
+#pragma unroll
+      for (int nt = 0; nt < S::kNt; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = k0 + gq + (e >> 1) * 8;
+          const int n = nt * 8 + 2 * cq + (e & 1);
+          const int u = j * U + n % U;
+          if (k0 < h_pad && k < hidden && u < hidden) {
+            out[(size_t)k * three_h + (n / U) * hidden + u] = dacc[m][nt][e];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename Kernel>
+int launch_cooperative(Kernel kernel, size_t smem, dim3 grid, void** args,
+                       void* stream) {
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaLaunchCooperativeKernel((const void*)kernel, grid, dim3(kThreads),
+                                  args, smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel per SM at this H_pad (0 where one does not fit),
+// and the SM count.
+template <typename T, int U>
+int coop_occupancy(int h_pad, int bwd, int* blocks_per_sm, int* n_sms) {
+  *blocks_per_sm = 0;
+  int dev = 0, max_smem = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem =
+      bwd ? coop_bwd_smem<T, U>(h_pad) : coop_fwd_smem<T, U>(h_pad);
+  if (smem > (size_t)max_smem) return 0;
+  if (bwd && std::is_same<T, float>::value &&
+      h_pad > 16 * kWarps * CoopShape<T, U>::kMtw) {
+    return 0;  // dwh's accumulators would not fit the registers
+  }
+  if (bwd) {
+    if ((e = allow_smem(gru_coop_bwd<T, U>, smem)) != cudaSuccess) return (int)e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, gru_coop_bwd<T, U>, kThreads, smem);
+  }
+  if ((e = allow_smem(gru_coop_fwd<T, U>, smem)) != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, gru_coop_fwd<T, U>, kThreads, smem);
+}
+
+template <typename T, int U>
+int coop_fwd(const void* xp, const void* wh, const void* bn, const void* h0,
+             void* ys, void* xbuf, int seq_len, int batch, int ld, int hidden,
+             int h_pad, int tiles, void* stream) {
+  const T* xp_t = (const T*)xp;
+  const T* wh_t = (const T*)wh;
+  const float* bn_f = (const float*)bn;
+  const float* h0_f = (const float*)h0;
+  float* ys_f = (float*)ys;
+  uint4* xb = (uint4*)xbuf;
+  void* args[] = {&xp_t, &wh_t, &bn_f, &h0_f, &ys_f, &xb,
+                  &seq_len, &batch, &ld, &hidden, &h_pad};
+  return launch_cooperative(gru_coop_fwd<T, U>, coop_fwd_smem<T, U>(h_pad),
+                            dim3(h_pad / U, tiles), args, stream);
+}
+
+template <typename T, int U>
+int coop_bwd(const void* g, const void* xp, const void* hprev, const void* wh,
+             const void* bn, void* dxp, void* dhn, void* dbn_tiles,
+             void* dwh_tiles, void* dh0, void* xbuf, int seq_len, int batch,
+             int ld, int hidden, int h_pad, int tiles, void* stream) {
+  const float* g_f = (const float*)g;
+  const T* xp_t = (const T*)xp;
+  const T* hprev_t = (const T*)hprev;
+  const T* wh_t = (const T*)wh;
+  const float* bn_f = (const float*)bn;
+  T* dxp_t = (T*)dxp;
+  bf16* dhn_t = (bf16*)dhn;
+  float* dbn_f = (float*)dbn_tiles;
+  float* dwh_f = (float*)dwh_tiles;
+  float* dh0_f = (float*)dh0;
+  uint4* xb = (uint4*)xbuf;
+  void* args[] = {&g_f, &xp_t, &hprev_t, &wh_t, &bn_f, &dxp_t, &dhn_t,
+                  &dbn_f, &dwh_f, &dh0_f, &xb, &seq_len, &batch, &ld,
+                  &hidden, &h_pad};
+  return launch_cooperative(gru_coop_bwd<T, U>, coop_bwd_smem<T, U>(h_pad),
+                            dim3(h_pad / U, tiles), args, stream);
+}
+
+// The checks shared by both entry points; true where the shape is taken.
+bool coop_shape_ok(int seq_len, int batch, int hidden, int h_pad, int u,
+                   int tiles, int use_bf16) {
+  const int k = use_bf16 ? CoopType<bf16>::kK : CoopType<float>::kK;
+  return seq_len >= 1 && hidden >= 1 && (u == 8 || u == 16) &&
+         h_pad >= hidden && h_pad % u == 0 && h_pad % k == 0 && tiles >= 1 &&
+         batch >= 1 && batch <= tiles * kCoopRows &&
+         batch > (tiles - 1) * kCoopRows;
+}
+
+// ------------------------------------------------------------------------
 // K2b (b), the weight-gradient pass: TMA loads, wgmma, split K.
 // ------------------------------------------------------------------------
 //
@@ -1808,48 +2345,61 @@ int bwd_h(const void* g, const void* xp, const void* hprev, const void* wh,
 
 // ---- cooperative entry points (float32; bf16 past 512 units) -----------
 
-// Blocks of the cooperative forward (bwd = 0) or backward (bwd = 1) kernel,
-// with float32 (use_bf16 = 0) or bf16 streams, that fit on one SM for this
-// shape, and the SM count.
-extern "C" int ddsp_gru_occupancy(int hidden, int batch, int u, int bwd,
-                                  int use_bf16, int* blocks_per_sm,
-                                  int* n_sms) {
-  return use_bf16
-             ? coop_occupancy<bf16>(hidden, batch, u, bwd, blocks_per_sm,
-                                    n_sms)
-             : coop_occupancy<float>(hidden, batch, u, bwd, blocks_per_sm,
-                                     n_sms);
+// Blocks of the cooperative forward (bwd = 0) or backward (bwd = 1) kernel
+// of u units per CTA (8 or 16), float32 (use_bf16 = 0) or bf16 streams, at
+// H padded to h_pad, that fit on one SM (0: none fits), and the SM count.
+extern "C" int ddsp_gru_coop_occupancy(int h_pad, int u, int bwd,
+                                       int use_bf16, int* blocks_per_sm,
+                                       int* n_sms) {
+  if (h_pad < 1 || (u != 8 && u != 16)) return (int)cudaErrorInvalidValue;
+#define DDSP_GRU_OCC(T, U) coop_occupancy<T, U>(h_pad, bwd, blocks_per_sm, n_sms)
+  if (use_bf16) return u == 16 ? DDSP_GRU_OCC(bf16, 16) : DDSP_GRU_OCC(bf16, 8);
+  return u == 16 ? DDSP_GRU_OCC(float, 16) : DDSP_GRU_OCC(float, 8);
+#undef DDSP_GRU_OCC
 }
 
-// xp [T, ld, 3H], wh [H, 3H] at the stream type; bn [H], h0 [batch, H],
-// ys [T, ld, H] float32, each pointer at the launch's first row; barrier:
-// one zeroed uint32 on the device. hidden % u == 0. Returns cudaError_t.
-extern "C" int ddsp_gru_fwd(const void* xp, const void* wh, const void* bn,
-                            const void* h0, void* ys, void* barrier,
-                            int seq_len, int batch, int ld, int hidden, int u,
-                            int use_bf16, void* stream) {
-  return use_bf16 ? coop_fwd<bf16>(xp, wh, bn, h0, ys, barrier, seq_len,
-                                   batch, ld, hidden, u, stream)
-                  : coop_fwd<float>(xp, wh, bn, h0, ys, barrier, seq_len,
-                                    batch, ld, hidden, u, stream);
+// K2f over `tiles` tiles of 16 rows (batch rows in all) at once: xp
+// [T, ld, 3H], wh [H, 3H] at the stream type; bn [H], h0 [batch, H], ys
+// [T, ld, H] float32, each at the launch's first row; xbuf: zeroed,
+// tiles x 2 x (h_pad / 8 bf16, / 4 float32) x 32 x 16 bytes. h_pad is H
+// padded to a multiple of u and of the mma's K (16 bf16, 8 float32).
+extern "C" int ddsp_gru_coop_fwd(const void* xp, const void* wh,
+                                 const void* bn, const void* h0, void* ys,
+                                 void* xbuf, int seq_len, int batch, int ld,
+                                 int hidden, int h_pad, int u, int tiles,
+                                 int use_bf16, void* stream) {
+  if (!coop_shape_ok(seq_len, batch, hidden, h_pad, u, tiles, use_bf16)) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define DDSP_GRU_FWD(T, U)                                                  \
+  coop_fwd<T, U>(xp, wh, bn, h0, ys, xbuf, seq_len, batch, ld, hidden, h_pad, \
+                 tiles, stream)
+  if (use_bf16) return u == 16 ? DDSP_GRU_FWD(bf16, 16) : DDSP_GRU_FWD(bf16, 8);
+  return u == 16 ? DDSP_GRU_FWD(float, 16) : DDSP_GRU_FWD(float, 8);
+#undef DDSP_GRU_FWD
 }
 
-// g [T, ld, H] float32; xp, hprev, dxp [T, ld, *] at the stream type;
-// exchange: scratch of 2 * (hidden / u) * batch * H floats; dwh [H, 3H],
-// dbn [H] float32, added to; dh0 [batch, H] float32; barrier: one zeroed
-// uint32.
-extern "C" int ddsp_gru_bwd(const void* g, const void* xp, const void* hprev,
-                            const void* wh, const void* bn, void* dxp,
-                            void* exchange, void* dwh, void* dbn, void* dh0,
-                            void* barrier, int seq_len, int batch, int ld,
-                            int hidden, int u, int use_bf16, void* stream) {
-  return use_bf16
-             ? coop_bwd<bf16>(g, xp, hprev, wh, bn, dxp, exchange, dwh, dbn,
-                              dh0, barrier, seq_len, batch, ld, hidden, u,
-                              stream)
-             : coop_bwd<float>(g, xp, hprev, wh, bn, dxp, exchange, dwh, dbn,
-                               dh0, barrier, seq_len, batch, ld, hidden, u,
-                               stream);
+// K2b (a) over `tiles` tiles: g [T, ld, H] float32; xp, hprev, dxp
+// [T, ld, *] at the stream type; bn [H]; dh0 [batch, H] float32; dbn_tiles
+// [tiles, H] float32; bf16: dhn [T, ld, H] (dwh_tiles unused); float32:
+// dwh_tiles [tiles, H, 3H] (dhn unused); xbuf as the forward's with
+// 3 h_pad columns.
+extern "C" int ddsp_gru_coop_bwd(const void* g, const void* xp,
+                                 const void* hprev, const void* wh,
+                                 const void* bn, void* dxp, void* dhn,
+                                 void* dbn_tiles, void* dwh_tiles, void* dh0,
+                                 void* xbuf, int seq_len, int batch, int ld,
+                                 int hidden, int h_pad, int u, int tiles,
+                                 int use_bf16, void* stream) {
+  if (!coop_shape_ok(seq_len, batch, hidden, h_pad, u, tiles, use_bf16)) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define DDSP_GRU_BWD(T, U)                                                   \
+  coop_bwd<T, U>(g, xp, hprev, wh, bn, dxp, dhn, dbn_tiles, dwh_tiles, dh0,  \
+                 xbuf, seq_len, batch, ld, hidden, h_pad, tiles, stream)
+  if (use_bf16) return u == 16 ? DDSP_GRU_BWD(bf16, 16) : DDSP_GRU_BWD(bf16, 8);
+  return u == 16 ? DDSP_GRU_BWD(float, 16) : DDSP_GRU_BWD(float, 8);
+#undef DDSP_GRU_BWD
 }
 
 // ---- bf16 entry points ---------------------------------------------------

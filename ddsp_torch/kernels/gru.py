@@ -19,15 +19,19 @@ exact: padded units stay 0), and K2b is two kernels: the serial
 reverse-time pass (a), whose plain version is `gru_bwd_serial_plain`, and
 the weight-gradient pass (b), a split-K GEMM (`wgrad_plan`) whose plain
 versions are `gru_wgrad_plain` and, in its order of summation,
-`gru_wgrad_split_plain`. Past 512 units, and with float32 streams, one
-cooperative kernel runs each way (dwh and dbn in K2b's body), in row groups
-where a batch does not fit one co-resident grid; but a float32 forward of
-one step (the VST hop) runs the step kernel, without a grid barrier.
+`gru_wgrad_split_plain`. Past 512 units, and with float32 streams, the
+cooperative kernels run (`plan_cooperative`: H_pad / u CTAs per tile, the
+tiles that fit one co-resident grid per launch): with bf16 streams K2b is
+again the serial pass (a), on the cooperative kernel, and the
+weight-gradient pass (b); with float32 streams one kernel each way, whose
+per-tile dwh the wrapper adds in tile order (`gru_bwd_tiles_plain`). A
+float32 forward of one step (the VST hop) runs the step kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -38,9 +42,9 @@ from ddsp_torch.kernels import _build
 # kernels its path went through. Counted where a kernel launches, inside
 # the ops' CUDA implementations: an exported program's run counts its own
 # launches, and a trace (fake tensors) none.
-# 'fwd' and 'bwd' count K2f and K2b launches (one per call, or one per row
-# group on the cooperative route), 'wgrad' K2b's weight-gradient pass (the
-# cluster route only); 'fwd_cooperative' and 'fwd_step' count the K2f
+# 'fwd' and 'bwd' count K2f and K2b launches (one per call, or one per
+# launch of tiles on the cooperative route), 'wgrad' K2b's weight-gradient
+# pass (bf16 streams); 'fwd_cooperative' and 'fwd_step' count the K2f
 # launches of 'fwd' that took the cooperative route (float32 streams at
 # T >= 2, or bf16 past 512 units) and the step kernel (float32, T = 1).
 launches: Dict[str, int] = {'fwd': 0, 'bwd': 0, 'wgrad': 0,
@@ -61,6 +65,17 @@ WGRAD_CHUNK = 64
 WGRAD_MAX_TILE = (128, 256)
 WGRAD_MAX_SPLITS = 8
 WGRAD_MIN_SLICE_CHUNKS = 4
+# Past CLUSTER_HIDDEN the pass takes H a multiple of WGRAD_WIDE_MULTIPLE
+# (other H are zero-padded to one).
+WGRAD_WIDE_MULTIPLE = 128
+
+# The cooperative kernels (csrc/gru.cu gru_coop_fwd, gru_coop_bwd): u units
+# per CTA, u in COOP_UNITS (the first that gives the fewest launches wins:
+# u = 8, the least work a CTA does per step, ran faster than u = 16 at every
+# shape measured on an H100); H is padded inside the kernels to a multiple
+# of u and of the mma's K.
+COOP_UNITS = (8, 16)
+COOP_MMA_K = {True: 16, False: 8}  # bf16: m16n8k16; float32: m16n8k8 TF32
 
 
 def reset_launches() -> None:
@@ -188,14 +203,39 @@ def fwd_route(dtype: torch.dtype, seq_len: int, hidden: int) -> str:
   return 'step' if seq_len == 1 else 'cooperative'
 
 
+def wgrad_tile(hidden: int) -> Tuple[int, int]:
+  """The weight-gradient kernel's output tile (bm, bn) at H: min(128, H) x
+  min(256, H) for H in CLUSTER_HIDDEN; past 512, H a multiple of
+  WGRAD_WIDE_MULTIPLE, 128 x 256 where 256 divides H, else 128 x 128.
+  Raises ValueError for other H (`wgrad_hidden` pads them)."""
+  if hidden in CLUSTER_HIDDEN:
+    return min(WGRAD_MAX_TILE[0], hidden), min(WGRAD_MAX_TILE[1], hidden)
+  if hidden > CLUSTER_HIDDEN[-1] and hidden % WGRAD_WIDE_MULTIPLE == 0:
+    return WGRAD_MAX_TILE[0], (WGRAD_MAX_TILE[1]
+                               if hidden % WGRAD_MAX_TILE[1] == 0 else 128)
+  raise ValueError(
+      f'the weight-gradient kernel takes H in {CLUSTER_HIDDEN} or a multiple '
+      f'of {WGRAD_WIDE_MULTIPLE} past {CLUSTER_HIDDEN[-1]}, not H={hidden}: '
+      'its tiles must divide H.')
+
+
+def wgrad_hidden(hidden: int) -> int:
+  """The H at which the weight-gradient pass runs H units: the next of
+  CLUSTER_HIDDEN up to 512, the next multiple of WGRAD_WIDE_MULTIPLE past
+  it (streams zero-padded to it)."""
+  if hidden <= CLUSTER_HIDDEN[-1]:
+    return bf16_route(hidden)[1]
+  return -(-hidden // WGRAD_WIDE_MULTIPLE) * WGRAD_WIDE_MULTIPLE
+
+
 def wgrad_plan(hidden: int, rows: int, n_sms: int,
                max_clusters: Optional[Callable[[int, int, int], int]] = None
                ) -> Dict[str, int]:
   """How K2b's weight-gradient kernel cuts dwh [H, 3H] = h_prev^T dhp over
   K = rows (T * B) for a card of n_sms SMs.
 
-  Output tiles of bm x bn = min(128, H) x min(256, H): bn divides H, so no
-  tile straddles dxp's 2H columns and dhn. K runs in chunks of WGRAD_CHUNK
+  Output tiles of bm x bn (`wgrad_tile`): bn divides H, so no tile
+  straddles dxp's 2H columns and dhn. K runs in chunks of WGRAD_CHUNK
   rows, cut into `splits` slices of whole chunks, one CTA per tile and
   slice; a tile's CTAs form one cluster, which adds up their partial tiles.
   The wave rule: tiles x splits <= n_sms, and where `max_clusters(bm, bn,
@@ -203,13 +243,12 @@ def wgrad_plan(hidden: int, rows: int, n_sms: int,
   every CTA in one wave. splits is the largest that allows, at most
   WGRAD_MAX_SPLITS, while every slice keeps WGRAD_MIN_SLICE_CHUNKS chunks
   (or one slice has all of them). Returns {'bm', 'bn', 'tiles', 'chunk',
-  'chunks', 'splits'}; H must be one of CLUSTER_HIDDEN (the wrapper pads
+  'chunks', 'splits'}; H must be one `wgrad_tile` takes (the wrapper pads
   other H).
   """
-  cluster_shape(hidden)
+  bm, bn = wgrad_tile(hidden)
   if rows < 1:
     raise ValueError(f'the weight-gradient pass needs rows >= 1, not {rows}.')
-  bm, bn = min(WGRAD_MAX_TILE[0], hidden), min(WGRAD_MAX_TILE[1], hidden)
   tiles = (hidden // bm) * (3 * hidden // bn)
   chunks = -(-rows // WGRAD_CHUNK)
   splits = max(1, min(WGRAD_MAX_SPLITS, n_sms // tiles,
@@ -347,6 +386,23 @@ def gru_wgrad_split_plain(h_prev: torch.Tensor, dxp: torch.Tensor,
   return dwh, dbn
 
 
+def gru_bwd_tiles_plain(g: torch.Tensor, xp: torch.Tensor,
+                        h_prev: torch.Tensor, wh: torch.Tensor,
+                        bn: torch.Tensor):
+  """`gru_bwd_plain` in the order of summation of the float32 cooperative
+  K2b: dwh summed step by step over each tile of TILE_ROWS rows, dbn per
+  tile as `gru_bwd_serial_plain` sums it, and the tiles' dwh and dbn then
+  added in tile order. dxp and dh0 are `gru_bwd_plain`'s."""
+  dxp, _, dbn_tiles, dh0 = gru_bwd_serial_plain(g, xp, h_prev, wh, bn)
+  dwh, dbn = None, None
+  for i, b0 in enumerate(range(0, xp.shape[1], TILE_ROWS)):
+    rows = slice(b0, b0 + TILE_ROWS)
+    part = gru_bwd_plain(g[:, rows], xp[:, rows], h_prev[:, rows], wh, bn)[1]
+    dwh = part if dwh is None else dwh + part
+    dbn = dbn_tiles[i].clone() if dbn is None else dbn + dbn_tiles[i]
+  return dxp, dwh, dbn, dh0
+
+
 def _check(xp, wh, bn, h0):
   if xp.ndim != 3 or wh.ndim != 2 or wh.shape[1] != 3 * wh.shape[0]:
     raise ValueError(f'K2 takes xp [T, B, 3H] and wh [H, 3H]; got '
@@ -370,9 +426,9 @@ def _check(xp, wh, bn, h0):
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
-    'ddsp_gru_occupancy': [_INT] * 5 + [ctypes.POINTER(_INT)] * 2,
-    'ddsp_gru_fwd': [_PTR] * 6 + [_INT] * 6 + [_PTR],
-    'ddsp_gru_bwd': [_PTR] * 11 + [_INT] * 6 + [_PTR],
+    'ddsp_gru_coop_occupancy': [_INT] * 4 + [ctypes.POINTER(_INT)] * 2,
+    'ddsp_gru_coop_fwd': [_PTR] * 6 + [_INT] * 8 + [_PTR],
+    'ddsp_gru_coop_bwd': [_PTR] * 11 + [_INT] * 8 + [_PTR],
     'ddsp_gru_cluster_query': [_INT] * 2 + [ctypes.POINTER(_INT)] * 4,
     'ddsp_gru_cluster_fwd': [_PTR] * 5 + [_INT] * 3 + [_PTR],
     'ddsp_gru_cluster_bwd': [_PTR] * 9 + [_INT] * 3 + [_PTR],
@@ -381,10 +437,10 @@ _SIGNATURES = {
     'ddsp_gru_step': [_PTR] * 5 + [_INT] * 2 + [_PTR],
 }
 
-# The plan (u, rows per launch) per (device index, H, B, backward, bf16) of
-# the cooperative kernels, and the cluster of the bf16 cluster kernels per
-# (device index, H, backward): each depends on nothing else.
-_PLANS: Dict[Tuple[int, int, int, bool, bool], Tuple[int, int]] = {}
+# The plan of the cooperative kernels per (device index, H, B, backward,
+# bf16), and the cluster of the bf16 cluster kernels per (device index, H,
+# backward): each depends on nothing else.
+_PLANS: Dict[Tuple[int, int, int, bool, bool], Dict[str, int]] = {}
 _CLUSTERS: Dict[Tuple[int, int, bool], Dict[str, int]] = {}
 # Clusters of the weight-gradient kernel a device holds at once, per
 # (device index, bm, bn, splits).
@@ -395,38 +451,67 @@ def _lib():
   return _build.load('gru', _SIGNATURES)
 
 
-def plan_cooperative(hidden: int, batch: int, n_sms: int,
-                     fits: Callable[[int, int], bool]) -> Tuple[int, int]:
-  """(u, rows) of a cooperative launch: the smallest u dividing H whose
-  H / u blocks fit one per SM, co-resident, with `rows` batch rows per
-  launch; rows is the batch, halved (rounded up) until some u fits.
+def coop_h_pad(hidden: int, units: int, bf16: bool) -> int:
+  """H padded for the cooperative kernels at u units per CTA: the next
+  multiple of u and of the mma's K (COOP_MMA_K)."""
+  step = math.lcm(units, COOP_MMA_K[bool(bf16)])
+  return -(-hidden // step) * step
 
-  One block per SM gives each block the whole SM and keeps the number of
-  barrier arrivals per step low. `fits(u, rows)` says whether a block of u
-  units and `rows` carries fits on an SM; a wider u only grows the block,
-  so the search over u stops at the first that does not. Raises
-  RuntimeError when not even one row fits.
+
+def plan_cooperative(hidden: int, batch: int, n_sms: int,
+                     fits: Callable[[int, int], int],
+                     bf16: bool) -> Dict[str, int]:
+  """How the cooperative kernels run H units over a batch on a card of n_sms
+  SMs.
+
+  Each tile of TILE_ROWS rows takes h_pad / u CTAs (u of COOP_UNITS units
+  each, h_pad = `coop_h_pad`), one unit range each; all CTAs of a launch
+  must be co-resident, so a launch takes `tiles_per_launch` tiles and the
+  rest follow in later launches. `fits(u, h_pad)` is the occupancy query:
+  blocks of that kernel per SM (0 where one does not fit). The u with the
+  fewest launches wins, the first of COOP_UNITS on a tie. Returns {'units', 'h_pad', 'ctas' (per tile),
+  'tiles', 'tiles_per_launch', 'launches'}; raises RuntimeError where no u
+  makes a co-resident grid.
   """
-  rows = batch
-  while True:
-    for u in range(1, hidden + 1):
-      if hidden % u:
-        continue
-      if not fits(u, rows):
-        break
-      if hidden // u <= n_sms:
-        return u, rows
-    if rows == 1:
-      raise RuntimeError(
-          f'the cooperative K2 kernels cannot make a co-resident grid for '
-          f'H={hidden}: the shared-memory slice of wh that one block holds '
-          'does not fit an SM.')
-    rows = -(-rows // 2)
+  if hidden < 1 or batch < 1:
+    raise ValueError(f'K2 needs H >= 1 and B >= 1, not H={hidden}, '
+                     f'B={batch}.')
+  tiles = batch_tiles(batch)
+  best = None
+  for units in COOP_UNITS:
+    h_pad = coop_h_pad(hidden, units, bf16)
+    capacity = fits(units, h_pad) * n_sms
+    ctas = h_pad // units
+    if ctas > capacity:
+      continue
+    per_launch = min(tiles, capacity // ctas)
+    plan = {'units': units, 'h_pad': h_pad, 'ctas': ctas, 'tiles': tiles,
+            'tiles_per_launch': per_launch,
+            'launches': -(-tiles // per_launch)}
+    if best is None or plan['launches'] < best['launches']:
+      best = plan
+  if best is None:
+    raise RuntimeError(
+        f'the cooperative K2 kernels cannot make a co-resident grid for '
+        f'H={hidden} ({"bf16" if bf16 else "float32"} streams): at u in '
+        f'{COOP_UNITS} units per CTA either the slices of wh do not fit '
+        f'an SM or the H / u CTAs exceed the {n_sms} SMs.')
+  return best
+
+
+def coop_launches(plan: Dict[str, int], batch: int):
+  """The launches of a plan: [(first tile, tiles, first row, rows)]."""
+  out = []
+  for tile0 in range(0, plan['tiles'], plan['tiles_per_launch']):
+    n_tiles = min(plan['tiles_per_launch'], plan['tiles'] - tile0)
+    b0 = tile0 * TILE_ROWS
+    out.append((tile0, n_tiles, b0, min(batch, b0 + n_tiles * TILE_ROWS) - b0))
+  return out
 
 
 def pick_cooperative(device: torch.device, hidden: int, batch: int,
                      backward: bool = False,
-                     bf16: bool = False) -> Tuple[int, int]:
+                     bf16: bool = False) -> Dict[str, int]:
   """`plan_cooperative` on this device, from the kernels' occupancy
   queries; once per (device, H, B, direction, dtype). Call it with `device`
   current."""
@@ -434,15 +519,16 @@ def pick_cooperative(device: torch.device, hidden: int, batch: int,
   if key not in _PLANS:
     lib = _lib()
 
-    def fits(u, rows):
+    def fits(units, h_pad):
       per_sm, n_sms = _INT(0), _INT(0)
-      status = lib.ddsp_gru_occupancy(hidden, rows, u, int(backward),
-                                      int(bf16), ctypes.byref(per_sm),
-                                      ctypes.byref(n_sms))
-      return status == 0 and per_sm.value >= 1
+      status = lib.ddsp_gru_coop_occupancy(h_pad, units, int(backward),
+                                           int(bf16), ctypes.byref(per_sm),
+                                           ctypes.byref(n_sms))
+      _build.check(status, 'ddsp_gru_coop_occupancy')
+      return per_sm.value
 
     n_sms = torch.cuda.get_device_properties(device).multi_processor_count
-    _PLANS[key] = plan_cooperative(hidden, batch, n_sms, fits)
+    _PLANS[key] = plan_cooperative(hidden, batch, n_sms, fits, bf16)
   return _PLANS[key]
 
 
@@ -529,31 +615,36 @@ def _launch_cluster_fwd(xp, wh, bn, h0):
   return ys
 
 
-def _row_groups(batch: int, rows: int):
-  return [(b0, min(rows, batch - b0)) for b0 in range(0, batch, rows)]
+def _coop_exchange(plan: Dict[str, int], columns: int, bf16: bool,
+                   device: torch.device):
+  """The zeroed exchange buffers of a plan's tiles: per tile two buffers of
+  columns / group column groups x 32 lanes x 16 bytes (group: 8 bf16 or 4
+  float32 columns, half an mma k-tile)."""
+  groups = columns // (COOP_MMA_K[bool(bf16)] // 2)
+  return torch.zeros((plan['tiles'], 2, groups, 32, 4), dtype=torch.int32,
+                     device=device)
 
 
 def _launch_coop_fwd(xp, wh, bn, h0):
-  """The cooperative K2f, one launch per row group."""
+  """The cooperative K2f, one launch per `coop_launches` entry."""
   seq_len, batch, _ = xp.shape
   hidden = wh.shape[0]
   bf16 = xp.dtype == torch.bfloat16
   dev = xp.device
   lib = _lib()
   with torch.cuda.device(dev):
-    u, rows = pick_cooperative(dev, hidden, batch, bf16=bf16)
-    groups = _row_groups(batch, rows)
+    plan = pick_cooperative(dev, hidden, batch, bf16=bf16)
     ys = torch.empty((seq_len, batch, hidden), dtype=torch.float32,
                      device=dev)
-    barriers = torch.zeros(len(groups), dtype=torch.int32, device=dev)
+    xbuf = _coop_exchange(plan, plan['h_pad'], bf16, dev)
     stream = torch.cuda.current_stream().cuda_stream
-    for i, (b0, nb) in enumerate(groups):
-      status = lib.ddsp_gru_fwd(xp[:, b0:].data_ptr(), wh.data_ptr(),
-                                bn.data_ptr(), h0[b0:].data_ptr(),
-                                ys[:, b0:].data_ptr(), barriers[i:].data_ptr(),
-                                seq_len, nb, batch, hidden, u, int(bf16),
-                                stream)
-      _build.check(status, 'ddsp_gru_fwd')
+    for tile0, n_tiles, b0, nb in coop_launches(plan, batch):
+      status = lib.ddsp_gru_coop_fwd(
+          xp[:, b0:].data_ptr(), wh.data_ptr(), bn.data_ptr(),
+          h0[b0:].data_ptr(), ys[:, b0:].data_ptr(), xbuf[tile0].data_ptr(),
+          seq_len, nb, batch, hidden, plan['h_pad'], plan['units'], n_tiles,
+          int(bf16), stream)
+      _build.check(status, 'ddsp_gru_coop_fwd')
       launches['fwd'] += 1
       launches['fwd_cooperative'] += 1
   return ys
@@ -640,39 +731,69 @@ def _launch_wgrad(h_prev, dxp, dhn, dbn_tiles):
 
 
 def _launch_coop_bwd(g, xp, h_prev, wh, bn):
-  """The cooperative K2b, one launch per row group; dwh and dbn are summed
-  over the groups in the kernel."""
+  """The cooperative K2b (a), one launch per `coop_launches` entry: (dxp,
+  the dhn stream, the tiles' dbn sums, dh0) with bf16 streams; (dxp, the
+  tiles' dwh [tiles, H, 3H], the tiles' dbn sums, dh0) with float32."""
   seq_len, batch, three_h = xp.shape
   hidden = wh.shape[0]
   bf16 = xp.dtype == torch.bfloat16
   dev = xp.device
+  _cuda_check(dev)
   lib = _lib()
   with torch.cuda.device(dev):
-    u, rows = pick_cooperative(dev, hidden, batch, backward=True, bf16=bf16)
-    groups = _row_groups(batch, rows)
+    plan = pick_cooperative(dev, hidden, batch, backward=True, bf16=bf16)
+    f32 = dict(dtype=torch.float32, device=dev)
     dxp = torch.empty_like(xp)
-    exchange = torch.empty((2, hidden // u, rows, hidden),
-                           dtype=torch.float32, device=dev)
-    dwh = torch.zeros((hidden, three_h), dtype=torch.float32, device=dev)
-    dbn = torch.zeros((hidden,), dtype=torch.float32, device=dev)
-    dh0 = torch.empty((batch, hidden), dtype=torch.float32, device=dev)
-    barriers = torch.zeros(len(groups), dtype=torch.int32, device=dev)
+    dh0 = torch.empty((batch, hidden), **f32)
+    dbn_tiles = torch.empty((plan['tiles'], hidden), **f32)
+    if bf16:
+      per_tile = torch.empty((seq_len, batch, hidden), dtype=xp.dtype,
+                             device=dev)
+    else:
+      per_tile = torch.empty((plan['tiles'], hidden, three_h), **f32)
+    xbuf = _coop_exchange(plan, 3 * plan['h_pad'], bf16, dev)
     stream = torch.cuda.current_stream().cuda_stream
-    for i, (b0, nb) in enumerate(groups):
-      status = lib.ddsp_gru_bwd(
+    for tile0, n_tiles, b0, nb in coop_launches(plan, batch):
+      status = lib.ddsp_gru_coop_bwd(
           g[:, b0:].data_ptr(), xp[:, b0:].data_ptr(),
           h_prev[:, b0:].data_ptr(), wh.data_ptr(), bn.data_ptr(),
-          dxp[:, b0:].data_ptr(), exchange.data_ptr(), dwh.data_ptr(),
-          dbn.data_ptr(), dh0[b0:].data_ptr(), barriers[i:].data_ptr(),
-          seq_len, nb, batch, hidden, u, int(bf16), stream)
-      _build.check(status, 'ddsp_gru_bwd')
+          dxp[:, b0:].data_ptr(),
+          per_tile[:, b0:].data_ptr() if bf16 else None,
+          dbn_tiles[tile0].data_ptr(),
+          None if bf16 else per_tile[tile0].data_ptr(),
+          dh0[b0:].data_ptr(), xbuf[tile0].data_ptr(), seq_len, nb, batch,
+          hidden, plan['h_pad'], plan['units'], n_tiles, int(bf16), stream)
+      _build.check(status, 'ddsp_gru_coop_bwd')
       launches['bwd'] += 1
-  return dxp, dwh, dbn, dh0
+  return dxp, per_tile, dbn_tiles, dh0
+
+
+def _launch_wgrad_any(h_prev, dxp, dhn, dbn_tiles):
+  """K2b (b) at any H: the streams zero-padded to `wgrad_hidden` where the
+  kernel's tiles do not divide H (exact: padded rows and columns of dwh
+  are dropped), then sliced back."""
+  hidden = h_prev.shape[-1]
+  h_pad = wgrad_hidden(hidden)
+  if h_pad == hidden:
+    return _launch_wgrad(h_prev, dxp, dhn, dbn_tiles)
+  dwh, dbn = _launch_wgrad(pad_units(h_prev, h_pad).contiguous(),
+                           pad_gates(dxp, h_pad).contiguous(),
+                           pad_units(dhn, h_pad).contiguous(),
+                           pad_units(dbn_tiles, h_pad).contiguous())
+  return unpad_gates(dwh[:hidden], hidden), dbn[:hidden].contiguous()
+
+
+def _sum_tiles(parts: torch.Tensor) -> torch.Tensor:
+  """parts [tiles, ...] added in tile order."""
+  out = parts[0]
+  for part in parts[1:]:
+    out = out + part
+  return out.contiguous()
 
 
 def _launch_bwd(g, xp, h_prev, wh, bn):
-  """K2b: (dxp, dwh, dbn, dh0) on the route of this H and dtype; on the
-  bf16 cluster route as passes (a) and (b), at the padded H."""
+  """K2b: (dxp, dwh, dbn, dh0) on the route of this H and dtype; with bf16
+  streams as passes (a) and (b) (the cluster route at the padded H)."""
   hidden = wh.shape[0]
   _cuda_check(xp.device)
   if xp.dtype == torch.bfloat16:
@@ -684,7 +805,11 @@ def _launch_bwd(g, xp, h_prev, wh, bn):
       # Slicing back is a no-op at h_pad = H.
       return (unpad_gates(dxp, hidden), unpad_gates(dwh[:hidden], hidden),
               dbn[:hidden].contiguous(), dh0[:, :hidden].contiguous())
-  return _launch_coop_bwd(g, xp, h_prev, wh, bn)
+    dxp, dhn, dbn_tiles, dh0 = _launch_coop_bwd(g, xp, h_prev, wh, bn)
+    dwh, dbn = _launch_wgrad_any(h_prev, dxp, dhn, dbn_tiles)
+    return dxp, dwh, dbn, dh0
+  dxp, dwh_tiles, dbn_tiles, dh0 = _launch_coop_bwd(g, xp, h_prev, wh, bn)
+  return dxp, _sum_tiles(dwh_tiles), _sum_tiles(dbn_tiles), dh0
 
 
 # K2f and K2b as torch.library ops, one per launch entry, each with a CUDA

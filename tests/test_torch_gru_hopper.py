@@ -6,8 +6,10 @@ and K into slices, one CTA per tile and slice, a cluster per tile that adds
 its slices' partials in rank order. Here: every row of K and every output
 tile is covered exactly once, the wave rule holds, and the kernel's order
 of summation (`gru_wgrad_split_plain`) agrees with the plain pass and with
-the JAX package's Pallas VJP (interpret mode). The CUDA kernel is held
-against these plain versions on the card by chip_smoke.py.
+the JAX package's Pallas VJP (interpret mode); past 512 units (the
+cooperative route's bf16 streams) the pass takes H a multiple of 128. The
+CUDA kernel is held against these plain versions on the card by
+chip_smoke.py.
 
 K2f's routes (`fwd_route`): the step kernel for float32 streams at T = 1,
 the cluster kernels for bf16 up to 512 units, the cooperative kernels
@@ -54,7 +56,7 @@ def _scaled_close(a, b, rtol, what):
 
 
 @pytest.mark.parametrize('rows', [1, 24, 1000, 16000, 128000])
-@pytest.mark.parametrize('hidden', [64, 128, 256, 512])
+@pytest.mark.parametrize('hidden', [64, 128, 256, 512, 768, 1024])
 def test_wgrad_plan_covers_every_row_and_tile_once(hidden, rows):
   plan = k_gru.wgrad_plan(hidden, rows, N_SMS)
   bm, bn, splits = plan['bm'], plan['bn'], plan['splits']
@@ -104,6 +106,8 @@ def test_wgrad_plan_keeps_every_cluster_resident():
 def test_wgrad_plan_refuses_what_the_kernel_does_not_take():
   with pytest.raises(ValueError, match='H in'):
     k_gru.wgrad_plan(96, 1000, N_SMS)  # the wrapper pads 96 to 128 first
+  with pytest.raises(ValueError, match='H in'):
+    k_gru.wgrad_plan(1000, 1000, N_SMS)  # past 512: a multiple of 128
   with pytest.raises(ValueError, match='rows'):
     k_gru.wgrad_plan(512, 0, N_SMS)
 

@@ -10,9 +10,10 @@ versions on the card by chip_smoke.py.
 
 The bf16 route of any H: `bf16_route` (the cluster kernels at the next size
 they take, or the cooperative kernels past 512 units), the zero padding of
-the cluster route (exact, bit for bit), the cooperative route's row-group
-plan, and the FastGRU of solo_instrument(rnn_channels=384) against the JAX
-package's.
+the cluster route (exact, bit for bit), the cooperative kernels' plan (CTAs
+per tile, tiles per co-resident launch) and their wrappers' glue, the
+float32 cooperative K2b's order of summation (`gru_bwd_tiles_plain`), and
+the FastGRU of solo_instrument(rnn_channels=384) against the JAX package's.
 
 Tolerances, relative to the largest element of the reference:
 - float32, 1e-5: the split changes only the order of the float32 sums (dwh
@@ -222,27 +223,153 @@ def test_cluster_route_pads_and_slices_back(hidden, monkeypatch):
                   RTOL[torch.bfloat16], what)
 
 
-def _smem_fits(budget):
-  """A stand-in for the occupancy query: a block of u units and `rows`
-  carries fits when u * (1000 + rows) <= budget."""
-  return lambda u, rows: u * (1000 + rows) <= budget
+# An H100 as the cooperative kernels' occupancy query sees it: 132 SMs,
+# 227 KB of shared memory a block. The stand-in mirrors csrc/gru.cu's
+# coop_fwd_smem / coop_bwd_smem and the float32 backward's register bound
+# (dwh's accumulators: h_pad <= 128 * 8 at u = 8, 128 * 4 at u = 16).
+N_SMS, SMEM = 132, 232448
 
 
-@pytest.mark.parametrize('hidden,batch,budget,plan', [
-    (1024, 16, 8 * 1016, (8, 16)),   # one launch: 128 blocks of 8 units
-    (1024, 40, 8 * 1016, (8, 10)),   # 40 rows do not fit: groups of 10
-    (1024, 3, 8 * 1002, (8, 2)),     # halved and rounded up: 2 rows
-    (768, 40, 10**6, (6, 40)),       # the smallest u with <= 132 blocks
+def _coop_smem(units, h_pad, bf16, backward):
+  item = 2 if bf16 else 4
+  ld = lambda k: ((k * item // 4 + 31) // 32 * 32 + 4) * 4 // item
+  pad = lambda n: n + (8 if (n // 8) % 2 == 0 else 0)
+  a16 = lambda n: (n + 15) // 16 * 16
+  cols = 3 * units
+  w_col = a16(cols * ld(h_pad) * item)
+  if not backward:
+    return w_col + 4 * (8 * 16 * pad(cols) + 16 * units)
+  return (w_col + a16(units * ld(3 * h_pad) * item) +
+          4 * (8 * 16 * pad(cols) + 16 * cols))
+
+
+def _h100_fits(bf16, backward):
+  def fits(units, h_pad):
+    if (backward and not bf16 and
+        h_pad > 128 * (8 if units == 8 else 4)):
+      return 0
+    return 1 if _coop_smem(units, h_pad, bf16, backward) <= SMEM else 0
+  return fits
+
+
+@pytest.mark.parametrize('batch', [1, 16, 40])
+@pytest.mark.parametrize('bf16,hidden', [(True, 640), (True, 768),
+                                         (True, 1024), (False, 64),
+                                         (False, 512), (False, 1024)])
+def test_cooperative_plan(bf16, hidden, batch):
+  """Every unit is owned by exactly one CTA, every row lies in exactly one
+  tile and one launch, and each launch is one co-resident grid on the
+  stand-in's H100, in both directions."""
+  step = k_gru.COOP_MMA_K[bf16]
+  for backward in (False, True):
+    fits = _h100_fits(bf16, backward)
+    plan = k_gru.plan_cooperative(hidden, batch, N_SMS, fits, bf16)
+    units, h_pad = plan['units'], plan['h_pad']
+    assert units in k_gru.COOP_UNITS and h_pad % units == 0
+    assert h_pad % step == 0 and 0 <= h_pad - hidden < max(units, step)
+    # CTA j owns units [j u, j u + u): a partition of the padded units.
+    owned = sorted(j * units + i for j in range(plan['ctas'])
+                   for i in range(units))
+    assert owned == list(range(h_pad))
+    assert plan['ctas'] <= N_SMS
+    assert plan['ctas'] * plan['tiles_per_launch'] <= fits(units, h_pad) * N_SMS
+    launched = k_gru.coop_launches(plan, batch)
+    assert len(launched) == plan['launches']
+    rows = [b for _, _, b0, nb in launched for b in range(b0, b0 + nb)]
+    assert rows == list(range(batch))
+    tiles = [t for t0, n, _, _ in launched for t in range(t0, t0 + n)]
+    assert tiles == list(range(k_gru.batch_tiles(batch)))
+    assert all(0 < nb <= n * k_gru.TILE_ROWS and n <= plan['tiles_per_launch']
+               for _, n, _, nb in launched)
+    # The fewest launches any u gives.
+    for other in k_gru.COOP_UNITS:
+      o_pad = k_gru.coop_h_pad(hidden, other, bf16)
+      cap = fits(other, o_pad) * N_SMS
+      if o_pad // other <= cap:
+        per = min(plan['tiles'], cap // (o_pad // other))
+        assert plan['launches'] <= -(-plan['tiles'] // per)
+
+
+@pytest.mark.parametrize('hidden,fits,match', [
+    (1024, lambda u, h_pad: 0, 'H=1024'),     # no slice of wh fits an SM
+    (4096, lambda u, h_pad: 1, '132 SMs'),    # more CTAs than SMs
 ])
-def test_cooperative_plan(hidden, batch, budget, plan):
-  """The cooperative route's plan: the smallest u whose H / u blocks fit
-  one per SM (132 SMs), rows halved until a block fits."""
-  assert k_gru.plan_cooperative(hidden, batch, 132, _smem_fits(budget)) == plan
+def test_cooperative_plan_raises_where_one_row_does_not_fit(hidden, fits,
+                                                            match):
+  """Where not even one tile of rows makes a co-resident grid at any u, the
+  planner raises."""
+  with pytest.raises(RuntimeError, match=match):
+    k_gru.plan_cooperative(hidden, 16, N_SMS, fits, True)
 
 
-def test_cooperative_plan_raises_where_one_row_does_not_fit():
-  with pytest.raises(RuntimeError, match='H=1024'):
-    k_gru.plan_cooperative(1024, 16, 132, _smem_fits(8 * 1000))
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_tiles_order_matches_plain_k2b(dtype):
+  # B = 40: three tiles of 16 rows, the last one ragged.
+  args = _time_major(*_inputs(40, 10, 64, seed=28), dtype)
+  got = k_gru.gru_bwd_tiles_plain(*args)
+  want = k_gru.gru_bwd_plain(*args)
+  assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+  for a, b, what in zip(got, want, GRADS):
+    assert a.dtype == b.dtype and a.shape == b.shape, what
+    _scaled_close(a.float().numpy(), b.float().numpy(), RTOL[dtype], what)
+
+
+@pytest.mark.parametrize('dtype,jdtype,b,seed', [
+    (torch.float32, jnp.float32, 3, 29),
+    (torch.bfloat16, jnp.bfloat16, 17, 30),
+])
+def test_tiles_order_matches_pallas_vjp(dtype, jdtype, b, seed):
+  xp, wh, bn, h0, g = _inputs(b, 24, 64, seed)
+  xp = np.array(jnp.asarray(xp).astype(jdtype).astype(jnp.float32))
+  got = k_gru.gru_bwd_tiles_plain(*_time_major(xp, wh, bn, h0, g, dtype))
+  got = [got[0].transpose(0, 1)] + list(got[1:])
+  _, vjp = jax.vjp(lambda *a: fused_gru(*a, True)[0],
+                   jnp.asarray(xp).astype(jdtype), jnp.asarray(wh),
+                   jnp.asarray(bn), jnp.asarray(h0))
+  want = vjp(jnp.asarray(g))
+  for a, w, what in zip(got, want, GRADS):
+    a = a.float().numpy()
+    w = np.asarray(w.astype(jnp.float32))
+    _scaled_close(a, w, RTOL[dtype], what)
+    if dtype == torch.bfloat16:
+      a, w = a.ravel().astype(np.float64), w.ravel().astype(np.float64)
+      assert a @ w / (np.linalg.norm(a) * np.linalg.norm(w)) > 0.999, what
+
+
+@pytest.mark.parametrize('dtype,hidden', [(torch.bfloat16, 520),
+                                          (torch.bfloat16, 640),
+                                          (torch.float32, 40)])
+def test_cooperative_route_glue(dtype, hidden, monkeypatch):
+  """`_launch_bwd` on the cooperative route on the CPU, with plain versions
+  standing in for the kernels: bf16 adds the weight-gradient pass (the
+  streams zero-padded to a multiple of 128 where H is not one), float32
+  adds the tiles' dwh and dbn in order; both give `gru_bwd_plain`'s
+  gradients at the tolerance of the split."""
+  def coop_bwd(g, xp, h_prev, wh, bn):
+    dxp, dhn, dbn_tiles, dh0 = k_gru.gru_bwd_serial_plain(g, xp, h_prev, wh,
+                                                          bn)
+    if dtype == torch.bfloat16:
+      return dxp, dhn, dbn_tiles, dh0
+    dwh_tiles = torch.stack([
+        k_gru.gru_bwd_plain(g[:, b0:b0 + 16], xp[:, b0:b0 + 16],
+                            h_prev[:, b0:b0 + 16], wh, bn)[1]
+        for b0 in range(0, xp.shape[1], 16)])
+    return dxp, dwh_tiles, dbn_tiles, dh0
+
+  def wgrad(h_prev, dxp, dhn, dbn_tiles):
+    k_gru.wgrad_tile(h_prev.shape[-1])  # raises where the kernel would
+    return k_gru.gru_wgrad_plain(h_prev, dxp, dhn, dbn_tiles)
+
+  monkeypatch.setattr(k_gru, '_cuda_check', lambda device: None)
+  monkeypatch.setattr(k_gru, '_launch_coop_bwd', coop_bwd)
+  monkeypatch.setattr(k_gru, '_launch_wgrad', wgrad)
+  args = _time_major(*_inputs(20, 3, hidden, seed=hidden), dtype)
+  got = k_gru._launch_bwd(*args)
+  want = (k_gru.gru_bwd_tiles_plain(*args) if dtype == torch.float32 else
+          k_gru.gru_bwd_plain(*args))
+  for a, b, what in zip(got, want, GRADS):
+    assert a.shape == b.shape and a.dtype == b.dtype, what
+    _scaled_close(a.float().numpy(), b.float().numpy(), RTOL[dtype], what)
 
 
 def test_solo_instrument_384_gru_matches_the_jax_fast_gru():
