@@ -192,6 +192,21 @@ Phases (any failed check exits non-zero before the result lines):
      K2f once and K3 per batch; 'sample': the dense run's files), ms per
      eval batch beside the dense one; a ProcessorGroup with FIRFilter on
      the mesh against the dense group (K3 only);
+  6m. four torch.distributed ranks on the one card (gloo: NCCL refuses two
+     ranks on one card), spawned processes on cuda:0: (a) K3's remote copy
+     (CUDA IPC slots, csrc/halo.cu ddsp_halo_remote) against its
+     torch.distributed plain version at the long-audio step's blocks, both
+     directions, values and adjoints bit for bit, one remote launch each
+     way, ms per shift of each; (b) the dense Trainer step of full-width
+     solo_instrument on a (4 x 1) mesh of the ranks, 4 of phase 6's 16 rows
+     each, 3 steps against the one-process step on the 16 rows (the loss
+     and the reduced gradient norm of the first step, the later losses),
+     the parameters bit for bit equal across ranks, K1f, K1t, K2f and K2b
+     once a step on every rank; (c) make_sp_train_step at 30 s x B = 2 on
+     a (1 x 4) mesh of the ranks against phase 6k's one-process steps, the
+     remote copy launched 22 times a step on every rank and the local
+     shift none; ms per step and per shift, labelled as four ranks
+     time-sliced on one card; a failed rank fails the phase;
   7. report per-request and per-step times, the kernels line and the device
      line.
 
@@ -211,6 +226,7 @@ import numpy as np
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
+NVLINK_BYTES_PER_S = 450e9  # each way, to another card of the host
 PEAK_FLOPS = {'float32': 67e12, 'bfloat16': 989e12}
 
 SR = 16000
@@ -5013,7 +5029,7 @@ def phase_long_audio(torch, dev, profile):
         f'{c_loss:.5f} ({abs(g_loss - c_loss) / abs(c_loss):.3e} apart)')
   check(abs(g_loss - c_loss) <= LONG_CPU_RTOL * abs(c_loss),
         f'the first long-audio loss within {LONG_CPU_RTOL} of the CPU port')
-  return launches
+  return launches, losses
 
 
 def phase_sp_eval(torch, dev, work_dir, ckpt_dir, mesh):
@@ -5167,6 +5183,374 @@ def phase_fir_sp(torch, dev):
 
 # The paths whose launches the kernels line also gives per unit (phase
 # 6k): {path: (unit, units in the path's count)}.
+# Phase 6m: four ranks of torch.distributed on the one card. NCCL refuses
+# two ranks on one card ("Duplicate GPU detected", NCCL 2.28.9 with torch
+# 2.11 on the H100 machine), so the ranks name gloo, which stages CUDA
+# tensors through the host; K3's remote copy moves its blocks itself.
+RANKS = 4
+RANKS_BACKEND = 'gloo'
+RANKS_DENSE_MESH = (4, 1)
+RANKS_STEPS = 3
+RANKS_SHIFTS_TIMED = 40
+RANKS_TIMEOUT_S = 600
+RANKS_BLOCKS = ('noise carry [2, 120000]', 'STFT halo [2, 2047] of [2, 120000]')
+# (b) the (4 x 1) step against the one-process step on the same 16 rows,
+# parameters and noise: the same per-row work and the same noise (each
+# rank draws the global batch's and keeps its rows), but cuBLAS and cuFFT
+# pick their kernels by the row count (4 rows a rank against 16), so
+# float32 products round differently, bf16 streams round that to 3 digits
+# where a value straddles a step, and the sums of the loss and the
+# gradient run over ranks in another order. Held at the first step: the
+# loss, and the decoder's gradient norm at STEP_GRAD_NORM_RTOL (the logmag
+# term's 1/|X| carries such rounding into it through the synthesis; on an
+# H100 8.9e-3 apart, the losses 1.2e-7). The reverb IR's gradient, which
+# that term conditions most (on one dry signal the two devices' FFT
+# rounding alone moves it by 1.6e-2, IR_NAME's note), and with it the
+# global norm, are printed only: the same run read the first step's
+# global norm 355 on the ranks and 566 in one process. The later steps
+# follow Adam updates that are near lr * sign(g) for the IR's tiny
+# entries, whose signs that rounding flips: their losses are held looser
+# (the same run: 2.6e-3 and 1.6e-2 apart).
+RANKS_LOSS_RTOL = 1e-3
+RANKS_GRAD_NORM_RTOL = STEP_GRAD_NORM_RTOL
+RANKS_LATER_LOSS_RTOL = 5e-2
+# (c) the (1 x 4) long-audio step against phase 6k's one-process step: the
+# same shards, decoder rows and noise, the same arithmetic; only the sums
+# of the loss and of the gradient run over ranks in another order. The
+# first loss, and the next two after Adam steps of those gradients (an
+# H100: equal, then 1.1e-6 and 1.3e-4 apart).
+RANKS_LONG_FIRST_RTOL = 1e-4
+RANKS_LONG_RTOL = 1e-3
+
+
+def ranks_blocks(torch, dev, seed):
+  """The long-audio step's K3 blocks on this rank: the noise filter's tail
+  carry [2, 120000] and the STFT halo, a [2, 2047] view of a [2, 120000]
+  shard (the leaf, the block)."""
+  gen = torch.Generator(dev).manual_seed(seed)
+  t_local = LONG_FRAMES * (SR // 250) // SP_MESH[1]
+  carry = torch.randn((LONG_BATCH, t_local), generator=gen, device=dev)
+  audio = torch.randn((LONG_BATCH, t_local), generator=gen, device=dev)
+  return list(zip(RANKS_BLOCKS, (carry, audio[:, :2047])))
+
+
+def ranks_shifts(torch, dev, rank):
+  """(a) K3's remote copy against its plain version on a (1 x 4) mesh of
+  the ranks: values and adjoints bit for bit, both directions, launches;
+  then ms per shift of each (host clock: every remote copy synchronises
+  its stream to read its error word)."""
+  from ddsp_torch.kernels import halo as kk
+  from ddsp_torch.parallel import create_mesh, distributed, halo
+  mesh = create_mesh(*SP_MESH, devices=[dev])
+  out = {'cases': [], 'ms': {}, 'bytes': {}}
+  for name, block in ranks_blocks(torch, dev, 30 + rank):
+    leaf = block.clone().requires_grad_()
+    for direction in (+1, -1):
+      kk.reset_launches()
+      (got,) = halo.neighbor_shift([leaf], mesh, direction, impl='pallas')
+      edge = kk._edge(mesh, direction)  # pylint: disable=protected-access
+      want = kk.remote_shift_plain(block, edge.to, edge.frm)
+      cot = torch.randn(got.shape, device=dev)
+      (adj,) = torch.autograd.grad(got, leaf, cot)
+      back = kk._edge(mesh, -direction)  # pylint: disable=protected-access
+      want_adj = kk.remote_shift_plain(cot, back.to, back.frm)
+      torch.cuda.synchronize()
+      out['cases'].append(dict(
+          name=f'{name} {direction:+d}',
+          err=max((got - want).abs().max().item(),
+                  (adj - want_adj).abs().max().item()),
+          equal=torch.equal(got, want) and torch.equal(adj, want_adj),
+          launches=dict(kk.launches)))
+    edge = kk._edge(mesh, +1)  # pylint: disable=protected-access
+    for route, fn in (
+        ('kernel', lambda: halo.neighbor_shift([block], mesh, +1)),
+        ('plain', lambda: kk.remote_shift_plain(block, edge.to, edge.frm))):
+      for _ in range(3):
+        fn()
+      torch.cuda.synchronize()
+      distributed.barrier()
+      t0 = time.perf_counter()
+      for _ in range(RANKS_SHIFTS_TIMED):
+        fn()
+      torch.cuda.synchronize()
+      out['ms'][(name, route)] = (time.perf_counter() - t0) * 1e3 / (
+          RANKS_SHIFTS_TIMED)
+    out['bytes'][name] = block.numel() * block.element_size()
+  return out
+
+
+def recording_gradients(torch, trainer, norms):
+  """trainer.apply_gradients, appending each step's reduced (unclipped)
+  gradient norms to `norms`: (the decoder's, the reverb IR's, the global
+  one)."""
+  apply = trainer.apply_gradients
+
+  def recording(state, names, params, grads):
+    by_name = dict(zip(names, grads))
+    decoder = global_norm(torch, by_name, 'decoder.')
+    ir = by_name[IR_NAME].double().norm().item()
+    norm = apply(state, names, params, grads)
+    norms.append((decoder, ir, norm.item()))
+    return norm
+
+  trainer.apply_gradients = recording
+
+
+def ranks_dense(torch, dev, work_dir, rank):
+  """(b) the dense Trainer step on the (4 x 1) mesh of the ranks, each on
+  its 4 rows of phase 6's 16: losses, gradient norms, launches, ms per
+  step; the parameters go to work_dir."""
+  from ddsp_torch.parallel import create_mesh, distributed
+  from ddsp_torch.parallel import mesh as mesh_lib
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import build_model
+  mesh = create_mesh(*RANKS_DENSE_MESH, devices=[dev])
+  trainer = Trainer(build_model('solo_instrument', seed=0, device=dev),
+                    mesh=mesh, seed=0)
+  norms, losses, times = [], [], []
+  recording_gradients(torch, trainer, norms)
+  batch = trainer.to_device(mesh_lib.shard_batch(mesh, training_batch()))
+  state = trainer.init()
+  distributed.barrier()
+  reset_launches()
+  for _ in range(RANKS_STEPS):
+    t0 = time.perf_counter()
+    state, step_losses = trainer.train_step(state, batch)
+    losses.append(step_losses['total_loss'].item())
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+  launches = read_launches()
+  torch.save({k: p.detach().cpu() for k, p in state.params.items()},
+             os.path.join(work_dir, f'params{rank}.pt'))
+  return dict(losses=losses, norms=norms, ms=times, launches=launches,
+              rows=batch['audio'].shape[0])
+
+
+def ranks_long(torch, dev):
+  """(c) make_sp_train_step at 30 s x B = 2 on a (1 x 4) mesh of the
+  ranks: losses, launches, ms per step."""
+  from ddsp_torch.kernels import halo as kk
+  from ddsp_torch.parallel import create_mesh, distributed, make_sp_train_step
+  from ddsp_torch.utils import build_model
+  n_samples = LONG_SECONDS * SR
+  noise = torch.rand((LONG_BATCH, n_samples),
+                     generator=torch.Generator().manual_seed(41)) * 2 - 1
+  mesh = create_mesh(*SP_MESH, devices=[dev])
+  model = build_model('solo_instrument', seed=0, device=dev)
+  decoder, fft_sizes = model.decoder, tuple(model.losses[0].fft_sizes)
+  train_step, shard_batch = make_sp_train_step(
+      mesh, decoder, torch.optim.Adam(decoder.parameters(), lr=LONG_LR),
+      n_samples=n_samples, sample_rate=SR, fft_sizes=fft_sizes)
+  batch, noise = shard_batch(long_audio_batch(LONG_SECONDS), noise)
+  distributed.barrier()
+  reset_launches()
+  losses, times = [], []
+  for _ in range(RANKS_STEPS):
+    t0 = time.perf_counter()
+    losses.append(train_step(batch, noise).item())
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+  launches = read_launches()
+  launches['K3r'] = kk.launches['remote_shift']
+  return dict(losses=losses, ms=times, launches=launches,
+              samples=batch['audio'].shape[1], fft_sizes=fft_sizes)
+
+
+def ranks_worker(rank, work_dir):
+  """One rank of phase 6m: (a), (b) and (c) on cuda:0, its results to
+  work_dir. A failure prints its traceback and ends the process at once
+  (no collective teardown for the others to wait on)."""
+  import traceback  # pylint: disable=g-import-not-at-top
+  import torch  # pylint: disable=g-import-not-at-top
+  from ddsp_torch.parallel import distributed
+  try:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = distributed.init(
+        device=torch.device('cuda', 0), backend=RANKS_BACKEND,
+        init_method='file://' + os.path.join(work_dir, 'init'), rank=rank,
+        world_size=RANKS)
+    result = {'shifts': ranks_shifts(torch, dev, rank),
+              'dense': ranks_dense(torch, dev, work_dir, rank),
+              'long': ranks_long(torch, dev)}
+    torch.save(result, os.path.join(work_dir, f'rank{rank}.pt'))
+    distributed.shutdown()
+  except BaseException:  # pylint: disable=broad-except
+    traceback.print_exc()
+    sys.stderr.flush()
+    os._exit(1)  # pylint: disable=protected-access
+
+
+def dense_reference(torch):
+  """Phase 6m (b)'s one-process step: Trainer on phase 6's 16 rows, the
+  same seeds; losses and reduced gradient norms of RANKS_STEPS steps."""
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import build_model
+  trainer = Trainer(build_model('solo_instrument', seed=0), seed=0)
+  norms, losses = [], []
+  recording_gradients(torch, trainer, norms)
+  batch = trainer.to_device(training_batch())
+  state = trainer.init()
+  for _ in range(RANKS_STEPS):
+    state, step_losses = trainer.train_step(state, batch)
+    losses.append(step_losses['total_loss'].item())
+  return losses, norms
+
+
+def phase_ranks(torch, long_losses):
+  """[6m] four torch.distributed ranks on the one card: K3's remote copy,
+  the (4 x 1) dense step and the (1 x 4) long-audio step, each against its
+  one-process counterpart. Returns (launches of (c) on rank 0, the remote
+  copy's kernel entry)."""
+  import torch.multiprocessing as mp  # pylint: disable=g-import-not-at-top
+  print(f'[6m] {RANKS} ranks on one card ({RANKS_BACKEND}: NCCL refuses two '
+        f'ranks on one card): (a) K3\'s remote copy, (b) a {RANKS_DENSE_MESH} '
+        f'solo_instrument step at {BATCH} x 4 s, (c) the long-audio step on '
+        f'a {SP_MESH} mesh of ranks; times are of four ranks time-sliced on '
+        'one card', flush=True)
+  want_losses, want_norms = dense_reference(torch)
+  torch.cuda.synchronize()
+  with tempfile.TemporaryDirectory() as work_dir:
+    t0 = time.time()
+    ctx = mp.start_processes(ranks_worker, args=(work_dir,), nprocs=RANKS,
+                             join=False, start_method='spawn')
+    try:
+      while not ctx.join(timeout=10):
+        check(time.time() - t0 < RANKS_TIMEOUT_S,
+              f'the ranks finished within {RANKS_TIMEOUT_S} s')
+    except CheckFailed:
+      for p in ctx.processes:
+        p.kill()
+      raise
+    except Exception as e:  # pylint: disable=broad-except
+      for p in ctx.processes:
+        p.kill()
+      raise CheckFailed(f'a rank failed: {e}') from e
+    print(f'  the ranks ran in {time.time() - t0:.1f} s (process start and '
+          'imports included)')
+    ranks = [torch.load(os.path.join(work_dir, f'rank{r}.pt'),
+                        weights_only=False) for r in range(RANKS)]
+    params = [torch.load(os.path.join(work_dir, f'params{r}.pt'))
+              for r in range(RANKS)]
+
+  # (a) the remote copy.
+  for r, result in enumerate(ranks):
+    for case in result['shifts']['cases']:
+      check(case['equal'] and case['launches']['remote_shift'] == 2 and
+            case['launches']['shift'] == 0,
+            f'(a) rank {r}, {case["name"]}: the remote copy and its adjoint '
+            'bit for bit equal to the torch.distributed plain version, one '
+            'remote launch each way')
+  shifts = ranks[0]['shifts']
+  for name in RANKS_BLOCKS:
+    print(f'  (a) {name}: kernel {shifts["ms"][(name, "kernel")]:.3f} ms, '
+          f'torch.distributed route {shifts["ms"][(name, "plain")]:.3f} ms '
+          'per shift (rank 0, four ranks time-sliced on one card)')
+
+  # (b) the dense step.
+  for r, result in enumerate(ranks):
+    dense = result['dense']
+    print(f'  (b) rank {r}: {dense["rows"]} rows; losses '
+          f'{[round(l, 5) for l in dense["losses"]]}, gradient norms '
+          f'{[tuple(round(n, 5) for n in s) for s in dense["norms"]]}, ms per '
+          f'step '
+          f'{[round(t, 1) for t in dense["ms"]]}; launches {dense["launches"]}')
+    check(all(dense['launches'][k] == RANKS_STEPS
+              for k in ('K1f', 'K1t', 'K2f', 'K2b')),
+          f'(b) rank {r}: K1f, K1t, K2f and K2b launched once a step')
+    check(dense['losses'] == ranks[0]['dense']['losses'],
+          f'(b) rank {r}: the reduced losses equal rank 0\'s')
+  got = ranks[0]['dense']
+  print(f'  (b) one process on {BATCH} rows: losses '
+        f'{[round(l, 5) for l in want_losses]}, gradient norms (decoder, '
+        f'reverb IR, global) {[tuple(round(n, 5) for n in s) for s in want_norms]}')
+  for step in range(RANKS_STEPS):
+    loss_apart = abs(got['losses'][step] - want_losses[step]) / abs(
+        want_losses[step])
+    norms_apart = [abs(a - b) / b
+                   for a, b in zip(got['norms'][step], want_norms[step])]
+    print(f'  (b) step {step}: loss {loss_apart:.3e} apart; gradient norms '
+          f'apart: decoder {norms_apart[0]:.3e}, reverb IR '
+          f'{norms_apart[1]:.3e}, global {norms_apart[2]:.3e}')
+    if step == 0:
+      check(loss_apart <= RANKS_LOSS_RTOL and
+            norms_apart[0] <= RANKS_GRAD_NORM_RTOL,
+            f'(b) the first step: the loss within {RANKS_LOSS_RTOL} and the '
+            f'decoder\'s gradient norm within {RANKS_GRAD_NORM_RTOL} of the '
+            'one-process step')
+    else:
+      check(loss_apart <= RANKS_LATER_LOSS_RTOL,
+            f'(b) step {step}: the loss within {RANKS_LATER_LOSS_RTOL} of '
+            'the one-process step')
+  check(all(torch.equal(p[k], params[0][k]) for p in params[1:]
+            for k in p), '(b) the parameters bit for bit equal across ranks')
+
+  # (c) the long-audio step.
+  t_local = LONG_SECONDS * SR // SP_MESH[1]
+  expected = sp_k3_launches(solo_instrument_convolutions(t_local)[1:],
+                            ranks[0]['long']['fft_sizes'])
+  for r, result in enumerate(ranks):
+    long = result['long']
+    print(f'  (c) rank {r}: {long["samples"]} samples a rank; losses '
+          f'{[round(l, 5) for l in long["losses"]]}, ms per step '
+          f'{[round(t, 1) for t in long["ms"]]}; launches {long["launches"]}')
+    check(long['launches']['K3r'] == expected * RANKS_STEPS and
+          long['launches']['K3'] == 0,
+          f'(c) rank {r}: the remote copy launched {expected} times a step, '
+          'the local shift no time')
+    check(long['launches']['K2f'] == long['launches']['K2b'] == RANKS_STEPS,
+          f'(c) rank {r}: K2f and K2b launched once a step')
+  got = ranks[0]['long']['losses']
+  print(f'  (c) phase 6k in one process: losses '
+        f'{[round(l, 5) for l in long_losses[:RANKS_STEPS]]}')
+  for step in range(RANKS_STEPS):
+    rtol = RANKS_LONG_FIRST_RTOL if step == 0 else RANKS_LONG_RTOL
+    apart = abs(got[step] - long_losses[step]) / abs(long_losses[step])
+    print(f'  (c) step {step}: loss {apart:.3e} apart')
+    check(apart <= rtol, f'(c) step {step}: the loss within {rtol} of phase '
+          '6k\'s one-process step')
+  launches = dict(ranks[0]['long']['launches'])
+  err = max(case['err'] for result in ranks
+            for case in result['shifts']['cases'])
+  return launches, remote_copy_entry(shifts, launches['K3r'], err)
+
+
+def remote_copy_entry(shifts, launches, err):
+  """The kernels line's entry of K3's remote copy, from rank 0's times at
+  the noise carry [2, 120000] float32 (and the STFT halo beside it). Bound:
+  the sender's block read once and the receiver's output written once, at
+  HBM's rate on one card (the slot between them is the design's, not the
+  function's); across cards the block crosses NVLink once, at 450 GB/s
+  each way. The library call is the torch.distributed route, which is the
+  plain version."""
+  carry, halo_name = RANKS_BLOCKS
+  block = shifts['bytes'][carry]
+  entry = {
+      'name': 'halo_remote_copy (K3 between ranks)', 'route': 'cuda',
+      'source': 'ddsp_torch/csrc/halo.cu',
+      'replaces': 'ddsp_tpu/parallel/pallas_halo.py:88',
+      'launches': launches, 'max_abs_err': err,
+      'ms': shifts['ms'][(carry, 'kernel')],
+      'plain_ms': shifts['ms'][(carry, 'plain')],
+      'bound_ms': 2 * block / PEAK_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
+      'library_ms': shifts['ms'][(carry, 'plain')],
+      'bound_nvlink_ms': block / NVLINK_BYTES_PER_S * 1e3,
+      'halo_ms': shifts['ms'][(halo_name, 'kernel')],
+      'halo_plain_ms': shifts['ms'][(halo_name, 'plain')],
+      'halo_bound_ms': (2 * shifts['bytes'][halo_name] / PEAK_BYTES_PER_S *
+                        1e3),
+      'timing': 'host clock per shift, four ranks time-sliced on one card'}
+  print(f"  {entry['name']}: {entry['ms']:.4f} ms per shift of the "
+        f"[2, 120000] carry (four ranks time-sliced on one card), plain "
+        f"(torch.distributed) {entry['plain_ms']:.4f} ms, bound "
+        f"{entry['bound_ms']:.5f} ms on one card (bytes; "
+        f"{entry['bound_nvlink_ms']:.5f} ms over NVLink), the [2, 2047] "
+        f"halo {entry['halo_ms']:.4f} ms (plain {entry['halo_plain_ms']:.4f}, "
+        f"bound {entry['halo_bound_ms']:.6f}), launches {launches} on rank 0 "
+        f"in (c)", flush=True)
+  return entry
+
+
 PER_UNIT = {'long_audio': ('long_audio_step', LONG_WARMUP + LONG_STEPS),
             'sp_eval': ('sp_eval_batch', EVAL_BATCHES)}
 
@@ -5874,13 +6258,16 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as sp_dir:
       launches['sp_train'], k3_per_step, sp_mesh = phase_sp_train(
           torch, dev, dense_ms, args.profile, os.path.join(sp_dir, 'train'))
-      launches['long_audio'] = phase_long_audio(torch, dev, args.profile)
+      launches['long_audio'], long_losses = phase_long_audio(
+          torch, dev, args.profile)
       launches['sp_eval'] = phase_sp_eval(
           torch, dev, sp_dir, os.path.join(sp_dir, 'train'), sp_mesh)
       launches['fir_sp'] = phase_fir_sp(torch, dev)
+    launches['ranks'], remote_entry = phase_ranks(torch, long_losses)
     kernels = phase_report(torch, port, reqs, launches, dev, args.profile)
     kernels.append(k3_entry(torch, launches, k3_per_step, sp_mesh, dev))
     kernels.append(vst_entry)
+    kernels.append(remote_entry)
   except CheckFailed as e:
     print(f'chip_smoke: check failed: {e}', file=sys.stderr)
     return 1

@@ -69,12 +69,13 @@ class ZippedProvider(BaseMultiProvider):
 
   def get_batch(self, batch_size: int, shuffle: bool = True,
                 repeats: int = -1, drop_remainder: bool = True,
-                seed: Optional[int] = None):
-    """Yield tuples of batches; ratios scale the per-provider batch size."""
+                seed: Optional[int] = None, shard=(0, 1)):
+    """Yield tuples of batches; ratios scale the per-provider batch size;
+    `shard` keeps each provider's share (DataProvider.get_batch)."""
     batch_sizes = [max(1, int(batch_size * r))
                    for r in self._batch_size_ratios]
     iterators = [dp.get_batch(bs, shuffle=shuffle, repeats=repeats,
-                              drop_remainder=drop_remainder)
+                              drop_remainder=drop_remainder, shard=shard)
                  for bs, dp in zip(batch_sizes, self._data_providers)]
     while True:
       # Explicit loop: a StopIteration raised inside a generator

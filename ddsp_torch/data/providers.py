@@ -8,13 +8,21 @@ ddsp_torch.data.prefetch). The feature schema matches the reference so
 existing DDSP datasets work: audio [n_samples], f0_hz / f0_confidence /
 loudness_db [n_frames]. Every provider draws from np.random.RandomState in
 the JAX package's order, so the same seed gives the same batches bit for bit.
+
+Across processes the JAX providers give every process the same examples
+(they seed by `seed` alone, and the JAX CLI feeds each host's batch as its
+rows of the global one). The port's `get_batch(shard=(index, count))`
+keeps examples index, index + count, ... of that same stream instead, so
+the ranks of a mesh's data rows read disjoint examples: a deliberate
+difference (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import glob
+import itertools
 import logging
-from typing import Any, Dict, Iterator, Optional, Sequence
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -46,8 +54,18 @@ class DataProvider:
                 shuffle: bool = True,
                 repeats: int = -1,
                 drop_remainder: bool = True,
-                seed: Optional[int] = None) -> Iterator[Dict[str, Any]]:
-    """Yield batched feature dicts (numpy, stacked along axis 0)."""
+                seed: Optional[int] = None,
+                shard: Tuple[int, int] = (0, 1)
+                ) -> Iterator[Dict[str, Any]]:
+    """Yield batched feature dicts (numpy, stacked along axis 0).
+
+    shard: (index, count): batch examples index, index + count, ... of
+    each epoch only (a rank's share of the data, module docstring).
+    """
+    index, count = shard
+    if not 0 <= index < count:
+      raise ValueError(f'shard {shard} is not (index, count) with 0 <= '
+                       'index < count.')
     if seed is not None:
       logging.getLogger('ddsp_torch').warning(
           'get_batch(seed=...) is accepted for API parity but ignored; '
@@ -55,7 +73,8 @@ class DataProvider:
     epoch = 0
     buffer = []
     while repeats < 0 or epoch < repeats:
-      for example in self.get_dataset(shuffle=shuffle):
+      for example in itertools.islice(self.get_dataset(shuffle=shuffle),
+                                      index, None, count):
         buffer.append(example)
         if len(buffer) == batch_size:
           yield _stack(buffer)

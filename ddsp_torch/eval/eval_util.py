@@ -140,14 +140,19 @@ def evaluate_or_sample(data_provider,
   Raises:
     ValueError: for a trainer whose mesh shards time and a model that the
       sharded forward does not take (parallel.sp_model.check_sp_model).
+    NotImplementedError: for a trainer on a mesh over ranks.
   """
   if mode not in ('eval', 'sample'):
     raise ValueError(f"mode must be 'eval' or 'sample', got {mode!r}.")
+  mesh = getattr(trainer, 'mesh', None)
+  if mesh is not None and mesh.ranks is not None:
+    raise NotImplementedError(
+        'Evaluating and sampling on a mesh over ranks is ROADMAP.md queue 1 '
+        'item 8; evaluate the checkpoint in one process.')
   restore_dir = restore_dir or save_dir
   # On a mesh that shards time the batches go through the training step's
   # sequence-parallel forward, so a model trained at audio lengths that
   # need the shards is evaluated at that length too.
-  mesh = getattr(trainer, 'mesh', None)
   use_sp = sp_model.has_time_sharding(mesh)
   if use_sp:
     sp_model.check_sp_model(trainer.model)

@@ -15,6 +15,7 @@ import: the first launch builds the library with nvcc.
   K2f gru.gru_sequence                   <- ddsp_tpu gru.py:_fwd_kernel
   K2b   its backward                     <- gru.py:_bwd_kernel
   K3  halo.HaloShift (both directions)   <- ddsp_tpu pallas_halo.py:_shift_kernel
+        between ranks, the remote copy   <- its make_async_remote_copy
 """
 
 from ddsp_torch.kernels import gru, halo, harmonic

@@ -8,9 +8,10 @@ on a CPU mesh, with the same zero-fill semantics and each direction the
 other's adjoint.
 
 `impl` keeps the JAX package's two names: there, 'xla' is a ppermute
-collective and 'pallas' the in-kernel RDMA. In the port the shards of a
-mesh share one device and one controlling process, so there is one
-implementation, and both names run it.
+collective and 'pallas' the in-kernel RDMA. The port has one
+implementation, and both names run it: K3 among the shards of one process,
+and its remote copy where a neighbour lies on another rank of a mesh over
+ranks.
 """
 
 from __future__ import annotations

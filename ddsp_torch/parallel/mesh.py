@@ -1,27 +1,36 @@
 """Device meshes for the time-sharded (sequence-parallel) path.
 
-Port of ddsp_tpu/parallel/mesh.py for one controlling process: the JAX
-package drives every shard of its mesh from one program (shard_map), and so
-does the port, with a Python loop over the shards. A `Mesh` is a row-major
-('data', 'time') grid of torch devices, and a device may appear more than
-once: on one card the 'time' shards of a mesh share that card, and the halo
-kernel (K3, kernels/halo.py) reads a neighbour's shard through its device
-pointer.
+Port of ddsp_tpu/parallel/mesh.py. The JAX package drives every shard of
+its mesh from one program (shard_map); the port drives a process's shards
+with a Python loop. A `Mesh` is a row-major ('data', 'time') grid of
+shards; a device may hold several of them: on one card the 'time' shards
+of a mesh share that card, and the halo kernel (K3, kernels/halo.py) reads
+a neighbour's shard through its device pointer.
 
-A mesh whose shards sit on more than one card raises NotImplementedError:
-peer access between cards comes with ROADMAP.md queue 1 item 8. The JAX
-package's `shard_batch` and `replicate` place arrays on a mesh of devices
-owned by one or more processes; one process that holds every shard on one
-device has nothing to place, so they have no counterpart here. The split and
-concatenate helpers below are what shard_map's in_specs and out_specs do.
+A mesh may span ranks of torch.distributed (parallel/distributed.py), one
+process per device: rank r holds a contiguous run of the row-major order,
+within one data row, and a shift between two ranks goes through K3's
+remote copy. On such a mesh every per-shard list holds this process's
+shards only, and the wrappers of parallel/time_shard.py take and return
+process-local tensors: the rows of the rank's data row and, for
+audio-rate tensors, the samples of its time shards (`local_time` cuts
+them from a whole-length tensor). The batch splits over 'data' across
+ranks, as jax.make_array_from_process_local_data assembles it.
+
+One process holding shards on several cards raises NotImplementedError
+(ROADMAP.md queue 1 item 8). The split and concatenate helpers below are
+what shard_map's in_specs and out_specs do; `shard_batch` and `replicate`
+are the JAX helpers' counterparts for a mesh over ranks.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from ddsp_torch.parallel import distributed
 from ddsp_torch.utils.device import DeviceLike, resolve_device
 
 TIME_AXIS = 'time'
@@ -37,30 +46,38 @@ def normalize_device(device: DeviceLike) -> torch.device:
 
 
 class Mesh:
-  """A ('data', 'time') grid of torch devices.
+  """A ('data', 'time') grid of shards.
 
-  Shard i sits at (d, t) = divmod(i, n_time) on `devices[i]`. Lists of
-  shards throughout the port follow this row-major order.
+  Shard i sits at (d, t) = divmod(i, n_time). `devices` are the devices of
+  this process's shards, in row-major order: all n_data * n_time of them
+  in one process, or a rank's run of them when `ranks` (a
+  distributed.Ranks) places the mesh over ranks. Lists of shards
+  throughout the port follow this order; `shard_coords(j)` gives the
+  coordinates of a list's j-th shard.
   """
 
   def __init__(self, devices: Sequence[DeviceLike], n_data: int,
-               n_time: int):
+               n_time: int, ranks: Optional[distributed.Ranks] = None):
     devices = tuple(normalize_device(d) for d in devices)
-    if n_data < 1 or n_time < 1 or len(devices) != n_data * n_time:
+    per_process = ranks.per_rank if ranks else n_data * n_time
+    if n_data < 1 or n_time < 1 or len(devices) != per_process:
       raise ValueError(f'A ({n_data} x {n_time}) mesh needs '
-                       f'{n_data * n_time} devices, got {len(devices)}.')
+                       f'{per_process} devices in this process, got '
+                       f'{len(devices)}.')
     kinds = {d.type for d in devices}
     if len(kinds) > 1 or not kinds <= {'cpu', 'cuda'}:
       raise ValueError('A mesh holds CPU shards or CUDA shards, not '
                        f'{sorted(kinds)}.')
     if len(set(devices)) > 1:
       raise NotImplementedError(
-          f'The mesh spans {len(set(devices))} distinct cards; meshes over '
-          'several cards (peer access, cross-device events) come with '
-          'ROADMAP.md queue 1 item 8. Put every shard on one card.')
+          f'One process holds shards on {len(set(devices))} distinct cards; '
+          'a mesh over several cards takes one rank per card '
+          '(torch.distributed, parallel/distributed.py). One process driving '
+          'several cards is ROADMAP.md queue 1 item 8.')
     self.devices = devices
     self.n_data = n_data
     self.n_time = n_time
+    self.ranks = ranks
 
   @property
   def shape(self):
@@ -71,6 +88,15 @@ class Mesh:
     return self.n_data * self.n_time
 
   @property
+  def n_ranks(self) -> int:
+    return self.ranks.n_ranks if self.ranks else 1
+
+  @property
+  def first_shard(self) -> int:
+    """The row-major index of this process's first shard."""
+    return self.ranks.rank * self.ranks.per_rank if self.ranks else 0
+
+  @property
   def first_device(self) -> torch.device:
     return self.devices[0]
 
@@ -78,10 +104,25 @@ class Mesh:
     """(data index, time index) of shard i."""
     return divmod(i, self.n_time)
 
+  def shard_coords(self, j: int):
+    """(data index, time index) of this process's j-th shard."""
+    return self.coords(self.first_shard + j)
+
+  def local_mesh(self) -> 'Mesh':
+    """This process's shards as a one-process mesh: its data row's run of
+    time shards, (1 x per_rank), whose ends are the run's ends."""
+    return Mesh(self.devices, 1, len(self.devices))
+
 
 def create_mesh(n_data: Optional[int] = None, n_time: int = 1,
                 devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
   """A ('data', 'time') mesh.
+
+  With a process group of several ranks (distributed.init), the mesh spans
+  every rank and `devices` are this rank's shards' devices (default: the
+  rank's current CUDA card, once for each of its shards); n_data defaults
+  to the world size // n_time. Collective on every rank: it builds the
+  rows' process groups.
 
   Args:
     n_data: Size of the data axis. Defaults to len(devices) // n_time.
@@ -90,6 +131,18 @@ def create_mesh(n_data: Optional[int] = None, n_time: int = 1,
       (['cuda:0'] * 4 puts four time shards on one card; tests pass
       ['cpu'] * n). Default: the visible CUDA cards; raises without one.
   """
+  if distributed.world_size() > 1:
+    if n_data is None:
+      n_data = distributed.world_size() // n_time
+    ranks = distributed.mesh_ranks(n_data, n_time)
+    if devices is None:
+      if not torch.cuda.is_available():
+        raise RuntimeError(
+            'A rank\'s shards take its CUDA card by default, and no CUDA '
+            "device is available; pass devices=['cpu'] * per_rank.")
+      devices = [torch.device('cuda', torch.cuda.current_device())]
+      devices = devices * ranks.per_rank
+    return Mesh(devices, n_data, n_time, ranks)
   if devices is None:
     if not torch.cuda.is_available():
       raise RuntimeError(
@@ -116,12 +169,14 @@ def batch_is_sharded(mesh: Mesh, batch_size: int) -> bool:
 
   A batch that does not divide over the data axis (one long clip evaluated
   on the training mesh) is replicated: every data row holds all of it.
+  Across ranks each process holds its own data row's rows: the batch is
+  sharded.
   """
-  return batch_size % mesh.n_data == 0
+  return mesh.n_ranks > 1 or batch_size % mesh.n_data == 0
 
 
 def _rows(mesh: Mesh, batch_size: int, d: int) -> slice:
-  if not batch_is_sharded(mesh, batch_size):
+  if mesh.n_ranks > 1 or not batch_is_sharded(mesh, batch_size):
     return slice(0, batch_size)
   local = batch_size // mesh.n_data
   return slice(d * local, (d + 1) * local)
@@ -130,31 +185,97 @@ def _rows(mesh: Mesh, batch_size: int, d: int) -> slice:
 def split_batch(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
   """Per-shard views of x [batch, ...]: each data row's batch rows,
   replicated over 'time' (shard_map in_specs P('data'))."""
-  return [x[_rows(mesh, x.shape[0], mesh.coords(i)[0])].to(mesh.devices[i])
-          for i in range(mesh.size)]
+  return [x[_rows(mesh, x.shape[0], mesh.shard_coords(j)[0])].to(device)
+          for j, device in enumerate(mesh.devices)]
 
 
 def split_time(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
   """Per-shard views of x [batch, T]: the data row's batch rows and the
-  shard's T / n_time samples (in_specs P('data', 'time'))."""
+  shard's samples (in_specs P('data', 'time')). Across ranks x is
+  process-local: its rows and its shards' samples."""
   n = x.shape[1]
-  if n % mesh.n_time:
-    raise ValueError(f'{n} samples do not divide over {mesh.n_time} time '
+  n_time = len(mesh.devices) if mesh.n_ranks > 1 else mesh.n_time
+  if n % n_time:
+    raise ValueError(f'{n} samples do not divide over {n_time} time '
                      'shards.')
-  t_local = n // mesh.n_time
+  t_local = n // n_time
   out = []
-  for i in range(mesh.size):
-    d, t = mesh.coords(i)
+  for j, device in enumerate(mesh.devices):
+    d = mesh.shard_coords(j)[0]
+    t = j % n_time
     out.append(x[_rows(mesh, x.shape[0], d),
-                 t * t_local:(t + 1) * t_local].to(mesh.devices[i]))
+                 t * t_local:(t + 1) * t_local].to(device))
   return out
 
 
 def concat_time(mesh: Mesh, shards: Sequence[torch.Tensor],
                 batch_size: int) -> torch.Tensor:
-  """The global [batch, T] tensor of per-shard [rows, t_local] blocks
-  (out_specs P('data', 'time')). A replicated batch reads data row 0."""
+  """The [batch, T] tensor of per-shard [rows, t_local] blocks (out_specs
+  P('data', 'time')); process-local across ranks. A replicated batch reads
+  data row 0."""
+  if mesh.n_ranks > 1:
+    return torch.cat(list(shards), dim=1)
   n_rows = mesh.n_data if batch_is_sharded(mesh, batch_size) else 1
   rows = [torch.cat(list(shards[d * mesh.n_time:(d + 1) * mesh.n_time]),
                     dim=1) for d in range(n_rows)]
   return torch.cat(rows, dim=0) if n_rows > 1 else rows[0]
+
+
+def time_span(mesh: Mesh, n_samples: int) -> slice:
+  """The samples of this process's time shards in a [batch, n_samples]
+  tensor."""
+  if n_samples % mesh.n_time:
+    raise ValueError(f'{n_samples} samples do not divide over '
+                     f'{mesh.n_time} time shards.')
+  t_local = n_samples // mesh.n_time
+  t0 = mesh.shard_coords(0)[1]
+  return slice(t0 * t_local, (t0 + len(mesh.devices)) * t_local)
+
+
+def local_time(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+  """x [batch, T, ...] cut to this process's time shards across ranks; x
+  itself in one process."""
+  if mesh.n_ranks == 1:
+    return x
+  return x[:, time_span(mesh, x.shape[1])]
+
+
+def local_rows(mesh: Mesh, batch_size: int) -> slice:
+  """The rows of a global batch that this process holds: its data row's
+  (all of them in one process)."""
+  if mesh.n_ranks == 1:
+    return slice(0, batch_size)
+  if batch_size % mesh.n_data:
+    raise ValueError(f'A batch of {batch_size} does not divide over the '
+                     f'{mesh.n_data} data rows of a mesh over ranks.')
+  local = batch_size // mesh.n_data
+  d = mesh.shard_coords(0)[0]
+  return slice(d * local, (d + 1) * local)
+
+
+def shard_batch(mesh: Mesh, batch: Dict[str, Any],
+                n_samples: Optional[int] = None) -> Dict[str, Any]:
+  """This process's part of a global batch (ddsp_tpu shard_batch): every
+  leaf's rows of the rank's data row and, where `n_samples` is given, the
+  audio-rate leaves ([batch, n_samples]) cut to the rank's time shards.
+  In one process the batch itself."""
+  if mesh.n_ranks == 1:
+    return batch
+
+  def part(x):
+    x = x[local_rows(mesh, x.shape[0])]
+    if n_samples is not None and x.ndim == 2 and x.shape[1] == n_samples:
+      x = x[:, time_span(mesh, n_samples)]
+    return x
+
+  if isinstance(batch, (tuple, list)):
+    return type(batch)(shard_batch(mesh, b, n_samples) for b in batch)
+  return {k: part(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+          for k, v in batch.items()}
+
+
+def replicate(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> None:
+  """Every rank's tensors overwritten with rank 0's (ddsp_tpu replicate:
+  parameters and optimizer state); nothing to do in one process."""
+  if mesh.n_ranks > 1:
+    distributed.broadcast_(list(tensors))

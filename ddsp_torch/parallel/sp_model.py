@@ -21,6 +21,16 @@ through the time-sharded kernels of parallel/time_shard.py:
 As in the JAX package, the sharded loss is float32 whatever the
 SpectralLoss's compute_dtype, and only an Autoencoder-style model takes the
 sharded forward (`check_sp_model`).
+
+On a mesh over ranks (parallel/mesh.py) each rank runs the frame-rate
+network on its data row's features, replicated over 'time' as the JAX
+shard_map does, and synthesizes its own shards only: the audio-rate
+signals are process-local ([rows, the rank's samples]), and the target
+audio is cut to the rank's samples after the preprocessor has read all of
+it. FilteredNoise draws the global batch's noise and keeps the rank's rows
+and samples, so R ranks draw what one process draws. The nodes whose
+signal is not time-sharded, other than Add, and losses other than an L1
+SpectralLoss need the global signal and raise NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -34,9 +44,10 @@ from ddsp_torch.models.autoencoder import Autoencoder
 from ddsp_torch.ops import fftconv as fftconv_ops
 from ddsp_torch.ops.core import nested_lookup, to_dict, torch_float32
 from ddsp_torch.parallel import time_shard
-from ddsp_torch.parallel.mesh import Mesh
+from ddsp_torch.parallel.mesh import Mesh, local_time
 from ddsp_torch.proc import dags
 from ddsp_torch.proc import effects as effects_lib
+from ddsp_torch.proc import processors as processors_lib
 from ddsp_torch.proc import synths as synths_lib
 from ddsp_torch.proc.dags import loss_module_name
 
@@ -77,8 +88,8 @@ def _sp_get_signal(module, controls: TensorDict, mesh: Mesh, halo_impl: str,
 
   if isinstance(module, synths_lib.FilteredNoise):
     magnitudes = controls['magnitudes']
-    noise = module.draw_noise(int(magnitudes.shape[0]), magnitudes.device,
-                              noise, generator)
+    noise = local_time(mesh, module.draw_noise(
+        int(magnitudes.shape[0]), magnitudes.device, noise, generator))
     ir = fftconv_ops.frequency_impulse_response(
         magnitudes, window_size=module.window_size)
     return time_shard.time_sharded_fft_convolve(mesh, noise, ir,
@@ -102,6 +113,11 @@ def _sp_get_signal(module, controls: TensorDict, mesh: Mesh, halo_impl: str,
   # works on the global tensors as they are; anything else (Wavetable,
   # Sinusoidal, ModDelay) falls back to its dense implementation on the
   # global tensors: the values are the same, only the node is not sharded.
+  # Across ranks only Add sees the process-local signals as they are.
+  if mesh.ranks is not None and not isinstance(module, processors_lib.Add):
+    raise NotImplementedError(
+        f'{type(module).__name__} has no time-sharded signal, and a mesh over '
+        'ranks holds no global signal for it (ROADMAP.md queue 1 item 8).')
   return module.render(controls, noise=noise, generator=generator)
 
 
@@ -142,6 +158,8 @@ def _sp_loss(loss_obj, target_audio: torch.Tensor, audio: torch.Tensor,
   global tensors."""
   if (isinstance(loss_obj, SpectralLoss)
       and loss_obj.loss_type.upper() == 'L1'):
+    if mesh.ranks is not None:
+      target_audio = local_time(mesh, target_audio)
     return time_shard.time_sharded_spectral_loss(
         mesh, target_audio, audio, fft_sizes=tuple(loss_obj.fft_sizes),
         mag_weight=loss_obj.mag_weight,
@@ -150,6 +168,10 @@ def _sp_loss(loss_obj, target_audio: torch.Tensor, audio: torch.Tensor,
         cumsum_freq_weight=loss_obj.cumsum_freq_weight,
         logmag_weight=loss_obj.logmag_weight,
         loudness_weight=loss_obj.loudness_weight, halo_impl=halo_impl)
+  if mesh.ranks is not None:
+    raise NotImplementedError(
+        f'{type(loss_obj).__name__} has no time-sharded loss, and a mesh over '
+        'ranks holds no global signal for it (ROADMAP.md queue 1 item 8).')
   return loss_obj(target_audio, audio)
 
 

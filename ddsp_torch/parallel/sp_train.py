@@ -8,6 +8,11 @@ decoder outputs, with every [batch, n_samples] intermediate time-sharded.
 torch.optim optimizer: the long-audio step of the JAX package (a decoder
 on frame-rate features, no preprocessor, no reverb), beside the full-model
 sequence-parallel step of `train.Trainer(mesh=...)`.
+
+On a mesh over ranks each rank runs the decoder on its data row's
+features and synthesizes its own shards; its loss is the global loss (the
+sums run over every rank), so the gradients are summed over the ranks
+before `optimizer.step()`, and every rank takes the same step.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import torch
 
 from ddsp_torch.ops import core as ops_core
 from ddsp_torch.ops import fftconv as fftconv_ops
-from ddsp_torch.parallel import time_shard
+from ddsp_torch.parallel import distributed, time_shard
+from ddsp_torch.parallel import mesh as mesh_lib
 from ddsp_torch.parallel.mesh import Mesh
 
 
@@ -89,6 +95,9 @@ def make_sp_train_step(mesh: Mesh, decoder: torch.nn.Module,
     and returns the loss (a scalar tensor on the device); shard_batch(batch,
     noise) returns the host arrays as float32 tensors on the mesh's first
     device, where the time-sharded functions split them over the mesh.
+    Across ranks shard_batch takes the global batch and noise and keeps the
+    rank's rows and, of [batch, n_samples] leaves, its samples; the
+    decoder's parameters are rank 0's from the start.
   """
   device = mesh.first_device
   for name, p in decoder.named_parameters():
@@ -96,6 +105,7 @@ def make_sp_train_step(mesh: Mesh, decoder: torch.nn.Module,
       raise ValueError(f'The decoder parameter {name} lies on {p.device}, '
                        f'the mesh on {device}; move the decoder there '
                        'before making its optimizer.')
+  mesh_lib.replicate(mesh, list(decoder.parameters()))
 
   def train_step(batch: Dict[str, torch.Tensor],
                  noise: torch.Tensor) -> torch.Tensor:
@@ -107,6 +117,9 @@ def make_sp_train_step(mesh: Mesh, decoder: torch.nn.Module,
         noise, n_samples=n_samples, sample_rate=sample_rate,
         fft_sizes=fft_sizes)
     loss.backward()
+    if mesh.ranks is not None:
+      distributed.all_reduce_([p.grad for p in decoder.parameters()
+                               if p.grad is not None])
     optimizer.step()
     return loss.detach()
 
@@ -116,6 +129,8 @@ def make_sp_train_step(mesh: Mesh, decoder: torch.nn.Module,
     return v.to(device, torch.float32)
 
   def shard_batch(batch: Dict[str, Any], noise: Any):
+    batch = mesh_lib.shard_batch(mesh, batch, n_samples)
+    noise = mesh_lib.shard_batch(mesh, {'noise': noise}, n_samples)['noise']
     return {k: to_device(v) for k, v in batch.items()}, to_device(noise)
 
   return train_step, shard_batch

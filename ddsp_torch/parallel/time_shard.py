@@ -14,14 +14,16 @@ the mesh's 'time' axis; per shard the decompositions are the JAX package's:
     divided by the global count.
 
 Layout. The `local_*` functions take and return lists of shards, one per
-mesh position in row-major ('data', 'time') order. The per-shard work is a
-loop with the shard's indices as Python ints; the collectives (the
-neighbour shift of parallel/halo.py, the gather of the phase totals, the
-sums of the loss) act on the whole list between such loops. Frame-rate
-controls are lists too: each shard holds its data row's rows. The
-`time_sharded_*` wrappers take and return global tensors, as the JAX
-wrappers' in_specs and out_specs do. Everything is differentiable through
-autograd; the shifts' adjoints are the reverse shifts.
+mesh position of this process in row-major ('data', 'time') order. The
+per-shard work is a loop with the shard's indices as Python ints; the
+collectives (the neighbour shift of parallel/halo.py, the gather of the
+phase totals, the sums of the loss) act on the whole list between such
+loops. Frame-rate controls are lists too: each shard holds its data row's
+rows. The `time_sharded_*` wrappers take and return global tensors, as the
+JAX wrappers' in_specs and out_specs do; on a mesh over ranks, the
+process-local ones (parallel/mesh.py), and the gather and the sums run
+over the ranks (parallel/distributed.py). Everything is differentiable
+through autograd; the shifts' adjoints are the reverse shifts.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from ddsp_torch.ops import spectral as spectral_ops
 from ddsp_torch.ops.core import DB_RANGE, power_to_db, safe_log
 from ddsp_torch.ops.oscillator import phase_cumsum, remove_above_nyquist
 from ddsp_torch.ops.resample import resample as resample_fn
+from ddsp_torch.parallel import distributed
 from ddsp_torch.parallel import mesh as mesh_lib
 from ddsp_torch.parallel.halo import neighbor_shift
 from ddsp_torch.parallel.mesh import Mesh
@@ -59,12 +62,20 @@ def local_phase_cumsum(omega: Shards, mesh: Mesh) -> Shards:
   """
   local = [phase_cumsum(w) for w in omega]
   totals = [torch.remainder(x[:, -1:], _TWO_PI) for x in local]
+  n = mesh.n_time
+  ranks = mesh.ranks
+  if ranks is not None and ranks.time_group is not None:
+    # The row's totals from its ranks, in time order.
+    row_totals = distributed.gather_over_ranks(torch.stack(totals), ranks)
   out = []
   for i, x in enumerate(local):
-    d, t = mesh.coords(i)
-    n = mesh.n_time
+    d, t = mesh.shard_coords(i)
     # The gather of the row's totals, [n_time, batch, 1, ...].
-    all_totals = torch.stack(totals[d * n:(d + 1) * n])
+    if ranks is not None and ranks.time_group is not None:
+      all_totals = row_totals
+    else:
+      d_local = d - mesh.shard_coords(0)[0]
+      all_totals = torch.stack(totals[d_local * n:(d_local + 1) * n])
     mask = (torch.arange(n, device=x.device) < t).to(x.dtype)
     mask = mask.reshape((n,) + (1,) * totals[i].ndim)
     carry = torch.remainder(torch.sum(all_totals * mask, dim=0), _TWO_PI)
@@ -112,7 +123,7 @@ def local_fft_convolve_same(audio: Shards, ir: Shards, n_ir_frames: int,
 
   results, tails, heads = [], [], []
   for i, (a, h) in enumerate(zip(audio, ir)):
-    t = mesh.coords(i)[1]
+    t = mesh.shard_coords(i)[1]
     # IR frame of each local sub-frame: consecutive indices (one sub-frame
     # per shard, or sub-frames that are whole frames), so a slice.
     sub_starts = t * t_local + np.arange(frames_per_shard) * sub_frame
@@ -275,8 +286,8 @@ def local_harmonic_synthesis(frequencies: Shards, amplitudes: Shards,
         'or run unsharded.')
 
   amp_envs, f0_envs, omegas = [], [], []
-  for i in range(mesh.size):
-    start = mesh.coords(i)[1] * t_local
+  for i in range(len(frequencies)):
+    start = mesh.shard_coords(i)[1] * t_local
     if harmonic_distribution is not None:
       harmonic_amplitudes = amplitudes[i] * harmonic_distribution[i]
     else:
@@ -365,6 +376,35 @@ def _slot_mask(n_valid: int, n_slots: int, device) -> torch.Tensor:
   return (torch.arange(n_slots, device=device) < n_valid).to(torch.float32)
 
 
+def _stft_slots(t: int, t_local: int, n_time: int, hop: int):
+  """(offset of the first frame, number of valid slots) of time shard t's
+  STFT frames: the global frames that start inside it."""
+  n_slots = t_local // hop + 1
+  total_frames = _ceil_div(t_local * n_time, hop)  # global ceil
+  shard_start = t * t_local
+  first_k = _ceil_div(shard_start, hop)
+  offset = first_k * hop - shard_start
+  # Slot j is valid while first_k + j < total_frames and its start
+  # offset + j * hop < t_local.
+  return offset, min(n_slots, total_frames - first_k,
+                     _ceil_div(t_local - offset, hop))
+
+
+def _loudness_slots(t: int, t_local: int, n_time: int, hop: int,
+                    pad_left: int):
+  """(first global frame, number of valid slots) of time shard t's
+  loudness frames ('center' padding: frame k starts at k * hop -
+  pad_left)."""
+  total_frames = t_local * n_time // hop + 1  # 'center' padding count.
+  n_slots = (t_local + pad_left) // hop + 2
+  shard_start = t * t_local
+  first_k = 0 if t == 0 else _ceil_div(shard_start + pad_left, hop)
+  next_first = (total_frames if t == n_time - 1 else
+                min(_ceil_div(shard_start + t_local + pad_left, hop),
+                    total_frames))
+  return first_k, max(0, min(n_slots, next_first - first_k))
+
+
 def local_stft_mag(audio: Shards, size: int, mesh: Mesh,
                    overlap: float = 0.75, halo_impl: str = 'xla'):
   """STFT magnitudes of a time-sharded signal, with a right halo.
@@ -377,8 +417,9 @@ def local_stft_mag(audio: Shards, size: int, mesh: Mesh,
   prefix.
 
   Returns:
-    (mags, n_valid): per-shard [batch, n_slots, size // 2 + 1] magnitudes
-    and per-shard numbers of valid slots (host ints).
+    (mags, n_valid, row_frames): per-shard [batch, n_slots, size // 2 + 1]
+    magnitudes, per-shard numbers of valid slots (host ints) and the
+    number of frames of a whole data row (the sum of its shards' n_valid).
   """
   batch, t_local = audio[0].shape
   hop = int(size * (1.0 - overlap))
@@ -389,18 +430,12 @@ def local_stft_mag(audio: Shards, size: int, mesh: Mesh,
   right_halo = neighbor_shift([a[:, :size - 1] for a in audio], mesh, -1,
                               impl=halo_impl)
   n_slots = t_local // hop + 1
-  total_frames = _ceil_div(t_local * mesh.n_time, hop)  # global ceil
   window = fftconv_ops.hann_window(size, device=audio[0].device)
   fft_size = int(2**np.ceil(np.log2(size)))
   mags, n_valid = [], []
   for i, (a, halo) in enumerate(zip(audio, right_halo)):
-    shard_start = mesh.coords(i)[1] * t_local
-    first_k = _ceil_div(shard_start, hop)
-    offset = first_k * hop - shard_start
-    # Slot j is valid while first_k + j < total_frames and its start
-    # offset + j * hop < t_local.
-    valid = min(n_slots, total_frames - first_k,
-                _ceil_div(t_local - offset, hop))
+    offset, valid = _stft_slots(mesh.shard_coords(i)[1], t_local,
+                                mesh.n_time, hop)
     ext = torch.cat([a, halo], dim=1)
     # An invalid slot's indices clamp to 0 element by element.
     frames = _frames(ext, offset, valid, n_slots, size, hop,
@@ -408,7 +443,9 @@ def local_stft_mag(audio: Shards, size: int, mesh: Mesh,
     mags.append(torch.abs(torch.fft.rfft(frames * window,
                                          fft_size)).to(torch.float32))
     n_valid.append(valid)
-  return mags, n_valid
+  row_frames = sum(_stft_slots(t, t_local, mesh.n_time, hop)[1]
+                   for t in range(mesh.n_time))
+  return mags, n_valid, row_frames
 
 
 def _prepend_left_neighbor_frame(mags: Shards, n_valid: Sequence[int],
@@ -437,8 +474,9 @@ def local_loudness(audio: Shards, mesh: Mesh, sample_rate: int = 16000,
   shard reads an n_fft right halo.
 
   Returns:
-    (loudness, n_valid): per-shard [batch, n_slots] loudness in dB and
-    per-shard numbers of valid slots (host ints; a prefix).
+    (loudness, n_valid, row_frames): per-shard [batch, n_slots] loudness in
+    dB, per-shard numbers of valid slots (host ints; a prefix) and the
+    number of frames of a whole data row.
   """
   if range_db is None:
     range_db = DB_RANGE
@@ -451,7 +489,6 @@ def local_loudness(audio: Shards, mesh: Mesh, sample_rate: int = 16000,
     raise ValueError(f'Shard length ({t_local}) must be >= n_fft '
                      f'({frame_size}) for the single-neighbor halo '
                      'exchange in the loudness term.')
-  total_frames = t_local * n_shards // hop + 1  # 'center' padding count.
   right = neighbor_shift([a[:, :frame_size] for a in audio], mesh, -1,
                          impl=halo_impl)
   n_slots = (t_local + pad_left) // hop + 2
@@ -464,13 +501,9 @@ def local_loudness(audio: Shards, mesh: Mesh, sample_rate: int = 16000,
   n_bins = fft_size // 2 + 1
   loudness, n_valid = [], []
   for i, (a, r) in enumerate(zip(audio, right)):
-    t = mesh.coords(i)[1]
-    shard_start = t * t_local
-    first_k = 0 if t == 0 else _ceil_div(shard_start + pad_left, hop)
-    next_first = (total_frames if t == n_shards - 1 else
-                  min(_ceil_div(shard_start + t_local + pad_left, hop),
-                      total_frames))
-    valid = max(0, min(n_slots, next_first - first_k))
+    shard_start = mesh.shard_coords(i)[1] * t_local
+    first_k, valid = _loudness_slots(mesh.shard_coords(i)[1], t_local,
+                                     n_shards, hop, pad_left)
     ext = torch.cat([a.new_zeros(batch, pad_left), a, r], dim=1)
     # ext index of frame k's start: k * hop - shard_start.
     # An invalid slot's start clamps to 0.
@@ -481,7 +514,9 @@ def local_loudness(audio: Shards, mesh: Mesh, sample_rate: int = 16000,
     loudness.append(power_to_db(avg_power, ref_db=ref_db,
                                 range_db=range_db).to(torch.float32))
     n_valid.append(valid)
-  return loudness, n_valid
+  row_frames = sum(_loudness_slots(t, t_local, n_shards, hop, pad_left)[1]
+                   for t in range(n_shards))
+  return loudness, n_valid, row_frames
 
 
 def local_spectral_loss(target: Shards, audio: Shards, mesh: Mesh,
@@ -505,29 +540,37 @@ def local_spectral_loss(target: Shards, audio: Shards, mesh: Mesh,
   Args:
     batch_sharded: Whether the batch splits over 'data' (the sums then run
       over every shard and the count over the global batch). A replicated
-      batch sums one data row, which every row repeats.
+      batch sums one data row, which every row repeats. Across ranks the
+      batch is sharded, and the sums run over every rank: each returns the
+      global loss.
 
   Returns:
     The scalar loss.
   """
   n_rows = mesh.n_data if batch_sharded else 1
   n_batch_shards = mesh.n_data if batch_sharded else 1
-  summed = range(n_rows * mesh.n_time)  # the shards the psum reads
+  if mesh.ranks is not None:
+    summed = range(len(target))  # this rank's part of the psum
+  else:
+    summed = range(n_rows * mesh.n_time)  # the shards the psum reads
 
   def masked_mean(diff_abs, masks, count):
-    return sum(torch.sum(diff_abs[i] * masks[i]) for i in summed) / count
+    total = sum(torch.sum(diff_abs[i] * masks[i]) for i in summed)
+    if mesh.ranks is not None:
+      total = distributed.sum_over_ranks(total)
+    return total / count
 
   loss = 0.0
   for size in fft_sizes:
-    target_mag, n_valid = local_stft_mag(target, size, mesh,
-                                         halo_impl=halo_impl)
-    value_mag, _ = local_stft_mag(audio, size, mesh, halo_impl=halo_impl)
+    target_mag, n_valid, row_frames = local_stft_mag(target, size, mesh,
+                                                     halo_impl=halo_impl)
+    value_mag, _, _ = local_stft_mag(audio, size, mesh, halo_impl=halo_impl)
     n_slots = target_mag[0].shape[1]
     n_bins = target_mag[0].shape[-1]
     m = [_slot_mask(n, n_slots, x.device)[None, :, None]
          for n, x in zip(n_valid, target_mag)]
     batch = target_mag[0].shape[0] * n_batch_shards
-    n_frames = float(sum(n_valid[:mesh.n_time]))
+    n_frames = float(row_frames)
     count = n_frames * batch * n_bins
     if mag_weight > 0:
       loss += mag_weight * masked_mean(
@@ -540,7 +583,7 @@ def local_spectral_loss(target: Shards, audio: Shards, mesh: Mesh,
       # Global frame 0 has no predecessor: mask time shard 0's first slot.
       dm = []
       for i, mask in enumerate(m):
-        if mesh.coords(i)[1] == 0:
+        if mesh.shard_coords(i)[1] == 0:
           mask = mask.clone()
           mask[:, 0] = 0.0
         dm.append(mask)
@@ -563,14 +606,15 @@ def local_spectral_loss(target: Shards, audio: Shards, mesh: Mesh,
            for t, v in zip(target_mag, value_mag)], m, count)
 
   if loudness_weight > 0:
-    t_loud, l_valid = local_loudness(target, mesh, n_fft=2048,
-                                     halo_impl=halo_impl)
-    v_loud, _ = local_loudness(audio, mesh, n_fft=2048, halo_impl=halo_impl)
+    t_loud, l_valid, l_frames = local_loudness(target, mesh, n_fft=2048,
+                                               halo_impl=halo_impl)
+    v_loud, _, _ = local_loudness(audio, mesh, n_fft=2048,
+                                  halo_impl=halo_impl)
     n_slots = t_loud[0].shape[1]
     lm = [_slot_mask(n, n_slots, x.device)[None, :]
           for n, x in zip(l_valid, t_loud)]
     batch = t_loud[0].shape[0] * n_batch_shards
-    l_count = float(sum(l_valid[:mesh.n_time])) * batch
+    l_count = float(l_frames) * batch
     loss += loudness_weight * masked_mean(
         [torch.abs(t - v) for t, v in zip(t_loud, v_loud)], lm, l_count)
   return loss

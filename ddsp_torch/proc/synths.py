@@ -18,15 +18,36 @@ from ddsp_torch.ops.resample import resample
 from ddsp_torch.proc.processors import Processor, TensorDict
 
 
+class RowDraws(torch.Generator):
+  """A generator whose batched noise draws are a larger batch's, cut to
+  rows: a rank of a mesh over ranks draws FilteredNoise's [n_rows,
+  n_samples] as one process would for the global batch and keeps its own
+  `rows`. Every other draw is the generator's own. Set `n_rows` and `rows`
+  before a batched draw."""
+
+  n_rows: int = 0
+  rows: slice = slice(None)
+
+
 def uniform_noise(shape, device, noise: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  batched: bool = False):
   """White noise in [-1, 1) of `shape` on `device`: `noise` itself if
   given (its shape checked), else a draw from `generator`, else from a
-  generator seeded with 0 (the JAX processors' fixed-key fallback)."""
+  generator seeded with 0 (the JAX processors' fixed-key fallback).
+  `batched`: shape[0] is the batch, which a RowDraws generator draws for
+  its n_rows and cuts to its rows."""
   shape = tuple(shape)
   if noise is None:
     if generator is None:
       generator = torch.Generator(device).manual_seed(0)
+    if batched and isinstance(generator, RowDraws):
+      full = torch.rand((generator.n_rows,) + shape[1:], generator=generator,
+                        device=device)[generator.rows]
+      if full.shape[0] != shape[0]:
+        raise ValueError(f'A batch of {shape[0]} rows, but the generator '
+                         f'keeps rows {generator.rows} of {generator.n_rows}.')
+      return full * 2.0 - 1.0
     return torch.rand(shape, generator=generator, device=device) * 2.0 - 1.0
   if tuple(noise.shape) != shape:
     raise ValueError(f'noise has shape {tuple(noise.shape)}, expected '
@@ -122,7 +143,7 @@ class FilteredNoise(Processor):
                  generator: Optional[torch.Generator] = None):
     """The white noise [batch, n_samples] on `device` (the rule above)."""
     return uniform_noise((batch_size, self.n_samples), device, noise,
-                         generator)
+                         generator, batched=True)
 
   def get_signal(self, magnitudes, noise: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None):

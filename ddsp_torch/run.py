@@ -14,6 +14,16 @@ Usage (the card by default; --device cpu runs on the host):
 `python -m ddsp_torch.run` does the same. `main(argv)` runs in the calling
 process and returns the final TrainState (train) or the metrics (eval,
 sample).
+
+Across processes (the counterpart of the JAX CLI's --multihost), one
+process per card under torchrun (scripts/launch_torchrun.sh):
+  torchrun --nproc_per_node 4 -m ddsp_torch.run --multihost --mode=train \
+      --save_dir=/tmp/run --batch_size=4 [--time_shards 2]
+Each process starts torch.distributed from torchrun's environment, takes
+cuda:LOCAL_RANK (or the --device it is given), reads --batch_size rows of
+its own examples a step, and the ranks form a (ranks / time_shards x
+time_shards) mesh. Rank 0 writes the spec, the checkpoints and the
+summaries.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from typing import List, Optional
 import torch
 
 from ddsp_torch import data as data_lib
+from ddsp_torch.parallel import distributed
 from ddsp_torch.utils.device import DeviceLike
 
 
@@ -179,8 +190,13 @@ def main(argv: Optional[List[str]] = None):
                       help='Capture a torch.profiler trace to this '
                       'directory')
   parser.add_argument('--multihost', action='store_true',
-                      help='One process per host over several hosts: not '
-                      'ported (ROADMAP.md queue 1 item 8); raises')
+                      help='One process per card under torchrun: start '
+                      "torch.distributed from torchrun's environment and "
+                      'train on a mesh over the ranks (train only)')
+  parser.add_argument('--dist_backend', choices=distributed.BACKENDS,
+                      default=None,
+                      help="--multihost's torch.distributed backend "
+                      "(default: 'nccl' on CUDA, 'gloo' on the CPU)")
   parser.add_argument('--n_devices', type=int, default=0,
                       help='Limit device count (0 = all)')
   parser.add_argument('--time_shards', type=int, default=1,
@@ -199,30 +215,55 @@ def main(argv: Optional[List[str]] = None):
       format='%(asctime)s %(name)s %(levelname)s: %(message)s')
 
   if args.multihost:
+    if args.mode != 'train':
+      raise NotImplementedError(
+          f'--multihost --mode {args.mode}: evaluating and sampling across '
+          'ranks is ROADMAP.md queue 1 item 8; evaluate the checkpoint in one '
+          'process.')
+    device = rank_device(args.device)
+    distributed.init(device=device, backend=args.dist_backend)
+    try:
+      return _main(args, device)
+    finally:
+      distributed.shutdown()
+  devices = visible_devices(args.device, args.n_devices)
+  if len(devices) > 1:
     raise NotImplementedError(
-        '--multihost: training over several hosts (and meshes over more '
-        'than one card) is ROADMAP.md queue 1 item 8.')
+        f'{len(devices)} devices in one process: the port runs one process '
+        'per card (--multihost under torchrun, scripts/launch_torchrun.sh); '
+        'one process driving several cards is ROADMAP.md queue 1 item 8. '
+        'Pass --n_devices 1.')
+  return _main(args, devices[0])
+
+
+def rank_device(device: str) -> torch.device:
+  """A rank's device: cuda:LOCAL_RANK for 'cuda' (torchrun's one process
+  per card), else the named card or the CPU."""
+  if device == 'cuda':
+    return torch.device('cuda', distributed.local_rank())
+  return torch.device(device)
+
+
+def _main(args, device: torch.device):
+  """The run of main() on this process's device: one device per process,
+  alone or as a rank of a process group."""
+  n_devices = distributed.world_size()
+  if n_devices % args.time_shards:
+    raise SystemExit(f'--time_shards {args.time_shards} must divide the '
+                     f'device count ({n_devices})')
   # pylint: disable=g-import-not-at-top
   from ddsp_torch import utils
   from ddsp_torch.parallel import create_mesh
   from ddsp_torch.train import Trainer, train
 
-  devices = visible_devices(args.device, args.n_devices)
-  if len(devices) % args.time_shards:
-    raise SystemExit(f'--time_shards {args.time_shards} must divide the '
-                     f'device count ({len(devices)})')
-  if len(devices) > 1:
-    raise NotImplementedError(
-        f'{len(devices)} devices: meshes over more than one card are '
-        'ROADMAP.md queue 1 item 8; pass --n_devices 1.')
-  device = devices[0]
   model_kwargs = json.loads(args.model_kwargs)
 
   if args.mode == 'train':
     preset_name = args.preset
     model = utils.build_model(args.preset, device=device, seed=0,
                               **model_kwargs)
-    utils.save_spec(args.save_dir, args.preset, **model_kwargs)
+    if distributed.rank() == 0:
+      utils.save_spec(args.save_dir, args.preset, **model_kwargs)
   else:
     # The trained architecture from the operative spec, its preset name
     # included, so the geometry below follows the TRAINED preset.
@@ -239,13 +280,16 @@ def main(argv: Optional[List[str]] = None):
                                  control_frames=getattr(model, 'n_frames',
                                                         None))
 
-  mesh = create_mesh(n_data=len(devices) // args.time_shards,
-                     n_time=args.time_shards, devices=devices)
+  mesh = create_mesh(n_data=n_devices // args.time_shards,
+                     n_time=args.time_shards, devices=[device])
   trainer = Trainer(model, mesh=mesh, learning_rate=args.learning_rate,
                     halo_impl=args.halo_impl)
 
   if args.mode == 'train':
-    iterator = provider.get_batch(args.batch_size, shuffle=True, repeats=-1)
+    # Each data row's ranks read their own examples (--batch_size a rank).
+    shard = (mesh.shard_coords(0)[0], mesh.n_data)
+    iterator = provider.get_batch(args.batch_size, shuffle=True, repeats=-1,
+                                  shard=shard)
     return train(iterator, trainer,
                  num_steps=args.num_steps,
                  steps_per_summary=args.steps_per_summary,

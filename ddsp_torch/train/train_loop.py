@@ -6,6 +6,13 @@ log steps/sec, periodic checkpoints and summaries, early stop. Loss scalars
 stay on the device between summary intervals, so the loop never waits for
 the card inside an interval; `profile_dir` captures a torch.profiler trace
 of steps [profile_start, profile_start + profile_steps).
+
+Across ranks (a Trainer on a mesh over torch.distributed ranks) every rank
+runs the loop on its own batches; rank 0 alone writes summaries and the
+profiler trace, and Trainer.save has rank 0 write each checkpoint while
+the others wait. The losses the step returns are already reduced over the
+ranks, so early stopping reads the same value on every rank and they stop
+at the same step.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 
 from ddsp_torch.data.prefetch import prefetch_to_device
+from ddsp_torch.parallel import distributed
 from ddsp_torch.train.trainer import Trainer, TrainState
 
 logger = logging.getLogger('ddsp_torch')
@@ -118,6 +126,9 @@ def train(data_iterator: Iterator[Dict[str, Any]],
   if prefetch:
     data_iterator = prefetch_to_device(data_iterator, size=prefetch,
                                        device=trainer.device)
+  writes = distributed.rank() == 0
+  if not writes:
+    profile_dir = None
   writer = None
   profiler = None
 
@@ -139,7 +150,7 @@ def train(data_iterator: Iterator[Dict[str, Any]],
       if state.step > 0:
         logger.info('Restored at step %d.', state.step)
 
-    writer = MetricsWriter(save_dir) if save_dir else None
+    writer = MetricsWriter(save_dir) if save_dir and writes else None
     pending_losses: List[Dict[str, Any]] = []
     last_summary_time = time.time()
     last_summary_step = step = state.step

@@ -1,8 +1,15 @@
 """Trainer: optimizer, train step, checkpointing.
 
-Port of ddsp_tpu/train/trainer.py for one device, or for a mesh whose
+Port of ddsp_tpu/train/trainer.py for one device, for a mesh whose
 'time' shards share one device (sequence-parallel training,
-parallel/sp_model.py). The optimizer has optax's
+parallel/sp_model.py), or for a mesh over torch.distributed ranks, one
+process per device (parallel/distributed.py). Across ranks each process
+steps on its own data row's rows: the gradients are summed over the ranks
+before the clip (the dense step's averaged, as its losses are its rows'
+means; the sharded step's losses are already global), the loss scalars
+reduced as the JAX step's psum'd ones, and every rank applies the same
+update. Rank 0 alone writes checkpoints; every rank restores. The optimizer
+has optax's
 semantics, written out: clip the gradients to a global norm, then Adam
 (bias-corrected, eps outside the root) at an exponentially decaying,
 non-staircased learning rate whose count starts at 0. Parameters and
@@ -23,9 +30,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ddsp_torch.parallel import sp_model
+from ddsp_torch.parallel import distributed, sp_model
 from ddsp_torch.parallel.halo import check_halo_impl
-from ddsp_torch.parallel.mesh import normalize_device
+from ddsp_torch.parallel.mesh import normalize_device, replicate
+from ddsp_torch.proc.synths import RowDraws
 from ddsp_torch.utils import checkpoints
 from ddsp_torch.utils.device import DeviceLike, resolve_device
 
@@ -82,6 +90,9 @@ class Trainer:
     checkpoints_to_keep: Older checkpoints are deleted on save.
     seed: The noise of step s is drawn from a generator seeded with
       seed + 2 + s, so a restored run continues with the same noise.
+      Across ranks each rank draws the global batch's noise and keeps its
+      own rows (proc.synths.RowDraws), so R ranks take the one-process
+      step.
   """
 
   def __init__(self, model, mesh=None, learning_rate: float = 3e-4,
@@ -106,7 +117,9 @@ class Trainer:
     self.grad_clip_norm = grad_clip_norm
     self.checkpoints_to_keep = checkpoints_to_keep
     self.seed = seed
-    self._generator = torch.Generator(self.device)
+    self._ranks = mesh.ranks if mesh is not None else None
+    self._generator = (RowDraws(self.device) if self._ranks
+                       else torch.Generator(self.device))
 
   def lr_schedule(self, count: int) -> float:
     """lr * rate ** (count / steps), not staircased."""
@@ -125,6 +138,8 @@ class Trainer:
     """
     del batch
     params = dict(self.model.named_parameters())
+    if self._ranks:
+      replicate(self.mesh, list(params.values()))
     opt_state = {
         'count': 0,
         'mu': {k: torch.zeros_like(p) for k, p in params.items()},
@@ -165,7 +180,14 @@ class Trainer:
     """
     batch = self.to_device(batch)
     self._generator.manual_seed(self.seed + 2 + state.step)
-    if sp_model.has_time_sharding(self.mesh):
+    if self._ranks:
+      first = batch[0] if isinstance(batch, (tuple, list)) else batch
+      local = int(next(iter(first.values())).shape[0])
+      d = self.mesh.shard_coords(0)[0]
+      self._generator.n_rows = local * self.mesh.n_data
+      self._generator.rows = slice(d * local, (d + 1) * local)
+    sharded = sp_model.has_time_sharding(self.mesh)
+    if sharded:
       _, losses = sp_model.sp_forward_with_losses(
           self.model, batch, self.mesh, halo_impl=self.halo_impl,
           training=True, noise=noise, generator=self._generator)
@@ -179,10 +201,19 @@ class Trainer:
     names = [k for k, p in state.params.items() if p.requires_grad]
     used = [(k, p, g) for k, p, g in zip(names, params, grads)
             if g is not None]
+    used_grads = [g for _, _, g in used]
+    losses = {k: v.detach() for k, v in losses.items()}
+    if self._ranks:
+      distributed.all_reduce_(used_grads)
+      if not sharded:
+        # Each rank's loss is the mean over its own rows.
+        torch._foreach_div_(used_grads, float(self._ranks.n_ranks))  # pylint: disable=protected-access
+        losses = dict(zip(losses, distributed.mean_over_ranks(
+            list(losses.values()))))
     self.apply_gradients(state, [k for k, _, _ in used],
-                         [p for _, p, _ in used], [g for _, _, g in used])
+                         [p for _, p, _ in used], used_grads)
     state.step += 1
-    return state, {k: v.detach() for k, v in losses.items()}
+    return state, losses
 
   @torch.no_grad()
   def apply_gradients(self, state: TrainState, names: List[str],
@@ -216,8 +247,12 @@ class Trainer:
 
   def save(self, state: TrainState, save_dir: str) -> float:
     """Saves model and optimizer to a step-numbered checkpoint; returns the
-    seconds it took. Keeps the newest `checkpoints_to_keep`."""
+    seconds it took. Keeps the newest `checkpoints_to_keep`. Across ranks
+    rank 0 writes and every rank waits for it."""
     start_time = time.time()
+    if self._ranks and self._ranks.rank != 0:
+      distributed.barrier()
+      return time.time() - start_time
     os.makedirs(save_dir, exist_ok=True)
     path = self.checkpoint_path(save_dir, state.step)
     tmp = f'{path}.{os.getpid()}.tmp'
@@ -228,6 +263,8 @@ class Trainer:
     steps = self.checkpoint_steps(save_dir)
     for old in steps[:max(0, len(steps) - self.checkpoints_to_keep)]:
       os.remove(self.checkpoint_path(save_dir, old))
+    if self._ranks:
+      distributed.barrier()
     return time.time() - start_time
 
   def restore(self, state: TrainState, restore_dir: str,

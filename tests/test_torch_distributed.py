@@ -1,0 +1,620 @@
+"""Training across processes: four gloo ranks on the CPU against ddsp_tpu.
+
+One module fixture starts four torch.distributed ranks once, with
+torch.multiprocessing (spawn) and init_method='file://...', and runs every
+case's port side in them while the parent computes the JAX package's on the
+conftest's 8 simulated CPU devices. The ranks write their results to files;
+the parametrised cases read them. Inputs are made from seeds with numpy, and
+the parameters come from the JAX inits through load_jax_params.
+
+  * K3's remote shift (kernels/halo.py, its plain version on the CPU: point-
+    to-point sends) on (1 x 4) and (2 x 2) meshes of four ranks, both
+    directions: the values and the adjoint against pallas_halo's
+    neighbor_shift (interpret mode on a 'time' mesh, its ppermute fallback
+    on two axes), exactly: a shift is a copy.
+  * The dense Trainer step on a (4 x 1) mesh of ranks (one row each of a
+    batch of 4) against ddsp_tpu.train.Trainer on a 4-device mesh: the
+    first step's loss and all-reduced gradients, both steps' losses.
+  * The Trainer's sequence-parallel step on a (2 x 2) mesh of ranks against
+    the JAX Trainer's on a (2 x 2) mesh, and make_sp_train_step on a
+    (1 x 4) mesh of ranks against the JAX long-audio step: likewise.
+  * Parameters bit for bit equal across the ranks after two steps.
+  * ddsp_torch.run.main(['--multihost', ...]) on two of the ranks (gloo, a
+    (1 x 2) mesh): rank 0 writes, both end with the same parameters.
+
+Everything is float32 (compute_dtype='float32'). Gradients are compared,
+not parameters after Adam: Adam's first step is close to lr * sign(g),
+which magnifies the differences of tiny gradients. This module imports JAX
+only inside the fixture, so that the spawned ranks, which import it to find
+their function, load PyTorch alone.
+"""
+
+import json
+import os
+import socket
+import tempfile
+import time
+import types
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+N_RANKS = 4
+# The Trainer cases: tests/test_torch_sp.py's model (RnnFcDecoder of 16,
+# Harmonic(8), FilteredNoise(9), a trainable Reverb of 3000 taps, the mag
+# term) at 8192 samples, 4096 a time shard, and three FFT sizes, to keep
+# the JAX package's compilations short.
+N_SAMPLES, N_FRAMES = 8192, 64
+FFT_SIZES = (1024, 256, 64)
+# make_sp_train_step: tests/test_torch_sp_train_step.py's decoder and sizes.
+SP_SAMPLES, SP_FRAMES, SP_FFT_SIZES = 8192, 16, (512, 64)
+OUTPUT_SPLITS = (('amps', 1), ('harmonic_distribution', 8),
+                 ('noise_magnitudes', 5))
+STEPS = 2
+RANKS_TIMEOUT_S = 300  # the ranks take ~15 s alone
+SHIFT_MESHES = ((1, 4), (2, 2))
+SHIFT_SHAPE = (4, 64)  # rows x samples of the global signal
+CASES = ('dense', 'sp_trainer', 'sp_step')
+MESHES = {'dense': (4, 1), 'sp_trainer': (2, 2), 'sp_step': (1, 4)}
+GLOBAL_BATCH = {'dense': 4, 'sp_trainer': 2, 'sp_step': 1}
+# Losses against the JAX package: two float32 frameworks whose phase sums
+# differ by ~1e-4 rad over 16384 samples, the sums of the loss and the
+# gradient all-reduced in another order (tests/test_torch_sp.py holds the
+# one-process SP step at this rtol; the second step also carries one Adam
+# update of those gradients).
+LOSS_RTOL = 1e-3
+# Gradients against the JAX package, relative L2: the network's, all
+# parameters but the reverb IR together, at tests/test_torch_train.py's
+# float32 tolerance for the Trainer cases (measured: 5.9e-5 dense, 1.0e-5
+# sharded). make_sp_train_step's loss has the logmag term (its
+# logmag_weight is 1), whose 1/|X| weighs the frameworks' phase rounding
+# on quiet bins, and its decoder's first layer sees one constant and one
+# slow input, so the layer's gradient is a small residue of large
+# per-shard terms: the port in one process departs from JAX by 9.9e-3 here
+# (and a 2-shard mesh from a 4-shard one by 2.4e-2), the ranks by 1.0e-2.
+# The reverb IR's, tests/test_torch_train.py's (its entries' gradients
+# are sums of many signed terms): relative L2 0.1 and a cosine of 0.995.
+NET_GRAD_RTOL = {'dense': 1e-3, 'sp_trainer': 1e-3, 'sp_step': 2e-2}
+IR_GRAD_RTOL = 0.1
+IR_GRAD_COSINE = 0.995
+IR_NAME = 'processor_group/reverb/ir'
+# Against the same steps in one process: the same shards, the same
+# arithmetic, the sums of the loss and of the gradient taken across
+# processes in another order. First loss: measured 1e-7 apart; second
+# loss, after one Adam step of those gradients: 1.5e-6. Gradients,
+# relative L2 over all parameters: 7.0e-6 dense, 1.1e-5 sharded, 2.7e-3
+# for make_sp_train_step (the first layer's residue above).
+ONE_PROCESS_LOSS_RTOL = 1e-5
+SECOND_LOSS_RTOL = 1e-4
+ONE_PROCESS_GRAD_RTOL = {'dense': 1e-4, 'sp_trainer': 1e-4, 'sp_step': 1e-2}
+CLI_MODEL = dict(n_samples=N_SAMPLES, time_steps=N_FRAMES, n_harmonics=8,
+                 n_noise_magnitudes=9, reverb_length=3000, rnn_channels=16,
+                 ch=16, compute_dtype='float32')
+
+
+# ---------------------------------------------------------------------------
+# Inputs (numpy, shared by both sides)
+# ---------------------------------------------------------------------------
+def _signal(rows, n, seed):
+  rng = np.random.RandomState(seed)
+  t = np.arange(n) / 16000
+  f0 = 220.0 + 30.0 * np.arange(rows)[:, None]
+  return (0.3 * np.sin(2 * np.pi * f0 * t) +
+          0.05 * rng.randn(rows, n)).astype(np.float32)
+
+
+def _trainer_batch(rows):
+  return {'audio': _signal(rows, N_SAMPLES, 0),
+          'f0_hz': np.tile((220.0 + 30.0 * np.arange(rows))[:, None, None],
+                           (1, N_FRAMES, 1)).astype(np.float32)}
+
+
+def _noise(rows, n, seed=9):
+  return np.random.RandomState(seed).uniform(-1, 1, (rows, n)).astype(
+      np.float32)
+
+
+def _sp_batch():
+  hop = SP_SAMPLES // SP_FRAMES
+  t = np.arange(SP_SAMPLES) / 16000
+  target = (0.3 * np.sin(2 * np.pi * 220 * t) +
+            3e-3 * np.random.RandomState(0).randn(SP_SAMPLES))
+  env = 0.5 + 0.4 * np.sin(2 * np.pi * t[::hop])
+  frames = lambda x: x.astype(np.float32)[None, :, None]
+  return {'audio': target.astype(np.float32)[None],
+          'f0_hz': np.full((1, SP_FRAMES, 1), 220.0, np.float32),
+          'ld_scaled': frames(env),
+          'f0_scaled': np.full((1, SP_FRAMES, 1), 0.55, np.float32)}
+
+
+def _trainer_model(lib, nn_lib, proc_lib, autoencoder):
+  """tests/test_torch_sp.py's model, in either framework."""
+  return autoencoder(
+      preprocessor=nn_lib.F0LoudnessPreprocessor(
+          time_steps=N_FRAMES, sample_rate=16000,
+          compute_loudness_fresh=True),
+      encoder=None,
+      decoder=nn_lib.RnnFcDecoder(
+          rnn_channels=16, rnn_type='gru', ch=16, layers_per_stack=1,
+          input_keys=('ld_scaled', 'f0_scaled'),
+          output_splits=(('amps', 1), ('harmonic_distribution', 8),
+                         ('noise_magnitudes', 9)), compute_dtype='float32'),
+      processor_group=proc_lib.ProcessorGroup(dag=[
+          (proc_lib.Harmonic(n_samples=N_SAMPLES, sample_rate=16000,
+                             name='harmonic'),
+           ['amps', 'harmonic_distribution', 'f0_hz']),
+          (proc_lib.FilteredNoise(n_samples=N_SAMPLES, window_size=0,
+                                  name='filtered_noise'),
+           ['noise_magnitudes']),
+          (proc_lib.Add(name='add'),
+           ['filtered_noise/signal', 'harmonic/signal']),
+          (proc_lib.Reverb(trainable=True, reverb_length=3000,
+                           name='reverb'), ['add/signal']),
+      ]),
+      losses=(lib.SpectralLoss(fft_sizes=FFT_SIZES, loss_type='L1',
+                               mag_weight=1.0, logmag_weight=0.0),))
+
+
+def _sp_decoder(nn_lib):
+  return nn_lib.FcStackDecoder(ch=16, layers_per_stack=1,
+                               input_keys=('ld_scaled', 'f0_scaled'),
+                               output_splits=OUTPUT_SPLITS)
+
+
+# ---------------------------------------------------------------------------
+# The ranks (PyTorch only)
+# ---------------------------------------------------------------------------
+def _rank_shifts(rank, mesh_lib, halo, create_mesh):
+  out = {}
+  x = np.random.RandomState(3).randn(*SHIFT_SHAPE).astype(np.float32)
+  w = np.random.RandomState(4).randn(*SHIFT_SHAPE).astype(np.float32)
+  for shape in SHIFT_MESHES:
+    mesh = create_mesh(*shape, devices=['cpu'])
+    rows = mesh_lib.local_rows(mesh, SHIFT_SHAPE[0])
+    span = mesh_lib.time_span(mesh, SHIFT_SHAPE[1])
+    for direction in (+1, -1):
+      mine = torch.from_numpy(x[rows, span].copy()).requires_grad_()
+      (got,) = halo.neighbor_shift([mine], mesh, direction, impl='pallas')
+      (grad,) = torch.autograd.grad(got, mine,
+                                    torch.from_numpy(w[rows, span].copy()))
+      out[f'{shape}{direction:+d}'] = (rows, span, got.detach().numpy(),
+                                       grad.numpy())
+  return out
+
+
+def _trainer_steps(case, params, mesh):
+  """Two Trainer steps from the JAX parameters on `mesh` (a mesh over the
+  ranks, or all its shards in one process): the losses, the first step's
+  reduced gradients and the parameters after."""
+  from ddsp_torch import losses, nn, proc  # pylint: disable=g-import-not-at-top
+  from ddsp_torch.models import Autoencoder
+  from ddsp_torch.parallel import mesh as mesh_lib
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import load_jax_params
+  model = _trainer_model(losses, nn, proc, Autoencoder)
+  load_jax_params(model, params)
+  trainer = Trainer(model, mesh=mesh, seed=0, halo_impl='pallas')
+  grads = []
+  apply = trainer.apply_gradients
+
+  def recording(state, names, ps, gs):
+    grads.append({k: g.clone() for k, g in zip(names, gs)})
+    return apply(state, names, ps, gs)
+
+  trainer.apply_gradients = recording
+  b = GLOBAL_BATCH[case]
+  batch = mesh_lib.shard_batch(mesh, _trainer_batch(b))
+  noise = torch.from_numpy(_noise(b, N_SAMPLES)[mesh_lib.local_rows(mesh, b)])
+  state = trainer.init()
+  seen = []
+  for _ in range(STEPS):
+    state, step_losses = trainer.train_step(state, batch, noise=noise)
+    seen.append(float(step_losses['total_loss']))
+  return {'losses': seen, 'grads': grads[0],
+          'params': {k: p.detach().clone() for k, p in state.params.items()}}
+
+
+def _sp_steps(params, mesh):
+  """Two make_sp_train_step steps on `mesh`, likewise."""
+  from ddsp_torch import nn  # pylint: disable=g-import-not-at-top
+  from ddsp_torch.parallel import make_sp_train_step
+  from ddsp_torch.utils import load_jax_params
+  decoder = _sp_decoder(nn)
+  load_jax_params(decoder, params)
+  train_step, shard_batch = make_sp_train_step(
+      mesh, decoder, torch.optim.Adam(decoder.parameters(), lr=1e-2),
+      n_samples=SP_SAMPLES, fft_sizes=SP_FFT_SIZES)
+  batch, noise = shard_batch(_sp_batch(), _noise(1, SP_SAMPLES, seed=1))
+  seen, grads = [], None
+  for _ in range(STEPS):
+    seen.append(float(train_step(batch, noise)))
+    if grads is None:
+      grads = {k: p.grad.clone() for k, p in decoder.named_parameters()}
+  return {'losses': seen, 'grads': grads,
+          'params': {k: p.detach().clone()
+                     for k, p in decoder.named_parameters()}}
+
+
+def _eval_refusal(mesh):
+  """The message evaluate_or_sample raises for a trainer on a mesh over
+  ranks."""
+  from ddsp_torch.eval import eval_util  # pylint: disable=g-import-not-at-top
+  try:
+    eval_util.evaluate_or_sample(None, types.SimpleNamespace(mesh=mesh),
+                                 save_dir='')
+  except NotImplementedError as e:
+    return str(e)
+  return None
+
+
+def _rank_cli(rank, work_dir, port):
+  from ddsp_torch import run  # pylint: disable=g-import-not-at-top
+  os.environ.update(RANK=str(rank), WORLD_SIZE='2', LOCAL_RANK=str(rank),
+                    MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))
+  state = run.main([
+      '--multihost', '--device', 'cpu', '--preset', 'tiny',
+      '--model_kwargs', json.dumps(CLI_MODEL), '--time_shards', '2',
+      '--save_dir', os.path.join(work_dir, 'cli'), '--data', 'synthetic:8',
+      '--batch_size', '1', '--num_steps', '2', '--steps_per_summary', '1',
+      '--steps_per_save', '2'])
+  return {'step': state.step,
+          'params': {k: p.detach().clone() for k, p in state.params.items()}}
+
+
+def _rank_main(rank, work_dir, port):
+  torch.set_num_threads(1)
+  from ddsp_torch.parallel import create_mesh, distributed, halo  # pylint: disable=g-import-not-at-top
+  from ddsp_torch.parallel import mesh as mesh_lib
+  inputs = torch.load(os.path.join(work_dir, 'inputs.pt'), weights_only=False)
+  distributed.init(device='cpu', init_method='file://' + os.path.join(
+      work_dir, 'init'), rank=rank, world_size=N_RANKS)
+  result = {'shifts': _rank_shifts(rank, mesh_lib, halo, create_mesh)}
+  for case in ('dense', 'sp_trainer'):
+    result[case] = _trainer_steps(case, inputs['trainer_params'],
+                                  create_mesh(*MESHES[case], devices=['cpu']))
+  result['sp_step'] = _sp_steps(
+      inputs['sp_params'], create_mesh(*MESHES['sp_step'], devices=['cpu']))
+  result['eval_refusal'] = _eval_refusal(create_mesh(2, 2, devices=['cpu']))
+  distributed.shutdown()
+  if rank < 2:
+    result['cli'] = _rank_cli(rank, work_dir, port)
+  torch.save(result, os.path.join(work_dir, f'rank{rank}.pt'))
+
+
+# ---------------------------------------------------------------------------
+# The JAX side (the parent process)
+# ---------------------------------------------------------------------------
+def _jax_side(trainer_params, sp_params):
+  # pylint: disable=g-import-not-at-top
+  import functools
+  import jax
+  import jax.numpy as jnp
+  from jax.sharding import Mesh as JaxMesh
+  from jax.sharding import PartitionSpec as P
+  from ddsp_tpu import losses as j_losses
+  from ddsp_tpu import nn as j_nn
+  from ddsp_tpu import proc as j_proc
+  from ddsp_tpu.models import Autoencoder as JaxAutoencoder
+  from ddsp_torch.ops.core import flatten
+  from ddsp_tpu.parallel import create_mesh as j_create_mesh
+  from ddsp_tpu.parallel import make_sp_train_step as j_make_sp_train_step
+  from ddsp_tpu.parallel import mesh as j_mesh_lib
+  from ddsp_tpu.parallel import pallas_halo
+  from ddsp_tpu.parallel import sp_synth_and_loss
+  from ddsp_tpu.parallel import sp_model as j_sp_model
+  out = {}
+  x = np.random.RandomState(3).randn(*SHIFT_SHAPE).astype(np.float32)
+  w = np.random.RandomState(4).randn(*SHIFT_SHAPE).astype(np.float32)
+  devices = jax.devices()[:N_RANKS]
+  for shape in SHIFT_MESHES:
+    if shape[0] == 1:
+      jmesh, spec = JaxMesh(np.asarray(devices), ('time',)), P(None, 'time')
+    else:
+      jmesh = j_create_mesh(n_data=shape[0], n_time=shape[1], devices=devices)
+      spec = P('data', 'time')
+    for direction in (+1, -1):
+      shift = jax.jit(jax.shard_map(
+          functools.partial(pallas_halo.neighbor_shift, direction=direction,
+                            impl='pallas'), mesh=jmesh, in_specs=spec,
+          out_specs=spec, check_vma=False))
+      value, vjp = jax.vjp(shift, x)
+      out[f'{shape}{direction:+d}'] = (np.asarray(value),
+                                       np.asarray(vjp(jnp.asarray(w))[0]))
+
+  uniform = jax.random.uniform
+  fixed = {}
+
+  def fixed_noise(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+    if tuple(shape) in fixed:
+      return jnp.asarray(fixed[tuple(shape)])
+    return uniform(key, shape, dtype, minval, maxval)
+
+  with pytest.MonkeyPatch.context() as patch:
+    patch.setattr(jax.random, 'uniform', fixed_noise)
+    model = _trainer_model(j_losses, j_nn, j_proc, JaxAutoencoder)
+    for case in ('dense', 'sp_trainer'):
+      b = GLOBAL_BATCH[case]
+      fixed.clear()
+      fixed[(b, N_SAMPLES)] = _noise(b, N_SAMPLES)
+      n_data, n_time = MESHES[case]
+      jmesh = j_create_mesh(n_data=n_data, n_time=n_time, devices=devices)
+      batch = j_mesh_lib.shard_batch(_trainer_batch(b), jmesh)
+      # The JAX Trainer's step function: its value_and_grad of the model's
+      # losses (sp_forward_with_losses when the mesh shards time).
+      if n_time > 1:
+        loss_fn = lambda p, bt: model.apply(  # pylint: disable=cell-var-from-loop
+            {'params': p}, bt, mesh=jmesh, training=True, halo_impl='pallas',
+            method=j_sp_model.sp_forward_with_losses,
+            rngs={'noise': jax.random.PRNGKey(0)})[1]['total_loss']
+      else:
+        loss_fn = lambda p, bt: model.apply(
+            {'params': p}, bt, training=True, return_losses=True,
+            rngs={'noise': jax.random.PRNGKey(0)})[1]['total_loss']
+      loss, grads = jax.jit(jax.value_and_grad(loss_fn))(trainer_params,
+                                                         batch)
+      out[case] = (float(loss), flatten(jax.tree_util.tree_map(np.asarray,
+                                                               grads)))
+
+  decoder = _sp_decoder(j_nn)
+  jmesh = j_create_mesh(n_data=1, n_time=N_RANKS, devices=devices)
+  _, shard_batch = j_make_sp_train_step(
+      jmesh, decoder, None, n_samples=SP_SAMPLES, fft_sizes=SP_FFT_SIZES)
+  batch, noise = shard_batch(_sp_batch(), _noise(1, SP_SAMPLES, seed=1))
+
+  def sp_loss(p):
+    """The JAX long-audio step's loss function."""
+    controls = decoder.apply({'params': p}, batch, training=True)
+    return sp_synth_and_loss(
+        jmesh, batch['audio'], batch['f0_hz'], controls['amps'],
+        controls['harmonic_distribution'], controls['noise_magnitudes'],
+        noise, n_samples=SP_SAMPLES, fft_sizes=SP_FFT_SIZES)
+
+  loss, grads = jax.jit(jax.value_and_grad(sp_loss))(sp_params)
+  out['sp_step'] = (float(loss),
+                    flatten(jax.tree_util.tree_map(np.asarray, grads)))
+  return out
+
+
+def _port_side(trainer_params, sp_params):
+  """The same steps in one process of the port (the mesh's shards in one
+  process, R = 1)."""
+  # pylint: disable=g-import-not-at-top
+  from ddsp_torch.parallel import create_mesh, distributed
+  assert distributed.world_size() == 1
+  out = {}
+  for case in ('dense', 'sp_trainer'):
+    shape = MESHES[case]
+    out[case] = _trainer_steps(
+        case, trainer_params, create_mesh(*shape, devices=['cpu'] * 4))
+  out['sp_step'] = _sp_steps(sp_params, create_mesh(1, 4,
+                                                     devices=['cpu'] * 4))
+  return out
+
+
+def _jax_params():
+  # pylint: disable=g-import-not-at-top
+  import jax
+  from ddsp_tpu import losses as j_losses
+  from ddsp_tpu import nn as j_nn
+  from ddsp_tpu import proc as j_proc
+  from ddsp_tpu.models import Autoencoder as JaxAutoencoder
+  model = _trainer_model(j_losses, j_nn, j_proc, JaxAutoencoder)
+  variables = jax.jit(lambda b: model.init(
+      {'params': jax.random.PRNGKey(0), 'noise': jax.random.PRNGKey(1)}, b,
+      training=True, return_losses=True))(_trainer_batch(2))
+  decoder_params = _sp_decoder(j_nn).init(jax.random.PRNGKey(0),
+                                          _sp_batch())['params']
+  to_np = lambda t: jax.tree_util.tree_map(np.array, t)
+  return to_np(variables['params']), to_np(decoder_params)
+
+
+def _free_port():
+  with socket.socket() as s:
+    s.bind(('127.0.0.1', 0))
+    return s.getsockname()[1]
+
+
+@pytest.fixture(scope='module')
+def runs():
+  """(the ranks' results by rank, the JAX package's first steps, the port's
+  steps in one process, the files of the CLI's save_dir)."""
+  trainer_params, sp_params = _jax_params()
+  with tempfile.TemporaryDirectory() as work_dir:
+    torch.save({'trainer_params': trainer_params, 'sp_params': sp_params},
+               os.path.join(work_dir, 'inputs.pt'))
+    ctx = mp.start_processes(_rank_main, args=(work_dir, _free_port()),
+                             nprocs=N_RANKS, join=False,
+                             start_method='spawn')
+    try:
+      jax_side = _jax_side(trainer_params, sp_params)
+      port_side = _port_side(trainer_params, sp_params)
+    finally:
+      deadline = time.time() + RANKS_TIMEOUT_S
+      while not ctx.join(timeout=5):
+        if time.time() > deadline:
+          for p in ctx.processes:
+            p.kill()
+          pytest.fail(f'the ranks did not finish in {RANKS_TIMEOUT_S} s')
+    ranks = {r: torch.load(os.path.join(work_dir, f'rank{r}.pt'),
+                           weights_only=False) for r in range(N_RANKS)}
+    cli_files = sorted(os.listdir(os.path.join(work_dir, 'cli')))
+    yield ranks, jax_side, port_side, cli_files
+
+
+# ---------------------------------------------------------------------------
+# The cases
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize('shape', SHIFT_MESHES)
+@pytest.mark.parametrize('direction', [+1, -1])
+def test_remote_shift_values_and_adjoint_match_jax(runs, shape, direction):
+  ranks, jax_side, _, _ = runs
+  key = f'{shape}{direction:+d}'
+  value, adjoint = jax_side[key]
+  got_value = np.zeros(SHIFT_SHAPE, np.float32)
+  got_adjoint = np.zeros(SHIFT_SHAPE, np.float32)
+  for r in range(N_RANKS):
+    rows, span, v, g = ranks[r]['shifts'][key]
+    got_value[rows, span] = v
+    got_adjoint[rows, span] = g
+  np.testing.assert_array_equal(got_value, value)
+  np.testing.assert_array_equal(got_adjoint, adjoint)
+
+
+def _rel_l2(a, b):
+  return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _flat(grads):
+  return {k.replace('.', '/'): np.asarray(g) for k, g in grads.items()}
+
+
+@pytest.mark.parametrize('case', CASES)
+def test_first_step_matches_jax(runs, case):
+  """The first step's loss on every rank and its reduced gradients against
+  the JAX package's step on the global batch."""
+  ranks, jax_side, _, _ = runs
+  want_loss, want = jax_side[case]
+  for r in range(N_RANKS):
+    np.testing.assert_allclose(ranks[r][case]['losses'][0], want_loss,
+                               rtol=LOSS_RTOL)
+  got = _flat(ranks[0][case]['grads'])
+  assert sorted(got) == sorted(want)
+  net = sorted(k for k in got if k != IR_NAME)
+  whole = lambda d: np.concatenate([d[k].ravel() for k in net])
+  assert _rel_l2(whole(got), whole(want)) <= NET_GRAD_RTOL[case]
+  if IR_NAME in got:
+    g, w = got[IR_NAME].ravel(), want[IR_NAME].ravel()
+    assert _rel_l2(g, w) <= IR_GRAD_RTOL
+    assert float(g @ w / (np.linalg.norm(g) * np.linalg.norm(w))) >= (
+        IR_GRAD_COSINE)
+
+
+@pytest.mark.parametrize('case', CASES)
+def test_steps_match_the_one_process_port(runs, case):
+  """Both steps' losses and the first step's reduced gradients against the
+  same steps with every shard in one process: R ranks take the
+  one-process step."""
+  ranks, _, port_side, _ = runs
+  want = port_side[case]
+  for r in range(N_RANKS):
+    np.testing.assert_allclose(ranks[r][case]['losses'][0],
+                               want['losses'][0], rtol=ONE_PROCESS_LOSS_RTOL)
+    np.testing.assert_allclose(ranks[r][case]['losses'][1],
+                               want['losses'][1], rtol=SECOND_LOSS_RTOL)
+  got, ref = _flat(ranks[0][case]['grads']), _flat(want['grads'])
+  assert sorted(got) == sorted(ref)
+  whole = lambda d: np.concatenate([d[k].ravel() for k in sorted(got)])
+  assert _rel_l2(whole(got), whole(ref)) <= ONE_PROCESS_GRAD_RTOL[case]
+  assert ranks[0][case]['losses'][1] < ranks[0][case]['losses'][0]
+
+
+@pytest.mark.parametrize('case', CASES + ('cli',))
+def test_parameters_equal_across_ranks(runs, case):
+  ranks = runs[0]
+  n = 2 if case == 'cli' else N_RANKS
+  first = ranks[0][case]['params']
+  for r in range(1, n):
+    for k, p in ranks[r][case]['params'].items():
+      assert torch.equal(p, first[k]), (case, r, k)
+
+
+def test_multihost_cli_trains_and_rank_zero_writes(runs):
+  ranks, files = runs[0], runs[3]
+  assert ranks[0]['cli']['step'] == ranks[1]['cli']['step'] == 2
+  assert {'ckpt-00000002.pt', 'metrics.jsonl',
+          'operative_spec.json'} <= set(files)
+  assert not [f for f in files if 'tmp' in f]
+
+
+
+def test_eval_across_ranks_raises(runs):
+  for r in range(N_RANKS):
+    assert 'item 8' in runs[0][r]['eval_refusal']
+
+
+# ---------------------------------------------------------------------------
+# The rules of a mesh over ranks, without a process group
+# ---------------------------------------------------------------------------
+def _ranks_mesh(shape, rank, per_rank=1):
+  from ddsp_torch.parallel import distributed  # pylint: disable=g-import-not-at-top
+  from ddsp_torch.parallel.mesh import Mesh
+  n_data, n_time = shape
+  row = n_time // per_rank
+  first = rank // row * row
+  ranks = distributed.Ranks(
+      rank, n_data * n_time // per_rank, per_rank,
+      tuple(range(first, first + row)), object() if row > 1 else None)
+  return Mesh(['cpu'] * per_rank, n_data, n_time, ranks)
+
+
+@pytest.mark.parametrize('rank,direction,want', [
+    (0, +1, (0, 1, 0, None)), (0, -1, (0, None, 0, 1)),
+    (2, +1, (0, 3, 0, 1)), (3, +1, (0, None, 0, 2)),
+    (3, -1, (0, 2, 0, None))])
+def test_edge_of_a_rank_on_a_1x4_mesh(rank, direction, want):
+  """(send, to, recv, frm) of a rank's remote part: the first and last time
+  shards have no neighbour on their open side."""
+  from ddsp_torch.kernels import halo as kh  # pylint: disable=g-import-not-at-top
+  edge = kh._edge(_ranks_mesh((1, 4), rank), direction)  # pylint: disable=protected-access
+  assert (edge.send, edge.to, edge.recv, edge.frm) == want
+
+
+def test_a_rank_holding_two_shards_sends_its_edge_shard():
+  from ddsp_torch.kernels import halo as kh  # pylint: disable=g-import-not-at-top
+  mesh = _ranks_mesh((1, 4), 0, per_rank=2)
+  assert [mesh.shard_coords(j) for j in range(2)] == [(0, 0), (0, 1)]
+  edge = kh._edge(mesh, +1)  # pylint: disable=protected-access
+  assert (edge.send, edge.to, edge.recv, edge.frm) == (1, 1, 0, None)
+  edge = kh._edge(mesh, -1)  # pylint: disable=protected-access
+  assert (edge.send, edge.to, edge.recv, edge.frm) == (0, None, 1, 1)
+
+
+def test_process_local_placement_on_a_2x2_mesh():
+  """Rank 3 of a (2 x 2) mesh holds shard (1, 1): the second half of the
+  global batch's rows and the second half of the samples."""
+  from ddsp_torch.parallel import mesh as mesh_lib  # pylint: disable=g-import-not-at-top
+  mesh = _ranks_mesh((2, 2), 3)
+  assert mesh.first_shard == 3 and mesh.shard_coords(0) == (1, 1)
+  x = np.arange(4 * 8, dtype=np.float32).reshape(4, 8)
+  part = mesh_lib.shard_batch(mesh, {'audio': x, 'f0': x[:, :3]},
+                              n_samples=8)
+  np.testing.assert_array_equal(part['audio'], x[2:, 4:])
+  np.testing.assert_array_equal(part['f0'], x[2:, :3])
+  local = torch.from_numpy(part['audio'])
+  assert mesh_lib.batch_is_sharded(mesh, 1)
+  (shard,) = mesh_lib.split_time(mesh, local)
+  assert torch.equal(shard, local)
+  assert torch.equal(mesh_lib.concat_time(mesh, [shard], 2), local)
+  assert torch.equal(mesh_lib.local_time(mesh, torch.from_numpy(x)),
+                     torch.from_numpy(x[:, 4:]))
+  with pytest.raises(ValueError, match='does not divide'):
+    mesh_lib.local_rows(mesh, 3)
+
+
+def test_a_rank_holds_shards_of_one_data_row():
+  from ddsp_torch.parallel import distributed  # pylint: disable=g-import-not-at-top
+  from ddsp_torch.parallel.mesh import Mesh
+  with pytest.raises(NotImplementedError, match='item 8'):
+    Mesh(['cuda:0', 'cuda:1'], 1, 2, distributed.Ranks(0, 2, 2, (0,), None))
+  with pytest.raises(ValueError, match='needs 2 devices'):
+    Mesh(['cpu'], 1, 4, distributed.Ranks(0, 2, 2, (0,), None))
+
+
+def test_row_draws_are_the_global_draw_cut_to_rows():
+  """A rank's FilteredNoise draw is one process's draw for the global
+  batch, cut to its rows; unbatched draws are the generator's own."""
+  from ddsp_torch.proc.synths import RowDraws, uniform_noise  # pylint: disable=g-import-not-at-top
+  full = uniform_noise((4, 16), 'cpu',
+                       generator=torch.Generator().manual_seed(3))
+  gen = RowDraws('cpu').manual_seed(3)
+  gen.n_rows, gen.rows = 4, slice(2, 3)
+  got = uniform_noise((1, 16), 'cpu', generator=gen, batched=True)
+  assert torch.equal(got, full[2:3])
+  alone = torch.Generator().manual_seed(3)
+  gen.manual_seed(3)
+  assert torch.equal(uniform_noise((1, 16), 'cpu', generator=gen),
+                     uniform_noise((1, 16), 'cpu', generator=alone))
+  with pytest.raises(ValueError, match='keeps rows'):
+    uniform_noise((2, 16), 'cpu', generator=gen, batched=True)

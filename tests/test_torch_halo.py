@@ -82,7 +82,8 @@ def test_boundary_shards_receive_zeros_and_cpu_launches_nothing():
   assert torch.equal(right[:, 8:], torch.ones(1, 24))
   assert torch.equal(left[:, -8:], torch.zeros(1, 8))
   assert torch.equal(left[:, :-8], torch.ones(1, 24))
-  assert kh.launches == {'shift': 0}  # the plain version is no launch
+  # The plain version is no launch.
+  assert kh.launches == {'shift': 0, 'remote_shift': 0}
 
 
 @pytest.mark.parametrize('direction', [+1, -1])

@@ -155,8 +155,11 @@ def test_main_writes_the_jax_spec(trained, tmp_path):
 
 
 @pytest.mark.parametrize('flags,error,match', [
-    (['--multihost'], NotImplementedError, 'item 8'),
+    # Evaluating and sampling across ranks are not ported; --multihost
+    # training runs (tests/test_torch_distributed.py).
+    (['--multihost', '--mode', 'eval'], NotImplementedError, 'item 8'),
     (['--time_shards', '2'], SystemExit, 'must divide'),
+    (['--multihost', '--mode', 'sample'], NotImplementedError, 'item 8'),
 ])
 def test_main_refuses(tmp_path, flags, error, match):
   with pytest.raises(error, match=match):
