@@ -206,7 +206,22 @@ Phases (any failed check exits non-zero before the result lines):
      a (1 x 4) mesh of the ranks against phase 6k's one-process steps, the
      remote copy launched 22 times a step on every rank and the local
      shift none; ms per step and per shift, labelled as four ranks
-     time-sliced on one card; a failed rank fails the phase;
+     time-sliced on one card; (d) phase 6b's checkpoint evaluated on a
+     (1 x 4) mesh of the ranks against phase 6k's one-process SP eval (the
+     scalars, the audio gathered on rank 0, K2f once and the remote copy as
+     counted from the code a batch, no local K3, only rank 0 writing) and
+     sampled on one batch (rank 0 writes phase 6k's files); (e) the same
+     checkpoint on a (4 x 1) mesh against phase 6k's dense eval (K1f and
+     K2f once a batch on every rank); (f) the vst preset at full width
+     (bf16, 3.9 s: see RANKS_VST_SECONDS) for 3 Trainer steps at B = 4 on a
+     (1 x 4) mesh of the ranks against one step of the same mesh in one
+     process (the first loss, the decoder's gradient norm, K2f, K2b and the
+     remote copy a step, the Crop's signal gathered and sliced); (g) one
+     step of solo_instrument with an L2 SpectralLoss on a (1 x 4) mesh of
+     the ranks against one process; (h) one SP Trainer step on a (4 x 2)
+     mesh over two ranks, two whole rows each, against one process (the
+     local K3 only); ms per eval batch and per vst step a rank; a failed
+     rank fails the phase;
   7. report per-request and per-step times, the kernels line and the device
      line.
 
@@ -1079,6 +1094,12 @@ def read_launches():
           'K1p': kh.launches['bwd_phase'], 'K2f': kg.launches['fwd'],
           'K2b': kg.launches['bwd'], 'K2b_w': kg.launches['wgrad'],
           'K3': kk.launches['shift']}
+
+
+def read_rank_launches():
+  """read_launches() and 'K3r', K3's remote copy between ranks."""
+  from ddsp_torch.kernels import halo as kk
+  return dict(read_launches(), K3r=kk.launches['remote_shift'])
 
 
 def requests():
@@ -5036,7 +5057,7 @@ def phase_sp_eval(torch, dev, work_dir, ckpt_dir, mesh):
   """[6k] evaluate_or_sample of phase 6b's SP checkpoint on its (1 x 4)
   mesh against the dense eval of the same checkpoint, batches and noise."""
   from ddsp_torch.data import ArrayDataProvider
-  from ddsp_torch.eval import BaseEvaluator, BasicEvaluator, evaluate_or_sample
+  from ddsp_torch.eval import BasicEvaluator, evaluate_or_sample
   from ddsp_torch.losses import SpectralLoss
   from ddsp_torch.parallel import sp_model
   from ddsp_torch.train import Trainer
@@ -5045,21 +5066,9 @@ def phase_sp_eval(torch, dev, work_dir, ckpt_dir, mesh):
         f'mesh: {EVAL_BATCHES} batches of {EVAL_BATCH} x 4 s against the '
         'dense eval', flush=True)
 
-  class AudioRecorder(BaseEvaluator):
-    """Keeps each batch's target and synthesized audio."""
-
-    def __init__(self):
-      super().__init__(SR, 250)
-      self.audio = []
-
-    def evaluate(self, batch, outputs, losses):
-      self.audio.append((batch['audio'], outputs['audio_synth']))
-
   provider = ArrayDataProvider(training_batch(), sample_rate=SR,
                                frame_rate=250)
-  noise = (torch.rand((EVAL_BATCH, N_SAMPLES),
-                      generator=torch.Generator().manual_seed(43)) * 2 -
-           1).to(dev)
+  noise = sp_eval_noise(torch, dev)
   runs = {}
   for name, m in (('sp', mesh), ('dense', None)):
     trainer = Trainer(build_model('solo_instrument', seed=1), mesh=m,
@@ -5070,7 +5079,7 @@ def phase_sp_eval(torch, dev, work_dir, ckpt_dir, mesh):
     evaluate_or_sample(provider, trainer, os.path.join(work_dir, f'w_{name}'),
                        evaluators=[BasicEvaluator(SR, 250)], num_batches=1,
                        **kwargs)
-    log, recorder = [], AudioRecorder()
+    log, recorder = [], audio_recorder()
     owner, attr = (sp_model, 'sp_forward_with_losses') if m else (
         trainer.model, 'forward')
     original = timed_calls(torch, owner, attr, log)
@@ -5094,7 +5103,8 @@ def phase_sp_eval(torch, dev, work_dir, ckpt_dir, mesh):
     runs[name] = {'scalars': scalars, 'launches': launches,
                   'loop_ms': 1e3 * seconds / EVAL_BATCHES,
                   'forward_ms': 1e3 * float(np.median(log)),
-                  'mag': float(np.mean(mags)), 'trainer': trainer}
+                  'mag': float(np.mean(mags)), 'trainer': trainer,
+                  'audio': [a for _, a in recorder.audio]}
     print(f'  {name}: ms per eval batch {runs[name]["loop_ms"]:.3f} (the '
           f'loop), {runs[name]["forward_ms"]:.3f} (the forward, median); '
           f'launches {launches}; scalars {scalars}; mean mag term '
@@ -5142,7 +5152,33 @@ def phase_sp_eval(torch, dev, work_dir, ckpt_dir, mesh):
   check(names['sp'] == names['dense'] and any(
       n.endswith('_synth.wav') for n in names['sp']),
         'SP sample writes the files the dense sample writes')
-  return sp['launches']
+  results = {name: {k: runs[name][k] for k in ('scalars', 'audio', 'loop_ms')}
+             for name in runs}
+  results['sample_names'] = names['sp']
+  return sp['launches'], results
+
+
+def sp_eval_noise(torch, dev):
+  """Phase 6k's eval noise, [EVAL_BATCH, N_SAMPLES], drawn on the CPU."""
+  return (torch.rand((EVAL_BATCH, N_SAMPLES),
+                     generator=torch.Generator().manual_seed(43)) * 2 -
+          1).to(dev)
+
+
+def audio_recorder():
+  """An evaluator that keeps each batch's target and synthesized audio."""
+  from ddsp_torch.eval import BaseEvaluator
+
+  class AudioRecorder(BaseEvaluator):
+
+    def __init__(self):
+      super().__init__(SR, 250)
+      self.audio = []
+
+    def evaluate(self, batch, outputs, losses):
+      self.audio.append((batch['audio'], outputs['audio_synth']))
+
+  return AudioRecorder()
 
 
 def phase_fir_sp(torch, dev):
@@ -5288,7 +5324,8 @@ def recording_gradients(torch, trainer, norms):
   def recording(state, names, params, grads):
     by_name = dict(zip(names, grads))
     decoder = global_norm(torch, by_name, 'decoder.')
-    ir = by_name[IR_NAME].double().norm().item()
+    ir = (by_name[IR_NAME].double().norm().item() if IR_NAME in by_name
+          else float('nan'))  # the vst preset's reverb has no 'ir
     norm = apply(state, names, params, grads)
     norms.append((decoder, ir, norm.item()))
     return norm
@@ -5329,7 +5366,6 @@ def ranks_dense(torch, dev, work_dir, rank):
 def ranks_long(torch, dev):
   """(c) make_sp_train_step at 30 s x B = 2 on a (1 x 4) mesh of the
   ranks: losses, launches, ms per step."""
-  from ddsp_torch.kernels import halo as kk
   from ddsp_torch.parallel import create_mesh, distributed, make_sp_train_step
   from ddsp_torch.utils import build_model
   n_samples = LONG_SECONDS * SR
@@ -5350,19 +5386,241 @@ def ranks_long(torch, dev):
     losses.append(train_step(batch, noise).item())
     torch.cuda.synchronize()
     times.append((time.perf_counter() - t0) * 1e3)
-  launches = read_launches()
-  launches['K3r'] = kk.launches['remote_shift']
+  launches = read_rank_launches()
   return dict(losses=losses, ms=times, launches=launches,
               samples=batch['audio'].shape[1], fft_sizes=fft_sizes)
 
 
-def ranks_worker(rank, work_dir):
-  """One rank of phase 6m: (a), (b) and (c) on cuda:0, its results to
-  work_dir. A failure prints its traceback and ends the process at once
-  (no collective teardown for the others to wait on)."""
+# (d)-(h): evaluation and sampling across ranks, and the sharded forward's
+# nodes and losses that gather across ranks. (d) evaluates phase 6b's
+# checkpoint on a (1 x 4) mesh of the ranks and (e) on a (4 x 1) one, both
+# against phase 6k's one-process evals of it (the same batches, noise and
+# evaluator); 'sample' on one batch.
+RANKS_EVAL_MESHES = {'sp': SP_MESH, 'dense': RANKS_DENSE_MESH}
+RANKS_SAMPLE_BATCHES = 1
+# (d) against phase 6k's one-process SP eval: the same shards, decoder rows
+# and noise, the same arithmetic; only the loss's sums run over ranks in
+# another order, and the gathered audio is the shards' own.
+RANKS_SP_EVAL_RTOL = 1e-4
+RANKS_SP_EVAL_AUDIO_ATOL = 1e-5
+# (e) against phase 6k's one-process dense eval: each rank runs the network
+# on one row, not four, so cuBLAS may pick other kernels and a bf16 stream
+# value may round to the next step (2^-8 of itself) where the float32 sum
+# straddles one; (b)'s losses read 1.2e-7 apart under the same rule. The
+# audio: a harmonic amplitude moved by 2^-8 moves a sample of a signal
+# whose peak is about 1 by 4e-3 at most.
+RANKS_DENSE_EVAL_RTOL = RANKS_LOSS_RTOL
+RANKS_DENSE_EVAL_AUDIO_ATOL = 1e-2
+# (f) the vst preset at full width on a (1 x 4) mesh of the ranks. At the
+# preset's own 4 s its clip is 64320 samples (201 hops of 320, one of them
+# for centered framing), which no mesh with 2 or 4 time shards takes:
+# 16080 samples a shard is not a whole number of the FilteredNoise's
+# 320-sample frames, and the one-process sharded forward refuses it as
+# well (parallel/time_shard.py local_fft_convolve_same, as the JAX
+# package's does). 3.9 s gives 196 hops, 49 a shard, and the Crop's 62400
+# samples split into 15600 a shard. (f), (g): every rank runs the network
+# on the whole batch, as one process does, so the forward is the same
+# arithmetic: the first loss at RANKS_LONG_FIRST_RTOL, and the Crop's
+# output, a gather and a slice of the same signals, at
+# RANKS_SP_EVAL_AUDIO_ATOL. The backward is not: each rank runs the
+# decoder's backward (K2b with bf16 streams) on its own shard's cotangent
+# and the ranks' parameter gradients are summed, where one process runs it
+# once on the shards' summed cotangent; the logmag term's 1/|X| on quiet
+# bins makes the shards' terms cancel, so the rounding shows in the sum
+# (a float32 rehearsal of (g) on the CPU at 16384 samples: 7.4e-4 apart).
+# The decoder's gradient norm is held at (b)'s RANKS_GRAD_NORM_RTOL. (h):
+# each rank runs the network on two rows, not four: (b)'s tolerances.
+RANKS_VST_SECONDS = 3.9
+RANKS_VST_BATCH = 4
+RANKS_VST_STEPS = 3
+RANKS_STEP_BATCH = 4
+RANKS_ROWS_MESH = (4, 2)
+RANKS_ROWS = 2
+
+
+def files_under(root):
+  """The files under root, relative to it, without TensorBoard's."""
+  return sorted(os.path.relpath(os.path.join(d, f), root)
+                for d, _, files in os.walk(root) for f in files
+                if not f.startswith('events.'))
+
+
+def first_examples(names, n):
+  """The names of sample files of examples 0 .. n - 1, and the others that
+  are not per example."""
+  keep = []
+  for name in names:
+    head = os.path.basename(name).split('_')[0]
+    if not head.isdigit() or int(head) < n:
+      keep.append(name)
+  return keep
+
+
+def ranks_eval(torch, dev, rank, work_dir, ckpt_dir, kind, mode, batches):
+  """(d), (e): evaluate_or_sample of phase 6b's checkpoint on a mesh of the
+  ranks (RANKS_EVAL_MESHES[kind]), phase 6k's batches, noise and
+  evaluator, after one untimed batch in 'eval'; each rank writes into its
+  own directory. The scalars, the audio rank 0's evaluators saw, the
+  launches, ms per batch (the loop; the forward's and the outputs'
+  gather's medians) and the files written."""
+  from ddsp_torch.data import ArrayDataProvider
+  from ddsp_torch.eval import BasicEvaluator, eval_util, evaluate_or_sample
+  from ddsp_torch.parallel import create_mesh, distributed, sp_model
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import build_model
+  mesh = create_mesh(*RANKS_EVAL_MESHES[kind], devices=[dev])
+  trainer = Trainer(build_model('solo_instrument', seed=1), mesh=mesh,
+                    device=dev, halo_impl='pallas')
+  recorder = audio_recorder()
+  save_dir = os.path.join(work_dir, f'{kind}_{mode}', f'rank{rank}')
+  provider = ArrayDataProvider(training_batch(), sample_rate=SR,
+                               frame_rate=250)
+  kwargs = dict(restore_dir=ckpt_dir, batch_size=EVAL_BATCH,
+                noise=sp_eval_noise(torch, dev))
+  if mode == 'eval':  # first calls (imports, FFT plans) out of the timing
+    evaluate_or_sample(provider, trainer, save_dir + '_warm',
+                       evaluators=[BasicEvaluator(SR, 250)], num_batches=1,
+                       **kwargs)
+  forward, gather = [], []
+  timed = [(sp_model, 'sp_forward_with_losses', forward) if kind == 'sp'
+           else (trainer.model, 'forward', forward),
+           (eval_util, 'gather_outputs', gather)]
+  originals = [(owner, attr, timed_calls(torch, owner, attr, log))
+               for owner, attr, log in timed]
+  distributed.barrier()
+  reset_launches()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  try:
+    scalars = evaluate_or_sample(
+        provider, trainer, save_dir, mode=mode,
+        evaluators=[BasicEvaluator(SR, 250), recorder], num_batches=batches,
+        **kwargs)
+  finally:
+    for owner, attr, fn in originals:
+      setattr(owner, attr, fn)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  return dict(scalars=scalars, audio=[a for _, a in recorder.audio],
+              launches=read_rank_launches(), ms=1e3 * seconds / batches,
+              forward_ms=1e3 * float(np.median(forward)),
+              gather_ms=1e3 * float(np.median(gather)),
+              files=files_under(save_dir) if os.path.isdir(save_dir) else [])
+
+
+def vst_batch(batch=RANKS_VST_BATCH, seed=3):
+  """Harmonic tones with a vibrato plus noise at RANKS_VST_SECONDS for the
+  vst preset, made with numpy from a seed: 'audio' [B, n], and 'f0_hz' and
+  'f0_confidence' at its 50 centered frames a second."""
+  n = int(RANKS_VST_SECONDS * SR)
+  frames = n // VST_HOP + 1
+  rng = np.random.RandomState(seed)
+  t = np.arange(frames) * VST_HOP / SR
+  f0 = 110.0 * 2.0**(2.0 * rng.rand(batch, 1) + 0.1 * np.sin(
+      2 * np.pi * (0.5 + rng.rand(batch, 1)) * t[None]))
+  phase = 2 * np.pi * np.cumsum(np.repeat(f0, VST_HOP, axis=1)[:, :n],
+                                axis=1) / SR
+  audio = sum(0.25 / h * np.sin(h * phase) for h in range(1, 9))
+  audio = audio + 0.01 * rng.randn(batch, n)
+  return {'audio': audio.astype(np.float32), 'f0_hz': f0.astype(np.float32),
+          'f0_confidence': np.ones_like(f0, np.float32)}
+
+
+def step_noise(torch, dev, rows, n_samples, seed):
+  """The noise processors' draw for a step, made on the CPU."""
+  return (torch.rand((rows, n_samples),
+                     generator=torch.Generator().manual_seed(seed)) * 2 -
+          1).to(dev)
+
+
+def vst_convolutions(t_local, n_samples):
+  """(t_local, frame, ir_size, delay) of the vst preset's time-sharded
+  convolutions: the FilteredNoiseReverb (one IR frame of 24000 taps, no
+  delay) and the filtered noise (65 bands: 128-tap IRs of 320-sample
+  frames, delay 62)."""
+  noise_ir = 2 * (N_NOISE - 1)
+  return [(t_local, n_samples, 24000, 0),
+          (t_local, VST_HOP, noise_ir, (noise_ir - 1) // 2 - 1)]
+
+
+def ranks_case_model(torch, dev, case):
+  """The model of (f), (g) or (h), from its seed: the vst preset at full
+  width and RANKS_VST_SECONDS, solo_instrument with an L2 SpectralLoss of
+  the same sizes and weights, or solo_instrument."""
+  from ddsp_torch.losses import SpectralLoss
+  from ddsp_torch.utils import build_model
+  if case == 'vst':
+    return build_model('vst', seed=0, device=dev, seconds=RANKS_VST_SECONDS,
+                       **VST_KWARGS)
+  model = build_model('solo_instrument', seed=0, device=dev)
+  if case == 'l2':
+    loss = model.losses[0]
+    model.losses[0] = SpectralLoss(
+        fft_sizes=tuple(loss.fft_sizes), loss_type='L2',
+        mag_weight=loss.mag_weight, logmag_weight=loss.logmag_weight)
+  return model
+
+
+RANKS_CASES = {  # case: (mesh, global batch, batch maker, steps on ranks)
+    'vst': (SP_MESH, RANKS_VST_BATCH, vst_batch, RANKS_VST_STEPS),
+    'l2': (SP_MESH, RANKS_STEP_BATCH, training_batch, 1),
+    'rows': (RANKS_ROWS_MESH, RANKS_STEP_BATCH, training_batch, 1)}
+
+
+def ranks_case(torch, dev, case, mesh, steps):
+  """(f), (g), (h) on `mesh` (of the ranks, or all its shards in this
+  process): for the vst preset first one forward without gradients (the
+  Crop's signal, this process's samples), then Trainer steps with one noise
+  draw: losses, reduced gradient norms, launches (K3r the remote copy) and
+  ms per step."""
+  from ddsp_torch.parallel import distributed, sp_forward_with_losses
+  from ddsp_torch.parallel import mesh as mesh_lib
+  from ddsp_torch.train import Trainer
+  _, batch_size, make_batch, _ = RANKS_CASES[case]
+  model = ranks_case_model(torch, dev, case)
+  n_samples = model.processor_group.harmonic.n_samples
+  trainer = Trainer(model, mesh=mesh, halo_impl='pallas', seed=0)
+  rows = mesh_lib.local_rows(mesh, batch_size)
+  batch = trainer.to_device(mesh_lib.shard_batch(mesh, make_batch(
+      batch_size)))
+  noise = step_noise(torch, dev, batch_size, n_samples, 47)[rows]
+  out = {}
+  if case == 'vst':
+    with torch.no_grad():
+      outputs, _ = sp_forward_with_losses(model, batch, mesh,
+                                          halo_impl='pallas', training=False,
+                                          noise=noise)
+    out['crop'] = outputs['crop']['signal'].cpu()
+    del outputs
+  norms, losses, times = [], [], []
+  recording_gradients(torch, trainer, norms)
+  state = trainer.init()
+  if mesh.ranks:
+    distributed.barrier()
+  reset_launches()
+  for _ in range(steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, step_losses = trainer.train_step(state, batch, noise=noise)
+    losses.append(step_losses['total_loss'].item())
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+  out.update(losses=losses, norms=norms, ms=times,
+             launches=read_rank_launches(),
+             rows=int(batch['audio'].shape[0]),
+             samples=int(batch['audio'].shape[1]), n_samples=n_samples,
+             fft_sizes=tuple(model.losses[0].fft_sizes))
+  return out
+
+
+def ranks_worker(rank, work_dir, ckpt_dir):
+  """One rank of phase 6m on cuda:0, its results to work_dir: (a)-(g) on
+  the four ranks, then (h) on the first RANKS_ROWS in a group of their own.
+  A failure prints its traceback and ends the process at once (no
+  collective teardown for the others to wait on)."""
   import traceback  # pylint: disable=g-import-not-at-top
   import torch  # pylint: disable=g-import-not-at-top
-  from ddsp_torch.parallel import distributed
+  from ddsp_torch.parallel import create_mesh, distributed
   try:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5372,13 +5630,44 @@ def ranks_worker(rank, work_dir):
         world_size=RANKS)
     result = {'shifts': ranks_shifts(torch, dev, rank),
               'dense': ranks_dense(torch, dev, work_dir, rank),
-              'long': ranks_long(torch, dev)}
+              'long': ranks_long(torch, dev),
+              'sp_eval': ranks_eval(torch, dev, rank, work_dir, ckpt_dir,
+                                    'sp', 'eval', EVAL_BATCHES),
+              'sp_sample': ranks_eval(torch, dev, rank, work_dir, ckpt_dir,
+                                      'sp', 'sample', RANKS_SAMPLE_BATCHES),
+              'dense_eval': ranks_eval(torch, dev, rank, work_dir, ckpt_dir,
+                                       'dense', 'eval', EVAL_BATCHES)}
+    for case in ('vst', 'l2'):
+      result[case] = ranks_case(torch, dev, case, create_mesh(
+          *RANKS_CASES[case][0], devices=[dev]), RANKS_CASES[case][3])
     torch.save(result, os.path.join(work_dir, f'rank{rank}.pt'))
     distributed.shutdown()
+    if rank < RANKS_ROWS:
+      distributed.init(
+          device=dev, backend=RANKS_BACKEND,
+          init_method='file://' + os.path.join(work_dir, 'init_rows'),
+          rank=rank, world_size=RANKS_ROWS)
+      shape = RANKS_CASES['rows'][0]
+      per_rank = shape[0] * shape[1] // RANKS_ROWS
+      rows = ranks_case(torch, dev, 'rows',
+                        create_mesh(*shape, devices=[dev] * per_rank), 1)
+      torch.save(rows, os.path.join(work_dir, f'rows{rank}.pt'))
+      distributed.shutdown()
   except BaseException:  # pylint: disable=broad-except
     traceback.print_exc()
     sys.stderr.flush()
     os._exit(1)  # pylint: disable=protected-access
+
+
+def cases_reference(torch, dev):
+  """(f), (g), (h)'s one-process runs: each case's mesh with every shard
+  in this process on the card."""
+  from ddsp_torch.parallel import create_mesh
+  out = {}
+  for case, (shape, _, _, _) in RANKS_CASES.items():
+    mesh = create_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+    out[case] = ranks_case(torch, dev, case, mesh, 1)  # the first step's held
+  return out
 
 
 def dense_reference(torch):
@@ -5397,23 +5686,31 @@ def dense_reference(torch):
   return losses, norms
 
 
-def phase_ranks(torch, long_losses):
+def phase_ranks(torch, dev, long_losses, ckpt_dir, sp_evals):
   """[6m] four torch.distributed ranks on the one card: K3's remote copy,
-  the (4 x 1) dense step and the (1 x 4) long-audio step, each against its
-  one-process counterpart. Returns (launches of (c) on rank 0, the remote
-  copy's kernel entry)."""
+  the (4 x 1) dense step, the (1 x 4) long-audio step, phase 6b's
+  checkpoint evaluated and sampled on (1 x 4) and (4 x 1) meshes of the
+  ranks, the vst preset's and an L2 loss's steps on a (1 x 4) one, and a
+  (4 x 2) SP step over two ranks of two whole rows each, each against its
+  one-process counterpart (phase 6k's evals: sp_evals). Returns (rank 0's
+  launches by path, the remote copy's kernel entry)."""
   import torch.multiprocessing as mp  # pylint: disable=g-import-not-at-top
   print(f'[6m] {RANKS} ranks on one card ({RANKS_BACKEND}: NCCL refuses two '
         f'ranks on one card): (a) K3\'s remote copy, (b) a {RANKS_DENSE_MESH} '
         f'solo_instrument step at {BATCH} x 4 s, (c) the long-audio step on '
-        f'a {SP_MESH} mesh of ranks; times are of four ranks time-sliced on '
-        'one card', flush=True)
+        f'a {SP_MESH} mesh of ranks, (d) SP eval and sample on a {SP_MESH} '
+        f'mesh of ranks, (e) dense eval on a {RANKS_DENSE_MESH} one, (f) the '
+        f'vst preset ({RANKS_VST_SECONDS} s, B = {RANKS_VST_BATCH}) and (g) '
+        f'an L2 SpectralLoss step on a {SP_MESH} one, (h) a '
+        f'{RANKS_ROWS_MESH} SP step over {RANKS_ROWS} ranks; times are of '
+        'ranks time-sliced on one card', flush=True)
   want_losses, want_norms = dense_reference(torch)
+  references = cases_reference(torch, dev)
   torch.cuda.synchronize()
   with tempfile.TemporaryDirectory() as work_dir:
     t0 = time.time()
-    ctx = mp.start_processes(ranks_worker, args=(work_dir,), nprocs=RANKS,
-                             join=False, start_method='spawn')
+    ctx = mp.start_processes(ranks_worker, args=(work_dir, ckpt_dir),
+                             nprocs=RANKS, join=False, start_method='spawn')
     try:
       while not ctx.join(timeout=10):
         check(time.time() - t0 < RANKS_TIMEOUT_S,
@@ -5432,6 +5729,9 @@ def phase_ranks(torch, long_losses):
                         weights_only=False) for r in range(RANKS)]
     params = [torch.load(os.path.join(work_dir, f'params{r}.pt'))
               for r in range(RANKS)]
+    for r in range(RANKS_ROWS):
+      ranks[r]['rows'] = torch.load(os.path.join(work_dir, f'rows{r}.pt'),
+                                    weights_only=False)
 
   # (a) the remote copy.
   for r, result in enumerate(ranks):
@@ -5509,10 +5809,147 @@ def phase_ranks(torch, long_losses):
     print(f'  (c) step {step}: loss {apart:.3e} apart')
     check(apart <= rtol, f'(c) step {step}: the loss within {rtol} of phase '
           '6k\'s one-process step')
-  launches = dict(ranks[0]['long']['launches'])
+  paths = {'ranks': dict(ranks[0]['long']['launches'])}
+  paths.update(ranks_evals_checked(ranks, sp_evals))
+  paths.update(ranks_cases_checked(torch, ranks, references))
   err = max(case['err'] for result in ranks
             for case in result['shifts']['cases'])
-  return launches, remote_copy_entry(shifts, launches['K3r'], err)
+  entry = remote_copy_entry(shifts, paths['ranks']['K3r'], err)
+  entry['launches_by_path'] = {path: run['K3r'] for path, run in
+                               paths.items()}
+  entry['launches_per'] = {unit: paths[path]['K3r'] / n for path, (unit, n)
+                           in PER_UNIT.items() if path in paths}
+  print(f"  {entry['name']}: launches on rank 0 by path "
+        f"{entry['launches_by_path']}, per unit {entry['launches_per']}",
+        flush=True)
+  return paths, entry
+
+
+def ranks_evals_checked(ranks, sp_evals):
+  """(d), (e): the evals across ranks against phase 6k's; rank 0's
+  launches by path."""
+  t_local = N_SAMPLES // SP_MESH[1]
+  k3 = {'sp': sp_k3_launches(solo_instrument_convolutions(t_local),
+                             ranks[0]['long']['fft_sizes'], backward=False),
+        'dense': 0}
+  rtol = {'sp': RANKS_SP_EVAL_RTOL, 'dense': RANKS_DENSE_EVAL_RTOL}
+  atol = {'sp': RANKS_SP_EVAL_AUDIO_ATOL,
+          'dense': RANKS_DENSE_EVAL_AUDIO_ATOL}
+  for kind, label in (('sp', '(d)'), ('dense', '(e)')):
+    want = sp_evals[kind]
+    mesh = RANKS_EVAL_MESHES[kind]
+    for r, result in enumerate(ranks):
+      got = result[f'{kind}_eval']
+      print(f'  {label} rank {r}: scalars {got["scalars"]}, ms per eval '
+            f'batch {got["ms"]:.3f}; launches {got["launches"]}')
+      check(set(got['scalars']) == set(want['scalars']) and all(
+          abs(v - want['scalars'][k]) <= rtol[kind] * abs(want['scalars'][k])
+          for k, v in got['scalars'].items()),
+            f'{label} rank {r}: the scalars of the eval on a {mesh} mesh of '
+            f'ranks within {rtol[kind]} of phase 6k\'s one-process '
+            f'{kind} eval')
+      launches = got['launches']
+      if kind == 'sp':
+        check(launches['K2f'] == EVAL_BATCHES and
+              launches['K3r'] == k3['sp'] * EVAL_BATCHES and
+              launches['K3'] == 0 and all(
+                  launches[k] == 0 for k in ('K1f', 'K1t', 'K1p', 'K2b')),
+              f'{label} rank {r}: K2f once and the remote copy {k3["sp"]} '
+              'times a batch (counted from the code), no local K3, no K1 '
+              'and no backward kernel')
+      else:
+        check(launches['K1f'] == launches['K2f'] == EVAL_BATCHES and
+              launches['K3'] == launches['K3r'] == 0,
+              f'{label} rank {r}: K1f and K2f once a batch, no K3')
+      check(r == 0 or (not got['audio'] and not got['files']),
+            f'{label} rank {r}: only rank 0 evaluates and writes')
+    got = ranks[0][f'{kind}_eval']
+    apart = max(float(np.abs(a - b).max())
+                for a, b in zip(got['audio'], want['audio']))
+    print(f'  {label} the audio gathered on rank 0 against one process: max '
+          f'|err| {apart:.3e}; ms per eval batch across ranks '
+          f'{got["ms"]:.3f} (rank 0, the loop; of it the forward '
+          f'{got["forward_ms"]:.3f} and the outputs\' gather '
+          f'{got["gather_ms"]:.3f}, medians), one process '
+          f'{want["loop_ms"]:.3f}')
+    check(len(got['audio']) == EVAL_BATCHES and
+          got['audio'][0].shape == (EVAL_BATCH, N_SAMPLES) and
+          apart <= atol[kind],
+          f'{label} the gathered audio_synth within {atol[kind]} of the '
+          'one-process eval\'s')
+    check(got['files'] == ['eval/metrics.jsonl'],
+          f'{label} rank 0 wrote the eval\'s metrics')
+  files = [result['sp_sample']['files'] for result in ranks]
+  want = first_examples(sp_evals['sample_names'],
+                        EVAL_BATCH * RANKS_SAMPLE_BATCHES)
+  print(f'  (d) sample: rank 0 wrote {len(files[0])} files, one process '
+        f'{len(want)} for its first {RANKS_SAMPLE_BATCHES} batch')
+  check(files[0] == want and not any(files[1:]) and
+        ranks[0]['sp_sample']['scalars'] == {},
+        '(d) \'sample\' across ranks: rank 0 wrote the files one process '
+        'writes, the others none')
+  return {'ranks_sp_eval': ranks[0]['sp_eval']['launches'],
+          'ranks_dense_eval': ranks[0]['dense_eval']['launches']}
+
+
+def ranks_cases_checked(torch, ranks, references):
+  """(f), (g), (h): the steps across ranks against the one-process steps;
+  rank 0's launches by path."""
+  labels = {'vst': '(f)', 'l2': '(g)', 'rows': '(h)'}
+  loss_rtol = {'vst': RANKS_LONG_FIRST_RTOL, 'l2': RANKS_LONG_FIRST_RTOL,
+               'rows': RANKS_LOSS_RTOL}
+  norm_rtol = RANKS_GRAD_NORM_RTOL
+  for case, label in labels.items():
+    want = references[case]
+    holders = ranks[:RANKS_ROWS] if case == 'rows' else ranks
+    steps = RANKS_CASES[case][3]
+    t_local = want['n_samples'] // RANKS_CASES[case][0][1]
+    convolutions = (vst_convolutions(t_local, want['n_samples'])
+                    if case == 'vst' else
+                    solo_instrument_convolutions(t_local))
+    k3 = sp_k3_launches(convolutions,
+                        want['fft_sizes'] if case != 'l2' else ())
+    for r, result in enumerate(holders):
+      got = result[case]
+      launches = got['launches']
+      print(f'  {label} rank {r}: {got["rows"]} rows x {got["samples"]} '
+            f'samples; losses {[round(l, 5) for l in got["losses"]]}, '
+            'gradient norms (decoder, reverb IR, global) '
+            f'{[tuple(round(n, 5) for n in s) for s in got["norms"]]}, ms per '
+            f'step {[round(t, 1) for t in got["ms"]]}; launches {launches}')
+      remote, local = (0, k3) if case == 'rows' else (k3, 0)
+      check(launches['K2f'] == launches['K2b'] == steps and
+            launches['K3r'] == remote * steps and
+            launches['K3'] == local * steps,
+            f'{label} rank {r}: K2f and K2b once a step, the remote copy '
+            f'{remote} and the local shift {local} times a step (counted '
+            'from the code)')
+      check(all(np.isfinite(got['losses'])) and
+            got['losses'] == holders[0][case]['losses'],
+            f'{label} rank {r}: finite losses, equal to rank 0\'s')
+    got = holders[0][case]
+    loss_apart = abs(got['losses'][0] - want['losses'][0]) / abs(
+        want['losses'][0])
+    norm_apart = abs(got['norms'][0][0] - want['norms'][0][0]) / (
+        want['norms'][0][0])
+    print(f'  {label} one process: loss {want["losses"][0]:.5f}, decoder '
+          f'gradient norm {want["norms"][0][0]:.5f}, ms per step '
+          f'{want["ms"][0]:.1f}; across ranks {loss_apart:.3e} and '
+          f'{norm_apart:.3e} apart')
+    check(loss_apart <= loss_rtol[case] and norm_apart <= norm_rtol,
+          f'{label} the first loss within {loss_rtol[case]} and the '
+          f'decoder\'s gradient norm within {norm_rtol} of the one-process '
+          'step')
+  crop = torch.cat([result['vst']['crop'] for result in ranks], dim=1)
+  apart = (crop - references['vst']['crop']).abs().max().item()
+  print(f'  (f) the Crop\'s signal, gathered and sliced on each rank, '
+        f'against one process: {tuple(crop.shape)}, max |err| {apart:.3e}; '
+        f'ms per vst step a rank {[round(t, 1) for t in ranks[0]["vst"]["ms"]]}')
+  check(crop.shape == references['vst']['crop'].shape and
+        apart <= RANKS_SP_EVAL_AUDIO_ATOL,
+        f'(f) the Crop across ranks within {RANKS_SP_EVAL_AUDIO_ATOL} of the '
+        'one-process signal')
+  return {f'ranks_{case}': ranks[0][case]['launches'] for case in labels}
 
 
 def remote_copy_entry(shifts, launches, err):
@@ -5552,7 +5989,12 @@ def remote_copy_entry(shifts, launches, err):
 
 
 PER_UNIT = {'long_audio': ('long_audio_step', LONG_WARMUP + LONG_STEPS),
-            'sp_eval': ('sp_eval_batch', EVAL_BATCHES)}
+            'sp_eval': ('sp_eval_batch', EVAL_BATCHES),
+            'ranks_sp_eval': ('ranks_sp_eval_batch', EVAL_BATCHES),
+            'ranks_dense_eval': ('ranks_dense_eval_batch', EVAL_BATCHES),
+            'ranks_vst': ('ranks_vst_step', RANKS_VST_STEPS),
+            'ranks_l2': ('ranks_l2_step', 1),
+            'ranks_rows': ('ranks_rows_step', 1)}
 
 
 def add_launches(entry, launches, key):
@@ -6260,10 +6702,12 @@ def main(argv=None):
           torch, dev, dense_ms, args.profile, os.path.join(sp_dir, 'train'))
       launches['long_audio'], long_losses = phase_long_audio(
           torch, dev, args.profile)
-      launches['sp_eval'] = phase_sp_eval(
+      launches['sp_eval'], sp_evals = phase_sp_eval(
           torch, dev, sp_dir, os.path.join(sp_dir, 'train'), sp_mesh)
       launches['fir_sp'] = phase_fir_sp(torch, dev)
-    launches['ranks'], remote_entry = phase_ranks(torch, long_losses)
+      ranks_paths, remote_entry = phase_ranks(
+          torch, dev, long_losses, os.path.join(sp_dir, 'train'), sp_evals)
+      launches.update(ranks_paths)
     kernels = phase_report(torch, port, reqs, launches, dev, args.profile)
     kernels.append(k3_entry(torch, launches, k3_per_step, sp_mesh, dev))
     kernels.append(vst_entry)

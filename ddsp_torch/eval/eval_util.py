@@ -6,6 +6,11 @@ with Trainer.restore, run a fixed set of batches through the model in eval
 mode on the trainer's device (through the sequence-parallel forward when
 the trainer's mesh shards time), hand them to the evaluators, and write
 their scalars to <save_dir>/<mode>/metrics.jsonl.
+
+On a mesh over torch.distributed ranks every rank reads the same fixed
+eval set and runs the forward on its part of each batch; the outputs are
+gathered into the global batch (`gather_outputs`), and rank 0 alone runs
+the evaluators and writes. Every rank returns the same scalars.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from ddsp_torch.eval.evaluators import (BaseEvaluator, BasicEvaluator,
                                         MidiHeuristicEvaluator, TWMEvaluator)
 from ddsp_torch.models.inverse_synthesis import InverseSynthesis
 from ddsp_torch.models.midi_autoencoder import MidiAutoencoder
-from ddsp_torch.parallel import sp_model
+from ddsp_torch.parallel import distributed, sp_model
+from ddsp_torch.parallel import mesh as mesh_lib
+from ddsp_torch.proc.synths import RowDraws
 from ddsp_torch.train.train_loop import MetricsWriter
 from ddsp_torch.utils import checkpoints
 
@@ -101,6 +108,75 @@ def default_evaluators(model, data_provider, device,
   return evaluators
 
 
+def _time_local_ids(outputs: Dict[str, Any]) -> set:
+  """The ids of the time-local leaves of a sharded forward's outputs on a
+  rank that holds part of a data row: every processor node's signal
+  ('audio_synth' among them) and the controls that are such signals."""
+  signals = {id(v['signal']) for v in outputs.values()
+             if isinstance(v, dict) and set(v) == {'signal', 'controls'}}
+
+  def leaves(tree):
+    if isinstance(tree, dict):
+      for v in tree.values():
+        yield from leaves(v)
+    elif isinstance(tree, torch.Tensor):
+      yield tree
+
+  return {id(x) for x in leaves(outputs) if id(x) in signals}
+
+
+def gather_outputs(outputs: Any, mesh, local_batch: int) -> Any:
+  """A rank's forward outputs assembled into the global batch's.
+
+  Collective: every rank calls it with outputs of the same structure. The
+  rule: a tensor leaf whose first dim is the rank's `local_batch` rows is
+  gathered over every rank. The time-local leaves of a sharded forward on
+  a rank that holds part of a data row (each processor node's signal,
+  'audio_synth', and the controls that are those signals) are joined
+  along the samples over the row's ranks, then the rows over the data
+  rows; every other leaf (the features, the frame-rate controls, the
+  controls of a node that gathered its inputs) is replicated over 'time'
+  and read from the row's first rank, then joined over the data rows.
+  Other leaves are the same on every rank and kept. bf16 leaves come back
+  float32.
+  """
+  ranks = mesh.ranks
+  time_local = (_time_local_ids(outputs) if ranks.time_group is not None
+                else set())
+  done = {}
+
+  def gather(tree):
+    if isinstance(tree, dict):
+      return {k: gather(v) for k, v in tree.items()}
+    if not (isinstance(tree, torch.Tensor) and tree.ndim
+            and tree.shape[0] == local_batch):
+      return tree
+    if id(tree) not in done:
+      x = tree.detach()
+      x = x.float() if x.dtype == torch.bfloat16 else x
+      done[id(tree)] = distributed.gather_blocks(
+          x, ranks, time_local=id(tree) in time_local)
+    return done[id(tree)]
+
+  return gather(outputs)
+
+
+def _checkpoint_steps(restore_dir, delay_secs, run_once, ranks):
+  """checkpoints_iterator's steps; across ranks, rank 0's, broadcast."""
+  if ranks is None:
+    yield from checkpoints_iterator(restore_dir, delay_secs,
+                                    run_once=run_once)
+    return
+  steps = (checkpoints_iterator(restore_dir, delay_secs, run_once=run_once)
+           if ranks.rank == 0 else None)
+  while True:
+    step = distributed.broadcast_object(
+        next(steps, None) if steps is not None else None)
+    if step is None:
+      return
+    yield step
+
+
 def evaluate_or_sample(data_provider,
                        trainer,
                        save_dir: str,
@@ -124,15 +200,18 @@ def evaluate_or_sample(data_provider,
     mode: 'eval' (metrics) or 'sample' (audio/image artifacts).
     evaluators: Evaluator instances; default `default_evaluators` (for
       most models [BasicEvaluator, F0LdEvaluator] on the trainer's
-      device).
-    batch_size: Eval batch size.
+      device). Across ranks only rank 0's are used.
+    batch_size: Eval batch size: the global batch across ranks, which
+      must divide over the mesh's data rows.
     num_batches: Batches per checkpoint.
     ckpt_delay_secs: Poll interval.
     run_once: Evaluate only the latest checkpoint then return.
     run_until_step: Stop when a checkpoint >= this step was evaluated.
-    noise: The noise processors' noise (as the model's forward takes it).
-      None draws it from a generator seeded with 0 on the trainer's
-      device for every batch, as the JAX loop fixes PRNGKey(0).
+    noise: The noise processors' noise (as the model's forward takes it,
+      for the global batch: across ranks each rank keeps its rows). None
+      draws it from a generator seeded with 0 on the trainer's device for
+      every batch, as the JAX loop fixes PRNGKey(0); across ranks each rank
+      draws the global batch's and keeps its rows (RowDraws).
 
   Returns:
     The scalars of the last checkpoint evaluated ({} in 'sample' mode).
@@ -140,15 +219,12 @@ def evaluate_or_sample(data_provider,
   Raises:
     ValueError: for a trainer whose mesh shards time and a model that the
       sharded forward does not take (parallel.sp_model.check_sp_model).
-    NotImplementedError: for a trainer on a mesh over ranks.
   """
   if mode not in ('eval', 'sample'):
     raise ValueError(f"mode must be 'eval' or 'sample', got {mode!r}.")
   mesh = getattr(trainer, 'mesh', None)
-  if mesh is not None and mesh.ranks is not None:
-    raise NotImplementedError(
-        'Evaluating and sampling on a mesh over ranks is ROADMAP.md queue 1 '
-        'item 8; evaluate the checkpoint in one process.')
+  ranks = mesh.ranks if mesh is not None else None
+  writes = ranks is None or ranks.rank == 0
   restore_dir = restore_dir or save_dir
   # On a mesh that shards time the batches go through the training step's
   # sequence-parallel forward, so a model trained at audio lengths that
@@ -161,40 +237,59 @@ def evaluate_or_sample(data_provider,
   # metric curve follows the model, not the data.
   iterator = data_provider.get_batch(batch_size, shuffle=False, repeats=-1)
   eval_batches = [next(iterator) for _ in range(num_batches)]
-  if evaluators is None:
+  if evaluators is None and writes:
     evaluators = default_evaluators(trainer.model, data_provider,
                                     trainer.device, eval_batches[0])
   state = trainer.init(eval_batches[0])
-  writer = MetricsWriter(os.path.join(save_dir, mode))
+  writer = MetricsWriter(os.path.join(save_dir, mode)) if writes else None
   model = trainer.model
+  if ranks is not None:
+    rows = mesh_lib.local_rows(mesh, batch_size)
+    if noise is not None:
+      noise = noise[rows]
   scalars = {}
   try:
-    for _ in checkpoints_iterator(restore_dir, ckpt_delay_secs,
-                                  run_once=run_once):
+    for _ in _checkpoint_steps(restore_dir, ckpt_delay_secs, run_once,
+                               ranks):
       state = trainer.restore(state, restore_dir)
+      if ranks is not None:  # rank 0's checkpoint, whatever the others read
+        mesh_lib.replicate(mesh, list(state.params.values()))
+        state.step = distributed.broadcast_object(int(state.step))
       step = int(state.step)
       logger.info('Evaluating checkpoint at step %d.', step)
 
       for batch_idx, batch in enumerate(eval_batches):
         t0 = time.time()
-        generator = (torch.Generator(trainer.device).manual_seed(0)
-                     if noise is None else None)
+        generator = None
+        if noise is None:
+          generator = (RowDraws(trainer.device) if ranks is not None
+                       else torch.Generator(trainer.device)).manual_seed(0)
+          if ranks is not None:
+            generator.n_rows, generator.rows = batch_size, rows
+        features = trainer.to_device(mesh_lib.shard_batch(mesh, batch)
+                                     if ranks is not None else batch)
         # training=False; the losses are computed all the same
         # (return_losses=True), as the JAX loop computes them.
         with torch.no_grad():
           if use_sp:
             outputs, losses = sp_model.sp_forward_with_losses(
-                model, trainer.to_device(batch), mesh,
-                halo_impl=trainer.halo_impl, training=False, noise=noise,
-                generator=generator)
+                model, features, mesh, halo_impl=trainer.halo_impl,
+                training=False, noise=noise, generator=generator)
           else:
-            outputs, losses = model(trainer.to_device(batch),
-                                    training=False, return_losses=True,
-                                    noise=noise, generator=generator)
+            outputs, losses = model(features, training=False,
+                                    return_losses=True, noise=noise,
+                                    generator=generator)
+          if ranks is not None:
+            if not use_sp:  # each rank's losses are its rows' means
+              losses = dict(zip(losses, distributed.mean_over_ranks(
+                  list(losses.values()))))
+            outputs = gather_outputs(outputs, mesh, rows.stop - rows.start)
         outputs = to_host(outputs)
         losses = {k: float(v) for k, v in losses.items()}
         logger.info('Predictions for batch %d/%d took %.2fs',
                     batch_idx + 1, num_batches, time.time() - t0)
+        if not writes:
+          continue
         host_batch = {k: np.asarray(v) for k, v in batch.items()}
         for evaluator in evaluators:
           if mode == 'eval':
@@ -204,12 +299,16 @@ def evaluate_or_sample(data_provider,
 
       if mode == 'eval':
         scalars = {}
-        for evaluator in evaluators:
-          scalars.update(evaluator.flush(step))
-        writer.scalars(step, scalars)
+        if writes:
+          for evaluator in evaluators:
+            scalars.update(evaluator.flush(step))
+          writer.scalars(step, scalars)
+        if ranks is not None:
+          scalars = distributed.broadcast_object(scalars)
 
       if run_until_step and step >= run_until_step:
         break
   finally:
-    writer.close()
+    if writer is not None:
+      writer.close()
   return scalars

@@ -4,9 +4,10 @@ The port's counterpart of jax.distributed.initialize, jax.process_index and
 jax.process_count. PyTorch runs one process per card (JAX runs one per
 host), so a mesh over ranks gives each rank the shards of one device: a
 contiguous run of the mesh's row-major ('data', 'time') order
-(parallel/mesh.py). `init` starts the process group from torchrun's
-environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR / MASTER_PORT) or
-from explicit arguments, and `shutdown` releases K3's mapped receive slots
+(parallel/mesh.py), either a run of one data row's time shards or whole
+data rows. `init` starts the process group from torchrun's environment
+(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR / MASTER_PORT) or from explicit
+arguments, and `shutdown` releases K3's mapped receive slots
 (kernels/halo.py) before it ends the group.
 
 The collectives of the sharded step are differentiable:
@@ -15,12 +16,21 @@ The collectives of the sharded step are differentiable:
     passes the cotangent through: every rank seeds the same cotangent on
     its replica of the sum, which is the cotangent of each rank's part.
   * `gather_over_ranks` is the all-gather of the phase totals over a data
-    row's 'time' ranks. Each rank reads the gathered copy in its own way,
-    so its backward sums the ranks' cotangents (an all-reduce) and keeps
-    this rank's part.
+    row's 'time' ranks, and `gather_samples` the same gather of a row's
+    time-local signals along the sample axis, for a node whose output
+    each rank slices again. Each rank reads the gathered copy in its own
+    way, so their backward sums the ranks' cotangents (an all-reduce) and
+    keeps this rank's part.
+  * `gather_global` assembles the global [batch, samples] signal from
+    every rank's block, for a value that every rank computes whole from
+    it (a loss). Every rank holds that whole value and the step sums the
+    parameter gradients over the ranks, so its backward keeps this rank's
+    block of its own cotangent and sums nothing: summing there would count
+    the loss once for each rank of a row.
 
 `all_reduce_` sums the gradients over every rank in place, through one
-flat buffer; `mean_over_ranks` averages the dense step's loss scalars.
+flat buffer; `mean_over_ranks` averages the dense step's loss scalars;
+`gather_blocks` and `broadcast_object` serve the eval loop.
 
 A gloo group moves CPU tensors; a CUDA tensor on a gloo group is staged
 through the host.
@@ -31,7 +41,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -132,10 +142,12 @@ class Ranks:
   """Where this process sits in a mesh over ranks.
 
   Rank r holds shards [r * per_rank, (r + 1) * per_rank) of the mesh's
-  row-major order, all in one data row. `time_group` holds the ranks of
-  that row in time order (`time_ranks`); it is None when one rank holds
-  its whole row. The 'data' axis has no group of its own: the sums over
-  ('data', 'time') of the loss and the gradients run over every rank.
+  row-major order: a run of time shards within one data row, or whole data
+  rows (per_rank a multiple of the row's n_time). `time_group` holds the
+  ranks of its data row in time order (`time_ranks`); it is None when one
+  rank holds its whole row (`time_ranks` is then this rank alone). The
+  'data' axis has no group of its own: the sums over ('data', 'time') of
+  the loss and the gradients run over every rank.
   """
 
   rank: int
@@ -143,6 +155,11 @@ class Ranks:
   per_rank: int
   time_ranks: Tuple[int, ...]
   time_group: Optional[object]
+
+  @property
+  def row_ranks(self) -> int:
+    """The ranks that share a data row (1 when a rank holds whole rows)."""
+    return len(self.time_ranks)
 
 
 def mesh_ranks(n_data: int, n_time: int) -> Ranks:
@@ -157,13 +174,13 @@ def mesh_ranks(n_data: int, n_time: int) -> Ranks:
     raise ValueError(f'A ({n_data} x {n_time}) mesh does not divide over '
                      f'{n_ranks} ranks.')
   per_rank = size // n_ranks
-  if n_time % per_rank:
+  if n_time % per_rank and per_rank % n_time:
     raise NotImplementedError(
-        f'{per_rank} shards a rank on a ({n_data} x {n_time}) mesh span more '
-        'than one data row; a rank of a mesh over ranks holds shards of one '
-        'row (ROADMAP.md queue 1 item 8).')
+        f'{per_rank} shards a rank on a ({n_data} x {n_time}) mesh straddle '
+        'a data row boundary; a rank of a mesh over ranks holds a run of one '
+        'row\'s time shards or whole rows (ROADMAP.md queue 1 item 10).')
   me = rank()
-  ranks_per_row = n_time // per_rank
+  ranks_per_row = max(1, n_time // per_rank)
   time_group, time_ranks = None, (me,)
   if ranks_per_row > 1:
     for d in range(n_data):
@@ -223,22 +240,64 @@ class _SumOverRanks(torch.autograd.Function):
     return g
 
 
+def _all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
+  """Every rank's x (the same shape on each) over the group, in rank
+  order."""
+  y, on_host = staged(x.contiguous(), group)
+  parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+  dist.all_gather(parts, y, group=group)
+  return [p.to(x.device) for p in parts] if on_host else parts
+
+
 class _GatherOverRanks(torch.autograd.Function):
 
   @staticmethod
-  def forward(ctx, group, index, x):
-    ctx.group, ctx.index, ctx.n = group, index, x.shape[0]
-    y, on_host = staged(x.contiguous(), group)
-    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, y, group=group)
-    out = torch.cat(parts)
-    return out.to(x.device) if on_host else out
+  def forward(ctx, group, index, dim, x):
+    ctx.group, ctx.index, ctx.dim, ctx.n = group, index, dim, x.shape[dim]
+    return torch.cat(_all_gather(x, group), dim=dim)
 
   @staticmethod
   def backward(ctx, g):
     total = _all_reduce(g.contiguous(), ctx.group)
-    lo = ctx.index * ctx.n
-    return None, None, total[lo:lo + ctx.n]
+    return None, None, None, total.narrow(ctx.dim, ctx.index * ctx.n, ctx.n)
+
+
+def assemble(parts: Sequence[torch.Tensor], row_ranks: int,
+             time_local: bool = True) -> torch.Tensor:
+  """The global [batch, ...] tensor of the ranks' blocks, in rank order:
+  each data row's ranks' blocks joined along the samples (dim 1) where
+  they are time-local, else the row's first rank's block (a value
+  replicated over 'time'), and the rows joined along dim 0."""
+  rows = [torch.cat(list(parts[i:i + row_ranks]), dim=1) if time_local
+          else parts[i] for i in range(0, len(parts), row_ranks)]
+  return torch.cat(rows, dim=0)
+
+
+def own_block(ranks: Ranks, x: torch.Tensor, rows: int,
+              samples: int) -> torch.Tensor:
+  """This rank's [rows, samples] block of a global tensor that
+  `assemble` made from time-local blocks of that shape."""
+  row, t = divmod(ranks.rank, ranks.row_ranks)
+  return x[row * rows:(row + 1) * rows, t * samples:(t + 1) * samples]
+
+
+def gather_blocks(x: torch.Tensor, ranks: Ranks,
+                  time_local: bool = True) -> torch.Tensor:
+  """The global tensor of every rank's block x (`assemble`); not
+  differentiable. Collective over every rank."""
+  return assemble(_all_gather(x, None), ranks.row_ranks, time_local)
+
+
+class _GatherGlobal(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, ranks, x):
+    ctx.ranks, ctx.shape = ranks, x.shape
+    return gather_blocks(x, ranks)
+
+  @staticmethod
+  def backward(ctx, g):
+    return None, own_block(ctx.ranks, g, ctx.shape[0], ctx.shape[1])
 
 
 def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
@@ -251,7 +310,32 @@ def gather_over_ranks(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
   """The ranks' x [n, ...] concatenated along dim 0 in time order over the
   row's 'time' group; the backward sums the ranks' cotangents."""
   return _GatherOverRanks.apply(ranks.time_group,
-                                ranks.time_ranks.index(ranks.rank), x)
+                                ranks.time_ranks.index(ranks.rank), 0, x)
+
+
+def gather_samples(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
+  """A data row's signal [rows, samples, ...] from its ranks' time-local
+  blocks, joined along dim 1 in time order over the row's 'time' group:
+  the input of a node whose output each rank slices again. Backward: the
+  row's ranks' cotangents summed (an all-reduce), this rank's samples
+  kept."""
+  return _GatherOverRanks.apply(ranks.time_group,
+                                ranks.time_ranks.index(ranks.rank), 1, x)
+
+
+def gather_global(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
+  """The global [batch, samples] signal from every rank's time-local
+  [rows, samples] block: the input of a value every rank computes whole
+  (a loss). Backward: this rank's block of its own cotangent, not summed
+  over the ranks (module docstring)."""
+  return _GatherGlobal.apply(ranks, x)
+
+
+def broadcast_object(obj: Any, src: int = 0) -> Any:
+  """Rank src's picklable obj on every rank."""
+  box = [obj]
+  dist.broadcast_object_list(box, src=src)
+  return box[0]
 
 
 def mean_over_ranks(values: List[torch.Tensor]) -> List[torch.Tensor]:

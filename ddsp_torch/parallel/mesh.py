@@ -9,13 +9,15 @@ a neighbour's shard through its device pointer.
 
 A mesh may span ranks of torch.distributed (parallel/distributed.py), one
 process per device: rank r holds a contiguous run of the row-major order,
-within one data row, and a shift between two ranks goes through K3's
-remote copy. On such a mesh every per-shard list holds this process's
-shards only, and the wrappers of parallel/time_shard.py take and return
-process-local tensors: the rows of the rank's data row and, for
-audio-rate tensors, the samples of its time shards (`local_time` cuts
-them from a whole-length tensor). The batch splits over 'data' across
-ranks, as jax.make_array_from_process_local_data assembles it.
+either time shards within one data row, where a shift between two ranks
+goes through K3's remote copy, or whole data rows, whose shifts stay in
+the process. On such a mesh every per-shard list holds this process's
+shards only, laid out as `Mesh.local_mesh()`, and the wrappers of
+parallel/time_shard.py take and return process-local tensors: the rows of
+the rank's data rows and, for audio-rate tensors, the samples of its time
+shards (`local_time` cuts them from a whole-length tensor). The batch
+splits over 'data' across ranks, as jax.make_array_from_process_local_data
+assembles it.
 
 One process holding shards on several cards raises NotImplementedError
 (ROADMAP.md queue 1 item 8). The split and concatenate helpers below are
@@ -109,9 +111,15 @@ class Mesh:
     return self.coords(self.first_shard + j)
 
   def local_mesh(self) -> 'Mesh':
-    """This process's shards as a one-process mesh: its data row's run of
-    time shards, (1 x per_rank), whose ends are the run's ends."""
-    return Mesh(self.devices, 1, len(self.devices))
+    """This process's shards as a one-process mesh: its whole data rows,
+    (rows x n_time), or its data row's run of time shards, (1 x per_rank),
+    whose ends are the run's ends. The mesh itself in one process."""
+    if self.ranks is None:
+      return self
+    n = len(self.devices)
+    if n % self.n_time == 0:
+      return Mesh(self.devices, n // self.n_time, self.n_time)
+    return Mesh(self.devices, 1, n)
 
 
 def create_mesh(n_data: Optional[int] = None, n_time: int = 1,
@@ -169,14 +177,14 @@ def batch_is_sharded(mesh: Mesh, batch_size: int) -> bool:
 
   A batch that does not divide over the data axis (one long clip evaluated
   on the training mesh) is replicated: every data row holds all of it.
-  Across ranks each process holds its own data row's rows: the batch is
+  Across ranks each process holds its own data rows' rows: the batch is
   sharded.
   """
   return mesh.n_ranks > 1 or batch_size % mesh.n_data == 0
 
 
 def _rows(mesh: Mesh, batch_size: int, d: int) -> slice:
-  if mesh.n_ranks > 1 or not batch_is_sharded(mesh, batch_size):
+  if not batch_is_sharded(mesh, batch_size):
     return slice(0, batch_size)
   local = batch_size // mesh.n_data
   return slice(d * local, (d + 1) * local)
@@ -184,7 +192,9 @@ def _rows(mesh: Mesh, batch_size: int, d: int) -> slice:
 
 def split_batch(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
   """Per-shard views of x [batch, ...]: each data row's batch rows,
-  replicated over 'time' (shard_map in_specs P('data'))."""
+  replicated over 'time' (shard_map in_specs P('data')). Across ranks x is
+  process-local: the rows of the rank's data rows."""
+  mesh = mesh.local_mesh()
   return [x[_rows(mesh, x.shape[0], mesh.shard_coords(j)[0])].to(device)
           for j, device in enumerate(mesh.devices)]
 
@@ -193,16 +203,15 @@ def split_time(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
   """Per-shard views of x [batch, T]: the data row's batch rows and the
   shard's samples (in_specs P('data', 'time')). Across ranks x is
   process-local: its rows and its shards' samples."""
+  mesh = mesh.local_mesh()
   n = x.shape[1]
-  n_time = len(mesh.devices) if mesh.n_ranks > 1 else mesh.n_time
-  if n % n_time:
-    raise ValueError(f'{n} samples do not divide over {n_time} time '
+  if n % mesh.n_time:
+    raise ValueError(f'{n} samples do not divide over {mesh.n_time} time '
                      'shards.')
-  t_local = n // n_time
+  t_local = n // mesh.n_time
   out = []
   for j, device in enumerate(mesh.devices):
-    d = mesh.shard_coords(j)[0]
-    t = j % n_time
+    d, t = mesh.shard_coords(j)
     out.append(x[_rows(mesh, x.shape[0], d),
                  t * t_local:(t + 1) * t_local].to(device))
   return out
@@ -213,8 +222,7 @@ def concat_time(mesh: Mesh, shards: Sequence[torch.Tensor],
   """The [batch, T] tensor of per-shard [rows, t_local] blocks (out_specs
   P('data', 'time')); process-local across ranks. A replicated batch reads
   data row 0."""
-  if mesh.n_ranks > 1:
-    return torch.cat(list(shards), dim=1)
+  mesh = mesh.local_mesh()
   n_rows = mesh.n_data if batch_is_sharded(mesh, batch_size) else 1
   rows = [torch.cat(list(shards[d * mesh.n_time:(d + 1) * mesh.n_time]),
                     dim=1) for d in range(n_rows)]
@@ -229,7 +237,7 @@ def time_span(mesh: Mesh, n_samples: int) -> slice:
                      f'{mesh.n_time} time shards.')
   t_local = n_samples // mesh.n_time
   t0 = mesh.shard_coords(0)[1]
-  return slice(t0 * t_local, (t0 + len(mesh.devices)) * t_local)
+  return slice(t0 * t_local, (t0 + mesh.local_mesh().n_time) * t_local)
 
 
 def local_time(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
@@ -241,7 +249,7 @@ def local_time(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 
 
 def local_rows(mesh: Mesh, batch_size: int) -> slice:
-  """The rows of a global batch that this process holds: its data row's
+  """The rows of a global batch that this process holds: its data rows'
   (all of them in one process)."""
   if mesh.n_ranks == 1:
     return slice(0, batch_size)
@@ -250,7 +258,18 @@ def local_rows(mesh: Mesh, batch_size: int) -> slice:
                      f'{mesh.n_data} data rows of a mesh over ranks.')
   local = batch_size // mesh.n_data
   d = mesh.shard_coords(0)[0]
-  return slice(d * local, (d + 1) * local)
+  return slice(d * local, (d + mesh.local_mesh().n_data) * local)
+
+
+def global_rows(mesh: Mesh, local_batch: int):
+  """(the global batch, this process's rows of it) for a process-local
+  batch of `local_batch` rows: (local_batch, all of them) in one
+  process."""
+  if mesh.n_ranks == 1:
+    return local_batch, slice(0, local_batch)
+  per_row = local_batch // mesh.local_mesh().n_data
+  d = mesh.shard_coords(0)[0]
+  return per_row * mesh.n_data, slice(d * per_row, d * per_row + local_batch)
 
 
 def shard_batch(mesh: Mesh, batch: Dict[str, Any],

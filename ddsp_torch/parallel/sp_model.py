@@ -23,14 +23,27 @@ SpectralLoss's compute_dtype, and only an Autoencoder-style model takes the
 sharded forward (`check_sp_model`).
 
 On a mesh over ranks (parallel/mesh.py) each rank runs the frame-rate
-network on its data row's features, replicated over 'time' as the JAX
+network on its data rows' features, replicated over 'time' as the JAX
 shard_map does, and synthesizes its own shards only: the audio-rate
-signals are process-local ([rows, the rank's samples]), and the target
-audio is cut to the rank's samples after the preprocessor has read all of
-it. FilteredNoise draws the global batch's noise and keeps the rank's rows
-and samples, so R ranks draw what one process draws. The nodes whose
-signal is not time-sharded, other than Add, and losses other than an L1
-SpectralLoss need the global signal and raise NotImplementedError there.
+signals are process-local ([its rows, its samples]), and the target audio
+is cut to the rank's samples after the preprocessor has read all of it.
+FilteredNoise draws the global batch's noise and keeps the rank's rows and
+samples, so R ranks draw what one process draws. Where the JAX package
+lets GSPMD gather the global arrays, the port gathers them itself:
+
+  * a node without a time-sharded signal (Crop, Mix, TensorToAudio,
+    Wavetable, Sinusoidal, ModDelay; Add needs nothing) gathers its
+    process-local signal inputs over the data row's time ranks
+    (distributed.gather_samples), runs its own get_controls and render on
+    the row's global signal, and keeps the rank's time slice of the
+    output, whose length may differ from the input's (a Crop);
+  * a loss other than an L1 SpectralLoss gathers the target and the
+    synthesized audio over every rank, rows and samples
+    (distributed.gather_global), and every rank computes the global
+    batch's loss, the value one process computes.
+
+A rank that holds whole data rows has every sample of its rows: its nodes
+run as in one process on its rows, and only the losses gather.
 """
 
 from __future__ import annotations
@@ -43,8 +56,8 @@ from ddsp_torch.losses.spectral import SpectralLoss
 from ddsp_torch.models.autoencoder import Autoencoder
 from ddsp_torch.ops import fftconv as fftconv_ops
 from ddsp_torch.ops.core import nested_lookup, to_dict, torch_float32
-from ddsp_torch.parallel import time_shard
-from ddsp_torch.parallel.mesh import Mesh, local_time
+from ddsp_torch.parallel import distributed, time_shard
+from ddsp_torch.parallel.mesh import Mesh, local_time, time_span
 from ddsp_torch.proc import dags
 from ddsp_torch.proc import effects as effects_lib
 from ddsp_torch.proc import processors as processors_lib
@@ -113,12 +126,45 @@ def _sp_get_signal(module, controls: TensorDict, mesh: Mesh, halo_impl: str,
   # works on the global tensors as they are; anything else (Wavetable,
   # Sinusoidal, ModDelay) falls back to its dense implementation on the
   # global tensors: the values are the same, only the node is not sharded.
-  # Across ranks only Add sees the process-local signals as they are.
-  if mesh.ranks is not None and not isinstance(module, processors_lib.Add):
-    raise NotImplementedError(
-        f'{type(module).__name__} has no time-sharded signal, and a mesh over '
-        'ranks holds no global signal for it (ROADMAP.md queue 1 item 8).')
+  # Across ranks such a node gathers its inputs first (_sp_render_gathered).
   return module.render(controls, noise=noise, generator=generator)
+
+
+def _gathers_inputs(module, mesh: Mesh) -> bool:
+  """Whether the node needs its data row's global signal on this rank: a
+  node without a time-sharded signal, other than Add, on a rank that holds
+  part of a row."""
+  return (mesh.ranks is not None and mesh.ranks.time_group is not None
+          and not isinstance(module, (synths_lib.Harmonic,
+                                      synths_lib.FilteredNoise,
+                                      effects_lib.Reverb,
+                                      effects_lib.FIRFilter,
+                                      processors_lib.Add)))
+
+
+def _sp_render_gathered(module, name: str, node_inputs, local_signals,
+                        mesh: Mesh, noise: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None
+                        ) -> TensorDict:
+  """A node's outputs on a rank that holds part of a data row: its
+  process-local signal inputs gathered over the row's time ranks, its own
+  controls and signal on the row's global signal, the rank's time slice of
+  the signal kept. The signal's length over the row's time shards must
+  divide, whatever the node does to it."""
+  gathered = [distributed.gather_samples(x, mesh.ranks)
+              if any(x is s for s in local_signals) else x
+              for x in node_inputs]
+  controls = module.get_controls(*gathered)
+  signal = module.render(controls, noise=noise, generator=generator)
+  n_in = [int(x.shape[1]) for x in gathered
+          if any(x is s for s in local_signals)]
+  n_out = int(signal.shape[1])
+  if n_out % mesh.n_time:
+    raise ValueError(
+        f'The output of node {name!r} ({type(module).__name__}) has '
+        f'{n_out} samples (from {n_in}), which do not divide over '
+        f'{mesh.n_time} time shards.')
+  return dict(signal=signal[:, time_span(mesh, n_out)], controls=controls)
 
 
 def sp_run_dag(pg, inputs: TensorDict, mesh: Mesh, halo_impl: str = 'xla',
@@ -128,7 +174,10 @@ def sp_run_dag(pg, inputs: TensorDict, mesh: Mesh, halo_impl: str = 'xla',
 
   Mirrors DAGModule.run_dag node for node (the same dispatch, nested keys
   and outputs contract); only processor nodes take the time-sharded path.
+  Across ranks every processor's signal is process-local (module
+  docstring).
   """
+  local_signals = []  # the processors' signals, time-local across ranks
   outputs = dict(inputs)
   outputs['inputs'] = inputs
   module_outputs = {}
@@ -137,10 +186,16 @@ def sp_run_dag(pg, inputs: TensorDict, mesh: Mesh, halo_impl: str = 'xla',
     module = getattr(pg, name)
     node_inputs = [nested_lookup(key, outputs) for key in in_keys]
     if dags.is_processor(module):
-      controls = module.get_controls(*node_inputs)
-      signal = _sp_get_signal(module, controls, mesh, halo_impl, noise,
-                              generator)
-      module_outputs = dict(signal=signal, controls=controls)
+      if _gathers_inputs(module, mesh):
+        module_outputs = _sp_render_gathered(module, name, node_inputs,
+                                             local_signals, mesh, noise,
+                                             generator)
+      else:
+        controls = module.get_controls(*node_inputs)
+        signal = _sp_get_signal(module, controls, mesh, halo_impl, noise,
+                                generator)
+        module_outputs = dict(signal=signal, controls=controls)
+      local_signals.append(module_outputs['signal'])
     elif dags.is_loss(module):
       module_outputs = module.get_losses_dict(*node_inputs)
     else:
@@ -155,11 +210,11 @@ def sp_run_dag(pg, inputs: TensorDict, mesh: Mesh, halo_impl: str = 'xla',
 def _sp_loss(loss_obj, target_audio: torch.Tensor, audio: torch.Tensor,
              mesh: Mesh, halo_impl: str) -> torch.Tensor:
   """SpectralLoss (L1) through the time-sharded kernels; others on the
-  global tensors."""
+  global tensors, gathered from every rank across ranks."""
+  if mesh.ranks is not None:
+    target_audio = local_time(mesh, target_audio)
   if (isinstance(loss_obj, SpectralLoss)
       and loss_obj.loss_type.upper() == 'L1'):
-    if mesh.ranks is not None:
-      target_audio = local_time(mesh, target_audio)
     return time_shard.time_sharded_spectral_loss(
         mesh, target_audio, audio, fft_sizes=tuple(loss_obj.fft_sizes),
         mag_weight=loss_obj.mag_weight,
@@ -169,9 +224,8 @@ def _sp_loss(loss_obj, target_audio: torch.Tensor, audio: torch.Tensor,
         logmag_weight=loss_obj.logmag_weight,
         loudness_weight=loss_obj.loudness_weight, halo_impl=halo_impl)
   if mesh.ranks is not None:
-    raise NotImplementedError(
-        f'{type(loss_obj).__name__} has no time-sharded loss, and a mesh over '
-        'ranks holds no global signal for it (ROADMAP.md queue 1 item 8).')
+    target_audio = distributed.gather_global(target_audio, mesh.ranks)
+    audio = distributed.gather_global(audio, mesh.ranks)
   return loss_obj(target_audio, audio)
 
 

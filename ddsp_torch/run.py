@@ -19,11 +19,15 @@ Across processes (the counterpart of the JAX CLI's --multihost), one
 process per card under torchrun (scripts/launch_torchrun.sh):
   torchrun --nproc_per_node 4 -m ddsp_torch.run --multihost --mode=train \
       --save_dir=/tmp/run --batch_size=4 [--time_shards 2]
+  torchrun --nproc_per_node 4 -m ddsp_torch.run --multihost --mode=eval \
+      --save_dir=/tmp/run --batch_size=4 [--time_shards 2] --run_once
 Each process starts torch.distributed from torchrun's environment, takes
-cuda:LOCAL_RANK (or the --device it is given), reads --batch_size rows of
-its own examples a step, and the ranks form a (ranks / time_shards x
-time_shards) mesh. Rank 0 writes the spec, the checkpoints and the
-summaries.
+cuda:LOCAL_RANK (or the --device it is given), and the ranks form a
+(ranks / time_shards x time_shards) mesh. In training each data row reads
+--batch_size rows of its own examples a step; in eval and sample every
+rank reads the same fixed eval set of min(--batch_size, 4) rows a data
+row and keeps its part. Rank 0 writes the spec, the checkpoints, the
+summaries and the samples.
 """
 
 from __future__ import annotations
@@ -192,7 +196,7 @@ def main(argv: Optional[List[str]] = None):
   parser.add_argument('--multihost', action='store_true',
                       help='One process per card under torchrun: start '
                       "torch.distributed from torchrun's environment and "
-                      'train on a mesh over the ranks (train only)')
+                      'train, evaluate or sample on a mesh over the ranks')
   parser.add_argument('--dist_backend', choices=distributed.BACKENDS,
                       default=None,
                       help="--multihost's torch.distributed backend "
@@ -215,11 +219,6 @@ def main(argv: Optional[List[str]] = None):
       format='%(asctime)s %(name)s %(levelname)s: %(message)s')
 
   if args.multihost:
-    if args.mode != 'train':
-      raise NotImplementedError(
-          f'--multihost --mode {args.mode}: evaluating and sampling across '
-          'ranks is ROADMAP.md queue 1 item 8; evaluate the checkpoint in one '
-          'process.')
     device = rank_device(args.device)
     distributed.init(device=device, backend=args.dist_backend)
     try:
@@ -304,7 +303,7 @@ def _main(args, device: torch.device):
       save_dir=args.save_dir,
       restore_dir=args.restore_dir or args.save_dir,
       mode=args.mode,
-      batch_size=min(args.batch_size, 4),
+      batch_size=min(args.batch_size, 4) * mesh.n_data,
       num_batches=args.num_eval_batches,
       run_once=args.run_once)
 

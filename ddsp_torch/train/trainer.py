@@ -32,7 +32,8 @@ import torch
 
 from ddsp_torch.parallel import distributed, sp_model
 from ddsp_torch.parallel.halo import check_halo_impl
-from ddsp_torch.parallel.mesh import normalize_device, replicate
+from ddsp_torch.parallel.mesh import (global_rows, normalize_device,
+                                      replicate)
 from ddsp_torch.proc.synths import RowDraws
 from ddsp_torch.utils import checkpoints
 from ddsp_torch.utils.device import DeviceLike, resolve_device
@@ -182,10 +183,8 @@ class Trainer:
     self._generator.manual_seed(self.seed + 2 + state.step)
     if self._ranks:
       first = batch[0] if isinstance(batch, (tuple, list)) else batch
-      local = int(next(iter(first.values())).shape[0])
-      d = self.mesh.shard_coords(0)[0]
-      self._generator.n_rows = local * self.mesh.n_data
-      self._generator.rows = slice(d * local, (d + 1) * local)
+      self._generator.n_rows, self._generator.rows = global_rows(
+          self.mesh, int(next(iter(first.values())).shape[0]))
     sharded = sp_model.has_time_sharding(self.mesh)
     if sharded:
       _, losses = sp_model.sp_forward_with_losses(

@@ -8,9 +8,10 @@ pattern written here, synthetic_notes), and the same TFDS name, split and
 data_dir from a 'tfds:' spec (parsed, not loaded). main(): the tiny preset
 trains for 2 steps, then evaluates once and samples, in this process; the
 operative spec it writes is the JAX package's save_spec's, byte for byte;
-the flags the port does not take (--multihost, a mesh over several cards)
-raise. MetricsWriter writes TensorBoard event files where
-torch.utils.tensorboard imports and metrics.jsonl alone where it does not.
+a mesh over several cards in one process raises (--multihost runs in
+tests/test_torch_distributed.py). MetricsWriter writes TensorBoard event
+files where torch.utils.tensorboard imports and metrics.jsonl alone where
+it does not.
 """
 
 import glob
@@ -155,11 +156,7 @@ def test_main_writes_the_jax_spec(trained, tmp_path):
 
 
 @pytest.mark.parametrize('flags,error,match', [
-    # Evaluating and sampling across ranks are not ported; --multihost
-    # training runs (tests/test_torch_distributed.py).
-    (['--multihost', '--mode', 'eval'], NotImplementedError, 'item 8'),
     (['--time_shards', '2'], SystemExit, 'must divide'),
-    (['--multihost', '--mode', 'sample'], NotImplementedError, 'item 8'),
 ])
 def test_main_refuses(tmp_path, flags, error, match):
   with pytest.raises(error, match=match):
