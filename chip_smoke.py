@@ -194,13 +194,22 @@ Phases (any failed check exits non-zero before the result lines):
      the mesh against the dense group (K3 only);
   6m. four torch.distributed ranks on the one card (gloo: NCCL refuses two
      ranks on one card), spawned processes on cuda:0: (a) K3's remote copy
-     (CUDA IPC slots, csrc/halo.cu ddsp_halo_remote) against its
-     torch.distributed plain version at the long-audio step's blocks, both
-     directions, values and adjoints bit for bit, one remote launch each
-     way, ms per shift of each; (b) the dense Trainer step of full-width
-     solo_instrument on a (4 x 1) mesh of the ranks, 4 of phase 6's 16 rows
-     each, 3 steps against the one-process step on the 16 rows (the loss
-     and the reduced gradient norm of the first step, the later losses),
+     (CUDA IPC slots, csrc/halo.cu ddsp_halo_remote) first in this process
+     as a loopback (its own slot as its neighbour) at the long-audio
+     step's blocks, bit for bit against the block, timed by windows of
+     CUDA events (queued: the card's own time; and as the host issues
+     them) in turns with its earlier design (K3_BASELINE_COMMIT's
+     halo.cu); then on the ranks against its torch.distributed plain
+     version, both directions, values and adjoints bit for bit, one
+     remote launch each way, and ms per shift by windows of the redesign,
+     the earlier design and the plain version; last, after (b)-(h), a fault
+     drill in ranks of its own (one rank makes a call the others do not;
+     one rank never sends): every rank raises naming a call within its
+     deadline and every process ends; (b) the dense Trainer step of
+     full-width solo_instrument on a (4 x 1) mesh of the ranks, 4 of phase
+     6's 16 rows each, 3 steps against the one-process step on the 16
+     rows (the loss and the reduced gradient norm of the first step, the
+     later losses),
      the parameters bit for bit equal across ranks, K1f, K1t, K2f and K2b
      once a step on every rank; (c) make_sp_train_step at 30 s x B = 2 on
      a (1 x 4) mesh of the ranks against phase 6k's one-process steps, the
@@ -229,6 +238,7 @@ Exits 1 without a CUDA device or outside a checkout of the repository.
 """
 
 import argparse
+import ctypes
 import itertools
 import json
 import os
@@ -239,6 +249,7 @@ import time
 
 import numpy as np
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 NVLINK_BYTES_PER_S = 450e9  # each way, to another card of the host
@@ -5270,15 +5281,246 @@ def ranks_blocks(torch, dev, seed):
   return list(zip(RANKS_BLOCKS, (carry, audio[:, :2047])))
 
 
+# (a) also times the remote copy alone and against its earlier design. The
+# loopback: one process passes its own slot as its neighbour on both sides,
+# so the kernels push, stamp, wait and copy out on one context with nothing
+# to wait for: the design's own device time against its bound. The earlier
+# design (waits that spun in the kernel on system-scope loads, and a stream
+# synchronisation per shift to read its error word) is built from
+# K3_BASELINE_COMMIT's csrc/halo.cu, unpacked into K3_BASELINE_DIR (git
+# archive where the checkout has its history; else a copy put there
+# beforehand); without it its figures read "not measured". Loopback times
+# are CUDA events around windows of LOOPBACK_SHIFTS back-to-back shifts,
+# routes in turns: as the host issues them (a call's time, which the
+# earlier design's synchronisation makes a host round trip), and, for the
+# redesign, 'queued': behind a sleeping kernel of QUEUE_SLEEP_CYCLES, so
+# that the window is enqueued whole before the card starts it and the
+# events read the card's own time. The four ranks' are host clocks around
+# windows of RANKS_SHIFTS_TIMED shifts ending in one wait (check, or the
+# baseline's own synchronisation), two windows a route in turns.
+K3_BASELINE_COMMIT = '232c8fbda98f558924fd1cf774a89bc4f038f8ae'
+K3_BASELINE_DIR = os.path.join('build', 'k3_baseline')
+LOOPBACK_WINDOWS = 9
+LOOPBACK_SHIFTS = 50
+QUEUE_SLEEP_CYCLES = 50_000_000  # ~25 ms at the H100's 1.98 GHz
+RANKS_ROUNDS = 2
+BASELINE_SIGNATURES = {
+    'ddsp_halo_slot_alloc': [ctypes.c_longlong,
+                             ctypes.POINTER(ctypes.c_void_p),
+                             ctypes.c_char_p],
+    'ddsp_halo_slot_open': [ctypes.c_char_p,
+                            ctypes.POINTER(ctypes.c_void_p)],
+    'ddsp_halo_slot_close': [ctypes.c_void_p],
+    'ddsp_halo_slot_free': [ctypes.c_void_p],
+    'ddsp_halo_remote': [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                         ctypes.c_uint, ctypes.c_uint, ctypes.c_ulonglong,
+                         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
+}
+
+
+def baseline_halo():
+  """The earlier design's halo library, loaded with ctypes, or None where
+  its source is not at hand. Built with the kernels' nvcc flags into the
+  kernels' build directory, named by a hash as they are."""
+  from pathlib import Path
+  from ddsp_torch.kernels import _build
+  root = os.path.join(REPO, K3_BASELINE_DIR)
+  src = os.path.join(root, 'ddsp_torch', 'csrc', 'halo.cu')
+  if not os.path.exists(src) and os.path.isdir(os.path.join(REPO, '.git')):
+    os.makedirs(root, exist_ok=True)
+    archive = subprocess.run(
+        ['git', '-C', REPO, 'archive', K3_BASELINE_COMMIT,
+         'ddsp_torch/csrc/halo.cu'], capture_output=True, check=False)
+    if archive.returncode == 0:
+      subprocess.run(['tar', '-x', '-C', root], input=archive.stdout,
+                     check=True)
+  if not os.path.exists(src):
+    return None
+  nvcc = _build._nvcc()  # pylint: disable=protected-access
+  _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  path = _build.hashed_library(Path(src), nvcc, _build.NVCC_FLAGS,
+                               _build.BUILD_DIR, 'halo_baseline')
+  if not path.exists():
+    tmp = path.with_suffix(f'.{os.getpid()}.tmp')
+    subprocess.run([nvcc, *_build.NVCC_FLAGS, '-o', str(tmp), src],
+                   check=True, capture_output=True)
+    os.replace(tmp, path)
+  lib = ctypes.CDLL(str(path))
+  for name, argtypes in BASELINE_SIGNATURES.items():
+    getattr(lib, name).argtypes = argtypes
+    getattr(lib, name).restype = ctypes.c_int
+  return lib
+
+
+class BaselineRemote:
+  """Shifts by +1 through the earlier design's ddsp_halo_remote: its own
+  slot of one byte size, its uses and calls. `peer` is the neighbour's
+  mapped slot (the own slot for the loopback), `has_src` whether a
+  neighbour sends here. Each call synchronises its stream inside."""
+
+  def __init__(self, torch, lib, nbytes, mesh=None):
+    self.torch, self.lib, self.uses = torch, lib, 0
+    own = ctypes.c_void_p()
+    handle = ctypes.create_string_buffer(64)
+    check_status(lib.ddsp_halo_slot_alloc(nbytes, ctypes.byref(own), handle),
+                 'the earlier design\'s slot')
+    self.own, self.peers = own.value, []
+    if mesh is None:
+      self.peer, self.has_src = self.own, 1
+      return
+    import torch.distributed as tdist  # pylint: disable=g-import-not-at-top
+    ranks = mesh.ranks
+    handles = [None] * len(ranks.time_ranks)
+    tdist.all_gather_object(handles, handle.raw, group=ranks.time_group)
+    self.peer, self.has_src = None, int(ranks.rank - 1 in ranks.time_ranks)
+    if ranks.rank + 1 in ranks.time_ranks:
+      ptr = ctypes.c_void_p()
+      check_status(lib.ddsp_halo_slot_open(
+          handles[ranks.time_ranks.index(ranks.rank + 1)], ctypes.byref(ptr)),
+                   'the earlier design\'s slot mapping')
+      self.peer = ptr.value
+      self.peers.append(ptr.value)
+
+  def __call__(self, block):
+    from ddsp_torch.kernels import halo as kk
+    rows, cols, stride = kk._rows_view(block)  # pylint: disable=protected-access
+    self.uses += 1
+    out = self.torch.empty(block.shape, dtype=block.dtype,
+                           device=block.device)
+    error = ctypes.c_int(0)
+    check_status(self.lib.ddsp_halo_remote(
+        block.data_ptr() if self.peer else None, stride, self.peer,
+        out.data_ptr(), self.own, self.has_src, rows, cols,
+        block.element_size(), self.uses, self.uses, int(60e9),
+        self.torch.cuda.current_stream().cuda_stream, ctypes.byref(error)),
+                 'the earlier design\'s remote copy')
+    if error.value:
+      raise CheckFailed(f'the earlier design\'s remote copy reported error '
+                        f'{error.value}')
+    return out
+
+  def close(self, barrier=None):
+    self.torch.cuda.synchronize()
+    if barrier:
+      barrier()
+    for ptr in self.peers:
+      check_status(self.lib.ddsp_halo_slot_close(ptr), 'slot close')
+    if barrier:
+      barrier()
+    check_status(self.lib.ddsp_halo_slot_free(self.own), 'slot free')
+
+
+def check_status(status, what):
+  if status:
+    raise CheckFailed(f'{what} failed with cudaError_t {status}')
+
+
+def windows_ms(routes, windows, shifts, begin, end):
+  """{route: [ms per shift of each window]}: `windows` windows of `shifts`
+  calls of each route, the order reversed every other window; begin()
+  starts a window and end(start) returns its ms."""
+  out = {route: [] for route in routes}
+  order = list(routes)
+  for w in range(windows):
+    for route in (order if w % 2 == 0 else order[::-1]):
+      fn = routes[route]
+      start = begin()
+      for _ in range(shifts):
+        fn()
+      out[route].append(end(start) / shifts)
+  return out
+
+
+def spread(values):
+  """(median, lowest, highest) of a route's windows."""
+  ordered = sorted(values)
+  return (float(np.median(ordered)), ordered[0], ordered[-1])
+
+
+def loopback_blocks(torch, dev):
+  """The (a) blocks with zeros and negative zeros among their values."""
+  out = []
+  for name, block in ranks_blocks(torch, dev, 29):
+    block[:, ::7] = 0.0
+    block[:, 3::7] = -0.0
+    out.append((name, block))
+  return out
+
+
+def ranks_loopback(torch, dev):
+  """(a), in one process before the ranks spawn: each route's loopback at
+  the carry and the halo, bit for bit against the block, then ms per
+  shift by windows between CUDA events."""
+  from ddsp_torch.kernels import halo as kk
+  lib = baseline_halo()
+  out = {'equal': {}, 'ms': {}, 'baseline': lib is not None}
+  baselines = []
+
+  def begin():
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
+
+  def begin_queued():
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)  # pylint: disable=protected-access
+    return begin()
+
+  def end(start):
+    stop = torch.cuda.Event(enable_timing=True)
+    stop.record()
+    kk.check()
+    stop.synchronize()
+    return start.elapsed_time(stop)
+
+  for name, block in loopback_blocks(torch, dev):
+    routes = {'new': lambda b=block: kk.loopback_shift(b)}
+    if lib is not None:
+      baseline = BaselineRemote(torch, lib,
+                                block.numel() * block.element_size())
+      baselines.append(baseline)
+      routes['baseline'] = lambda b=block, f=baseline: f(b)
+    want = block.contiguous().view(torch.int32)
+    for route, fn in routes.items():
+      got = fn()
+      kk.check()
+      torch.cuda.synchronize()
+      out['equal'][(name, route)] = torch.equal(got.view(torch.int32), want)
+    out['ms'][name] = windows_ms(routes, LOOPBACK_WINDOWS, LOOPBACK_SHIFTS,
+                                 begin, end)
+    queued = windows_ms({'new': routes['new']}, LOOPBACK_WINDOWS,
+                        LOOPBACK_SHIFTS, begin_queued, end)
+    out['ms'][name]['new queued'] = queued['new']
+  kk.release_remote_slots()
+  for baseline in baselines:
+    baseline.close()
+  return out
+
+
 def ranks_shifts(torch, dev, rank):
   """(a) K3's remote copy against its plain version on a (1 x 4) mesh of
   the ranks: values and adjoints bit for bit, both directions, launches;
-  then ms per shift of each (host clock: every remote copy synchronises
-  its stream to read its error word)."""
+  then ms per shift of the redesign, the earlier design and the plain
+  version by windows, host clock (a window's shifts are
+  enqueued without waiting and end in one wait)."""
   from ddsp_torch.kernels import halo as kk
   from ddsp_torch.parallel import create_mesh, distributed, halo
   mesh = create_mesh(*SP_MESH, devices=[dev])
   out = {'cases': [], 'ms': {}, 'bytes': {}}
+  lib = baseline_halo()
+
+  def begin():
+    kk.check()
+    torch.cuda.synchronize()
+    distributed.barrier()
+    return time.perf_counter()
+
+  def end(start):
+    kk.check()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) * 1e3
+
   for name, block in ranks_blocks(torch, dev, 30 + rank):
     leaf = block.clone().requires_grad_()
     for direction in (+1, -1):
@@ -5290,6 +5532,7 @@ def ranks_shifts(torch, dev, rank):
       (adj,) = torch.autograd.grad(got, leaf, cot)
       back = kk._edge(mesh, -direction)  # pylint: disable=protected-access
       want_adj = kk.remote_shift_plain(cot, back.to, back.frm)
+      kk.check()
       torch.cuda.synchronize()
       out['cases'].append(dict(
           name=f'{name} {direction:+d}',
@@ -5298,20 +5541,124 @@ def ranks_shifts(torch, dev, rank):
           equal=torch.equal(got, want) and torch.equal(adj, want_adj),
           launches=dict(kk.launches)))
     edge = kk._edge(mesh, +1)  # pylint: disable=protected-access
-    for route, fn in (
-        ('kernel', lambda: halo.neighbor_shift([block], mesh, +1)),
-        ('plain', lambda: kk.remote_shift_plain(block, edge.to, edge.frm))):
+    routes = {'new': lambda b=block: halo.neighbor_shift([b], mesh, +1)}
+    baseline = None
+    if lib is not None:
+      baseline = BaselineRemote(torch, lib,
+                                block.numel() * block.element_size(), mesh)
+      routes['baseline'] = lambda b=block: baseline(b)
+    routes['plain'] = lambda b=block: kk.remote_shift_plain(b, edge.to,
+                                                            edge.frm)
+    for fn in routes.values():
       for _ in range(3):
         fn()
-      torch.cuda.synchronize()
-      distributed.barrier()
-      t0 = time.perf_counter()
-      for _ in range(RANKS_SHIFTS_TIMED):
-        fn()
-      torch.cuda.synchronize()
-      out['ms'][(name, route)] = (time.perf_counter() - t0) * 1e3 / (
-          RANKS_SHIFTS_TIMED)
+    out['ms'][name] = windows_ms(routes, RANKS_ROUNDS, RANKS_SHIFTS_TIMED,
+                                 begin, end)
+    if baseline is not None:
+      baseline.close(distributed.barrier)
     out['bytes'][name] = block.numel() * block.element_size()
+  return out
+
+
+# The fault drill, last in phase 6m: four ranks of their own a case, with
+# REMOTE_TIMEOUT_S cut to DRILL_TIMEOUT_S. Every rank makes one shift (the
+# slot is made), then in 'extra_call' rank 1 makes one shift the others do
+# not, and in 'never_sends' rank DRILL_MUTE's slot is given its own address
+# for its neighbours' (its blocks and its notices of consumption never
+# leave it); then every rank makes the DRILL_TAIL shifts and waits in
+# check. Each rank must raise naming a call within DRILL_TIMEOUT_S +
+# DRILL_SLACK_S of the start, and every process must end by itself.
+DRILL_CASES = ('extra_call', 'never_sends')
+DRILL_TIMEOUT_S = 5.0
+DRILL_SLACK_S = 5.0
+DRILL_JOIN_S = 180
+DRILL_MUTE = RANKS - 1
+DRILL_TAIL = (+1, -1) * 4
+
+
+def drill_worker(rank, work_dir, case):
+  """One rank of a fault drill; its outcome to work_dir, then the process
+  ends at once (its stream may wait for ever; no collective teardown)."""
+  import traceback  # pylint: disable=g-import-not-at-top
+  import torch  # pylint: disable=g-import-not-at-top
+  from ddsp_torch.kernels import halo as kk
+  from ddsp_torch.parallel import create_mesh, distributed, halo
+  result = {'rank': rank, 'error': None, 'raised': None}
+  try:
+    dev = distributed.init(
+        device=torch.device('cuda', 0), backend=RANKS_BACKEND,
+        init_method='file://' + os.path.join(work_dir, f'init_{case}'),
+        rank=rank, world_size=RANKS)
+    kk.REMOTE_TIMEOUT_S = DRILL_TIMEOUT_S
+    mesh = create_mesh(*SP_MESH, devices=[dev])
+    block = torch.randn((LONG_BATCH, 2047), device=dev)
+    halo.neighbor_shift([block], mesh, +1)
+    kk.check()
+    distributed.barrier()
+    t0 = time.monotonic()
+    try:
+      if case == 'extra_call' and rank == 1:
+        halo.neighbor_shift([block], mesh, +1)
+      if case == 'never_sends' and rank == DRILL_MUTE:
+        (slot,) = kk._SLOTS.values()  # pylint: disable=protected-access
+        slot.peers = {peer: slot.own for peer in slot.peers}
+      for direction in DRILL_TAIL:
+        halo.neighbor_shift([block], mesh, direction)
+      kk.check()
+    except RuntimeError as e:
+      result['raised'] = str(e)
+    result['seconds'] = time.monotonic() - t0
+  except BaseException:  # pylint: disable=broad-except
+    result['error'] = traceback.format_exc()
+  with open(os.path.join(work_dir, f'{case}{rank}.json'), 'w') as f:
+    json.dump(result, f)
+  sys.stdout.flush()
+  sys.stderr.flush()
+  os._exit(0)  # pylint: disable=protected-access
+
+
+def ranks_drill(torch):
+  """The fault drill's cases, each in RANKS processes of its own: every
+  rank raises within its bound naming a call, and every process ends."""
+  import torch.multiprocessing as mp  # pylint: disable=g-import-not-at-top
+  del torch
+  out = {}
+  for case in DRILL_CASES:
+    with tempfile.TemporaryDirectory() as work_dir:
+      t0 = time.time()
+      ctx = mp.start_processes(drill_worker, args=(work_dir, case),
+                               nprocs=RANKS, join=False, start_method='spawn')
+      ended = False
+      while time.time() - t0 < DRILL_JOIN_S:
+        if all(not p.is_alive() for p in ctx.processes):
+          ended = True
+          break
+        time.sleep(0.5)
+      for p in ctx.processes:
+        if p.is_alive():
+          p.kill()
+      check(ended, f'drill {case!r}: every rank\'s process ended by itself '
+            f'within {DRILL_JOIN_S} s')
+      results = []
+      for r in range(RANKS):
+        path = os.path.join(work_dir, f'{case}{r}.json')
+        check(os.path.exists(path), f'drill {case!r}: rank {r} reported')
+        with open(path) as f:
+          results.append(json.load(f))
+    for result in results:
+      r = result['rank']
+      check(result['error'] is None,
+            f'drill {case!r}: rank {r} ran without another error'
+            + (f' ({result["error"]})' if result['error'] else ''))
+      print(f'  drill {case!r} rank {r}: raised after '
+            f'{result["seconds"]:.2f} s: {result["raised"]}', flush=True)
+      check(result['raised'] is not None and ' of row ' in result['raised']
+            and 'call ' in result['raised'],
+            f'drill {case!r}: rank {r} raised, naming the call')
+      check(result['seconds'] <= DRILL_TIMEOUT_S + DRILL_SLACK_S,
+            f'drill {case!r}: rank {r} raised within '
+            f'{DRILL_TIMEOUT_S + DRILL_SLACK_S} s')
+    out[case] = results
   return out
 
 
@@ -5692,11 +6039,13 @@ def phase_ranks(torch, dev, long_losses, ckpt_dir, sp_evals):
   checkpoint evaluated and sampled on (1 x 4) and (4 x 1) meshes of the
   ranks, the vst preset's and an L2 loss's steps on a (1 x 4) one, and a
   (4 x 2) SP step over two ranks of two whole rows each, each against its
-  one-process counterpart (phase 6k's evals: sp_evals). Returns (rank 0's
-  launches by path, the remote copy's kernel entry)."""
+  one-process counterpart (phase 6k's evals: sp_evals); before the ranks
+  the remote copy's loopback in this process, after them its fault drill.
+  Returns (rank 0's launches by path, the remote copy's kernel entry)."""
   import torch.multiprocessing as mp  # pylint: disable=g-import-not-at-top
   print(f'[6m] {RANKS} ranks on one card ({RANKS_BACKEND}: NCCL refuses two '
-        f'ranks on one card): (a) K3\'s remote copy, (b) a {RANKS_DENSE_MESH} '
+        f'ranks on one card): (a) K3\'s remote copy (its loopback in one '
+        f'process first, its fault drill last), (b) a {RANKS_DENSE_MESH} '
         f'solo_instrument step at {BATCH} x 4 s, (c) the long-audio step on '
         f'a {SP_MESH} mesh of ranks, (d) SP eval and sample on a {SP_MESH} '
         f'mesh of ranks, (e) dense eval on a {RANKS_DENSE_MESH} one, (f) the '
@@ -5704,6 +6053,14 @@ def phase_ranks(torch, dev, long_losses, ckpt_dir, sp_evals):
         f'an L2 SpectralLoss step on a {SP_MESH} one, (h) a '
         f'{RANKS_ROWS_MESH} SP step over {RANKS_ROWS} ranks; times are of '
         'ranks time-sliced on one card', flush=True)
+  loopback = ranks_loopback(torch, dev)
+  for (name, route), equal in loopback['equal'].items():
+    check(equal, f'(a) the loopback ({route}) of the {name} bit for bit '
+          'equal to the block')
+  if not loopback['baseline']:
+    print(f'  note: the earlier design\'s halo.cu ({K3_BASELINE_COMMIT}) is '
+          f'not at hand (no git history, nothing in {K3_BASELINE_DIR}): its '
+          'times are not measured', flush=True)
   want_losses, want_norms = dense_reference(torch)
   references = cases_reference(torch, dev)
   torch.cuda.synchronize()
@@ -5743,9 +6100,15 @@ def phase_ranks(torch, dev, long_losses, ckpt_dir, sp_evals):
             'remote launch each way')
   shifts = ranks[0]['shifts']
   for name in RANKS_BLOCKS:
-    print(f'  (a) {name}: kernel {shifts["ms"][(name, "kernel")]:.3f} ms, '
-          f'torch.distributed route {shifts["ms"][(name, "plain")]:.3f} ms '
-          'per shift (rank 0, four ranks time-sliced on one card)')
+    for route, ms in loopback['ms'][name].items():
+      print(f'  (a) {name}, loopback, {route}: median '
+            f'{spread(ms)[0]:.5f} ms per shift (windows '
+            f'{[round(t, 5) for t in ms]})')
+    for route, ms in shifts['ms'][name].items():
+      print(f'  (a) {name}, four ranks, {route}: '
+            f'{float(np.mean(ms)):.4f} ms per shift (windows '
+            f'{[round(t, 4) for t in ms]}; rank 0, four ranks time-sliced '
+            'on one card)')
 
   # (b) the dense step.
   for r, result in enumerate(ranks):
@@ -5814,7 +6177,8 @@ def phase_ranks(torch, dev, long_losses, ckpt_dir, sp_evals):
   paths.update(ranks_cases_checked(torch, ranks, references))
   err = max(case['err'] for result in ranks
             for case in result['shifts']['cases'])
-  entry = remote_copy_entry(shifts, paths['ranks']['K3r'], err)
+  ranks_drill(torch)
+  entry = remote_copy_entry(loopback, shifts, paths['ranks']['K3r'], err)
   entry['launches_by_path'] = {path: run['K3r'] for path, run in
                                paths.items()}
   entry['launches_per'] = {unit: paths[path]['K3r'] / n for path, (unit, n)
@@ -5952,38 +6316,72 @@ def ranks_cases_checked(torch, ranks, references):
   return {f'ranks_{case}': ranks[0][case]['launches'] for case in labels}
 
 
-def remote_copy_entry(shifts, launches, err):
-  """The kernels line's entry of K3's remote copy, from rank 0's times at
-  the noise carry [2, 120000] float32 (and the STFT halo beside it). Bound:
-  the sender's block read once and the receiver's output written once, at
-  HBM's rate on one card (the slot between them is the design's, not the
-  function's); across cards the block crosses NVLink once, at 450 GB/s
-  each way. The library call is the torch.distributed route, which is the
-  plain version."""
-  carry, halo_name = RANKS_BLOCKS
-  block = shifts['bytes'][carry]
-  entry = {
-      'name': 'halo_remote_copy (K3 between ranks)', 'route': 'cuda',
-      'source': 'ddsp_torch/csrc/halo.cu',
-      'replaces': 'ddsp_tpu/parallel/pallas_halo.py:88',
-      'launches': launches, 'max_abs_err': err,
-      'ms': shifts['ms'][(carry, 'kernel')],
-      'plain_ms': shifts['ms'][(carry, 'plain')],
-      'bound_ms': 2 * block / PEAK_BYTES_PER_S * 1e3, 'bound_by': 'bytes',
-      'library_ms': shifts['ms'][(carry, 'plain')],
-      'bound_nvlink_ms': block / NVLINK_BYTES_PER_S * 1e3,
-      'halo_ms': shifts['ms'][(halo_name, 'kernel')],
-      'halo_plain_ms': shifts['ms'][(halo_name, 'plain')],
-      'halo_bound_ms': (2 * shifts['bytes'][halo_name] / PEAK_BYTES_PER_S *
-                        1e3),
-      'timing': 'host clock per shift, four ranks time-sliced on one card'}
-  print(f"  {entry['name']}: {entry['ms']:.4f} ms per shift of the "
-        f"[2, 120000] carry (four ranks time-sliced on one card), plain "
-        f"(torch.distributed) {entry['plain_ms']:.4f} ms, bound "
-        f"{entry['bound_ms']:.5f} ms on one card (bytes; "
-        f"{entry['bound_nvlink_ms']:.5f} ms over NVLink), the [2, 2047] "
-        f"halo {entry['halo_ms']:.4f} ms (plain {entry['halo_plain_ms']:.4f}, "
-        f"bound {entry['halo_bound_ms']:.6f}), launches {launches} on rank 0 "
+def remote_copy_entry(loopback, shifts, launches, err):
+  """The kernels line's entry of K3's remote copy at the noise carry
+  [2, 120000] float32, the STFT halo beside it. `ms` is the loopback's
+  median queued (the card's own time a shift), `ms_call` as the host
+  issues it; `ms_baseline` the earlier design's loopback call (its
+  synchronisation included); `ms_ranks` rank 0's time per shift with four
+  ranks time-sliced on one card, beside the earlier design's.
+  Bound: the sender's block read once and the receiver's output written
+  once, at HBM's rate on one card (the slot between them is the design's,
+  not the function's: its 4 x bytes are `floor_ms`); across cards the
+  block crosses NVLink once, at 450 GB/s each way. The plain version, and
+  the library call, is the torch.distributed route, timed on the four
+  ranks."""
+  def median(ms, route):
+    return spread(ms[route])[0] if route in ms else None
+
+  def mean(ms, route):
+    return float(np.mean(ms[route])) if route in ms else None
+
+  entry = {'name': 'halo_remote_copy (K3 between ranks)', 'route': 'cuda',
+           'source': 'ddsp_torch/csrc/halo.cu',
+           'replaces': 'ddsp_tpu/parallel/pallas_halo.py:88',
+           'launches': launches, 'max_abs_err': err}
+  for name, prefix in zip(RANKS_BLOCKS, ('', 'halo_')):
+    block = shifts['bytes'][name]
+    lb, rk = loopback['ms'][name], shifts['ms'][name]
+    entry.update({
+        f'{prefix}ms': median(lb, 'new queued'),
+        f'{prefix}ms_spread': spread(lb['new queued'])[1:],
+        f'{prefix}ms_call': median(lb, 'new'),
+        f'{prefix}ms_baseline': median(lb, 'baseline'),
+        f'{prefix}ms_ranks': mean(rk, 'new'),
+        f'{prefix}ms_ranks_baseline': mean(rk, 'baseline'),
+        f'{prefix}plain_ms': mean(rk, 'plain'),
+        f'{prefix}bound_ms': 2 * block / PEAK_BYTES_PER_S * 1e3,
+        f'{prefix}bound_nvlink_ms': block / NVLINK_BYTES_PER_S * 1e3,
+        f'{prefix}floor_ms': 4 * block / PEAK_BYTES_PER_S * 1e3})
+  entry.update({'bound_by': 'bytes', 'library_ms': entry['plain_ms'],
+                'card': card_line(),
+                'timing': ('ms: loopback, CUDA events over windows of '
+                           f'{LOOPBACK_SHIFTS} shifts enqueued behind a '
+                           'sleeping kernel, median of '
+                           f'{LOOPBACK_WINDOWS}; ms_call and ms_baseline: '
+                           'the same, as the host issues them; ms_ranks and '
+                           'plain_ms: '
+                           'host clock over windows of '
+                           f'{RANKS_SHIFTS_TIMED} shifts, four ranks '
+                           'time-sliced on one card')})
+
+  def fmt(v, digits=5):
+    return 'not measured' if v is None else f'{v:.{digits}f}'
+
+  print(f"  {entry['name']} ({entry['card']}): the [2, 120000] carry "
+        f"loopback {fmt(entry['ms'])} ms (windows {fmt(entry['ms_spread'][0])}"
+        f"-{fmt(entry['ms_spread'][1])}); a call {fmt(entry['ms_call'])}, "
+        f"the earlier design's {fmt(entry['ms_baseline'])}; four ranks "
+        f"{fmt(entry['ms_ranks'], 4)} ms per shift, earlier design "
+        f"{fmt(entry['ms_ranks_baseline'], 4)}, plain (torch.distributed) "
+        f"{fmt(entry['plain_ms'], 4)}; bound {entry['bound_ms']:.6f} ms on "
+        f"one card ({entry['bound_nvlink_ms']:.5f} over NVLink), the "
+        f"design's 4 x bytes {entry['floor_ms']:.5f}; the [2, 2047] halo "
+        f"loopback {fmt(entry['halo_ms'])} (earlier design "
+        f"{fmt(entry['halo_ms_baseline'])}), four ranks "
+        f"{fmt(entry['halo_ms_ranks'], 4)} (earlier design "
+        f"{fmt(entry['halo_ms_ranks_baseline'], 4)}, plain "
+        f"{fmt(entry['halo_plain_ms'], 4)}); launches {launches} on rank 0 "
         f"in (c)", flush=True)
   return entry
 

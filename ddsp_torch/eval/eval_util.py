@@ -140,6 +140,7 @@ def gather_outputs(outputs: Any, mesh, local_batch: int) -> Any:
   Other leaves are the same on every rank and kept. bf16 leaves come back
   float32.
   """
+  distributed.check()  # the gather waits for the device
   ranks = mesh.ranks
   time_local = (_time_local_ids(outputs) if ranks.time_group is not None
                 else set())

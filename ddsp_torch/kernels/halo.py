@@ -11,14 +11,20 @@ same kernel in the opposite direction.
 Shards of one process launch `ddsp_halo_shift` (counted as 'shift'). On a
 mesh over ranks (parallel/distributed.py) a rank's edge shard has its
 neighbour in another process: that block goes through the remote copy,
-`ddsp_halo_remote` (counted as 'remote_shift'), which writes it into the
-neighbour's receive slot, mapped with CUDA IPC, and waits for its own.
-Every rank of a row makes the same K3 calls in the same order, forward and
-backward, as the JAX package's collective-id pool arranges for its
-barriers; the stamp of each slot's use and each call makes a mismatch
-raise instead of reading stale data. CPU shards take the plain versions:
-`halo_shift_plain` in a process, `remote_shift_plain` (torch.distributed
-point-to-point sends, the yardstick on the card) between ranks.
+`ddsp_halo_remote` (counted as 'remote_shift'), which pushes it into the
+neighbour's receive slot, mapped with CUDA IPC, and copies out its own
+slot once the neighbour's stamp is there. The waits are on the stream: a
+launch returns at once and nothing synchronises. Every rank of a row makes
+the same K3 calls in the same order, forward and backward, as the JAX
+package's collective-id pool arranges for its barriers; the stamp of each
+slot's use, call and direction makes a mismatch a fault instead of stale
+data. The kernels write a fault into pinned host memory, which each launch
+reads without waiting; `check` waits for the stream with a deadline and
+raises on a fault or at the deadline. The places where the host waits
+anyway call it (parallel/distributed.py re-exports it). CPU shards take the
+plain versions: `halo_shift_plain` in a process, `remote_shift_plain`
+(torch.distributed point-to-point sends, the yardstick on the card)
+between ranks.
 
 The Pallas kernel's interpret-mode fallback to ppermute is a simulator
 detail with no counterpart here.
@@ -26,11 +32,13 @@ detail with no counterpart here.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
+import math
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -101,7 +109,7 @@ def _rows_view(x: torch.Tensor) -> Optional[Tuple[int, int, int]]:
     if s != expected:
       return None
     expected = s * n
-  return int(np.prod([n for n, _ in lead])), cols, row_stride
+  return math.prod(n for n, _ in lead), cols, row_stride
 
 
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
@@ -113,23 +121,35 @@ _SIGNATURES = {
     'ddsp_halo_slot_open': [ctypes.c_char_p, _PTRS],
     'ddsp_halo_slot_close': [ctypes.c_void_p],
     'ddsp_halo_slot_free': [ctypes.c_void_p],
-    'ddsp_halo_remote': [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                         ctypes.c_uint, ctypes.c_uint, ctypes.c_ulonglong,
-                         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
+    'ddsp_halo_remote': [ctypes.c_void_p, ctypes.c_longlong] +
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 +
+                        [ctypes.c_longlong, ctypes.c_int] +
+                        [ctypes.c_uint] * 4 + [ctypes.c_void_p],
+    'ddsp_halo_fault_block': [_PTRS],
 }
 IPC_HANDLE_BYTES = 64
-# How long the remote copy waits for a neighbour before it raises. Ranks
-# time-sliced on one card wait for whole timeslices, and a rank may reach a
-# shift while its neighbour still runs host code before it.
+# How long `check` waits for the stream of the remote copies before it
+# raises. Ranks time-sliced on one card wait for whole timeslices, and a
+# rank may reach a shift while its neighbour still runs host code before
+# it.
 REMOTE_TIMEOUT_S = 60.0
 REMOTE_ERRORS = {
-    1: 'waited past its bound for the neighbour to consume its slot',
-    2: "waited past its bound for the neighbour's block",
+    1: 'did not see the neighbour consume its slot',
+    2: "did not receive the neighbour's block",
     3: 'received the stamp of another call (the ranks made different K3 '
        'calls)',
 }
+
+
+class FaultBlock(ctypes.Structure):
+  """csrc/halo.cu's FaultBlock, in pinned host memory mapped into the
+  device: the first fault's code (written last), the launch's tag, call and
+  use, the stamp seen, and the last tags whose push and copy-out passed
+  their waits."""
+  _fields_ = [('code', ctypes.c_uint32), ('tag', ctypes.c_uint32),
+              ('call', ctypes.c_uint32), ('use', ctypes.c_uint32),
+              ('seen', ctypes.c_uint64), ('pushed', ctypes.c_uint32),
+              ('copied', ctypes.c_uint32)]
 
 
 def _launch(shards: Sequence[torch.Tensor], mesh,
@@ -181,13 +201,14 @@ def _local(shards, mesh, direction):
 
 @dataclasses.dataclass
 class _Edge:
-  """A rank's remote part of one shift: it sends its edge shard `send` to
-  rank `to`, and shard `recv` receives from rank `frm` (None: no such
-  neighbour; shard `recv` then gets zeros)."""
+  """A rank's remote part of one shift by `direction`: it sends its edge
+  shard `send` to rank `to`, and shard `recv` receives from rank `frm`
+  (None: no such neighbour; shard `recv` then gets zeros)."""
   send: int
   to: Optional[int]
   recv: int
   frm: Optional[int]
+  direction: int = 1
 
 
 def _edge(mesh, direction) -> _Edge:
@@ -199,9 +220,9 @@ def _edge(mesh, direction) -> _Edge:
   behind = t_first > 0
   if direction > 0:
     return _Edge(n - 1, ranks.rank + 1 if ahead else None, 0,
-                 ranks.rank - 1 if behind else None)
+                 ranks.rank - 1 if behind else None, 1)
   return _Edge(0, ranks.rank - 1 if behind else None, n - 1,
-               ranks.rank + 1 if ahead else None)
+               ranks.rank + 1 if ahead else None, -1)
 
 
 def remote_shift_plain(block: torch.Tensor, to: Optional[int],
@@ -235,11 +256,33 @@ class _Slot:
   uses: int = 0
 
 
-# The receive slots of this process by (row's ranks, bytes), and each row's
-# count of remote copies: state of the CUDA allocations behind them, which
-# release_remote_slots frees.
-_SLOTS: Dict[Tuple[Tuple[int, ...], int], _Slot] = {}
-_CALLS: Dict[Tuple[int, ...], int] = {}
+@dataclasses.dataclass
+class _Launch:
+  """A remote copy enqueued and not yet known to have passed its waits."""
+  tag: int
+  call: int
+  row: Tuple
+  rank: int
+  use: int
+  nbytes: int
+  pushes: bool
+  stream: object
+
+  def __str__(self):
+    return (f'K3 remote copy (call {self.call} of row {self.row}, use '
+            f'{self.use} of its {self.nbytes}-byte slot, rank {self.rank})')
+
+
+# The receive slots of this process by (row's ranks, bytes), each row's
+# count of remote copies, and the launches in flight by tag: state of the
+# CUDA allocations behind them, which release_remote_slots frees.
+_SLOTS: Dict[Tuple[Tuple, int], _Slot] = {}
+_CALLS: Dict[Tuple, int] = {}
+_PENDING: 'collections.OrderedDict[int, _Launch]' = collections.OrderedDict()
+_TAG = 0  # the last launch's
+_FAULT: Optional[FaultBlock] = None  # the process's fault block, once mapped
+_FAULTS_REPORTED = 0  # csrc/halo.cu's fault_gen
+LOOPBACK_ROW = ('loopback',)
 
 
 def _slot(mesh, nbytes: int) -> _Slot:
@@ -268,59 +311,220 @@ def _slot(mesh, nbytes: int) -> _Slot:
   return _SLOTS[key]
 
 
-def _launch_remote(block: torch.Tensor, mesh, edge: _Edge) -> torch.Tensor:
-  """The remote copy: one launch that pushes `block` into rank edge.to's
-  slot and returns what rank edge.frm pushed into this rank's (zeros
-  without one). Synchronises its stream to read the kernel's error word."""
-  dtype = block.dtype
-  if dtype not in ELEM_BYTES:
-    raise TypeError(f'K3 takes float32 or bfloat16, not {dtype}.')
-  eb = ELEM_BYTES[dtype]
-  layout = _rows_view(block)
-  if layout is None:
-    block = block.contiguous()
-    layout = _rows_view(block)
-  rows, cols, stride = layout
-  if (cols * eb) % 16 == 0 and (block.data_ptr() % 16 or (stride * eb) % 16):
-    # The 16-byte route follows the shape on both ends: align the source.
-    block = block.contiguous()
-    rows, cols, stride = _rows_view(block)
-  nbytes = rows * cols * eb
-  lib = _build.load('halo', _SIGNATURES)
-  with torch.cuda.device(block.device):
-    slot = _slot(mesh, nbytes)
-    slot.uses += 1
-    row = mesh.ranks.time_ranks
-    _CALLS[row] = _CALLS.get(row, 0) + 1
-    out = torch.empty(block.shape, dtype=dtype, device=block.device)
-    error = ctypes.c_int(0)
-    status = lib.ddsp_halo_remote(
-        block.data_ptr() if edge.to is not None else None, stride,
-        slot.peers.get(edge.to), out.data_ptr(), slot.own,
-        int(edge.frm is not None), rows, cols, eb, slot.uses,
-        _CALLS[row] & 0xffffffff, int(REMOTE_TIMEOUT_S * 1e9),
-        torch.cuda.current_stream().cuda_stream, ctypes.byref(error))
-  _build.check(status, 'ddsp_halo_remote')
-  if error.value:
+def _before(a: int, b: int) -> bool:
+  """Tag a comes before tag b (32-bit tags that wrap)."""
+  return 0 < (b - a) % 2**32 < 2**31
+
+
+def _map_fault_block(lib) -> None:
+  global _FAULT
+  if _FAULT is None:
+    ptr = ctypes.c_void_p()
+    _build.check(lib.ddsp_halo_fault_block(ctypes.byref(ptr)),
+                 'ddsp_halo_fault_block')
+    _FAULT = FaultBlock.from_address(ptr.value)
+
+
+def _raise_fault() -> None:
+  """Raise on a fault the kernels wrote, without waiting; otherwise drop
+  the launches whose copy-out has passed its wait."""
+  global _FAULTS_REPORTED
+  fault = _FAULT
+  if fault is None:
+    return
+  code = fault.code
+  if code:
+    launch = _PENDING.get(fault.tag)
+    what = (str(launch) if launch is not None else
+            f'K3 remote copy (call {fault.call}, use {fault.use})')
+    seen = fault.seen
+    found = (f'the neighbour had consumed use {seen}' if code == 1 else
+             f'the stamp seen: use {seen >> 32}, call '
+             f'{(seen & 0xffffffff) >> 1}, direction '
+             f'{"+1" if seen & 1 else "-1"}')
+    # Cleared before the count moves on, so no fault of a later launch is
+    # lost; nothing on the device is reset.
+    fault.code = 0
+    _FAULTS_REPORTED += 1
+    _PENDING.clear()
     raise RuntimeError(
-        f'K3 remote copy (call {_CALLS[row]} of row {row}, use {slot.uses} '
-        f'of its {nbytes}-byte slot, rank {mesh.ranks.rank}) '
-        f'{REMOTE_ERRORS.get(error.value, f"failed ({error.value})")}.')
+        f'{what} {REMOTE_ERRORS.get(code, f"failed ({code})")} ({found}).')
+  copied = fault.copied
+  while _PENDING:
+    tag = next(iter(_PENDING))
+    if not (tag == copied or _before(tag, copied)):
+      break
+    del _PENDING[tag]
+
+
+def _record_event(stream):
+  event = torch.cuda.Event()
+  event.record(stream)
+  return event
+
+
+def _stalled(last: _Launch) -> RuntimeError:
+  """The error of a wait past REMOTE_TIMEOUT_S: the first launch in flight
+  whose push or copy-out has not passed its wait, from the tags the kernels
+  wrote, and the last call launched."""
+  for launch in _PENDING.values():
+    if launch.pushes and _before(_FAULT.pushed, launch.tag):
+      code = 1
+    elif _before(_FAULT.copied, launch.tag):
+      code = 2
+    else:
+      continue
+    return RuntimeError(
+        f'{launch} {REMOTE_ERRORS[code]} within {REMOTE_TIMEOUT_S} s; the '
+        f'last call launched: {last}.')
+  return RuntimeError(
+      f'The stream of the K3 remote copies did not finish within '
+      f'{REMOTE_TIMEOUT_S} s; the last call launched: {last}.')
+
+
+def check() -> None:
+  """Raise if a remote copy of this process has faulted or its stream has
+  not finished within REMOTE_TIMEOUT_S.
+
+  Waits for the streams of the launches in flight by polling an event (no
+  stream synchronisation), so a wait for a neighbour that never comes ends
+  in an error that names the call. Costs nothing where no remote copy was
+  launched. The places where the host waits for the device anyway call it
+  first: the gloo staging of a collective, the training loop's loss read
+  and synchronisation, Trainer.save, the eval batch's gather,
+  release_remote_slots.
+  """
+  _raise_fault()
+  if not _PENDING:
+    return
+  last = next(reversed(_PENDING.values()))
+  streams = {id(launch.stream): launch.stream
+             for launch in _PENDING.values()}
+  events = [_record_event(stream) for stream in streams.values()]
+  start = time.monotonic()
+  while not all(event.query() for event in events):
+    waited = time.monotonic() - start
+    if waited > REMOTE_TIMEOUT_S:
+      _raise_fault()
+      raise _stalled(last)
+    time.sleep(0 if waited < 1e-3 else 1e-4)
+  _raise_fault()
+  _PENDING.clear()
+
+
+def _device(device):
+  return torch.cuda.device(device)
+
+
+def _current_stream(device):
+  return torch.cuda.current_stream(device)
+
+
+def _enqueue(block: torch.Tensor, layout: Tuple[int, int, int],
+             slot: _Slot, left: Optional[int], right: Optional[int],
+             sends: bool, receives: bool, direction: int, row: Tuple,
+             rank: int) -> torch.Tensor:
+  """One remote copy on the current stream: `block` ([rows, cols] with
+  row stride `stride`: `layout`) pushed into the neighbour on
+  `direction`'s side (when `sends`), and the output, the own slot's block
+  (when `receives`) or zeros. Reads the fault block first and raises on a
+  fault; synchronises nothing."""
+  global _TAG
+  dtype = block.dtype
+  eb = ELEM_BYTES[dtype]
+  rows, cols, stride = layout
+  lib = _build.load('halo', _SIGNATURES)
+  _map_fault_block(lib)
+  _raise_fault()
+  slot.uses += 1
+  _CALLS[row] = _CALLS.get(row, 0) + 1
+  _TAG = _TAG % 0xffffffff + 1
+  out = torch.empty(block.shape, dtype=dtype, device=block.device)
+  stream = _current_stream(block.device)
+  launch = _Launch(_TAG, _CALLS[row], row, rank, slot.uses,
+                   rows * cols * eb, sends, stream)
+  status = lib.ddsp_halo_remote(
+      block.data_ptr() if sends else None, stride, left, right,
+      out.data_ptr(), slot.own, int(receives), direction, rows, cols, eb,
+      slot.uses, _CALLS[row] & 0xffffffff, launch.tag,
+      _FAULTS_REPORTED & 0xffffffff, stream.cuda_stream)
+  _build.check(status, f'ddsp_halo_remote ({launch})')
+  _PENDING[launch.tag] = launch
   launches['remote_shift'] += 1
   return out
 
 
+def _aligned(block: torch.Tensor):
+  """(block, its layout), or a contiguous copy's where the layout does not
+  suit the remote copy: rows must be contiguous, and the 16-byte route
+  (which follows the shape on both ends) needs an aligned source."""
+  if block.dtype not in ELEM_BYTES:
+    raise TypeError(f'K3 takes float32 or bfloat16, not {block.dtype}.')
+  layout = _rows_view(block)
+  if layout is not None:
+    _, cols, stride = layout
+    eb = ELEM_BYTES[block.dtype]
+    if not ((cols * eb) % 16 == 0 and
+            (block.data_ptr() % 16 or (stride * eb) % 16)):
+      return block, layout
+  block = block.contiguous()
+  return block, _rows_view(block)
+
+
+def _launch_remote(block: torch.Tensor, mesh, edge: _Edge) -> torch.Tensor:
+  """The remote copy: pushes `block` into rank edge.to's slot and returns
+  what rank edge.frm pushed into this rank's (zeros without one). The
+  launch is enqueued on the current stream and returns at once: it reads
+  the fault block without waiting, and a fault or a neighbour that never
+  comes raises at the next `check`."""
+  block, layout = _aligned(block)
+  ranks = mesh.ranks
+  nbytes = block.numel() * ELEM_BYTES[block.dtype]
+  with _device(block.device):
+    slot = _slot(mesh, nbytes)
+    return _enqueue(block, layout, slot, slot.peers.get(ranks.rank - 1),
+                    slot.peers.get(ranks.rank + 1), edge.to is not None,
+                    edge.frm is not None, edge.direction, ranks.time_ranks,
+                    ranks.rank)
+
+
+def loopback_shift(block: torch.Tensor,
+                   direction: int = 1) -> torch.Tensor:
+  """The remote copy with this process's own slot as its neighbour on both
+  sides: the block is pushed, stamped, waited for and copied out on one
+  context, with no other process to wait for (the kernels' own device time
+  against their bound). Returns the block's copy. Outside the main path:
+  a measurement of the card."""
+  block, layout = _aligned(block)
+  nbytes = block.numel() * ELEM_BYTES[block.dtype]
+  key = (LOOPBACK_ROW, nbytes)
+  with _device(block.device):
+    if key not in _SLOTS:
+      lib = _build.load('halo', _SIGNATURES)
+      own = ctypes.c_void_p()
+      handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+      _build.check(lib.ddsp_halo_slot_alloc(nbytes, ctypes.byref(own),
+                                            handle), 'ddsp_halo_slot_alloc')
+      _SLOTS[key] = _Slot(own.value, {})
+    slot = _SLOTS[key]
+    return _enqueue(block, layout, slot, slot.own, slot.own, True, True,
+                    direction, LOOPBACK_ROW, 0)
+
+
 def release_remote_slots() -> None:
-  """Unmap the neighbours' slots and free this rank's (collective: every
-  rank calls it, before the process group ends)."""
+  """Wait for the remote copies (`check`), then unmap the neighbours' slots
+  and free this process's (collective where a process group exists: every
+  rank calls it, before the group ends)."""
   lib = _build.load('halo', _SIGNATURES) if _SLOTS else None
-  if _SLOTS:
-    torch.cuda.synchronize()
-  dist.barrier()  # no rank writes into a slot any more
+  check()
+  grouped = dist.is_available() and dist.is_initialized()
+  if grouped:
+    dist.barrier()  # no rank writes into a slot any more
   for slot in _SLOTS.values():
     for ptr in slot.peers.values():
       _build.check(lib.ddsp_halo_slot_close(ptr), 'ddsp_halo_slot_close')
-  dist.barrier()  # every mapping of a slot is closed
+  if grouped:
+    dist.barrier()  # every mapping of a slot is closed
   for slot in _SLOTS.values():
     _build.check(lib.ddsp_halo_slot_free(slot.own), 'ddsp_halo_slot_free')
   _SLOTS.clear()

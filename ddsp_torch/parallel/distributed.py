@@ -8,7 +8,10 @@ contiguous run of the mesh's row-major ('data', 'time') order
 data rows. `init` starts the process group from torchrun's environment
 (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR / MASTER_PORT) or from explicit
 arguments, and `shutdown` releases K3's mapped receive slots
-(kernels/halo.py) before it ends the group.
+(kernels/halo.py) before it ends the group. `check` is K3's: it raises on a
+fault of the remote copy, or when its stream has not finished within its
+deadline, at a point where the host waits for the device anyway (staging
+for gloo calls it first).
 
 The collectives of the sharded step are differentiable:
 
@@ -46,6 +49,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ddsp_torch.kernels.halo import check
 from ddsp_torch.utils.device import DeviceLike
 
 BACKENDS = ('nccl', 'gloo')
@@ -192,8 +196,10 @@ def mesh_ranks(n_data: int, n_time: int) -> Ranks:
 
 
 def staged(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, bool]:
-  """(the tensor the group's backend moves, whether it is a host copy)."""
+  """(the tensor the group's backend moves, whether it is a host copy).
+  A host copy waits for the device: K3's `check` first bounds that wait."""
   if x.is_cuda and dist.get_backend(group) == 'gloo':
+    check()
     return x.cpu(), True
   return x, False
 

@@ -180,16 +180,19 @@ def train(data_iterator: Iterator[Dict[str, Any]],
 
       if profiler is not None and step >= profile_start + profile_steps:
         if trainer.device.type == 'cuda':
+          distributed.check()
           torch.cuda.synchronize(trainer.device)
         stop_profiler()
         profiler = None
         profile_dir = None
 
       if log_every_step:
+        distributed.check()
         logger.info('step: %d\t%s', step, '\t'.join(
             f'{k}: {float(v):.2f}' for k, v in losses.items()))
 
       if step % steps_per_summary == 0 and pending_losses:
+        distributed.check()  # the loss read below waits for the device
         mean_losses = _interval_means(pending_losses)
         elapsed = time.time() - last_summary_time
         steps_per_sec = (step - last_summary_step) / max(elapsed, 1e-9)

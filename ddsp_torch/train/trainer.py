@@ -249,6 +249,7 @@ class Trainer:
     seconds it took. Keeps the newest `checkpoints_to_keep`. Across ranks
     rank 0 writes and every rank waits for it."""
     start_time = time.time()
+    distributed.check()  # the host copy and the barrier wait for the device
     if self._ranks and self._ranks.rank != 0:
       distributed.barrier()
       return time.time() - start_time
