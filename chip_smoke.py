@@ -20,8 +20,10 @@ Phases (any failed check exits non-zero before the result lines):
   2c. K3: the halo shift against its plain version, bit for bit, on (1, 4),
      (2, 4) and (1, 8) meshes of one card, both directions, values and
      gradients, at the main path's three blocks and the long-audio step's
-     two; the (2 data x 2 time) row rule through the time-sharded
-     fft_convolve;
+     two; the local launch on the runs of the ranks that straddle a data
+     row of a (3 x 4) mesh over four ranks (a run that starts inside a
+     row), float32 and bf16, both directions; the (2 data x 2 time) row
+     rule through the time-sharded fft_convolve;
   3. K2: the fused GRU sequence (K2f) and its backward (K2b) against their
      plain PyTorch versions, both dtypes, at H = 512, T = 1000 and B in
      {1, 4, 16, 40, 128} (a ragged tile, and past the old kernels' batch
@@ -198,11 +200,10 @@ Phases (any failed check exits non-zero before the result lines):
      as a loopback (its own slot as its neighbour) at the long-audio
      step's blocks, bit for bit against the block, timed by windows of
      CUDA events (queued: the card's own time; and as the host issues
-     them) in turns with its earlier design (K3_BASELINE_COMMIT's
-     halo.cu); then on the ranks against its torch.distributed plain
+     them); then on the ranks against its torch.distributed plain
      version, both directions, values and adjoints bit for bit, one
-     remote launch each way, and ms per shift by windows of the redesign,
-     the earlier design and the plain version; last, after (b)-(h), a fault
+     remote launch each way, and ms per shift by windows of the kernels
+     and the plain version; last, after (b)-(j), a fault
      drill in ranks of its own (one rank makes a call the others do not;
      one rank never sends): every rank raises naming a call within its
      deadline and every process ends; (b) the dense Trainer step of
@@ -229,8 +230,15 @@ Phases (any failed check exits non-zero before the result lines):
      step of solo_instrument with an L2 SpectralLoss on a (1 x 4) mesh of
      the ranks against one process; (h) one SP Trainer step on a (4 x 2)
      mesh over two ranks, two whole rows each, against one process (the
-     local K3 only); ms per eval batch and per vst step a rank; a failed
-     rank fails the phase;
+     local K3 only); (i) make_sp_train_step at 30 s x B = 3 on a (3 x 4)
+     mesh of the four ranks, three shards a rank, so that ranks 1 and 2
+     straddle a data row, for 3 steps against one process's (3 x 4) mesh
+     (the first loss and the decoder's gradient norm, the losses and the
+     parameters equal on every rank, K2f and K2b once and the local shift
+     and the remote copy each as counted from the code a step, ms per
+     step and peak memory a rank); (j) phase 6b's checkpoint evaluated on
+     that mesh of ranks against one process's eval on it; ms per eval
+     batch and per vst step a rank; a failed rank fails the phase;
   7. report per-request and per-step times, the kernels line and the device
      line.
 
@@ -238,7 +246,6 @@ Exits 1 without a CUDA device or outside a checkout of the repository.
 """
 
 import argparse
-import ctypes
 import itertools
 import json
 import os
@@ -314,6 +321,11 @@ STEP_GRAD_NORM_RTOL = 5e-2
 # card, 2 warm-up steps and 8 measured ones.
 SP_MESH = (1, 4)
 SP_WARMUP, SP_STEPS = 2, 8
+# A mesh whose runs straddle data rows over phase 6m's four ranks: three
+# shards a rank, so ranks 1 and 2 each hold the tail of one row and the
+# head of the next; one row of the batch a data row.
+STRADDLE_MESH = (3, 4)
+STRADDLE_BATCH = 3
 # The first SP step against the dense step at the same parameters and
 # noise (the JAX package's tier, tests/test_sp_model.py:84-85): the shards'
 # phase carries and the logmag term's 1/|bin| in near-silent bins.
@@ -752,8 +764,10 @@ def phase_k3(torch, dev):
   from ddsp_torch.kernels import halo as kk
   from ddsp_torch.ops.fftconv import fft_convolve
   from ddsp_torch.parallel import create_mesh, halo, time_shard
+  from ddsp_torch.parallel.distributed import Run
   print('[2c] K3 halo shift vs plain: meshes (1, 4), (2, 4), (1, 8), both '
-        'directions, values and gradients', flush=True)
+        'directions, values and gradients; the runs of the straddling ranks '
+        f'of a {STRADDLE_MESH} mesh over {RANKS} ranks', flush=True)
   cases = [(shape, torch.float32) for shape in ((1, 4), (2, 4), (1, 8))]
   cases.append(((1, 4), torch.bfloat16))
   for shape, dtype in cases:
@@ -764,7 +778,7 @@ def phase_k3(torch, dev):
         what = f'K3 {shape} {str(dtype)[6:]} {name} {direction:+d}'
         kk.reset_launches()
         out = halo.neighbor_shift(shards, mesh, direction, impl='pallas')
-        want = kk.halo_shift_plain([x.detach() for x in shards], mesh,
+        want = kk.halo_shift_plain([x.detach() for x in shards], mesh.run,
                                    direction)
         torch.cuda.synchronize()
         check(kk.launches['shift'] == 1 and all(
@@ -777,11 +791,32 @@ def phase_k3(torch, dev):
               f'{what}: the boundary shards receive zeros')
         cot = [torch.randn(o.shape, device=dev).to(dtype) for o in out]
         grads = torch.autograd.grad(out, leaves, cot)
-        adj = kk.halo_shift_plain(cot, mesh, -direction)
+        adj = kk.halo_shift_plain(cot, mesh.run, -direction)
         torch.cuda.synchronize()
         check(kk.launches['shift'] == 2 and all(
             torch.equal(g, embed(a)) for g, a in zip(grads, adj)),
               f'{what}: the gradient is the plain adjoint, bit for bit')
+
+  # The local launch of a rank whose run straddles a data row: ranks 1 and
+  # 2 of STRADDLE_MESH over RANKS ranks hold shards (0, 3), (1, 0), (1, 1)
+  # and (1, 2), (1, 3), (2, 0); the launch starts at the run's first time
+  # position and leaves the edge the remote copy fills as zeros.
+  per_rank = STRADDLE_MESH[0] * STRADDLE_MESH[1] // RANKS
+  for rank in (1, 2):
+    run = Run(rank * per_rank, per_rank, *STRADDLE_MESH)
+    for dtype in (torch.float32, torch.bfloat16):
+      for name, _, shards, _ in k3_blocks(torch, per_rank, dtype, dev, 23):
+        shards = [x.detach() for x in shards]
+        for direction in (+1, -1):
+          kk.reset_launches()
+          out = kk._launch(shards, run, direction)
+          want = kk.halo_shift_plain(shards, run, direction)
+          torch.cuda.synchronize()
+          check(kk.launches['shift'] == 1 and all(
+              torch.equal(o, w) for o, w in zip(out, want)),
+                f'K3 the run of rank {rank} of {STRADDLE_MESH} '
+                f'{str(dtype)[6:]} {name} {direction:+d}: one launch, '
+                'bit-equal to the plain version')
 
   # tests/test_time_shard.py's test_pallas_halo_dp_stays_in_data_row on the
   # card: distinct rows catch a halo that leaks between data rows.
@@ -5281,140 +5316,20 @@ def ranks_blocks(torch, dev, seed):
   return list(zip(RANKS_BLOCKS, (carry, audio[:, :2047])))
 
 
-# (a) also times the remote copy alone and against its earlier design. The
-# loopback: one process passes its own slot as its neighbour on both sides,
-# so the kernels push, stamp, wait and copy out on one context with nothing
-# to wait for: the design's own device time against its bound. The earlier
-# design (waits that spun in the kernel on system-scope loads, and a stream
-# synchronisation per shift to read its error word) is built from
-# K3_BASELINE_COMMIT's csrc/halo.cu, unpacked into K3_BASELINE_DIR (git
-# archive where the checkout has its history; else a copy put there
-# beforehand); without it its figures read "not measured". Loopback times
-# are CUDA events around windows of LOOPBACK_SHIFTS back-to-back shifts,
-# routes in turns: as the host issues them (a call's time, which the
-# earlier design's synchronisation makes a host round trip), and, for the
-# redesign, 'queued': behind a sleeping kernel of QUEUE_SLEEP_CYCLES, so
-# that the window is enqueued whole before the card starts it and the
-# events read the card's own time. The four ranks' are host clocks around
-# windows of RANKS_SHIFTS_TIMED shifts ending in one wait (check, or the
-# baseline's own synchronisation), two windows a route in turns.
-K3_BASELINE_COMMIT = '232c8fbda98f558924fd1cf774a89bc4f038f8ae'
-K3_BASELINE_DIR = os.path.join('build', 'k3_baseline')
+# (a) also times the remote copy alone. The loopback: one process passes
+# its own slot as its neighbour on both sides, so the kernels push, stamp,
+# wait and copy out on one context with nothing to wait for: the design's
+# own device time against its bound. Loopback times are CUDA events around
+# windows of LOOPBACK_SHIFTS back-to-back shifts: as the host issues them
+# (a call's time), and 'queued': behind a sleeping kernel of
+# QUEUE_SLEEP_CYCLES, so that the window is enqueued whole before the card
+# starts it and the events read the card's own time. The four ranks' are
+# host clocks around windows of RANKS_SHIFTS_TIMED shifts ending in one
+# wait (check), two windows a route in turns with the plain version.
 LOOPBACK_WINDOWS = 9
 LOOPBACK_SHIFTS = 50
 QUEUE_SLEEP_CYCLES = 50_000_000  # ~25 ms at the H100's 1.98 GHz
 RANKS_ROUNDS = 2
-BASELINE_SIGNATURES = {
-    'ddsp_halo_slot_alloc': [ctypes.c_longlong,
-                             ctypes.POINTER(ctypes.c_void_p),
-                             ctypes.c_char_p],
-    'ddsp_halo_slot_open': [ctypes.c_char_p,
-                            ctypes.POINTER(ctypes.c_void_p)],
-    'ddsp_halo_slot_close': [ctypes.c_void_p],
-    'ddsp_halo_slot_free': [ctypes.c_void_p],
-    'ddsp_halo_remote': [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                         ctypes.c_uint, ctypes.c_uint, ctypes.c_ulonglong,
-                         ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
-}
-
-
-def baseline_halo():
-  """The earlier design's halo library, loaded with ctypes, or None where
-  its source is not at hand. Built with the kernels' nvcc flags into the
-  kernels' build directory, named by a hash as they are."""
-  from pathlib import Path
-  from ddsp_torch.kernels import _build
-  root = os.path.join(REPO, K3_BASELINE_DIR)
-  src = os.path.join(root, 'ddsp_torch', 'csrc', 'halo.cu')
-  if not os.path.exists(src) and os.path.isdir(os.path.join(REPO, '.git')):
-    os.makedirs(root, exist_ok=True)
-    archive = subprocess.run(
-        ['git', '-C', REPO, 'archive', K3_BASELINE_COMMIT,
-         'ddsp_torch/csrc/halo.cu'], capture_output=True, check=False)
-    if archive.returncode == 0:
-      subprocess.run(['tar', '-x', '-C', root], input=archive.stdout,
-                     check=True)
-  if not os.path.exists(src):
-    return None
-  nvcc = _build._nvcc()  # pylint: disable=protected-access
-  _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  path = _build.hashed_library(Path(src), nvcc, _build.NVCC_FLAGS,
-                               _build.BUILD_DIR, 'halo_baseline')
-  if not path.exists():
-    tmp = path.with_suffix(f'.{os.getpid()}.tmp')
-    subprocess.run([nvcc, *_build.NVCC_FLAGS, '-o', str(tmp), src],
-                   check=True, capture_output=True)
-    os.replace(tmp, path)
-  lib = ctypes.CDLL(str(path))
-  for name, argtypes in BASELINE_SIGNATURES.items():
-    getattr(lib, name).argtypes = argtypes
-    getattr(lib, name).restype = ctypes.c_int
-  return lib
-
-
-class BaselineRemote:
-  """Shifts by +1 through the earlier design's ddsp_halo_remote: its own
-  slot of one byte size, its uses and calls. `peer` is the neighbour's
-  mapped slot (the own slot for the loopback), `has_src` whether a
-  neighbour sends here. Each call synchronises its stream inside."""
-
-  def __init__(self, torch, lib, nbytes, mesh=None):
-    self.torch, self.lib, self.uses = torch, lib, 0
-    own = ctypes.c_void_p()
-    handle = ctypes.create_string_buffer(64)
-    check_status(lib.ddsp_halo_slot_alloc(nbytes, ctypes.byref(own), handle),
-                 'the earlier design\'s slot')
-    self.own, self.peers = own.value, []
-    if mesh is None:
-      self.peer, self.has_src = self.own, 1
-      return
-    import torch.distributed as tdist  # pylint: disable=g-import-not-at-top
-    ranks = mesh.ranks
-    handles = [None] * len(ranks.time_ranks)
-    tdist.all_gather_object(handles, handle.raw, group=ranks.time_group)
-    self.peer, self.has_src = None, int(ranks.rank - 1 in ranks.time_ranks)
-    if ranks.rank + 1 in ranks.time_ranks:
-      ptr = ctypes.c_void_p()
-      check_status(lib.ddsp_halo_slot_open(
-          handles[ranks.time_ranks.index(ranks.rank + 1)], ctypes.byref(ptr)),
-                   'the earlier design\'s slot mapping')
-      self.peer = ptr.value
-      self.peers.append(ptr.value)
-
-  def __call__(self, block):
-    from ddsp_torch.kernels import halo as kk
-    rows, cols, stride = kk._rows_view(block)  # pylint: disable=protected-access
-    self.uses += 1
-    out = self.torch.empty(block.shape, dtype=block.dtype,
-                           device=block.device)
-    error = ctypes.c_int(0)
-    check_status(self.lib.ddsp_halo_remote(
-        block.data_ptr() if self.peer else None, stride, self.peer,
-        out.data_ptr(), self.own, self.has_src, rows, cols,
-        block.element_size(), self.uses, self.uses, int(60e9),
-        self.torch.cuda.current_stream().cuda_stream, ctypes.byref(error)),
-                 'the earlier design\'s remote copy')
-    if error.value:
-      raise CheckFailed(f'the earlier design\'s remote copy reported error '
-                        f'{error.value}')
-    return out
-
-  def close(self, barrier=None):
-    self.torch.cuda.synchronize()
-    if barrier:
-      barrier()
-    for ptr in self.peers:
-      check_status(self.lib.ddsp_halo_slot_close(ptr), 'slot close')
-    if barrier:
-      barrier()
-    check_status(self.lib.ddsp_halo_slot_free(self.own), 'slot free')
-
-
-def check_status(status, what):
-  if status:
-    raise CheckFailed(f'{what} failed with cudaError_t {status}')
 
 
 def windows_ms(routes, windows, shifts, begin, end):
@@ -5454,9 +5369,7 @@ def ranks_loopback(torch, dev):
   the carry and the halo, bit for bit against the block, then ms per
   shift by windows between CUDA events."""
   from ddsp_torch.kernels import halo as kk
-  lib = baseline_halo()
-  out = {'equal': {}, 'ms': {}, 'baseline': lib is not None}
-  baselines = []
+  out = {'equal': {}, 'ms': {}}
 
   def begin():
     event = torch.cuda.Event(enable_timing=True)
@@ -5476,11 +5389,6 @@ def ranks_loopback(torch, dev):
 
   for name, block in loopback_blocks(torch, dev):
     routes = {'new': lambda b=block: kk.loopback_shift(b)}
-    if lib is not None:
-      baseline = BaselineRemote(torch, lib,
-                                block.numel() * block.element_size())
-      baselines.append(baseline)
-      routes['baseline'] = lambda b=block, f=baseline: f(b)
     want = block.contiguous().view(torch.int32)
     for route, fn in routes.items():
       got = fn()
@@ -5493,22 +5401,19 @@ def ranks_loopback(torch, dev):
                         LOOPBACK_SHIFTS, begin_queued, end)
     out['ms'][name]['new queued'] = queued['new']
   kk.release_remote_slots()
-  for baseline in baselines:
-    baseline.close()
   return out
 
 
 def ranks_shifts(torch, dev, rank):
   """(a) K3's remote copy against its plain version on a (1 x 4) mesh of
   the ranks: values and adjoints bit for bit, both directions, launches;
-  then ms per shift of the redesign, the earlier design and the plain
-  version by windows, host clock (a window's shifts are
-  enqueued without waiting and end in one wait)."""
+  then ms per shift of the kernels and the plain version by windows, host
+  clock (a window's shifts are enqueued without waiting and end in one
+  wait)."""
   from ddsp_torch.kernels import halo as kk
   from ddsp_torch.parallel import create_mesh, distributed, halo
   mesh = create_mesh(*SP_MESH, devices=[dev])
   out = {'cases': [], 'ms': {}, 'bytes': {}}
-  lib = baseline_halo()
 
   def begin():
     kk.check()
@@ -5542,11 +5447,6 @@ def ranks_shifts(torch, dev, rank):
           launches=dict(kk.launches)))
     edge = kk._edge(mesh, +1)  # pylint: disable=protected-access
     routes = {'new': lambda b=block: halo.neighbor_shift([b], mesh, +1)}
-    baseline = None
-    if lib is not None:
-      baseline = BaselineRemote(torch, lib,
-                                block.numel() * block.element_size(), mesh)
-      routes['baseline'] = lambda b=block: baseline(b)
     routes['plain'] = lambda b=block: kk.remote_shift_plain(b, edge.to,
                                                             edge.frm)
     for fn in routes.values():
@@ -5554,8 +5454,6 @@ def ranks_shifts(torch, dev, rank):
         fn()
     out['ms'][name] = windows_ms(routes, RANKS_ROUNDS, RANKS_SHIFTS_TIMED,
                                  begin, end)
-    if baseline is not None:
-      baseline.close(distributed.barrier)
     out['bytes'][name] = block.numel() * block.element_size()
   return out
 
@@ -5652,7 +5550,8 @@ def ranks_drill(torch):
             + (f' ({result["error"]})' if result['error'] else ''))
       print(f'  drill {case!r} rank {r}: raised after '
             f'{result["seconds"]:.2f} s: {result["raised"]}', flush=True)
-      check(result['raised'] is not None and ' of row ' in result['raised']
+      check(result['raised'] is not None and
+            f' of the ({SP_MESH[0]} x {SP_MESH[1]}) mesh' in result['raised']
             and 'call ' in result['raised'],
             f'drill {case!r}: rank {r} raised, naming the call')
       check(result['seconds'] <= DRILL_TIMEOUT_S + DRILL_SLACK_S,
@@ -5743,7 +5642,8 @@ def ranks_long(torch, dev):
 # checkpoint on a (1 x 4) mesh of the ranks and (e) on a (4 x 1) one, both
 # against phase 6k's one-process evals of it (the same batches, noise and
 # evaluator); 'sample' on one batch.
-RANKS_EVAL_MESHES = {'sp': SP_MESH, 'dense': RANKS_DENSE_MESH}
+RANKS_EVAL_MESHES = {'sp': SP_MESH, 'dense': RANKS_DENSE_MESH,
+                     'straddle': STRADDLE_MESH}
 RANKS_SAMPLE_BATCHES = 1
 # (d) against phase 6k's one-process SP eval: the same shards, decoder rows
 # and noise, the same arithmetic; only the loss's sums run over ranks in
@@ -5783,6 +5683,19 @@ RANKS_VST_STEPS = 3
 RANKS_STEP_BATCH = 4
 RANKS_ROWS_MESH = (4, 2)
 RANKS_ROWS = 2
+# (i), (j): STRADDLE_MESH over the four ranks. (i) make_sp_train_step at 30
+# s on STRADDLE_BATCH rows (the example's tone, each row scaled by its
+# STRADDLE_ROW_SCALES, so that a row put in another's place shows), 3
+# steps, against one process's STRADDLE_MESH on the card; (j) phase 6b's
+# checkpoint evaluated on it against one process's eval on that mesh. Each
+# rank runs the network on the rows its run touches (one or two), not
+# three, so cuBLAS may pick other kernels by the row count: (b)'s
+# tolerances for the first loss and the decoder's gradient norm, and (e)'s
+# for the eval (the same reasons).
+STRADDLE_ROW_SCALES = (1.0, 0.8, 0.6)
+STRADDLE_EVAL_BATCHES = 2
+RANKS_EVAL_BATCH = {'sp': EVAL_BATCH, 'dense': EVAL_BATCH,
+                    'straddle': STRADDLE_BATCH}
 
 
 def files_under(root):
@@ -5804,8 +5717,8 @@ def first_examples(names, n):
 
 
 def ranks_eval(torch, dev, rank, work_dir, ckpt_dir, kind, mode, batches):
-  """(d), (e): evaluate_or_sample of phase 6b's checkpoint on a mesh of the
-  ranks (RANKS_EVAL_MESHES[kind]), phase 6k's batches, noise and
+  """(d), (e), (j): evaluate_or_sample of phase 6b's checkpoint on a mesh
+  of the ranks (RANKS_EVAL_MESHES[kind]), phase 6k's batches, noise and
   evaluator, after one untimed batch in 'eval'; each rank writes into its
   own directory. The scalars, the audio rank 0's evaluators saw, the
   launches, ms per batch (the loop; the forward's and the outputs'
@@ -5815,21 +5728,24 @@ def ranks_eval(torch, dev, rank, work_dir, ckpt_dir, kind, mode, batches):
   from ddsp_torch.parallel import create_mesh, distributed, sp_model
   from ddsp_torch.train import Trainer
   from ddsp_torch.utils import build_model
-  mesh = create_mesh(*RANKS_EVAL_MESHES[kind], devices=[dev])
+  n_data, n_time = RANKS_EVAL_MESHES[kind]
+  mesh = create_mesh(n_data, n_time, devices=[dev] * (n_data * n_time //
+                                                       RANKS))
   trainer = Trainer(build_model('solo_instrument', seed=1), mesh=mesh,
                     device=dev, halo_impl='pallas')
   recorder = audio_recorder()
   save_dir = os.path.join(work_dir, f'{kind}_{mode}', f'rank{rank}')
   provider = ArrayDataProvider(training_batch(), sample_rate=SR,
                                frame_rate=250)
-  kwargs = dict(restore_dir=ckpt_dir, batch_size=EVAL_BATCH,
-                noise=sp_eval_noise(torch, dev))
+  batch = RANKS_EVAL_BATCH[kind]
+  kwargs = dict(restore_dir=ckpt_dir, batch_size=batch,
+                noise=sp_eval_noise(torch, dev)[:batch])
   if mode == 'eval':  # first calls (imports, FFT plans) out of the timing
     evaluate_or_sample(provider, trainer, save_dir + '_warm',
                        evaluators=[BasicEvaluator(SR, 250)], num_batches=1,
                        **kwargs)
   forward, gather = [], []
-  timed = [(sp_model, 'sp_forward_with_losses', forward) if kind == 'sp'
+  timed = [(sp_model, 'sp_forward_with_losses', forward) if n_time > 1
            else (trainer.model, 'forward', forward),
            (eval_util, 'gather_outputs', gather)]
   originals = [(owner, attr, timed_calls(torch, owner, attr, log))
@@ -5960,9 +5876,87 @@ def ranks_case(torch, dev, case, mesh, steps):
   return out
 
 
+def straddle_long_batch():
+  """(i)'s batch: the example's 30 s tone on STRADDLE_BATCH rows, each
+  row's audio and loudness scaled by its STRADDLE_ROW_SCALES."""
+  batch = long_audio_batch(LONG_SECONDS, STRADDLE_BATCH)
+  scales = np.asarray(STRADDLE_ROW_SCALES, np.float32)
+  batch['audio'] = batch['audio'] * scales[:, None]
+  batch['ld_scaled'] = batch['ld_scaled'] * scales[:, None, None]
+  return batch
+
+
+def straddle_long(torch, dev, mesh, steps):
+  """(i) make_sp_train_step around solo_instrument's decoder (seed 0) on
+  straddle_long_batch() on `mesh` (of the ranks, or all its shards in this
+  process): losses, the decoder's reduced gradient norm at the first step,
+  ms per step, launches, peak memory and the decoder's parameters after."""
+  from ddsp_torch.parallel import distributed, make_sp_train_step
+  from ddsp_torch.utils import build_model
+  n_samples = LONG_SECONDS * SR
+  noise = torch.rand((STRADDLE_BATCH, n_samples),
+                     generator=torch.Generator().manual_seed(53)) * 2 - 1
+  model = build_model('solo_instrument', seed=0, device=dev)
+  decoder, fft_sizes = model.decoder, tuple(model.losses[0].fft_sizes)
+  train_step, shard_batch = make_sp_train_step(
+      mesh, decoder, torch.optim.Adam(decoder.parameters(), lr=LONG_LR),
+      n_samples=n_samples, sample_rate=SR, fft_sizes=fft_sizes)
+  batch, noise = shard_batch(straddle_long_batch(), noise)
+  if mesh.ranks:
+    distributed.barrier()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches()
+  losses, times, norm = [], [], None
+  for _ in range(steps):
+    t0 = time.perf_counter()
+    losses.append(train_step(batch, noise).item())
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3)
+    if norm is None:
+      norm = global_norm(torch, {k: p.grad for k, p in
+                                 decoder.named_parameters()})
+  return dict(losses=losses, norm=norm, ms=times,
+              launches=read_rank_launches(),
+              peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+              rows=int(batch['audio'].shape[0]),
+              samples=int(batch['audio'].shape[1]), fft_sizes=fft_sizes,
+              params={k: p.detach().cpu()
+                      for k, p in decoder.named_parameters()})
+
+
+def straddle_references(torch, dev, ckpt_dir):
+  """(i), (j) in this process: two steps of (i) (the first held, the
+  second timed warm) and the eval of (j) on STRADDLE_MESH with all its
+  shards on the card."""
+  from ddsp_torch.data import ArrayDataProvider
+  from ddsp_torch.eval import BasicEvaluator, evaluate_or_sample
+  from ddsp_torch.parallel import create_mesh
+  from ddsp_torch.train import Trainer
+  from ddsp_torch.utils import build_model
+  n_data, n_time = STRADDLE_MESH
+  mesh = lambda: create_mesh(n_data, n_time, devices=[dev] * (n_data *
+                                                              n_time))
+  out = {'long': straddle_long(torch, dev, mesh(), 2)}
+  trainer = Trainer(build_model('solo_instrument', seed=1), mesh=mesh(),
+                    device=dev, halo_impl='pallas')
+  recorder = audio_recorder()
+  with tempfile.TemporaryDirectory() as save_dir:
+    scalars = evaluate_or_sample(
+        ArrayDataProvider(training_batch(), sample_rate=SR, frame_rate=250),
+        trainer, save_dir, restore_dir=ckpt_dir, batch_size=STRADDLE_BATCH,
+        noise=sp_eval_noise(torch, dev)[:STRADDLE_BATCH],
+        evaluators=[BasicEvaluator(SR, 250), recorder],
+        num_batches=STRADDLE_EVAL_BATCHES)
+  out['eval'] = {'scalars': scalars,
+                 'audio': [a for _, a in recorder.audio]}
+  return out
+
+
 def ranks_worker(rank, work_dir, ckpt_dir):
   """One rank of phase 6m on cuda:0, its results to work_dir: (a)-(g) on
-  the four ranks, then (h) on the first RANKS_ROWS in a group of their own.
+  the four ranks, (i) and (j) on them, then (h) on the first RANKS_ROWS in
+  a group of their own.
   A failure prints its traceback and ends the process at once (no
   collective teardown for the others to wait on)."""
   import traceback  # pylint: disable=g-import-not-at-top
@@ -5987,6 +5981,13 @@ def ranks_worker(rank, work_dir, ckpt_dir):
     for case in ('vst', 'l2'):
       result[case] = ranks_case(torch, dev, case, create_mesh(
           *RANKS_CASES[case][0], devices=[dev]), RANKS_CASES[case][3])
+    per_rank = STRADDLE_MESH[0] * STRADDLE_MESH[1] // RANKS
+    result['straddle_long'] = straddle_long(
+        torch, dev, create_mesh(*STRADDLE_MESH, devices=[dev] * per_rank),
+        RANKS_STEPS)
+    result['straddle_eval'] = ranks_eval(
+        torch, dev, rank, work_dir, ckpt_dir, 'straddle', 'eval',
+        STRADDLE_EVAL_BATCHES)
     torch.save(result, os.path.join(work_dir, f'rank{rank}.pt'))
     distributed.shutdown()
     if rank < RANKS_ROWS:
@@ -6039,8 +6040,9 @@ def phase_ranks(torch, dev, long_losses, ckpt_dir, sp_evals):
   checkpoint evaluated and sampled on (1 x 4) and (4 x 1) meshes of the
   ranks, the vst preset's and an L2 loss's steps on a (1 x 4) one, and a
   (4 x 2) SP step over two ranks of two whole rows each, each against its
-  one-process counterpart (phase 6k's evals: sp_evals); before the ranks
-  the remote copy's loopback in this process, after them its fault drill.
+  one-process counterpart (phase 6k's evals: sp_evals), and (i), (j) on a
+  mesh whose runs straddle data rows; before the ranks the remote copy's
+  loopback in this process, after them its fault drill.
   Returns (rank 0's launches by path, the remote copy's kernel entry)."""
   import torch.multiprocessing as mp  # pylint: disable=g-import-not-at-top
   print(f'[6m] {RANKS} ranks on one card ({RANKS_BACKEND}: NCCL refuses two '
@@ -6051,18 +6053,17 @@ def phase_ranks(torch, dev, long_losses, ckpt_dir, sp_evals):
         f'mesh of ranks, (e) dense eval on a {RANKS_DENSE_MESH} one, (f) the '
         f'vst preset ({RANKS_VST_SECONDS} s, B = {RANKS_VST_BATCH}) and (g) '
         f'an L2 SpectralLoss step on a {SP_MESH} one, (h) a '
-        f'{RANKS_ROWS_MESH} SP step over {RANKS_ROWS} ranks; times are of '
-        'ranks time-sliced on one card', flush=True)
+        f'{RANKS_ROWS_MESH} SP step over {RANKS_ROWS} ranks, (i) the '
+        f'long-audio step at B = {STRADDLE_BATCH} and (j) SP eval on a '
+        f'{STRADDLE_MESH} mesh of ranks whose runs straddle data rows; times '
+        'are of ranks time-sliced on one card', flush=True)
   loopback = ranks_loopback(torch, dev)
   for (name, route), equal in loopback['equal'].items():
     check(equal, f'(a) the loopback ({route}) of the {name} bit for bit '
           'equal to the block')
-  if not loopback['baseline']:
-    print(f'  note: the earlier design\'s halo.cu ({K3_BASELINE_COMMIT}) is '
-          f'not at hand (no git history, nothing in {K3_BASELINE_DIR}): its '
-          'times are not measured', flush=True)
   want_losses, want_norms = dense_reference(torch)
   references = cases_reference(torch, dev)
+  straddled = straddle_references(torch, dev, ckpt_dir)
   torch.cuda.synchronize()
   with tempfile.TemporaryDirectory() as work_dir:
     t0 = time.time()
@@ -6175,6 +6176,7 @@ def phase_ranks(torch, dev, long_losses, ckpt_dir, sp_evals):
   paths = {'ranks': dict(ranks[0]['long']['launches'])}
   paths.update(ranks_evals_checked(ranks, sp_evals))
   paths.update(ranks_cases_checked(torch, ranks, references))
+  paths.update(ranks_straddle_checked(torch, ranks, straddled))
   err = max(case['err'] for result in ranks
             for case in result['shifts']['cases'])
   ranks_drill(torch)
@@ -6316,13 +6318,94 @@ def ranks_cases_checked(torch, ranks, references):
   return {f'ranks_{case}': ranks[0][case]['launches'] for case in labels}
 
 
+def ranks_straddle_checked(torch, ranks, refs):
+  """(i), (j): the straddled mesh's steps and eval across ranks against one
+  process's on that mesh; rank 0's launches by path."""
+  t_local = LONG_SECONDS * SR // STRADDLE_MESH[1]
+  per_rank = STRADDLE_MESH[0] * STRADDLE_MESH[1] // RANKS
+  per_step = sp_k3_launches(solo_instrument_convolutions(t_local)[1:],
+                            ranks[0]['straddle_long']['fft_sizes'])
+  for r, result in enumerate(ranks):
+    got = result['straddle_long']
+    launches = got['launches']
+    shards = [divmod(r * per_rank + j, STRADDLE_MESH[1])
+              for j in range(per_rank)]
+    print(f'  (i) rank {r}: {got["rows"]} rows x {got["samples"]} samples '
+          f'(shards {shards}); losses {[round(l, 5) for l in got["losses"]]}, decoder '
+          f'gradient norm {got["norm"]:.5f}, ms per step '
+          f'{[round(t, 1) for t in got["ms"]]}, peak '
+          f'{got["peak_gib"]:.3f} GiB; launches {launches}')
+    check(launches['K2f'] == launches['K2b'] == RANKS_STEPS and
+          launches['K3'] == launches['K3r'] == per_step * RANKS_STEPS,
+          f'(i) rank {r}: K2f and K2b once a step, the local shift and the '
+          f'remote copy each {per_step} times a step (counted from the code)')
+    check(all(np.isfinite(got['losses'])) and
+          got['losses'] == ranks[0]['straddle_long']['losses'],
+          f'(i) rank {r}: finite losses, equal to rank 0\'s')
+    check(all(torch.equal(p, ranks[0]['straddle_long']['params'][k])
+              for k, p in got['params'].items()),
+          f'(i) rank {r}: the decoder\'s parameters after {RANKS_STEPS} '
+          'steps bit for bit equal to rank 0\'s')
+  got, want = ranks[0]['straddle_long'], refs['long']
+  loss_apart = abs(got['losses'][0] - want['losses'][0]) / abs(
+      want['losses'][0])
+  norm_apart = abs(got['norm'] - want['norm']) / want['norm']
+  print(f'  (i) one process on {STRADDLE_MESH}: loss {want["losses"][0]:.5f}'
+        f', decoder gradient norm {want["norm"]:.5f}, ms per step '
+        f'{[round(t, 1) for t in want["ms"]]}, peak {want["peak_gib"]:.3f} '
+        'GiB; across ranks '
+        f'{loss_apart:.3e} and {norm_apart:.3e} apart')
+  check(loss_apart <= RANKS_LOSS_RTOL and norm_apart <= RANKS_GRAD_NORM_RTOL,
+        f'(i) the first loss within {RANKS_LOSS_RTOL} and the decoder\'s '
+        f'gradient norm within {RANKS_GRAD_NORM_RTOL} of the one-process '
+        'step')
+
+  k3 = sp_k3_launches(solo_instrument_convolutions(N_SAMPLES //
+                                                   STRADDLE_MESH[1]),
+                      ranks[0]['straddle_long']['fft_sizes'], backward=False)
+  want = refs['eval']
+  for r, result in enumerate(ranks):
+    got = result['straddle_eval']
+    launches = got['launches']
+    print(f'  (j) rank {r}: scalars {got["scalars"]}, ms per eval batch '
+          f'{got["ms"]:.3f}; launches {launches}')
+    check(set(got['scalars']) == set(want['scalars']) and all(
+        abs(v - want['scalars'][k]) <= RANKS_DENSE_EVAL_RTOL *
+        abs(want['scalars'][k]) for k, v in got['scalars'].items()),
+          f'(j) rank {r}: the scalars of the eval on a {STRADDLE_MESH} mesh '
+          f'of ranks within {RANKS_DENSE_EVAL_RTOL} of the one-process eval '
+          'on that mesh')
+    check(launches['K2f'] == STRADDLE_EVAL_BATCHES and
+          launches['K3'] == launches['K3r'] == k3 * STRADDLE_EVAL_BATCHES
+          and all(launches[k] == 0 for k in ('K1f', 'K1t', 'K1p', 'K2b')),
+          f'(j) rank {r}: K2f once, the local shift and the remote copy each '
+          f'{k3} times a batch (counted from the code), no K1 and no '
+          'backward kernel')
+    check(r == 0 or (not got['audio'] and not got['files']),
+          f'(j) rank {r}: only rank 0 evaluates and writes')
+  got = ranks[0]['straddle_eval']
+  apart = max(float(np.abs(a - b).max())
+              for a, b in zip(got['audio'], want['audio']))
+  print(f'  (j) the audio gathered on rank 0 against one process: max |err| '
+        f'{apart:.3e}; ms per eval batch {got["ms"]:.3f} (the forward '
+        f'{got["forward_ms"]:.3f}, the outputs\' gather '
+        f'{got["gather_ms"]:.3f}, medians)')
+  check(len(got['audio']) == STRADDLE_EVAL_BATCHES and
+        got['audio'][0].shape == (STRADDLE_BATCH, N_SAMPLES) and
+        apart <= RANKS_DENSE_EVAL_AUDIO_ATOL and
+        got['files'] == ['eval/metrics.jsonl'],
+        f'(j) the gathered audio_synth within {RANKS_DENSE_EVAL_AUDIO_ATOL} '
+        'of the one-process eval\'s, rank 0 wrote the metrics')
+  return {'ranks_straddle_long': ranks[0]['straddle_long']['launches'],
+          'ranks_straddle_eval': got['launches']}
+
+
 def remote_copy_entry(loopback, shifts, launches, err):
   """The kernels line's entry of K3's remote copy at the noise carry
   [2, 120000] float32, the STFT halo beside it. `ms` is the loopback's
   median queued (the card's own time a shift), `ms_call` as the host
-  issues it; `ms_baseline` the earlier design's loopback call (its
-  synchronisation included); `ms_ranks` rank 0's time per shift with four
-  ranks time-sliced on one card, beside the earlier design's.
+  issues it; `ms_ranks` rank 0's time per shift with four ranks
+  time-sliced on one card.
   Bound: the sender's block read once and the receiver's output written
   once, at HBM's rate on one card (the slot between them is the design's,
   not the function's: its 4 x bytes are `floor_ms`); across cards the
@@ -6346,9 +6429,7 @@ def remote_copy_entry(loopback, shifts, launches, err):
         f'{prefix}ms': median(lb, 'new queued'),
         f'{prefix}ms_spread': spread(lb['new queued'])[1:],
         f'{prefix}ms_call': median(lb, 'new'),
-        f'{prefix}ms_baseline': median(lb, 'baseline'),
         f'{prefix}ms_ranks': mean(rk, 'new'),
-        f'{prefix}ms_ranks_baseline': mean(rk, 'baseline'),
         f'{prefix}plain_ms': mean(rk, 'plain'),
         f'{prefix}bound_ms': 2 * block / PEAK_BYTES_PER_S * 1e3,
         f'{prefix}bound_nvlink_ms': block / NVLINK_BYTES_PER_S * 1e3,
@@ -6358,8 +6439,8 @@ def remote_copy_entry(loopback, shifts, launches, err):
                 'timing': ('ms: loopback, CUDA events over windows of '
                            f'{LOOPBACK_SHIFTS} shifts enqueued behind a '
                            'sleeping kernel, median of '
-                           f'{LOOPBACK_WINDOWS}; ms_call and ms_baseline: '
-                           'the same, as the host issues them; ms_ranks and '
+                           f'{LOOPBACK_WINDOWS}; ms_call: the same, as '
+                           'the host issues it; ms_ranks and '
                            'plain_ms: '
                            'host clock over windows of '
                            f'{RANKS_SHIFTS_TIMED} shifts, four ranks '
@@ -6370,17 +6451,14 @@ def remote_copy_entry(loopback, shifts, launches, err):
 
   print(f"  {entry['name']} ({entry['card']}): the [2, 120000] carry "
         f"loopback {fmt(entry['ms'])} ms (windows {fmt(entry['ms_spread'][0])}"
-        f"-{fmt(entry['ms_spread'][1])}); a call {fmt(entry['ms_call'])}, "
-        f"the earlier design's {fmt(entry['ms_baseline'])}; four ranks "
-        f"{fmt(entry['ms_ranks'], 4)} ms per shift, earlier design "
-        f"{fmt(entry['ms_ranks_baseline'], 4)}, plain (torch.distributed) "
-        f"{fmt(entry['plain_ms'], 4)}; bound {entry['bound_ms']:.6f} ms on "
-        f"one card ({entry['bound_nvlink_ms']:.5f} over NVLink), the "
-        f"design's 4 x bytes {entry['floor_ms']:.5f}; the [2, 2047] halo "
-        f"loopback {fmt(entry['halo_ms'])} (earlier design "
-        f"{fmt(entry['halo_ms_baseline'])}), four ranks "
-        f"{fmt(entry['halo_ms_ranks'], 4)} (earlier design "
-        f"{fmt(entry['halo_ms_ranks_baseline'], 4)}, plain "
+        f"-{fmt(entry['ms_spread'][1])}); a call {fmt(entry['ms_call'])}; "
+        f"four ranks {fmt(entry['ms_ranks'], 4)} ms per shift, plain "
+        f"(torch.distributed) {fmt(entry['plain_ms'], 4)}; bound "
+        f"{entry['bound_ms']:.6f} ms on one card "
+        f"({entry['bound_nvlink_ms']:.5f} over NVLink), the design's 4 x "
+        f"bytes {entry['floor_ms']:.5f}; the [2, 2047] halo loopback "
+        f"{fmt(entry['halo_ms'])}, four ranks "
+        f"{fmt(entry['halo_ms_ranks'], 4)} (plain "
         f"{fmt(entry['halo_plain_ms'], 4)}); launches {launches} on rank 0 "
         f"in (c)", flush=True)
   return entry
@@ -6392,7 +6470,10 @@ PER_UNIT = {'long_audio': ('long_audio_step', LONG_WARMUP + LONG_STEPS),
             'ranks_dense_eval': ('ranks_dense_eval_batch', EVAL_BATCHES),
             'ranks_vst': ('ranks_vst_step', RANKS_VST_STEPS),
             'ranks_l2': ('ranks_l2_step', 1),
-            'ranks_rows': ('ranks_rows_step', 1)}
+            'ranks_rows': ('ranks_rows_step', 1),
+            'ranks_straddle_long': ('ranks_straddle_long_step', RANKS_STEPS),
+            'ranks_straddle_eval': ('ranks_straddle_eval_batch',
+                                    STRADDLE_EVAL_BATCHES)}
 
 
 def add_launches(entry, launches, key):
@@ -6860,8 +6941,8 @@ def k3_entry(torch, launches, k3_per_step, mesh, dev):
   gen = torch.Generator(dev).manual_seed(19)
   shards = [torch.randn((BATCH, N_SAMPLES), generator=gen, device=dev)
             for _ in range(mesh.size)]
-  out = kk._launch(shards, mesh, +1)
-  want = kk.halo_shift_plain(shards, mesh, +1)
+  out = kk._launch(shards, mesh.run, +1)
+  want = kk.halo_shift_plain(shards, mesh.run, +1)
   err = max((o - w).abs().max().item() for o, w in zip(out, want))
   check(err == 0.0, 'K3 at the reverb-carry shape equals its plain version')
   block = shards[0].numel() * shards[0].element_size()
@@ -6869,14 +6950,15 @@ def k3_entry(torch, launches, k3_per_step, mesh, dev):
   entry = kernel_entry(
       torch, 'halo_shift (K3)', 'ddsp_torch/csrc/halo.cu',
       'ddsp_tpu/parallel/pallas_halo.py:88', launches['sp_train']['K3'], err,
-      lambda: kk._launch(shards, mesh, +1),
-      lambda: kk.halo_shift_plain(shards, mesh, +1),
+      lambda: kk._launch(shards, mesh.run, +1),
+      lambda: kk.halo_shift_plain(shards, mesh.run, +1),
       *bound((n_read + mesh.size) * block, 0, 'float32'), None, 200, 50)
   entry['launches_per_sp_step'] = k3_per_step
   # Repeated launches find the shards in the 50 MB L2; with L2 flushed
   # before each launch (a 256 MiB fill, not counted) K3 reads HBM.
   flush = torch.empty(2**26, dtype=torch.int32, device=dev)
-  entry['cold_ms'] = kernel_ms(torch, lambda: kk._launch(shards, mesh, +1),
+  entry['cold_ms'] = kernel_ms(torch, lambda: kk._launch(shards, mesh.run,
+                                                        +1),
                                50, 'halo_shift', before=flush.zero_)
   add_launches(entry, launches, 'K3')
   print_entry(entry)

@@ -10,7 +10,13 @@
 // (d, t - direction), and zeros where t - direction falls outside
 // [0, n_time). A data row never mixes with another.
 //
-//   grid.y  destination shard d * n_time + t;
+// The shards of one launch are a run of the mesh's row-major order: the
+// whole mesh in one process, or one rank's shards of a mesh over ranks,
+// which may start and end inside a data row. Local shard j sits at time
+// (first_t + j) % n_time; where its source lies outside the run, the
+// launch writes zeros and the remote copy below fills the shard.
+//
+//   grid.y  destination shard j of the run;
 //   grid.x  the block's elements, as (row, chunk of a row) pairs.
 //
 // The source and destination pointers and each source's row stride travel
@@ -36,8 +42,9 @@
 // counterpart of pallas_halo.py:88 _shift_kernel's make_async_remote_copy
 // between neighbour barrier semaphores. Each rank allocates one receive slot
 // per block size with cudaMalloc (IPC handles cover whole allocations),
-// exchanges its cudaIpcMemHandle_t with its row's ranks once and maps its
-// two neighbours' slots (kernels/halo.py). A slot is a header of flag words
+// exchanges its cudaIpcMemHandle_t with every rank once and maps its
+// neighbours' slots (kernels/halo.py): the ranks that hold the time shards
+// just before and after its run, which may lie in two data rows. A slot is a header of flag words
 // and two data parities. One shift on one rank is a sequence on its stream,
 // with no host synchronisation:
 //
@@ -116,17 +123,21 @@ struct ShiftTable {
 // else the element itself). cols and the row strides count Units.
 template <typename Unit>
 __global__ void __launch_bounds__(kThreads)
-halo_shift_kernel(const ShiftTable table, int n_time, int direction,
-                  long long cols, int chunks_per_row) {
+halo_shift_kernel(const ShiftTable table, int n_shards, int n_time,
+                  int first_t, int direction, long long cols,
+                  int chunks_per_row) {
   const int shard = blockIdx.y;
-  const int t = shard % n_time;
+  const int t = (first_t + shard) % n_time;
   const int src_t = t - direction;
+  // The source shard (d, t - direction) is shard - direction of the run.
+  const int src_shard = shard - direction;
   const int row = blockIdx.x / chunks_per_row;
   const long long c0 = (long long)(blockIdx.x % chunks_per_row) *
                        (kThreads * kUnitsPerThread) + threadIdx.x;
   Unit* __restrict__ dst = static_cast<Unit*>(table.dst[shard]) +
                            (long long)row * cols;
-  if (src_t < 0 || src_t >= n_time) {
+  if (src_t < 0 || src_t >= n_time || src_shard < 0 ||
+      src_shard >= n_shards) {
     const Unit zero{};
 #pragma unroll
     for (int k = 0; k < kUnitsPerThread; ++k) {
@@ -135,8 +146,6 @@ halo_shift_kernel(const ShiftTable table, int n_time, int direction,
     }
     return;
   }
-  // The source shard (d, t - direction) is shard - direction.
-  const int src_shard = shard - direction;
   const Unit* __restrict__ src =
       static_cast<const Unit*>(table.src[src_shard]) +
       (long long)row * table.src_row_stride[src_shard];
@@ -149,35 +158,36 @@ halo_shift_kernel(const ShiftTable table, int n_time, int direction,
 
 template <typename Unit>
 cudaError_t launch(const ShiftTable& table, int n_shards, int n_time,
-                   int direction, int rows, long long cols,
+                   int first_t, int direction, int rows, long long cols,
                    cudaStream_t stream) {
   const long long per_block = (long long)kThreads * kUnitsPerThread;
   const long long chunks = (cols + per_block - 1) / per_block;
   if (chunks * rows > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)(chunks * rows), n_shards);
   halo_shift_kernel<Unit><<<grid, kThreads, 0, stream>>>(
-      table, n_time, direction, cols, (int)chunks);
+      table, n_shards, n_time, first_t, direction, cols, (int)chunks);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shift the [rows, cols] block of every shard of an (n_data x n_time) mesh
-// by `direction` along 'time'.
+// Shift the [rows, cols] block of every shard of a run of n_shards shards
+// of a mesh with n_time time shards a row, by `direction` along 'time'.
 //
-// src[i], dst[i]: shard i's source block (rows contiguous, row stride
-// src_row_stride[i] elements) and its contiguous destination, i = d * n_time
-// + t, all on the current device; elem_bytes 4 (float32) or 2 (bfloat16);
-// n_data * n_time <= 64. Returns a cudaError_t (cudaErrorInvalidValue for
-// arguments it does not take).
+// src[j], dst[j]: the run's shard j's source block (rows contiguous, row
+// stride src_row_stride[j] elements) and its contiguous destination, at
+// time (first_t + j) % n_time, all on the current device; elem_bytes 4
+// (float32) or 2 (bfloat16); n_shards <= 64. A whole (n_data x n_time)
+// mesh is the run of n_data * n_time shards from first_t = 0. Returns a
+// cudaError_t (cudaErrorInvalidValue for arguments it does not take).
 extern "C" int ddsp_halo_shift(const void* const* src, void* const* dst,
-                               const long long* src_row_stride, int n_data,
-                               int n_time, int direction, int rows,
-                               long long cols, int elem_bytes,
+                               const long long* src_row_stride, int n_shards,
+                               int n_time, int first_t, int direction,
+                               int rows, long long cols, int elem_bytes,
                                void* stream) {
-  const int n_shards = n_data * n_time;
-  if (n_data < 1 || n_time < 1 || n_shards > kMaxShards || rows < 0 ||
-      cols < 0 || (elem_bytes != 4 && elem_bytes != 2))
+  if (n_shards < 1 || n_time < 1 || first_t < 0 || first_t >= n_time ||
+      n_shards > kMaxShards || rows < 0 || cols < 0 ||
+      (elem_bytes != 4 && elem_bytes != 2))
     return (int)cudaErrorInvalidValue;
   if (rows == 0 || cols == 0) return (int)cudaSuccess;
   ShiftTable table;
@@ -199,14 +209,14 @@ extern "C" int ddsp_halo_shift(const void* const* src, void* const* dst,
   if (vec) {
     const int per = 16 / elem_bytes;
     for (int i = 0; i < n_shards; ++i) table.src_row_stride[i] /= per;
-    return (int)launch<uint4>(table, n_shards, n_time, direction, rows,
-                              cols / per, s);
+    return (int)launch<uint4>(table, n_shards, n_time, first_t, direction,
+                              rows, cols / per, s);
   }
   if (elem_bytes == 4)
-    return (int)launch<uint32_t>(table, n_shards, n_time, direction, rows,
-                                 cols, s);
-  return (int)launch<uint16_t>(table, n_shards, n_time, direction, rows, cols,
-                               s);
+    return (int)launch<uint32_t>(table, n_shards, n_time, first_t, direction,
+                                 rows, cols, s);
+  return (int)launch<uint16_t>(table, n_shards, n_time, first_t, direction,
+                               rows, cols, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -245,7 +255,7 @@ struct FaultBlock {
 };
 
 // The launch's ids, written into the fault block: the host's tag, the
-// row's call, the slot's use, and the count of faults the host has
+// mesh's call, the slot's use, and the count of faults the host has
 // reported (gen), which a fault must find in g_fault_claim to claim the
 // block: a fault of a launch enqueued before the host reported the last
 // one is not written over it.
@@ -591,11 +601,12 @@ extern "C" int ddsp_halo_fault_block(void** host_out) {
 // send: this rank's edge block, [rows, cols] with contiguous rows and row
 // stride send_row_stride elements, pushed into the neighbour on
 // `direction`'s side (right for +1), or null when no neighbour receives it.
-// left, right: the neighbours' mapped slots (null at an end of the row);
+// left, right: the neighbours' mapped slots (null where the rank's run
+// starts or ends a data row);
 // the loopback passes the own slot as both. out: the contiguous [rows, cols]
 // output, the own slot's block when has_src, else zeros. own: this rank's
 // slot. use: the slot's use count (from 1), the same on every rank of the
-// row; call: the row's call id, the same on every rank; tag: the host's id
+// mesh; call: the mesh's call id, the same on every rank; tag: the host's id
 // of this launch, written into the fault block; fault_gen: the faults the
 // host has reported so far (the host clears the block's code when it
 // reports one; nothing on the device is reset). Returns a

@@ -110,7 +110,7 @@ def default_evaluators(model, data_provider, device,
 
 def _time_local_ids(outputs: Dict[str, Any]) -> set:
   """The ids of the time-local leaves of a sharded forward's outputs on a
-  rank that holds part of a data row: every processor node's signal
+  rank that shares its data rows: every processor node's signal
   ('audio_synth' among them) and the controls that are such signals."""
   signals = {id(v['signal']) for v in outputs.values()
              if isinstance(v, dict) and set(v) == {'signal', 'controls'}}
@@ -130,20 +130,20 @@ def gather_outputs(outputs: Any, mesh, local_batch: int) -> Any:
 
   Collective: every rank calls it with outputs of the same structure. The
   rule: a tensor leaf whose first dim is the rank's `local_batch` rows is
-  gathered over every rank. The time-local leaves of a sharded forward on
-  a rank that holds part of a data row (each processor node's signal,
-  'audio_synth', and the controls that are those signals) are joined
-  along the samples over the row's ranks, then the rows over the data
-  rows; every other leaf (the features, the frame-rate controls, the
-  controls of a node that gathered its inputs) is replicated over 'time'
-  and read from the row's first rank, then joined over the data rows.
+  gathered over every rank, one block for each shard of the rank's run.
+  The time-local leaves of a sharded forward on a rank that shares its
+  data rows (each processor node's signal, 'audio_synth', and the controls
+  that are those signals) are joined along the samples over each row's
+  shards, then the rows over the data rows; every other leaf (the
+  features, the frame-rate controls, the controls of a node that gathered
+  its inputs) is replicated over 'time' and read from the row's first
+  shard, then joined over the data rows.
   Other leaves are the same on every rank and kept. bf16 leaves come back
   float32.
   """
   distributed.check()  # the gather waits for the device
   ranks = mesh.ranks
-  time_local = (_time_local_ids(outputs) if ranks.time_group is not None
-                else set())
+  time_local = _time_local_ids(outputs) if ranks.shares_rows else set()
   done = {}
 
   def gather(tree):
@@ -155,8 +155,8 @@ def gather_outputs(outputs: Any, mesh, local_batch: int) -> Any:
     if id(tree) not in done:
       x = tree.detach()
       x = x.float() if x.dtype == torch.bfloat16 else x
-      done[id(tree)] = distributed.gather_blocks(
-          x, ranks, time_local=id(tree) in time_local)
+      done[id(tree)] = mesh_lib.gather_local(
+          mesh, x, time_local=id(tree) in time_local)
     return done[id(tree)]
 
   return gather(outputs)

@@ -2,27 +2,31 @@
 
 Wraps csrc/halo.cu, which replaces ddsp_tpu/parallel/pallas_halo.py:
 _shift_kernel (reached through _shift). `HaloShift` is the
-torch.autograd.Function around it: for a list of shards (this process's,
-row-major over ('data', 'time')), shard (d, t) receives the block of shard
-(d, t - direction), and zeros where that falls off the end of the time
-axis. Shifts by +1 and -1 are each other's adjoint, so the backward is the
-same kernel in the opposite direction.
+torch.autograd.Function around it: for a list of shards (this process's
+run of the mesh, row-major over ('data', 'time'); parallel/distributed.py
+Run), shard (d, t) receives the block of shard (d, t - direction), and
+zeros where that falls off the end of the time axis. Shifts by +1 and -1
+are each other's adjoint, so the backward is the same kernel in the
+opposite direction.
 
-Shards of one process launch `ddsp_halo_shift` (counted as 'shift'). On a
-mesh over ranks (parallel/distributed.py) a rank's edge shard has its
-neighbour in another process: that block goes through the remote copy,
-`ddsp_halo_remote` (counted as 'remote_shift'), which pushes it into the
-neighbour's receive slot, mapped with CUDA IPC, and copies out its own
-slot once the neighbour's stamp is there. The waits are on the stream: a
-launch returns at once and nothing synchronises. Every rank of a row makes
-the same K3 calls in the same order, forward and backward, as the JAX
-package's collective-id pool arranges for its barriers; the stamp of each
-slot's use, call and direction makes a mismatch a fault instead of stale
-data. The kernels write a fault into pinned host memory, which each launch
-reads without waiting; `check` waits for the stream with a deadline and
-raises on a fault or at the deadline. The places where the host waits
-anyway call it (parallel/distributed.py re-exports it). CPU shards take the
-plain versions: `halo_shift_plain` in a process, `remote_shift_plain`
+Shards of one process launch `ddsp_halo_shift` (counted as 'shift'), with
+the run's first time position: a rank's run may start and end inside a
+data row. On a mesh over ranks a rank's first and last shards may have
+their neighbours in other processes, the ranks before and after it
+(distributed.Ranks.neighbours, in one data row or two): those blocks go
+through the remote copy, `ddsp_halo_remote` (counted as 'remote_shift'),
+which pushes the edge block into the neighbour's receive slot, mapped with
+CUDA IPC, and copies out its own slot once the neighbour's stamp is there.
+The waits are on the stream: a launch returns at once and nothing
+synchronises. Every rank of the mesh makes the same K3 calls in the same
+order, forward and backward, as the JAX package's collective-id pool
+arranges for its barriers; the stamp of each slot's use, call and
+direction makes a mismatch a fault instead of stale data. The kernels
+write a fault into pinned host memory, which each launch reads without
+waiting; `check` waits for the stream with a deadline and raises on a
+fault or at the deadline. The places where the host waits anyway call it
+(parallel/distributed.py re-exports it). CPU shards take the plain
+versions: `halo_shift_plain` in a process, `remote_shift_plain`
 (torch.distributed point-to-point sends, the yardstick on the card)
 between ranks.
 
@@ -57,15 +61,17 @@ def reset_launches() -> None:
     launches[key] = 0
 
 
-def halo_shift_plain(shards: Sequence[torch.Tensor], mesh,
+def halo_shift_plain(shards: Sequence[torch.Tensor], run,
                      direction: int) -> List[torch.Tensor]:
-  """The plain version of K3 in one process: shard (d, t) gets a copy of
-  shard (d, t - direction), or zeros where that index leaves [0, n_time)."""
+  """The plain version of K3 in one process: the run's shard (d, t) (a
+  distributed.Run: a whole mesh, or a rank's shards) gets a copy of shard
+  (d, t - direction), or zeros where that index leaves [0, n_time) or the
+  run."""
   out = []
-  for i, x in enumerate(shards):
-    t = mesh.coords(i)[1]
-    if 0 <= t - direction < mesh.n_time:
-      out.append(shards[i - direction].clone(
+  for j, x in enumerate(shards):
+    t = run.coords(j)[1]
+    if 0 <= t - direction < run.n_time and 0 <= j - direction < len(shards):
+      out.append(shards[j - direction].clone(
           memory_format=torch.contiguous_format))
     else:
       out.append(torch.zeros_like(x, memory_format=torch.contiguous_format))
@@ -76,11 +82,11 @@ def _device_type(x: torch.Tensor) -> str:
   return x.device.type
 
 
-def _route(shards: Sequence[torch.Tensor], mesh) -> str:
+def _route(shards: Sequence[torch.Tensor], run) -> str:
   """'cpu' or 'cuda' for the shards; raises on a mix or a bad list."""
-  if len(shards) != len(mesh.devices):
+  if len(shards) != run.count:
     raise ValueError('K3 takes one shard per mesh position of this process '
-                     f'({len(mesh.devices)}), got {len(shards)}.')
+                     f'({run.count}), got {len(shards)}.')
   first = shards[0]
   for x in shards[1:]:
     if x.shape != first.shape or x.dtype != first.dtype:
@@ -115,7 +121,7 @@ def _rows_view(x: torch.Tensor) -> Optional[Tuple[int, int, int]]:
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     'ddsp_halo_shift': [_PTRS, _PTRS, ctypes.POINTER(ctypes.c_longlong)] +
-                       [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                       [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                              ctypes.c_void_p],
     'ddsp_halo_slot_alloc': [ctypes.c_longlong, _PTRS, ctypes.c_char_p],
     'ddsp_halo_slot_open': [ctypes.c_char_p, _PTRS],
@@ -152,19 +158,19 @@ class FaultBlock(ctypes.Structure):
               ('copied', ctypes.c_uint32)]
 
 
-def _launch(shards: Sequence[torch.Tensor], mesh,
+def _launch(shards: Sequence[torch.Tensor], run,
             direction: int) -> List[torch.Tensor]:
-  """One K3 launch over every shard, all on one CUDA device; the outputs
-  are new contiguous tensors."""
+  """One K3 launch over every shard of the run, all on one CUDA device;
+  the outputs are new contiguous tensors."""
   devices = {x.device for x in shards}
   if len(devices) != 1:
     raise NotImplementedError(
         f'K3 reads the shards of one process on one card, got '
         f'{sorted(map(str, devices))}; a mesh over several cards takes one '
         'rank per card (ROADMAP.md queue 1 item 8).')
-  if mesh.size > MAX_SHARDS:
+  if run.count > MAX_SHARDS:
     raise ValueError(f'K3 takes at most {MAX_SHARDS} shards, not '
-                     f'{mesh.size}.')
+                     f'{run.count}.')
   dtype = shards[0].dtype
   if dtype not in ELEM_BYTES:
     raise TypeError(f'K3 takes float32 or bfloat16, not {dtype}.')
@@ -180,23 +186,23 @@ def _launch(shards: Sequence[torch.Tensor], mesh,
   dev = devices.pop()
   with torch.cuda.device(dev):
     out = [torch.empty(x.shape, dtype=dtype, device=dev) for x in shards]
-    src = (ctypes.c_void_p * mesh.size)(*(x.data_ptr() for x, _ in views))
-    dst = (ctypes.c_void_p * mesh.size)(*(y.data_ptr() for y in out))
-    strides = (ctypes.c_longlong * mesh.size)(
+    src = (ctypes.c_void_p * run.count)(*(x.data_ptr() for x, _ in views))
+    dst = (ctypes.c_void_p * run.count)(*(y.data_ptr() for y in out))
+    strides = (ctypes.c_longlong * run.count)(
         *(layout[2] for _, layout in views))
     stream = torch.cuda.current_stream().cuda_stream
-    status = fn(src, dst, strides, mesh.n_data, mesh.n_time, direction, rows,
-                cols, ELEM_BYTES[dtype], stream)
+    status = fn(src, dst, strides, run.count, run.n_time, run.coords(0)[1],
+                direction, rows, cols, ELEM_BYTES[dtype], stream)
   _build.check(status, 'ddsp_halo_shift')
   launches['shift'] += 1
   return out
 
 
-def _local(shards, mesh, direction):
+def _local(shards, run, direction):
   """The shift among one process's shards."""
-  if _route(shards, mesh) == 'cpu':
-    return halo_shift_plain(shards, mesh, direction)
-  return _launch(shards, mesh, direction)
+  if _route(shards, run) == 'cpu':
+    return halo_shift_plain(shards, run, direction)
+  return _launch(shards, run, direction)
 
 
 @dataclasses.dataclass
@@ -212,17 +218,14 @@ class _Edge:
 
 
 def _edge(mesh, direction) -> _Edge:
-  ranks = mesh.ranks
-  n = len(mesh.devices)
-  t_first = mesh.shard_coords(0)[1]
-  t_last = t_first + n - 1
-  ahead = t_last + 1 < mesh.n_time
-  behind = t_first > 0
+  """The remote part of a rank's shift: its run's last shard goes to the
+  rank after it and its first receives from the rank before it (+1), or
+  the other way round (-1)."""
+  left, right = mesh.ranks.neighbours
+  n = mesh.ranks.per_rank
   if direction > 0:
-    return _Edge(n - 1, ranks.rank + 1 if ahead else None, 0,
-                 ranks.rank - 1 if behind else None, 1)
-  return _Edge(0, ranks.rank - 1 if behind else None, n - 1,
-               ranks.rank + 1 if ahead else None, -1)
+    return _Edge(n - 1, right, 0, left, 1)
+  return _Edge(0, left, n - 1, right, -1)
 
 
 def remote_shift_plain(block: torch.Tensor, to: Optional[int],
@@ -261,7 +264,7 @@ class _Launch:
   """A remote copy enqueued and not yet known to have passed its waits."""
   tag: int
   call: int
-  row: Tuple
+  scope: str
   rank: int
   use: int
   nbytes: int
@@ -269,27 +272,35 @@ class _Launch:
   stream: object
 
   def __str__(self):
-    return (f'K3 remote copy (call {self.call} of row {self.row}, use '
+    return (f'K3 remote copy (call {self.call} of the {self.scope}, use '
             f'{self.use} of its {self.nbytes}-byte slot, rank {self.rank})')
 
 
-# The receive slots of this process by (row's ranks, bytes), each row's
-# count of remote copies, and the launches in flight by tag: state of the
-# CUDA allocations behind them, which release_remote_slots frees.
-_SLOTS: Dict[Tuple[Tuple, int], _Slot] = {}
-_CALLS: Dict[Tuple, int] = {}
+# The receive slots of this process by (mesh, bytes), each mesh's count of
+# remote copies, and the launches in flight by tag: state of the CUDA
+# allocations behind them, which release_remote_slots frees. A mesh is
+# named by its shape: within one process group the shape fixes every
+# rank's run and neighbours, and every rank makes the same calls on it.
+_SLOTS: Dict[Tuple[str, int], _Slot] = {}
+_CALLS: Dict[str, int] = {}
 _PENDING: 'collections.OrderedDict[int, _Launch]' = collections.OrderedDict()
 _TAG = 0  # the last launch's
 _FAULT: Optional[FaultBlock] = None  # the process's fault block, once mapped
 _FAULTS_REPORTED = 0  # csrc/halo.cu's fault_gen
-LOOPBACK_ROW = ('loopback',)
+LOOPBACK = 'loopback'
+
+
+def _scope(ranks) -> str:
+  return f'({ranks.n_data} x {ranks.n_time}) mesh'
 
 
 def _slot(mesh, nbytes: int) -> _Slot:
-  """The row's slot of `nbytes`, made on first use: cudaMalloc'd, its IPC
-  handle gathered over the row's ranks, the neighbours' mapped."""
+  """The mesh's slot of `nbytes`, made on first use: cudaMalloc'd, its
+  IPC handle gathered over every rank (each rank of a mesh whose runs do
+  not hold whole rows makes it, since each has a neighbour), the
+  neighbours' mapped."""
   ranks = mesh.ranks
-  key = (ranks.time_ranks, nbytes)
+  key = (_scope(ranks), nbytes)
   if key in _SLOTS:
     return _SLOTS[key]
   lib = _build.load('halo', _SIGNATURES)
@@ -297,14 +308,13 @@ def _slot(mesh, nbytes: int) -> _Slot:
   handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
   _build.check(lib.ddsp_halo_slot_alloc(nbytes, ctypes.byref(own), handle),
                'ddsp_halo_slot_alloc')
-  handles = [None] * len(ranks.time_ranks)
-  dist.all_gather_object(handles, handle.raw, group=ranks.time_group)
+  handles = [None] * ranks.n_ranks
+  dist.all_gather_object(handles, handle.raw)
   peers = {}
-  for peer in (ranks.rank - 1, ranks.rank + 1):
-    if peer in ranks.time_ranks:
+  for peer in ranks.neighbours:
+    if peer is not None:
       ptr = ctypes.c_void_p()
-      _build.check(lib.ddsp_halo_slot_open(
-          handles[ranks.time_ranks.index(peer)], ctypes.byref(ptr)),
+      _build.check(lib.ddsp_halo_slot_open(handles[peer], ctypes.byref(ptr)),
                    'ddsp_halo_slot_open')
       peers[peer] = ptr.value
   _SLOTS[key] = _Slot(own.value, peers)
@@ -422,7 +432,7 @@ def _current_stream(device):
 
 def _enqueue(block: torch.Tensor, layout: Tuple[int, int, int],
              slot: _Slot, left: Optional[int], right: Optional[int],
-             sends: bool, receives: bool, direction: int, row: Tuple,
+             sends: bool, receives: bool, direction: int, scope: str,
              rank: int) -> torch.Tensor:
   """One remote copy on the current stream: `block` ([rows, cols] with
   row stride `stride`: `layout`) pushed into the neighbour on
@@ -437,16 +447,16 @@ def _enqueue(block: torch.Tensor, layout: Tuple[int, int, int],
   _map_fault_block(lib)
   _raise_fault()
   slot.uses += 1
-  _CALLS[row] = _CALLS.get(row, 0) + 1
+  _CALLS[scope] = _CALLS.get(scope, 0) + 1
   _TAG = _TAG % 0xffffffff + 1
   out = torch.empty(block.shape, dtype=dtype, device=block.device)
   stream = _current_stream(block.device)
-  launch = _Launch(_TAG, _CALLS[row], row, rank, slot.uses,
+  launch = _Launch(_TAG, _CALLS[scope], scope, rank, slot.uses,
                    rows * cols * eb, sends, stream)
   status = lib.ddsp_halo_remote(
       block.data_ptr() if sends else None, stride, left, right,
       out.data_ptr(), slot.own, int(receives), direction, rows, cols, eb,
-      slot.uses, _CALLS[row] & 0xffffffff, launch.tag,
+      slot.uses, _CALLS[scope] & 0xffffffff, launch.tag,
       _FAULTS_REPORTED & 0xffffffff, stream.cuda_stream)
   _build.check(status, f'ddsp_halo_remote ({launch})')
   _PENDING[launch.tag] = launch
@@ -479,12 +489,13 @@ def _launch_remote(block: torch.Tensor, mesh, edge: _Edge) -> torch.Tensor:
   comes raises at the next `check`."""
   block, layout = _aligned(block)
   ranks = mesh.ranks
+  left, right = ranks.neighbours
   nbytes = block.numel() * ELEM_BYTES[block.dtype]
   with _device(block.device):
     slot = _slot(mesh, nbytes)
-    return _enqueue(block, layout, slot, slot.peers.get(ranks.rank - 1),
-                    slot.peers.get(ranks.rank + 1), edge.to is not None,
-                    edge.frm is not None, edge.direction, ranks.time_ranks,
+    return _enqueue(block, layout, slot, slot.peers.get(left),
+                    slot.peers.get(right), edge.to is not None,
+                    edge.frm is not None, edge.direction, _scope(ranks),
                     ranks.rank)
 
 
@@ -497,7 +508,7 @@ def loopback_shift(block: torch.Tensor,
   a measurement of the card."""
   block, layout = _aligned(block)
   nbytes = block.numel() * ELEM_BYTES[block.dtype]
-  key = (LOOPBACK_ROW, nbytes)
+  key = (LOOPBACK, nbytes)
   with _device(block.device):
     if key not in _SLOTS:
       lib = _build.load('halo', _SIGNATURES)
@@ -508,7 +519,7 @@ def loopback_shift(block: torch.Tensor,
       _SLOTS[key] = _Slot(own.value, {})
     slot = _SLOTS[key]
     return _enqueue(block, layout, slot, slot.own, slot.own, True, True,
-                    direction, LOOPBACK_ROW, 0)
+                    direction, LOOPBACK, 0)
 
 
 def release_remote_slots() -> None:
@@ -532,14 +543,12 @@ def release_remote_slots() -> None:
 
 
 def _shift(shards, mesh, direction):
-  if mesh.ranks is None:
-    return _local(shards, mesh, direction)
-  local = mesh.local_mesh()
-  if mesh.ranks.time_group is None:
-    return _local(shards, local, direction)
-  out = _local(shards, local, direction) if len(shards) > 1 else [None]
+  run = mesh.run
+  if mesh.ranks is None or not mesh.ranks.shares_rows:
+    return _local(shards, run, direction)
+  out = _local(shards, run, direction) if len(shards) > 1 else [None]
   edge = _edge(mesh, direction)
-  if _route(shards, local) == 'cpu':
+  if _route(shards, run) == 'cpu':
     out[edge.recv] = remote_shift_plain(shards[edge.send], edge.to, edge.frm)
   else:
     out[edge.recv] = _launch_remote(shards[edge.send], mesh, edge)

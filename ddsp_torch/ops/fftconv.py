@@ -132,16 +132,34 @@ def fft_convolve(audio: torch.Tensor, impulse_response: torch.Tensor,
                                    delay_compensation)
 
 
+def _window_size(ir_size: int, window_size: int) -> int:
+  """The window of an IR of ir_size samples: window_size < 1, or past the
+  IR, means the IR's size."""
+  return ir_size if window_size <= 0 or window_size > ir_size else window_size
+
+
+def designed_ir_size(n_freqs: int, window_size: int) -> int:
+  """Length of the IR that frequency_impulse_response makes of n_freqs
+  magnitudes: the inverse real FFT's 2 * (n_freqs - 1) samples, cropped to
+  2 * ((window + 1) // 2) - 1 by a smaller window
+  (apply_window_to_impulse_response's crop)."""
+  ir_size = 2 * (n_freqs - 1)
+  window_size = _window_size(ir_size, window_size)
+  if ir_size - window_size > 0:
+    return 2 * ((window_size + 1) // 2) - 1
+  return ir_size
+
+
 def apply_window_to_impulse_response(impulse_response: torch.Tensor,
                                      window_size: int = 0) -> torch.Tensor:
   """Hann-window zero-phase IRs [batch, n_frames, ir] and make them causal.
 
-  window_size < 1 means the IR size; a smaller window crops the IR.
+  window_size < 1 means the IR size; a smaller window crops the IR
+  (`designed_ir_size`).
   """
   impulse_response = torch_float32(impulse_response)
   ir_size = int(impulse_response.shape[-1])
-  if window_size <= 0 or window_size > ir_size:
-    window_size = ir_size
+  window_size = _window_size(ir_size, window_size)
   window = hann_window(window_size, device=impulse_response.device)
 
   padding = ir_size - window_size

@@ -2,8 +2,9 @@
 
 Port of ddsp_tpu.parallel. A mesh lies in one process, or spans
 torch.distributed ranks, one process per device (`distributed`: the
-process group and the axes' groups; parallel/mesh.py); `shard_batch` and
-`replicate` place a global batch and rank 0's parameters on the ranks, and
+process group and each rank's run of shards; parallel/mesh.py);
+`shard_batch` and `replicate` place a global batch and rank 0's parameters
+on the ranks, and
 `pallas_halo` becomes `halo` (the neighbour shifts on kernel K3, and its
 remote copy between ranks). `make_sp_train_step` is the long-audio step,
 `sp_forward_with_losses` the full model's sharded forward (Trainer and the

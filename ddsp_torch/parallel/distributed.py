@@ -1,39 +1,40 @@
-"""Processes of a mesh over ranks: the process group and the axis groups.
+"""Processes of a mesh over ranks: the process group and each rank's run.
 
 The port's counterpart of jax.distributed.initialize, jax.process_index and
 jax.process_count. PyTorch runs one process per card (JAX runs one per
 host), so a mesh over ranks gives each rank the shards of one device: a
-contiguous run of the mesh's row-major ('data', 'time') order
-(parallel/mesh.py), either a run of one data row's time shards or whole
-data rows. `init` starts the process group from torchrun's environment
-(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR / MASTER_PORT) or from explicit
-arguments, and `shutdown` releases K3's mapped receive slots
-(kernels/halo.py) before it ends the group. `check` is K3's: it raises on a
-fault of the remote copy, or when its stream has not finished within its
-deadline, at a point where the host waits for the device anyway (staging
-for gloo calls it first).
+contiguous run of the mesh's row-major ('data', 'time') order (`Run`), which
+may lie in one data row, hold whole rows or straddle a row boundary. `init`
+starts the process group from torchrun's environment (RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR / MASTER_PORT) or from explicit arguments, and
+`shutdown` releases K3's mapped receive slots (kernels/halo.py) before it
+ends the group. `check` is K3's: it raises on a fault of the remote copy,
+or when its stream has not finished within its deadline, at a point where
+the host waits for the device anyway (staging for gloo calls it first).
 
-The collectives of the sharded step are differentiable:
+Every collective runs over every rank. Those of the sharded step are
+differentiable:
 
   * `sum_over_ranks` is the psum of the loss's masked sums. Its backward
     passes the cotangent through: every rank seeds the same cotangent on
     its replica of the sum, which is the cotangent of each rank's part.
-  * `gather_over_ranks` is the all-gather of the phase totals over a data
-    row's 'time' ranks, and `gather_samples` the same gather of a row's
-    time-local signals along the sample axis, for a node whose output
-    each rank slices again. Each rank reads the gathered copy in its own
-    way, so their backward sums the ranks' cotangents (an all-reduce) and
-    keeps this rank's part.
+  * `gather_shards` is the all-gather of every shard's block, in the
+    mesh's order: the phase totals, whose carries each rank takes for its
+    own shards, and (through `gather_global` with `sums`) the signal
+    inputs of a node whose output each rank slices again. Each rank reads
+    the gathered copy in its own way, so their backward sums the ranks'
+    cotangents (an all-reduce) and keeps this rank's shards.
   * `gather_global` assembles the global [batch, samples] signal from
-    every rank's block, for a value that every rank computes whole from
+    every rank's shards, for a value that every rank computes whole from
     it (a loss). Every rank holds that whole value and the step sums the
     parameter gradients over the ranks, so its backward keeps this rank's
-    block of its own cotangent and sums nothing: summing there would count
+    shards of its own cotangent and sums nothing: summing there would count
     the loss once for each rank of a row.
 
 `all_reduce_` sums the gradients over every rank in place, through one
 flat buffer; `mean_over_ranks` averages the dense step's loss scalars;
-`gather_blocks` and `broadcast_object` serve the eval loop.
+`gather_global` (without gradients) and `broadcast_object` serve the eval
+loop.
 
 A gloo group moves CPU tensors; a CUDA tensor on a gloo group is staged
 through the host.
@@ -142,57 +143,111 @@ def shutdown() -> None:
 
 
 @dataclasses.dataclass(frozen=True)
-class Ranks:
-  """Where this process sits in a mesh over ranks.
+class Run:
+  """The shards of one process: `count` shards of an (n_data x n_time)
+  mesh's row-major order from index `first` on.
 
-  Rank r holds shards [r * per_rank, (r + 1) * per_rank) of the mesh's
-  row-major order: a run of time shards within one data row, or whole data
-  rows (per_rank a multiple of the row's n_time). `time_group` holds the
-  ranks of its data row in time order (`time_ranks`); it is None when one
-  rank holds its whole row (`time_ranks` is then this rank alone). The
-  'data' axis has no group of its own: the sums over ('data', 'time') of
-  the loss and the gradients run over every rank.
+  A run holds the tail of one data row, zero or more whole rows and the
+  head of a later row, any of them empty: the whole mesh in one process, a
+  run of one row's time shards, whole rows, or a run that straddles a row
+  boundary. A process-local tensor of the run holds the batch rows of its
+  data rows (`rows`) and the samples of the time shards in `span`: the
+  run's own when it lies in one row, every time shard when it spans
+  several. Where a row holds only part of the span, the shards it does not
+  hold are zeros in the run's outputs and unread in its inputs.
+  """
+
+  first: int
+  count: int
+  n_data: int
+  n_time: int
+
+  def coords(self, j: int) -> Tuple[int, int]:
+    """(data index, time index) of the run's j-th shard."""
+    return divmod(self.first + j, self.n_time)
+
+  def index(self, d: int, t: int) -> Optional[int]:
+    """The position in the run of shard (d, t), or None if it is not the
+    run's."""
+    j = d * self.n_time + t - self.first
+    return j if 0 <= j < self.count else None
+
+  @property
+  def rows(self) -> range:
+    """The data rows the run touches."""
+    return range(self.first // self.n_time,
+                 (self.first + self.count - 1) // self.n_time + 1)
+
+  @property
+  def span(self) -> Tuple[int, int]:
+    """[lo, hi): the time shards of the run's process-local tensors."""
+    if len(self.rows) > 1:
+      return 0, self.n_time
+    t = self.first % self.n_time
+    return t, t + self.count
+
+  @property
+  def whole_rows(self) -> bool:
+    """Whether the run holds whole data rows and nothing else."""
+    return self.first % self.n_time == 0 and self.count % self.n_time == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Ranks:
+  """Where this process sits in an (n_data x n_time) mesh over ranks.
+
+  Rank r holds the run of shards [r * per_rank, (r + 1) * per_rank) of the
+  mesh's row-major order (`run`). A run that does not hold whole rows
+  shares its first and last data rows with other ranks: its shifts cross
+  to the ranks before and after it (`neighbours`), and the phase totals
+  and the inputs of a node that gathers them come from those rows' other
+  ranks. Those collectives, like the sums of the loss and the gradients
+  over ('data', 'time'), run over every rank: one all-gather serves a rank
+  whose run touches two shared rows, with no group of its own to order.
   """
 
   rank: int
   n_ranks: int
-  per_rank: int
-  time_ranks: Tuple[int, ...]
-  time_group: Optional[object]
+  n_data: int
+  n_time: int
 
   @property
-  def row_ranks(self) -> int:
-    """The ranks that share a data row (1 when a rank holds whole rows)."""
-    return len(self.time_ranks)
+  def per_rank(self) -> int:
+    return self.n_data * self.n_time // self.n_ranks
+
+  @property
+  def run(self) -> Run:
+    return Run(self.rank * self.per_rank, self.per_rank, self.n_data,
+               self.n_time)
+
+  @property
+  def shares_rows(self) -> bool:
+    """Whether another rank holds shards of this rank's data rows."""
+    return not self.run.whole_rows
+
+  @property
+  def neighbours(self) -> Tuple[Optional[int], Optional[int]]:
+    """(left, right): the ranks holding the time shards just before the
+    run's first and after its last, None where the run starts or ends a
+    data row."""
+    run = self.run
+    left = self.rank - 1 if run.coords(0)[1] > 0 else None
+    right = (self.rank + 1 if run.coords(run.count - 1)[1] < self.n_time - 1
+             else None)
+    return left, right
 
 
 def mesh_ranks(n_data: int, n_time: int) -> Ranks:
   """This process's place in an (n_data x n_time) mesh over every rank.
 
-  Collective: every rank calls it with the same shape, and it creates the
-  groups of every data row in the same order on each.
+  Every mesh whose size divides over the ranks: a rank's run may lie in
+  one data row, hold whole rows or straddle a row boundary.
   """
   n_ranks = world_size()
-  size = n_data * n_time
-  if size % n_ranks:
+  if (n_data * n_time) % n_ranks:
     raise ValueError(f'A ({n_data} x {n_time}) mesh does not divide over '
                      f'{n_ranks} ranks.')
-  per_rank = size // n_ranks
-  if n_time % per_rank and per_rank % n_time:
-    raise NotImplementedError(
-        f'{per_rank} shards a rank on a ({n_data} x {n_time}) mesh straddle '
-        'a data row boundary; a rank of a mesh over ranks holds a run of one '
-        'row\'s time shards or whole rows (ROADMAP.md queue 1 item 10).')
-  me = rank()
-  ranks_per_row = max(1, n_time // per_rank)
-  time_group, time_ranks = None, (me,)
-  if ranks_per_row > 1:
-    for d in range(n_data):
-      row = tuple(range(d * ranks_per_row, (d + 1) * ranks_per_row))
-      group = dist.new_group(list(row))
-      if me in row:
-        time_group, time_ranks = group, row
-  return Ranks(me, n_ranks, per_rank, time_ranks, time_group)
+  return Ranks(rank(), n_ranks, n_data, n_time)
 
 
 def staged(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, bool]:
@@ -204,10 +259,10 @@ def staged(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, bool]:
   return x, False
 
 
-def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-  """A new tensor: the sum of x over the group's ranks."""
-  y, on_host = staged(x.clone(), group)
-  dist.all_reduce(y, group=group)
+def _all_reduce(x: torch.Tensor) -> torch.Tensor:
+  """A new tensor: the sum of x over every rank."""
+  y, on_host = staged(x.clone())
+  dist.all_reduce(y)
   return y.to(x.device) if on_host else y
 
 
@@ -216,8 +271,7 @@ def all_reduce_(tensors: Sequence[torch.Tensor]) -> None:
   flat float32 buffer."""
   if not tensors:
     return
-  flat = _all_reduce(torch.cat([t.reshape(-1).float() for t in tensors]),
-                     None)
+  flat = _all_reduce(torch.cat([t.reshape(-1).float() for t in tensors]))
   offset = 0
   for t in tensors:
     n = t.numel()
@@ -229,7 +283,7 @@ def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0) -> None:
   """Overwrite every (contiguous) tensor with rank `src`'s, over every
   rank."""
   for t in tensors:
-    y, on_host = staged(t.detach(), None)
+    y, on_host = staged(t.detach())
     dist.broadcast(y, src=src)
     if on_host:
       t.detach().copy_(y)
@@ -239,102 +293,79 @@ class _SumOverRanks(torch.autograd.Function):
 
   @staticmethod
   def forward(ctx, x):
-    return _all_reduce(x, None)
+    return _all_reduce(x)
 
   @staticmethod
   def backward(ctx, g):
     return g
 
 
-def _all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
-  """Every rank's x (the same shape on each) over the group, in rank
-  order."""
-  y, on_host = staged(x.contiguous(), group)
-  parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
-  dist.all_gather(parts, y, group=group)
+def _all_gather(x: torch.Tensor) -> List[torch.Tensor]:
+  """Every rank's x (the same shape on each), in rank order."""
+  y, on_host = staged(x.contiguous())
+  parts = [torch.empty_like(y) for _ in range(dist.get_world_size())]
+  dist.all_gather(parts, y)
   return [p.to(x.device) for p in parts] if on_host else parts
 
 
-class _GatherOverRanks(torch.autograd.Function):
+class _GatherShards(torch.autograd.Function):
 
   @staticmethod
-  def forward(ctx, group, index, dim, x):
-    ctx.group, ctx.index, ctx.dim, ctx.n = group, index, dim, x.shape[dim]
-    return torch.cat(_all_gather(x, group), dim=dim)
+  def forward(ctx, ranks, sums, x):
+    ctx.ranks, ctx.sums = ranks, sums
+    return torch.cat(_all_gather(x), dim=0)
 
   @staticmethod
   def backward(ctx, g):
-    total = _all_reduce(g.contiguous(), ctx.group)
-    return None, None, None, total.narrow(ctx.dim, ctx.index * ctx.n, ctx.n)
+    if ctx.sums:
+      g = _all_reduce(g.contiguous())
+    run = ctx.ranks.run
+    return None, None, g.narrow(0, run.first, run.count)
 
 
-def assemble(parts: Sequence[torch.Tensor], row_ranks: int,
+def gather_shards(x: torch.Tensor, ranks: Ranks,
+                  sums: bool = True) -> torch.Tensor:
+  """Every shard's block [size, ...] in row-major order, from each rank's
+  blocks x [per_rank, ...] of its run: an all-gather over every rank.
+
+  Backward, where `sums`: the ranks' cotangents summed (an all-reduce) and
+  this rank's shards kept, for a gathered value that each rank reads in
+  its own way (the phase totals, a node's inputs). Otherwise this rank's
+  shards of its own cotangent, not summed (module docstring)."""
+  return _GatherShards.apply(ranks, sums, x)
+
+
+def assemble(blocks: Sequence[torch.Tensor], n_data: int, n_time: int,
              time_local: bool = True) -> torch.Tensor:
-  """The global [batch, ...] tensor of the ranks' blocks, in rank order:
-  each data row's ranks' blocks joined along the samples (dim 1) where
-  they are time-local, else the row's first rank's block (a value
-  replicated over 'time'), and the rows joined along dim 0."""
-  rows = [torch.cat(list(parts[i:i + row_ranks]), dim=1) if time_local
-          else parts[i] for i in range(0, len(parts), row_ranks)]
+  """The global [batch, ...] tensor of every shard's block, in row-major
+  order: each data row's blocks joined along the samples (dim 1) where
+  they are time-local, else the row's first block (a value replicated
+  over 'time'), and the rows joined along dim 0."""
+  rows = [torch.cat(list(blocks[d * n_time:(d + 1) * n_time]), dim=1)
+          if time_local else blocks[d * n_time] for d in range(n_data)]
   return torch.cat(rows, dim=0)
 
 
-def own_block(ranks: Ranks, x: torch.Tensor, rows: int,
-              samples: int) -> torch.Tensor:
-  """This rank's [rows, samples] block of a global tensor that
-  `assemble` made from time-local blocks of that shape."""
-  row, t = divmod(ranks.rank, ranks.row_ranks)
-  return x[row * rows:(row + 1) * rows, t * samples:(t + 1) * samples]
+def gather_global(blocks: Sequence[torch.Tensor], ranks: Ranks,
+                  time_local: bool = True,
+                  sums: bool = False) -> torch.Tensor:
+  """The global tensor (`assemble`) from this rank's blocks, one for each
+  shard of its run (parallel/mesh.py split_time, or split_batch for a
+  value replicated over 'time'). Collective over every rank.
 
-
-def gather_blocks(x: torch.Tensor, ranks: Ranks,
-                  time_local: bool = True) -> torch.Tensor:
-  """The global tensor of every rank's block x (`assemble`); not
-  differentiable. Collective over every rank."""
-  return assemble(_all_gather(x, None), ranks.row_ranks, time_local)
-
-
-class _GatherGlobal(torch.autograd.Function):
-
-  @staticmethod
-  def forward(ctx, ranks, x):
-    ctx.ranks, ctx.shape = ranks, x.shape
-    return gather_blocks(x, ranks)
-
-  @staticmethod
-  def backward(ctx, g):
-    return None, own_block(ctx.ranks, g, ctx.shape[0], ctx.shape[1])
+  Backward: this rank's blocks of its own cotangent, for the input of a
+  value every rank computes whole (a loss); with `sums`, of the ranks'
+  cotangents summed, for the input of a node whose output each rank
+  slices again (gather_shards)."""
+  gathered = gather_shards(torch.stack(list(blocks)), ranks, sums)
+  return assemble(gathered.unbind(0), ranks.n_data, ranks.n_time,
+                  time_local)
 
 
 def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
   """x summed over every rank; the backward passes the cotangent through
   (module docstring)."""
   return _SumOverRanks.apply(x)
-
-
-def gather_over_ranks(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
-  """The ranks' x [n, ...] concatenated along dim 0 in time order over the
-  row's 'time' group; the backward sums the ranks' cotangents."""
-  return _GatherOverRanks.apply(ranks.time_group,
-                                ranks.time_ranks.index(ranks.rank), 0, x)
-
-
-def gather_samples(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
-  """A data row's signal [rows, samples, ...] from its ranks' time-local
-  blocks, joined along dim 1 in time order over the row's 'time' group:
-  the input of a node whose output each rank slices again. Backward: the
-  row's ranks' cotangents summed (an all-reduce), this rank's samples
-  kept."""
-  return _GatherOverRanks.apply(ranks.time_group,
-                                ranks.time_ranks.index(ranks.rank), 1, x)
-
-
-def gather_global(x: torch.Tensor, ranks: Ranks) -> torch.Tensor:
-  """The global [batch, samples] signal from every rank's time-local
-  [rows, samples] block: the input of a value every rank computes whole
-  (a loss). Backward: this rank's block of its own cotangent, not summed
-  over the ranks (module docstring)."""
-  return _GatherGlobal.apply(ranks, x)
 
 
 def broadcast_object(obj: Any, src: int = 0) -> Any:
@@ -350,5 +381,5 @@ def mean_over_ranks(values: List[torch.Tensor]) -> List[torch.Tensor]:
   if world_size() == 1:
     return values
   stacked = torch.stack([v.detach().float() for v in values])
-  stacked = _all_reduce(stacked, None) / world_size()
+  stacked = _all_reduce(stacked) / world_size()
   return list(stacked.unbind())

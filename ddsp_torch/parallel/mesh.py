@@ -8,16 +8,19 @@ of a mesh share that card, and the halo kernel (K3, kernels/halo.py) reads
 a neighbour's shard through its device pointer.
 
 A mesh may span ranks of torch.distributed (parallel/distributed.py), one
-process per device: rank r holds a contiguous run of the row-major order,
-either time shards within one data row, where a shift between two ranks
-goes through K3's remote copy, or whole data rows, whose shifts stay in
-the process. On such a mesh every per-shard list holds this process's
-shards only, laid out as `Mesh.local_mesh()`, and the wrappers of
+process per device: rank r holds a contiguous run of the row-major order
+(`Mesh.run`, a distributed.Run): time shards within one data row, whole
+data rows, or the tail of one row and the head of a later one (with any
+whole rows between). A shift between two ranks goes through K3's remote
+copy; a shift within the run stays in the process. On such a mesh every
+per-shard list holds this process's shards only, and the wrappers of
 parallel/time_shard.py take and return process-local tensors: the rows of
-the rank's data rows and, for audio-rate tensors, the samples of its time
-shards (`local_time` cuts them from a whole-length tensor). The batch
-splits over 'data' across ranks, as jax.make_array_from_process_local_data
-assembles it.
+the run's data rows and, for audio-rate tensors, the samples of its span
+(`local_time` cuts them from a whole-length tensor): the run's own time
+shards within one row, every sample for a run over several rows, where
+the shards that a row of the run does not hold are zeros in an output.
+The batch splits over 'data' across ranks, as
+jax.make_array_from_process_local_data assembles it.
 
 One process holding shards on several cards raises NotImplementedError
 (ROADMAP.md queue 1 item 8). The split and concatenate helpers below are
@@ -53,14 +56,17 @@ class Mesh:
   Shard i sits at (d, t) = divmod(i, n_time). `devices` are the devices of
   this process's shards, in row-major order: all n_data * n_time of them
   in one process, or a rank's run of them when `ranks` (a
-  distributed.Ranks) places the mesh over ranks. Lists of shards
-  throughout the port follow this order; `shard_coords(j)` gives the
-  coordinates of a list's j-th shard.
+  distributed.Ranks of this shape) places the mesh over ranks. Lists of
+  shards throughout the port follow this order (`run`); `shard_coords(j)`
+  gives the coordinates of a list's j-th shard.
   """
 
   def __init__(self, devices: Sequence[DeviceLike], n_data: int,
                n_time: int, ranks: Optional[distributed.Ranks] = None):
     devices = tuple(normalize_device(d) for d in devices)
+    if ranks and (ranks.n_data, ranks.n_time) != (n_data, n_time):
+      raise ValueError(f'A ({n_data} x {n_time}) mesh over the ranks of a '
+                       f'({ranks.n_data} x {ranks.n_time}) one.')
     per_process = ranks.per_rank if ranks else n_data * n_time
     if n_data < 1 or n_time < 1 or len(devices) != per_process:
       raise ValueError(f'A ({n_data} x {n_time}) mesh needs '
@@ -94,9 +100,16 @@ class Mesh:
     return self.ranks.n_ranks if self.ranks else 1
 
   @property
+  def run(self) -> distributed.Run:
+    """This process's shards: the whole mesh in one process."""
+    if self.ranks:
+      return self.ranks.run
+    return distributed.Run(0, self.size, self.n_data, self.n_time)
+
+  @property
   def first_shard(self) -> int:
     """The row-major index of this process's first shard."""
-    return self.ranks.rank * self.ranks.per_rank if self.ranks else 0
+    return self.run.first
 
   @property
   def first_device(self) -> torch.device:
@@ -109,17 +122,6 @@ class Mesh:
   def shard_coords(self, j: int):
     """(data index, time index) of this process's j-th shard."""
     return self.coords(self.first_shard + j)
-
-  def local_mesh(self) -> 'Mesh':
-    """This process's shards as a one-process mesh: its whole data rows,
-    (rows x n_time), or its data row's run of time shards, (1 x per_rank),
-    whose ends are the run's ends. The mesh itself in one process."""
-    if self.ranks is None:
-      return self
-    n = len(self.devices)
-    if n % self.n_time == 0:
-      return Mesh(self.devices, n // self.n_time, self.n_time)
-    return Mesh(self.devices, 1, n)
 
 
 def create_mesh(n_data: Optional[int] = None, n_time: int = 1,
@@ -184,17 +186,18 @@ def batch_is_sharded(mesh: Mesh, batch_size: int) -> bool:
 
 
 def _rows(mesh: Mesh, batch_size: int, d: int) -> slice:
+  """Data row d's rows of a process-local batch."""
   if not batch_is_sharded(mesh, batch_size):
     return slice(0, batch_size)
-  local = batch_size // mesh.n_data
-  return slice(d * local, (d + 1) * local)
+  rows = mesh.run.rows
+  local = batch_size // len(rows)
+  return slice((d - rows[0]) * local, (d - rows[0] + 1) * local)
 
 
 def split_batch(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
   """Per-shard views of x [batch, ...]: each data row's batch rows,
   replicated over 'time' (shard_map in_specs P('data')). Across ranks x is
-  process-local: the rows of the rank's data rows."""
-  mesh = mesh.local_mesh()
+  process-local: the rows of the run's data rows."""
   return [x[_rows(mesh, x.shape[0], mesh.shard_coords(j)[0])].to(device)
           for j, device in enumerate(mesh.devices)]
 
@@ -202,47 +205,52 @@ def split_batch(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
 def split_time(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
   """Per-shard views of x [batch, T]: the data row's batch rows and the
   shard's samples (in_specs P('data', 'time')). Across ranks x is
-  process-local: its rows and its shards' samples."""
-  mesh = mesh.local_mesh()
+  process-local: its rows and the samples of the run's span."""
+  lo, hi = mesh.run.span
   n = x.shape[1]
-  if n % mesh.n_time:
-    raise ValueError(f'{n} samples do not divide over {mesh.n_time} time '
+  if n % (hi - lo):
+    raise ValueError(f'{n} samples do not divide over {hi - lo} time '
                      'shards.')
-  t_local = n // mesh.n_time
+  t_local = n // (hi - lo)
   out = []
   for j, device in enumerate(mesh.devices):
     d, t = mesh.shard_coords(j)
     out.append(x[_rows(mesh, x.shape[0], d),
-                 t * t_local:(t + 1) * t_local].to(device))
+                 (t - lo) * t_local:(t - lo + 1) * t_local].to(device))
   return out
 
 
 def concat_time(mesh: Mesh, shards: Sequence[torch.Tensor],
                 batch_size: int) -> torch.Tensor:
   """The [batch, T] tensor of per-shard [rows, t_local] blocks (out_specs
-  P('data', 'time')); process-local across ranks. A replicated batch reads
+  P('data', 'time')); process-local across ranks, with zeros where a row
+  of the run does not hold a shard of its span. A replicated batch reads
   data row 0."""
-  mesh = mesh.local_mesh()
-  n_rows = mesh.n_data if batch_is_sharded(mesh, batch_size) else 1
-  rows = [torch.cat(list(shards[d * mesh.n_time:(d + 1) * mesh.n_time]),
-                    dim=1) for d in range(n_rows)]
-  return torch.cat(rows, dim=0) if n_rows > 1 else rows[0]
+  run = mesh.run
+  lo, hi = run.span
+  rows = run.rows if batch_is_sharded(mesh, batch_size) else run.rows[:1]
+  out = []
+  for d in rows:
+    held = [run.index(d, t) for t in range(lo, hi)]
+    out.append(torch.cat([shards[j] if j is not None
+                          else torch.zeros_like(shards[0]) for j in held],
+                         dim=1))
+  return torch.cat(out, dim=0) if len(out) > 1 else out[0]
 
 
 def time_span(mesh: Mesh, n_samples: int) -> slice:
-  """The samples of this process's time shards in a [batch, n_samples]
-  tensor."""
+  """The samples of this process's span in a [batch, n_samples] tensor."""
   if n_samples % mesh.n_time:
     raise ValueError(f'{n_samples} samples do not divide over '
                      f'{mesh.n_time} time shards.')
   t_local = n_samples // mesh.n_time
-  t0 = mesh.shard_coords(0)[1]
-  return slice(t0 * t_local, (t0 + mesh.local_mesh().n_time) * t_local)
+  lo, hi = mesh.run.span
+  return slice(lo * t_local, hi * t_local)
 
 
 def local_time(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-  """x [batch, T, ...] cut to this process's time shards across ranks; x
-  itself in one process."""
+  """x [batch, T, ...] cut to this process's span across ranks; x itself
+  in one process."""
   if mesh.n_ranks == 1:
     return x
   return x[:, time_span(mesh, x.shape[1])]
@@ -257,8 +265,8 @@ def local_rows(mesh: Mesh, batch_size: int) -> slice:
     raise ValueError(f'A batch of {batch_size} does not divide over the '
                      f'{mesh.n_data} data rows of a mesh over ranks.')
   local = batch_size // mesh.n_data
-  d = mesh.shard_coords(0)[0]
-  return slice(d * local, (d + mesh.local_mesh().n_data) * local)
+  rows = mesh.run.rows
+  return slice(rows[0] * local, (rows[-1] + 1) * local)
 
 
 def global_rows(mesh: Mesh, local_batch: int):
@@ -267,17 +275,39 @@ def global_rows(mesh: Mesh, local_batch: int):
   process."""
   if mesh.n_ranks == 1:
     return local_batch, slice(0, local_batch)
-  per_row = local_batch // mesh.local_mesh().n_data
-  d = mesh.shard_coords(0)[0]
-  return per_row * mesh.n_data, slice(d * per_row, d * per_row + local_batch)
+  rows = mesh.run.rows
+  per_row = local_batch // len(rows)
+  return per_row * mesh.n_data, slice(rows[0] * per_row,
+                                      rows[0] * per_row + local_batch)
+
+
+def gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+  """The whole signal [rows, samples] of this process's data rows from its
+  process-local x, gathered over every rank: the input of a node whose
+  output each rank slices again (distributed.gather_global with `sums`:
+  the backward sums the ranks' cotangents and keeps this process's
+  shards)."""
+  whole = distributed.gather_global(split_time(mesh, x), mesh.ranks,
+                                    sums=True)
+  return whole[local_rows(mesh, whole.shape[0])]
+
+
+def gather_local(mesh: Mesh, x: torch.Tensor,
+                 time_local: bool = True) -> torch.Tensor:
+  """The global tensor of every rank's process-local x: its shards' blocks
+  (`split_time`, or `split_batch` for a value replicated over 'time'),
+  gathered over every rank and assembled (distributed.gather_global: the
+  backward keeps this process's shards of its own cotangent)."""
+  split = split_time if time_local else split_batch
+  return distributed.gather_global(split(mesh, x), mesh.ranks, time_local)
 
 
 def shard_batch(mesh: Mesh, batch: Dict[str, Any],
                 n_samples: Optional[int] = None) -> Dict[str, Any]:
   """This process's part of a global batch (ddsp_tpu shard_batch): every
-  leaf's rows of the rank's data row and, where `n_samples` is given, the
-  audio-rate leaves ([batch, n_samples]) cut to the rank's time shards.
-  In one process the batch itself."""
+  leaf's rows of the run's data rows and, where `n_samples` is given, the
+  audio-rate leaves ([batch, n_samples]) cut to the run's span. In one
+  process the batch itself."""
   if mesh.n_ranks == 1:
     return batch
 

@@ -25,22 +25,23 @@ sharded forward (`check_sp_model`).
 On a mesh over ranks (parallel/mesh.py) each rank runs the frame-rate
 network on its data rows' features, replicated over 'time' as the JAX
 shard_map does, and synthesizes its own shards only: the audio-rate
-signals are process-local ([its rows, its samples]), and the target audio
-is cut to the rank's samples after the preprocessor has read all of it.
+signals are process-local ([its rows, its span's samples]), and the target
+audio is cut to the rank's span after the preprocessor has read all of it.
 FilteredNoise draws the global batch's noise and keeps the rank's rows and
 samples, so R ranks draw what one process draws. Where the JAX package
 lets GSPMD gather the global arrays, the port gathers them itself:
 
   * a node without a time-sharded signal (Crop, Mix, TensorToAudio,
-    Wavetable, Sinusoidal, ModDelay; Add needs nothing) gathers its
-    process-local signal inputs over the data row's time ranks
-    (distributed.gather_samples), runs its own get_controls and render on
-    the row's global signal, and keeps the rank's time slice of the
-    output, whose length may differ from the input's (a Crop);
+    Wavetable, Sinusoidal, ModDelay; Add needs nothing) on a rank that
+    shares its data rows gathers its process-local signal inputs over the
+    ranks (mesh.gather_rows: the whole signal of each of its rows, one or
+    several), runs its own get_controls and render on them, and keeps the
+    rank's span of the output, whose length may differ from the input's
+    (a Crop);
   * a loss other than an L1 SpectralLoss gathers the target and the
     synthesized audio over every rank, rows and samples
-    (distributed.gather_global), and every rank computes the global
-    batch's loss, the value one process computes.
+    (mesh.gather_local), and every rank computes the global batch's loss,
+    the value one process computes.
 
 A rank that holds whole data rows has every sample of its rows: its nodes
 run as in one process on its rows, and only the losses gather.
@@ -56,8 +57,9 @@ from ddsp_torch.losses.spectral import SpectralLoss
 from ddsp_torch.models.autoencoder import Autoencoder
 from ddsp_torch.ops import fftconv as fftconv_ops
 from ddsp_torch.ops.core import nested_lookup, to_dict, torch_float32
-from ddsp_torch.parallel import distributed, time_shard
-from ddsp_torch.parallel.mesh import Mesh, local_time, time_span
+from ddsp_torch.parallel import time_shard
+from ddsp_torch.parallel.mesh import (Mesh, gather_local, gather_rows,
+                                      local_time, time_span)
 from ddsp_torch.proc import dags
 from ddsp_torch.proc import effects as effects_lib
 from ddsp_torch.proc import processors as processors_lib
@@ -131,10 +133,10 @@ def _sp_get_signal(module, controls: TensorDict, mesh: Mesh, halo_impl: str,
 
 
 def _gathers_inputs(module, mesh: Mesh) -> bool:
-  """Whether the node needs its data row's global signal on this rank: a
-  node without a time-sharded signal, other than Add, on a rank that holds
-  part of a row."""
-  return (mesh.ranks is not None and mesh.ranks.time_group is not None
+  """Whether the node needs its data rows' whole signals on this rank: a
+  node without a time-sharded signal, other than Add, on a rank that
+  shares its rows with other ranks."""
+  return (mesh.ranks is not None and mesh.ranks.shares_rows
           and not isinstance(module, (synths_lib.Harmonic,
                                       synths_lib.FilteredNoise,
                                       effects_lib.Reverb,
@@ -146,12 +148,12 @@ def _sp_render_gathered(module, name: str, node_inputs, local_signals,
                         mesh: Mesh, noise: Optional[torch.Tensor] = None,
                         generator: Optional[torch.Generator] = None
                         ) -> TensorDict:
-  """A node's outputs on a rank that holds part of a data row: its
-  process-local signal inputs gathered over the row's time ranks, its own
-  controls and signal on the row's global signal, the rank's time slice of
-  the signal kept. The signal's length over the row's time shards must
-  divide, whatever the node does to it."""
-  gathered = [distributed.gather_samples(x, mesh.ranks)
+  """A node's outputs on a rank that shares its data rows: its
+  process-local signal inputs gathered over the ranks, its own controls
+  and signal on its rows' whole signals, the rank's span of the signal
+  kept. The signal's length over the time shards must divide, whatever the
+  node does to it."""
+  gathered = [gather_rows(mesh, x)
               if any(x is s for s in local_signals) else x
               for x in node_inputs]
   controls = module.get_controls(*gathered)
@@ -224,8 +226,8 @@ def _sp_loss(loss_obj, target_audio: torch.Tensor, audio: torch.Tensor,
         logmag_weight=loss_obj.logmag_weight,
         loudness_weight=loss_obj.loudness_weight, halo_impl=halo_impl)
   if mesh.ranks is not None:
-    target_audio = distributed.gather_global(target_audio, mesh.ranks)
-    audio = distributed.gather_global(audio, mesh.ranks)
+    target_audio = gather_local(mesh, target_audio)
+    audio = gather_local(mesh, audio)
   return loss_obj(target_audio, audio)
 
 

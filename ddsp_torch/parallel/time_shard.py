@@ -64,18 +64,17 @@ def local_phase_cumsum(omega: Shards, mesh: Mesh) -> Shards:
   totals = [torch.remainder(x[:, -1:], _TWO_PI) for x in local]
   n = mesh.n_time
   ranks = mesh.ranks
-  if ranks is not None and ranks.time_group is not None:
-    # The row's totals from its ranks, in time order.
-    row_totals = distributed.gather_over_ranks(torch.stack(totals), ranks)
+  if ranks is not None and ranks.shares_rows:
+    # Every shard's totals from every rank, in row-major order: a run may
+    # touch two rows that it shares with other ranks.
+    table, first = distributed.gather_shards(torch.stack(totals), ranks), 0
+  else:
+    table, first = torch.stack(totals), mesh.first_shard
   out = []
   for i, x in enumerate(local):
     d, t = mesh.shard_coords(i)
-    # The gather of the row's totals, [n_time, batch, 1, ...].
-    if ranks is not None and ranks.time_group is not None:
-      all_totals = row_totals
-    else:
-      d_local = d - mesh.shard_coords(0)[0]
-      all_totals = torch.stack(totals[d_local * n:(d_local + 1) * n])
+    # The row's totals, [n_time, batch, 1, ...].
+    all_totals = table[d * n - first:(d + 1) * n - first]
     mask = (torch.arange(n, device=x.device) < t).to(x.dtype)
     mask = mask.reshape((n,) + (1,) * totals[i].ndim)
     carry = torch.remainder(torch.sum(all_totals * mask, dim=0), _TWO_PI)

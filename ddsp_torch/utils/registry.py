@@ -12,7 +12,7 @@ import inspect
 import json
 import logging
 import os
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -40,6 +40,12 @@ def get_preset(name: str) -> Callable[..., Any]:
     raise KeyError(f'Unknown preset {name!r}. Available: '
                    f'{sorted(_PRESETS)}')
   return _PRESETS[name]
+
+
+def list_presets() -> List[str]:
+  """The registered presets' names, sorted."""
+  import ddsp_torch.configs  # noqa: F401  pylint: disable=g-import-not-at-top
+  return sorted(_PRESETS)
 
 
 def init_parameters(model: torch.nn.Module, seed: int) -> None:

@@ -173,21 +173,6 @@ def test_spectral_norm_training_updates_stats(case):
         variables['batch_stats'])[key])) or leaf.endswith('sigma')
 
 
-@pytest.mark.parametrize('resample_type', ['down', 'up'])
-@pytest.mark.parametrize('trim_or_pad', ['pad', 'trim'])
-@pytest.mark.parametrize('stride', [2, 3])
-@pytest.mark.parametrize('four_d', [False, True])
-def test_polyphase_resample(resample_type, trim_or_pad, stride, four_d):
-  x = np.random.RandomState(stride).randn(2, 11, 7).astype(np.float32)
-  if four_d:
-    x = x[:, :, None, :]
-  y_j = j_dc.polyphase_resample(jnp.asarray(x), stride, resample_type,
-                                trim_or_pad)
-  y_t = t_dc.PolyphaseResample(stride, resample_type, trim_or_pad)(_t(x))
-  assert y_t.shape == y_j.shape
-  np.testing.assert_array_equal(_np(y_t), _np(y_j))
-
-
 @pytest.mark.parametrize('init', ['glorot_uniform', 'orthogonal'])
 def test_kernel_init_family(init):
   """The port's draw of a (k, 1, in, out) kernel has flax's distribution:

@@ -40,6 +40,14 @@ the parameters come from the JAX inits through load_jax_params.
     (the group the CLI case starts after the four-rank one ends), against
     the JAX package on the conftest's 8 simulated devices; the halo shifts
     stay in the process.
+  * Ranks whose runs straddle a data row: a (3 x 2) mesh over the same two
+    ranks, three shards a rank (rank 0 holds (0, 0), (0, 1), (1, 0), rank 1
+    holds (1, 1), (2, 0), (2, 1)), against the JAX package on a (3 x 2)
+    mesh of simulated devices: K3's shift both ways (values and adjoint,
+    exactly), the Trainer's SP step and make_sp_train_step (the first
+    step's loss and gradients, a batch of 3; parameters equal on both ranks
+    after two steps) and evaluate_or_sample (scalars and audio, one numpy
+    noise draw handed to both).
 
 Everything is float32 (compute_dtype='float32'). Gradients are compared,
 not parameters after Adam: Adam's first step is close to lr * sign(g),
@@ -79,6 +87,10 @@ RANKS_TIMEOUT_S = 300  # the ranks take ~15 s alone
 JAX_COMPILE_THREADS = 3
 SHIFT_MESHES = ((1, 4), (2, 2))
 SHIFT_SHAPE = (4, 64)  # rows x samples of the global signal
+# A mesh over the two-rank group whose runs straddle data row 1, one row of
+# the batch a data row.
+STRADDLE_MESH, STRADDLE_BATCH = (3, 2), 3
+STRADDLE_SHIFT_SHAPE = (3, 64)
 CASES = ('dense', 'sp_trainer', 'sp_step')
 MESHES = {'dense': (4, 1), 'sp_trainer': (2, 2), 'sp_step': (1, 4)}
 GLOBAL_BATCH = {'dense': 4, 'sp_trainer': 2, 'sp_step': 1}
@@ -88,6 +100,14 @@ GLOBAL_BATCH = {'dense': 4, 'sp_trainer': 2, 'sp_step': 1}
 # one-process SP step at this rtol; the second step also carries one Adam
 # update of those gradients).
 LOSS_RTOL = 1e-3
+# make_sp_train_step on the straddled mesh's batch of 3 rows (220, 250 and
+# 280 Hz): its logmag term reads the frameworks' phase rounding on quiet
+# bins, and the port in one process departs from JAX as far as the ranks
+# do (measured on an x86 CPU, port in one process against JAX: the loss
+# 1.6e-3 on a (1 x 2) mesh of the one-row batch, 2.0e-3 on (3 x 1) and
+# 2.4e-3 on (3 x 2); the network's gradient 1.7e-2, 3.1e-2 and 2.6e-2).
+# The ranks are held to the one-process port at ONE_PROCESS_* below.
+JAX_LOSS_RTOL = {'straddle_step': 5e-3}
 # Gradients against the JAX package, relative L2: the network's, all
 # parameters but the reverb IR together, at tests/test_torch_train.py's
 # float32 tolerance for the Trainer cases (measured: 5.9e-5 dense, 1.0e-5
@@ -102,7 +122,8 @@ LOSS_RTOL = 1e-3
 # The reverb IR's, tests/test_torch_train.py's (its entries' gradients
 # are sums of many signed terms): relative L2 0.1 and a cosine of 0.995.
 NET_GRAD_RTOL = {'dense': 1e-3, 'sp_trainer': 1e-3, 'sp_step': 2e-2,
-                 'rows_dense': 1e-3, 'rows_sp': 1e-3}
+                 'rows_dense': 1e-3, 'rows_sp': 1e-3,
+                 'straddle_sp': 1e-3, 'straddle_step': 5e-2}
 IR_GRAD_RTOL = 0.1
 IR_GRAD_COSINE = 0.995
 IR_NAME = 'processor_group/reverb/ir'
@@ -114,7 +135,8 @@ IR_NAME = 'processor_group/reverb/ir'
 # for make_sp_train_step (the first layer's residue above).
 ONE_PROCESS_LOSS_RTOL = 1e-5
 SECOND_LOSS_RTOL = 1e-4
-ONE_PROCESS_GRAD_RTOL = {'dense': 1e-4, 'sp_trainer': 1e-4, 'sp_step': 1e-2}
+ONE_PROCESS_GRAD_RTOL = {'dense': 1e-4, 'sp_trainer': 1e-4, 'sp_step': 1e-2,
+                         'straddle_sp': 1e-4, 'straddle_step': 1e-2}
 CLI_MODEL = dict(n_samples=N_SAMPLES, time_steps=N_FRAMES, n_harmonics=8,
                  n_noise_magnitudes=9, reverb_length=3000, rnn_channels=16,
                  ch=16, compute_dtype='float32')
@@ -138,6 +160,10 @@ ONE_PROCESS_EVAL_RTOL = 1e-5
 # tests/test_torch_sp_eval.py's SP_AUDIO_ATOL (3e-3), which holds SP
 # against dense.
 ONE_PROCESS_AUDIO_ATOL = 1e-5
+# The straddled eval's audio against the JAX package's: the two frameworks'
+# float32 phase sums (tests/test_torch_sp.py holds the SP signals at this
+# atol).
+JAX_AUDIO_ATOL = 3e-3
 # The nodes and losses that gather (Crop, Mix, an L2 SpectralLoss): one
 # Trainer step on each mesh of ranks against jax.value_and_grad on the same
 # mesh shape. The Crop model synthesizes one extra hop and crops it from the
@@ -151,6 +177,8 @@ CROP = 128
 # ranks (two rows each) and the SP Trainer step on a (4 x 2) mesh of two
 # ranks (two rows of two time shards each).
 ROWS_CASES = {'rows_dense': ((8, 1), 8), 'rows_sp': ((4, 2), 4)}
+# The straddled mesh's steps: the Trainer's SP step and make_sp_train_step.
+STRADDLE_CASES = ('straddle_sp', 'straddle_step')
 
 
 # ---------------------------------------------------------------------------
@@ -175,17 +203,19 @@ def _noise(rows, n, seed=9):
       np.float32)
 
 
-def _sp_batch():
+def _sp_batch(rows=1):
   hop = SP_SAMPLES // SP_FRAMES
   t = np.arange(SP_SAMPLES) / 16000
-  target = (0.3 * np.sin(2 * np.pi * 220 * t) +
-            3e-3 * np.random.RandomState(0).randn(SP_SAMPLES))
+  f0 = 220.0 + 30.0 * np.arange(rows)[:, None]
+  target = (0.3 * np.sin(2 * np.pi * f0 * t) +
+            3e-3 * np.random.RandomState(0).randn(rows, SP_SAMPLES))
   env = 0.5 + 0.4 * np.sin(2 * np.pi * t[::hop])
-  frames = lambda x: x.astype(np.float32)[None, :, None]
-  return {'audio': target.astype(np.float32)[None],
-          'f0_hz': np.full((1, SP_FRAMES, 1), 220.0, np.float32),
-          'ld_scaled': frames(env),
-          'f0_scaled': np.full((1, SP_FRAMES, 1), 0.55, np.float32)}
+  frames = lambda x: np.broadcast_to(x[:, :, None], (rows, SP_FRAMES, 1))
+  return {'audio': target.astype(np.float32),
+          'f0_hz': frames(f0.repeat(SP_FRAMES, 1)).astype(np.float32),
+          'ld_scaled': frames(env[None]).astype(np.float32),
+          'f0_scaled': frames(0.55 + 0.01 * np.arange(rows)[:, None].repeat(
+              SP_FRAMES, 1)).astype(np.float32)}
 
 
 def _trainer_model(lib, nn_lib, proc_lib, autoencoder):
@@ -271,9 +301,9 @@ def _model(case, lib, nn_lib, proc_lib, autoencoder):
   return _trainer_model(lib, nn_lib, proc_lib, autoencoder)
 
 
-def _eval_provider(package):
+def _eval_provider(package, batch=EVAL_BATCH):
   return package(n_samples=N_SAMPLES, sample_rate=16000,
-                 frame_rate=EVAL_FRAME_RATE, n_examples=EVAL_BATCH)
+                 frame_rate=EVAL_FRAME_RATE, n_examples=batch)
 
 
 def _sp_decoder(nn_lib):
@@ -285,21 +315,40 @@ def _sp_decoder(nn_lib):
 # ---------------------------------------------------------------------------
 # The ranks (PyTorch only)
 # ---------------------------------------------------------------------------
-def _rank_shifts(rank, mesh_lib, halo, create_mesh):
+def _shift_inputs(shape):
+  return (np.random.RandomState(3).randn(*shape).astype(np.float32),
+          np.random.RandomState(4).randn(*shape).astype(np.float32))
+
+
+def _mesh_shifts(mesh, shape):
+  """Both shifts of the rank's shards of a global [rows, samples] signal
+  of `shape`, and their adjoints: {direction: [((d, t), value, adjoint)
+  for each shard of the run]}."""
+  # pylint: disable=g-import-not-at-top
+  from ddsp_torch.parallel import halo
+  from ddsp_torch.parallel import mesh as mesh_lib
+  x, w = _shift_inputs(shape)
+  rows = mesh_lib.local_rows(mesh, shape[0])
+  span = mesh_lib.time_span(mesh, shape[1])
   out = {}
-  x = np.random.RandomState(3).randn(*SHIFT_SHAPE).astype(np.float32)
-  w = np.random.RandomState(4).randn(*SHIFT_SHAPE).astype(np.float32)
+  for direction in (+1, -1):
+    mine = torch.from_numpy(x[rows, span].copy()).requires_grad_()
+    got = halo.neighbor_shift(mesh_lib.split_time(mesh, mine), mesh,
+                              direction, impl='pallas')
+    cot = mesh_lib.split_time(mesh, torch.from_numpy(w[rows, span].copy()))
+    (grad,) = torch.autograd.grad(got, mine, cot)
+    out[direction] = [(mesh.shard_coords(j), v.detach().numpy(), g.numpy())
+                      for j, (v, g) in enumerate(
+                          zip(got, mesh_lib.split_time(mesh, grad)))]
+  return out
+
+
+def _rank_shifts(create_mesh):
+  out = {}
   for shape in SHIFT_MESHES:
-    mesh = create_mesh(*shape, devices=['cpu'])
-    rows = mesh_lib.local_rows(mesh, SHIFT_SHAPE[0])
-    span = mesh_lib.time_span(mesh, SHIFT_SHAPE[1])
-    for direction in (+1, -1):
-      mine = torch.from_numpy(x[rows, span].copy()).requires_grad_()
-      (got,) = halo.neighbor_shift([mine], mesh, direction, impl='pallas')
-      (grad,) = torch.autograd.grad(got, mine,
-                                    torch.from_numpy(w[rows, span].copy()))
-      out[f'{shape}{direction:+d}'] = (rows, span, got.detach().numpy(),
-                                       grad.numpy())
+    shifts = _mesh_shifts(create_mesh(*shape, devices=['cpu']), SHIFT_SHAPE)
+    for direction, shards in shifts.items():
+      out[f'{shape}{direction:+d}'] = shards
   return out
 
 
@@ -336,8 +385,9 @@ def _trainer_steps(case, params, mesh, steps=STEPS, batch_size=None):
           'params': {k: p.detach().clone() for k, p in state.params.items()}}
 
 
-def _sp_steps(params, mesh):
-  """Two make_sp_train_step steps on `mesh`, likewise."""
+def _sp_steps(params, mesh, rows=1):
+  """Two make_sp_train_step steps on `mesh`, likewise, on a batch of
+  `rows`."""
   from ddsp_torch import nn  # pylint: disable=g-import-not-at-top
   from ddsp_torch.parallel import make_sp_train_step
   from ddsp_torch.utils import load_jax_params
@@ -346,7 +396,8 @@ def _sp_steps(params, mesh):
   train_step, shard_batch = make_sp_train_step(
       mesh, decoder, torch.optim.Adam(decoder.parameters(), lr=1e-2),
       n_samples=SP_SAMPLES, fft_sizes=SP_FFT_SIZES)
-  batch, noise = shard_batch(_sp_batch(), _noise(1, SP_SAMPLES, seed=1))
+  batch, noise = shard_batch(_sp_batch(rows),
+                             _noise(rows, SP_SAMPLES, seed=1))
   seen, grads = [], None
   for _ in range(STEPS):
     seen.append(float(train_step(batch, noise)))
@@ -376,7 +427,8 @@ class _Recorder:
     return self.base.flush(step)
 
 
-def _port_eval(params, ckpt, save_dir, mesh, mode='eval', noise=None):
+def _port_eval(params, ckpt, save_dir, mesh, mode='eval', noise=None,
+               batch=EVAL_BATCH):
   """evaluate_or_sample of the Trainer cases' model from `ckpt` on `mesh`
   (a mesh over the ranks, or all its shards in one process): (scalars,
   the audio the evaluators saw, the files written under save_dir)."""
@@ -392,9 +444,9 @@ def _port_eval(params, ckpt, save_dir, mesh, mode='eval', noise=None):
   trainer = Trainer(model, mesh=mesh, device='cpu', halo_impl='pallas')
   recorder = _Recorder()
   scalars = evaluate_or_sample(
-      _eval_provider(SyntheticSinusoidProvider), trainer, save_dir,
+      _eval_provider(SyntheticSinusoidProvider, batch), trainer, save_dir,
       restore_dir=ckpt, mode=mode, evaluators=[recorder],
-      batch_size=EVAL_BATCH, num_batches=1,
+      batch_size=batch, num_batches=1,
       noise=None if noise is None else torch.from_numpy(noise))
   files = sorted(os.path.relpath(os.path.join(root, f), save_dir)
                  for root, _, names in os.walk(save_dir) for f in names
@@ -464,14 +516,31 @@ def _rank_cli(rank, work_dir, ports):
   return out
 
 
+def _rank_straddle(rank, work_dir, inputs, create_mesh):
+  """The cases of the (3 x 2) mesh over two ranks, whose runs straddle
+  data row 1: K3's shifts, two steps of the Trainer's SP step and of
+  make_sp_train_step, and an eval with the JAX comparison's noise."""
+  mesh = lambda: create_mesh(*STRADDLE_MESH, devices=['cpu'] * 3)
+  return {
+      'straddle_shifts': _mesh_shifts(mesh(), STRADDLE_SHIFT_SHAPE),
+      'straddle_sp': _trainer_steps('straddle_sp', inputs['trainer_params'],
+                                    mesh(), batch_size=STRADDLE_BATCH),
+      'straddle_step': _sp_steps(inputs['sp_params'], mesh(),
+                                 rows=STRADDLE_BATCH),
+      'straddle_eval': _port_eval(inputs['trainer_params'],
+                         os.path.join(work_dir, 'ckpt'),
+                         os.path.join(work_dir, 'straddle_eval', f'r{rank}'),
+                         mesh(), noise=_noise(STRADDLE_BATCH, N_SAMPLES),
+                         batch=STRADDLE_BATCH)}
+
+
 def _rank_main(rank, work_dir, ports):
   torch.set_num_threads(1)
-  from ddsp_torch.parallel import create_mesh, distributed, halo  # pylint: disable=g-import-not-at-top
-  from ddsp_torch.parallel import mesh as mesh_lib
+  from ddsp_torch.parallel import create_mesh, distributed  # pylint: disable=g-import-not-at-top
   inputs = torch.load(os.path.join(work_dir, 'inputs.pt'), weights_only=False)
   distributed.init(device='cpu', init_method='file://' + os.path.join(
       work_dir, 'init'), rank=rank, world_size=N_RANKS)
-  result = {'shifts': _rank_shifts(rank, mesh_lib, halo, create_mesh)}
+  result = {'shifts': _rank_shifts(create_mesh)}
   for case in ('dense', 'sp_trainer'):
     result[case] = _trainer_steps(case, inputs['trainer_params'],
                                   create_mesh(*MESHES[case], devices=['cpu']))
@@ -501,6 +570,9 @@ def _rank_main(rank, work_dir, ports):
         'rows_sp', inputs['trainer_params'],
         create_mesh(*shape, devices=['cpu'] * 4), batch_size=batch)
     result['rows_shifts'] = dict(counts)
+    counts.update(local=0, remote=0)
+    result.update(_rank_straddle(rank, work_dir, inputs, create_mesh))
+    result['straddle_shift_counts'] = dict(counts)
     distributed.shutdown()
   torch.save(result, os.path.join(work_dir, f'rank{rank}.pt'))
 
@@ -527,14 +599,15 @@ def _jax_side(trainer_params, sp_params, node_params, work_dir):
   from ddsp_tpu.parallel import sp_synth_and_loss
   from ddsp_tpu.parallel import sp_model as j_sp_model
   out = {}
-  x = np.random.RandomState(3).randn(*SHIFT_SHAPE).astype(np.float32)
-  w = np.random.RandomState(4).randn(*SHIFT_SHAPE).astype(np.float32)
   devices = jax.devices()[:N_RANKS]
-  for shape in SHIFT_MESHES:
+  for shape, signal in [(m, SHIFT_SHAPE) for m in SHIFT_MESHES] + [
+      (STRADDLE_MESH, STRADDLE_SHIFT_SHAPE)]:
+    x, w = _shift_inputs(signal)
     if shape[0] == 1:
       jmesh, spec = JaxMesh(np.asarray(devices), ('time',)), P(None, 'time')
     else:
-      jmesh = j_create_mesh(n_data=shape[0], n_time=shape[1], devices=devices)
+      jmesh = j_create_mesh(n_data=shape[0], n_time=shape[1],
+                            devices=jax.devices()[:shape[0] * shape[1]])
       spec = P('data', 'time')
     for direction in (+1, -1):
       shift = jax.jit(jax.shard_map(
@@ -593,6 +666,8 @@ def _jax_side(trainer_params, sp_params, node_params, work_dir):
                          N_SAMPLES, MESHES[case])
     for case, (shape, b) in ROWS_CASES.items():
       steps[case] = step(model, trainer_params, b, N_SAMPLES, shape)
+    steps['straddle_sp'] = step(model, trainer_params, STRADDLE_BATCH,
+                                N_SAMPLES, STRADDLE_MESH)
     for case in NODE_CASES:
       node = _node_model(case, j_losses, j_nn, j_proc, JaxAutoencoder)
       n = N_SAMPLES + (CROP if case == 'crop' else 0)
@@ -601,35 +676,45 @@ def _jax_side(trainer_params, sp_params, node_params, work_dir):
                                   shape)
     fixed.clear()
     fixed[(EVAL_BATCH, N_SAMPLES)] = _noise(EVAL_BATCH, N_SAMPLES)
+    fixed[(STRADDLE_BATCH, N_SAMPLES)] = _noise(STRADDLE_BATCH, N_SAMPLES)
     for shape in SP_EVAL_MESHES:
       out['eval', shape] = _jax_eval(model, trainer_params, shape, work_dir)
+    out['eval', STRADDLE_MESH] = _jax_eval(
+        model, trainer_params, STRADDLE_MESH, work_dir, STRADDLE_BATCH)
   out.update({key: run() for key, run in steps.items()})
   pool.shutdown()
 
   decoder = _sp_decoder(j_nn)
-  jmesh = j_create_mesh(n_data=1, n_time=N_RANKS, devices=devices)
-  _, shard_batch = j_make_sp_train_step(
-      jmesh, decoder, None, n_samples=SP_SAMPLES, fft_sizes=SP_FFT_SIZES)
-  batch, noise = shard_batch(_sp_batch(), _noise(1, SP_SAMPLES, seed=1))
 
-  def sp_loss(p):
-    """The JAX long-audio step's loss function."""
-    controls = decoder.apply({'params': p}, batch, training=True)
-    return sp_synth_and_loss(
-        jmesh, batch['audio'], batch['f0_hz'], controls['amps'],
-        controls['harmonic_distribution'], controls['noise_magnitudes'],
-        noise, n_samples=SP_SAMPLES, fft_sizes=SP_FFT_SIZES)
+  def sp_step(shape, rows):
+    """The JAX long-audio step's loss and gradients on a mesh of `shape`
+    and a batch of `rows`."""
+    jmesh = j_create_mesh(n_data=shape[0], n_time=shape[1],
+                          devices=jax.devices()[:shape[0] * shape[1]])
+    _, shard_batch = j_make_sp_train_step(
+        jmesh, decoder, None, n_samples=SP_SAMPLES, fft_sizes=SP_FFT_SIZES)
+    batch, noise = shard_batch(_sp_batch(rows),
+                               _noise(rows, SP_SAMPLES, seed=1))
 
-  loss, grads = jax.jit(jax.value_and_grad(sp_loss))(sp_params)
-  out['sp_step'] = (float(loss),
-                    flatten(jax.tree_util.tree_map(np.asarray, grads)))
+    def sp_loss(p):
+      controls = decoder.apply({'params': p}, batch, training=True)
+      return sp_synth_and_loss(
+          jmesh, batch['audio'], batch['f0_hz'], controls['amps'],
+          controls['harmonic_distribution'], controls['noise_magnitudes'],
+          noise, n_samples=SP_SAMPLES, fft_sizes=SP_FFT_SIZES)
+
+    loss, grads = jax.jit(jax.value_and_grad(sp_loss))(sp_params)
+    return float(loss), flatten(jax.tree_util.tree_map(np.asarray, grads))
+
+  out['sp_step'] = sp_step(MESHES['sp_step'], 1)
+  out['straddle_step'] = sp_step(STRADDLE_MESH, STRADDLE_BATCH)
   return out
 
 
-def _jax_eval(model, params, shape, work_dir):
+def _jax_eval(model, params, shape, work_dir, batch=EVAL_BATCH):
   """The JAX package's evaluate_or_sample on a mesh of `shape` with a
-  stand-in trainer that hands over `params` as step 0's checkpoint; the
-  scalars it writes."""
+  stand-in trainer that hands over `params` as step 0's checkpoint: the
+  scalars it writes, and the audio its evaluator saw."""
   # pylint: disable=g-import-not-at-top
   import jax
   from ddsp_tpu.data import SyntheticSinusoidProvider as JaxSinusoids
@@ -645,13 +730,21 @@ def _jax_eval(model, params, shape, work_dir):
       restore=lambda state, restore_dir: state,
       mesh=j_create_mesh(n_data=n_data, n_time=n_time,
                          devices=jax.devices()[:n_data * n_time]))
+  audio = []
+
+  class Recorder(j_evaluators.BasicEvaluator):
+
+    def evaluate(self, batch, outputs, losses):
+      super().evaluate(batch, outputs, losses)
+      audio.append(np.asarray(outputs['audio_synth']))
+
   j_eval_util.evaluate_or_sample(
-      _eval_provider(JaxSinusoids), trainer, os.path.join(root, 'eval'),
-      restore_dir=os.path.join(root, 'ckpt'),
-      evaluators=[j_evaluators.BasicEvaluator(16000, EVAL_FRAME_RATE)],
-      batch_size=EVAL_BATCH, num_batches=1)
+      _eval_provider(JaxSinusoids, batch), trainer,
+      os.path.join(root, 'eval'), restore_dir=os.path.join(root, 'ckpt'),
+      evaluators=[Recorder(16000, EVAL_FRAME_RATE)], batch_size=batch,
+      num_batches=1)
   with open(os.path.join(root, 'eval', 'eval', 'metrics.jsonl')) as f:
-    return json.loads(f.read().splitlines()[-1])
+    return json.loads(f.read().splitlines()[-1]), audio[0]
 
 
 def _port_side(trainer_params, sp_params):
@@ -667,6 +760,10 @@ def _port_side(trainer_params, sp_params):
         case, trainer_params, create_mesh(*shape, devices=['cpu'] * 4))
   out['sp_step'] = _sp_steps(sp_params, create_mesh(1, 4,
                                                      devices=['cpu'] * 4))
+  mesh = lambda: create_mesh(*STRADDLE_MESH, devices=['cpu'] * 6)
+  out['straddle_sp'] = _trainer_steps('straddle_sp', trainer_params, mesh(),
+                                      batch_size=STRADDLE_BATCH)
+  out['straddle_step'] = _sp_steps(sp_params, mesh(), rows=STRADDLE_BATCH)
   return out
 
 
@@ -780,15 +877,38 @@ def runs():
 def test_remote_shift_values_and_adjoint_match_jax(runs, shape, direction):
   ranks, jax_side, _, _ = runs
   key = f'{shape}{direction:+d}'
-  value, adjoint = jax_side[key]
-  got_value = np.zeros(SHIFT_SHAPE, np.float32)
-  got_adjoint = np.zeros(SHIFT_SHAPE, np.float32)
-  for r in range(N_RANKS):
-    rows, span, v, g = ranks[r]['shifts'][key]
-    got_value[rows, span] = v
-    got_adjoint[rows, span] = g
+  _check_shift(shape, SHIFT_SHAPE, [ranks[r]['shifts'][key]
+                                    for r in range(N_RANKS)], *jax_side[key])
+
+
+def _check_shift(shape, signal, parts, value, adjoint):
+  """Every rank's shards of a shift and its adjoint, placed into the
+  global signal, against the JAX package's, exactly."""
+  rows, samples = signal[0] // shape[0], signal[1] // shape[1]
+  got_value = np.full(signal, np.nan, np.float32)
+  got_adjoint = np.full(signal, np.nan, np.float32)
+  for shards in parts:
+    for (d, t), v, g in shards:
+      at = (slice(d * rows, (d + 1) * rows),
+            slice(t * samples, (t + 1) * samples))
+      got_value[at], got_adjoint[at] = v, g
   np.testing.assert_array_equal(got_value, value)
   np.testing.assert_array_equal(got_adjoint, adjoint)
+
+
+@pytest.mark.parametrize('direction', [+1, -1])
+def test_straddled_shift_matches_jax(runs, direction):
+  """K3's shift on the (3 x 2) mesh over two ranks, whose runs straddle
+  data row 1 (the local launch on a run that starts inside a row, the
+  remote copy between the rows' halves), against neighbor_shift on a
+  (3 x 2) mesh, exactly; both ranks shifted locally and remotely."""
+  ranks, jax_side, _, _ = runs
+  parts = [ranks[r]['straddle_shifts'][direction] for r in (0, 1)]
+  _check_shift(STRADDLE_MESH, STRADDLE_SHIFT_SHAPE, parts,
+               *jax_side[f'{STRADDLE_MESH}{direction:+d}'])
+  for r in (0, 1):
+    counts = ranks[r]['straddle_shift_counts']
+    assert counts['local'] > 0 and counts['remote'] > 0, counts
 
 
 def _rel_l2(a, b):
@@ -801,7 +921,8 @@ def _flat(grads):
 
 def _holders(case):
   """The ranks that ran a case: the two-rank group's cases ran on two."""
-  return range(2 if case in ('cli', 'rows_sp') else N_RANKS)
+  return range(2 if case in ('cli', 'rows_sp') + STRADDLE_CASES
+               else N_RANKS)
 
 
 def _check_step_against_jax(ranks, case, want_loss, want, net_rtol):
@@ -809,7 +930,7 @@ def _check_step_against_jax(ranks, case, want_loss, want, net_rtol):
   gradients (rank 0's) against the JAX package's step."""
   for r in _holders(case if isinstance(case, str) else 'node'):
     np.testing.assert_allclose(ranks[r][case]['losses'][0], want_loss,
-                               rtol=LOSS_RTOL)
+                               rtol=JAX_LOSS_RTOL.get(case, LOSS_RTOL))
   got = _flat(ranks[0][case]['grads'])
   assert sorted(got) == sorted(want)
   net = sorted(k for k in got if k != IR_NAME)
@@ -822,7 +943,7 @@ def _check_step_against_jax(ranks, case, want_loss, want, net_rtol):
         IR_GRAD_COSINE)
 
 
-@pytest.mark.parametrize('case', CASES + tuple(ROWS_CASES))
+@pytest.mark.parametrize('case', CASES + tuple(ROWS_CASES) + STRADDLE_CASES)
 def test_first_step_matches_jax(runs, case):
   """The first step's loss on every rank and its reduced gradients against
   the JAX package's step on the global batch."""
@@ -843,14 +964,14 @@ def test_gathering_nodes_and_losses_match_jax(runs, case, shape):
                           NET_GRAD_RTOL['sp_trainer'])
 
 
-@pytest.mark.parametrize('case', CASES)
+@pytest.mark.parametrize('case', CASES + STRADDLE_CASES)
 def test_steps_match_the_one_process_port(runs, case):
   """Both steps' losses and the first step's reduced gradients against the
   same steps with every shard in one process: R ranks take the
   one-process step."""
   ranks, _, port_side, _ = runs
   want = port_side[case]
-  for r in range(N_RANKS):
+  for r in _holders(case):
     np.testing.assert_allclose(ranks[r][case]['losses'][0],
                                want['losses'][0], rtol=ONE_PROCESS_LOSS_RTOL)
     np.testing.assert_allclose(ranks[r][case]['losses'][1],
@@ -862,7 +983,8 @@ def test_steps_match_the_one_process_port(runs, case):
   assert ranks[0][case]['losses'][1] < ranks[0][case]['losses'][0]
 
 
-@pytest.mark.parametrize('case', CASES + ('cli',) + tuple(ROWS_CASES))
+@pytest.mark.parametrize('case', CASES + ('cli',) + tuple(ROWS_CASES) +
+                         STRADDLE_CASES)
 def test_parameters_equal_across_ranks(runs, case):
   ranks = runs[0]
   first = ranks[0][case]['params']
@@ -909,7 +1031,7 @@ def test_eval_across_ranks_matches_jax(runs, shape):
   """evaluate_or_sample on a mesh of ranks against the JAX package's on a
   mesh of the same shape, with the same noise: every rank's scalars."""
   ranks, jax_side = runs[0], runs[1]
-  want = jax_side['eval', shape]
+  want = jax_side['eval', shape][0]
   for r in range(N_RANKS):
     got = ranks[r]['eval'][shape, 'noise'][0]
     assert set(got) == set(want) - {'step'} == {'losses/spectral_loss',
@@ -917,6 +1039,26 @@ def test_eval_across_ranks_matches_jax(runs, shape):
     for key, value in got.items():
       np.testing.assert_allclose(value, want[key], rtol=JAX_EVAL_RTOL,
                                  err_msg=key)
+
+
+def test_straddled_eval_matches_jax(runs):
+  """evaluate_or_sample on the (3 x 2) mesh over two ranks, with the JAX
+  comparison's noise, against the JAX package's on a (3 x 2) mesh: the
+  scalars on both ranks, the audio rank 0's evaluators saw, and rank 0
+  alone writing."""
+  ranks, jax_side = runs[0], runs[1]
+  want, want_audio = jax_side['eval', STRADDLE_MESH]
+  for r in (0, 1):
+    got = ranks[r]['straddle_eval'][0]
+    assert set(got) == set(want) - {'step'}
+    for key, value in got.items():
+      np.testing.assert_allclose(value, want[key], rtol=JAX_EVAL_RTOL,
+                                 err_msg=key)
+  (audio,) = ranks[0]['straddle_eval'][1]
+  assert audio.shape == want_audio.shape == (STRADDLE_BATCH, N_SAMPLES)
+  np.testing.assert_allclose(audio, want_audio, atol=JAX_AUDIO_ATOL)
+  assert ranks[0]['straddle_eval'][2] == ['eval/metrics.jsonl']
+  assert ranks[1]['straddle_eval'][1:] == ([], [])
 
 
 @pytest.mark.parametrize('shape', EVAL_MESHES)
@@ -964,11 +1106,8 @@ def _ranks_mesh(shape, rank, per_rank=1):
   from ddsp_torch.parallel import distributed  # pylint: disable=g-import-not-at-top
   from ddsp_torch.parallel.mesh import Mesh
   n_data, n_time = shape
-  row = n_time // per_rank
-  first = rank // row * row
-  ranks = distributed.Ranks(
-      rank, n_data * n_time // per_rank, per_rank,
-      tuple(range(first, first + row)), object() if row > 1 else None)
+  ranks = distributed.Ranks(rank, n_data * n_time // per_rank, n_data,
+                            n_time)
   return Mesh(['cpu'] * per_rank, n_data, n_time, ranks)
 
 
@@ -1020,9 +1159,9 @@ def test_a_rank_holds_shards_of_one_data_row():
   from ddsp_torch.parallel import distributed  # pylint: disable=g-import-not-at-top
   from ddsp_torch.parallel.mesh import Mesh
   with pytest.raises(NotImplementedError, match='item 8'):
-    Mesh(['cuda:0', 'cuda:1'], 1, 2, distributed.Ranks(0, 2, 2, (0,), None))
+    Mesh(['cuda:0', 'cuda:1'], 1, 2, distributed.Ranks(0, 1, 1, 2))
   with pytest.raises(ValueError, match='needs 2 devices'):
-    Mesh(['cpu'], 1, 4, distributed.Ranks(0, 2, 2, (0,), None))
+    Mesh(['cpu'], 1, 4, distributed.Ranks(0, 2, 1, 4))
 
 
 def test_row_draws_are_the_global_draw_cut_to_rows():
@@ -1043,31 +1182,21 @@ def test_row_draws_are_the_global_draw_cut_to_rows():
     uniform_noise((2, 16), 'cpu', generator=gen, batched=True)
 
 
-def test_a_rank_straddling_a_data_row_raises(monkeypatch):
-  """Three shards a rank on a (3 x 2) mesh of two ranks: the first rank's
-  run ends halfway through the second row."""
-  from ddsp_torch.parallel import distributed  # pylint: disable=g-import-not-at-top
-  monkeypatch.setattr(distributed, 'world_size', lambda: 2)
-  monkeypatch.setattr(distributed, 'rank', lambda: 0)
-  with pytest.raises(NotImplementedError, match='item 10'):
-    distributed.mesh_ranks(3, 2)
-
-
 def _whole_rows_mesh(rank):
   """Rank `rank` of a (4 x 2) mesh over two ranks: two whole rows each."""
   from ddsp_torch.parallel import distributed  # pylint: disable=g-import-not-at-top
   from ddsp_torch.parallel.mesh import Mesh
-  return Mesh(['cpu'] * 4, 4, 2, distributed.Ranks(rank, 2, 4, (rank,),
-                                                     None))
+  return Mesh(['cpu'] * 4, 4, 2, distributed.Ranks(rank, 2, 4, 2))
 
 
 def test_process_local_placement_of_whole_rows():
   """Rank 1 of a (4 x 2) mesh over two ranks holds rows 2 and 3 of the
-  mesh, every sample: a (2 x 2) mesh of its own."""
+  mesh, every sample: a run of two whole rows."""
   from ddsp_torch.parallel import mesh as mesh_lib  # pylint: disable=g-import-not-at-top
   mesh = _whole_rows_mesh(1)
-  local = mesh.local_mesh()
-  assert (local.n_data, local.n_time, local.ranks) == (2, 2, None)
+  run = mesh.run
+  assert (list(run.rows), run.span, run.whole_rows) == ([2, 3], (0, 2), True)
+  assert not mesh.ranks.shares_rows
   assert [mesh.shard_coords(j) for j in range(4)] == [
       (2, 0), (2, 1), (3, 0), (3, 1)]
   x = np.arange(8 * 6, dtype=np.float32).reshape(8, 6)
@@ -1085,24 +1214,24 @@ def test_process_local_placement_of_whole_rows():
 @pytest.mark.parametrize('shape,per_rank', [((2, 2), 1), ((4, 2), 4),
                                             ((1, 4), 2)])
 def test_assemble_and_own_block_are_inverse(shape, per_rank):
-  """The global signal from every rank's time-local block, and each rank's
-  block back from it; a value replicated over 'time' reads the row's
-  first rank."""
-  from ddsp_torch.parallel import distributed  # pylint: disable=g-import-not-at-top
+  """The global signal from every rank's time-local shards, and each
+  rank's block back from it (shard_batch: its own block of the global
+  batch); a value replicated over 'time' reads each row's first shard."""
+  # pylint: disable=g-import-not-at-top
+  from ddsp_torch.parallel import distributed
+  from ddsp_torch.parallel import mesh as mesh_lib
   n_data, n_time = shape
   n_ranks = n_data * n_time // per_rank
-  row_ranks = max(1, n_time // per_rank)
   x = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
-  rows, samples = 8 // (n_ranks // row_ranks), 12 // row_ranks
-  blocks = []
+  shards, rows = [], []
   for r in range(n_ranks):
-    first = r // row_ranks * row_ranks
-    ranks = distributed.Ranks(r, n_ranks, per_rank,
-                              tuple(range(first, first + row_ranks)), None)
-    blocks.append((ranks, distributed.own_block(ranks, x, rows, samples)))
-  assert torch.equal(distributed.assemble([b for _, b in blocks],
-                                          row_ranks), x)
-  replicated = distributed.assemble([b for _, b in blocks], row_ranks,
-                                    time_local=False)
+    mesh = _ranks_mesh(shape, r, per_rank)
+    block = mesh_lib.shard_batch(mesh, {'x': x}, n_samples=12)['x']
+    assert torch.equal(block, x[mesh_lib.local_rows(mesh, 8),
+                                mesh_lib.time_span(mesh, 12)])
+    shards += mesh_lib.split_time(mesh, block)
+    rows += mesh_lib.split_batch(mesh, block)
+  assert torch.equal(distributed.assemble(shards, n_data, n_time), x)
+  replicated = distributed.assemble(rows, n_data, n_time, time_local=False)
   assert torch.equal(replicated, torch.cat(
-      [blocks[i][1] for i in range(0, n_ranks, row_ranks)]))
+      [rows[i] for i in range(0, n_data * n_time, n_time)]))

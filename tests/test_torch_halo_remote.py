@@ -20,7 +20,7 @@ import torch
 from ddsp_torch.kernels import halo as kh
 from ddsp_torch.parallel import distributed
 
-ROW = (0, 1, 2, 3)
+MESH = '(1 x 4) mesh'
 OWN, LEFT, RIGHT = 0x10000, 0x20000, 0x30000
 
 
@@ -75,20 +75,18 @@ def lib(monkeypatch):
 
 
 def _mesh(rank):
-  return types.SimpleNamespace(
-      ranks=types.SimpleNamespace(rank=rank, time_ranks=ROW))
+  return types.SimpleNamespace(ranks=distributed.Ranks(rank, 4, 1, 4))
 
 
 def _launch(rank=1, direction=+1, block=None):
-  """A remote copy of a [2, 2047] halo block on `rank` of a (1 x 4) row."""
+  """A remote copy of a [2, 2047] halo block on `rank` of a (1 x 4) mesh
+  over four ranks."""
   block = torch.zeros(2, 2047) if block is None else block
   nbytes = block.numel() * 4
-  if (ROW, nbytes) not in kh._SLOTS:  # pylint: disable=protected-access
-    kh._SLOTS[(ROW, nbytes)] = kh._Slot(OWN, {rank - 1: LEFT, rank + 1: RIGHT})  # pylint: disable=protected-access
-  to, frm = rank + direction, rank - direction
-  edge = kh._Edge(0, to if to in ROW else None, 0, frm if frm in ROW else None,  # pylint: disable=protected-access
-                  direction)
-  return kh._launch_remote(block, _mesh(rank), edge)  # pylint: disable=protected-access
+  if (MESH, nbytes) not in kh._SLOTS:  # pylint: disable=protected-access
+    kh._SLOTS[(MESH, nbytes)] = kh._Slot(OWN, {rank - 1: LEFT, rank + 1: RIGHT})  # pylint: disable=protected-access
+  mesh = _mesh(rank)
+  return kh._launch_remote(block, mesh, kh._edge(mesh, direction))  # pylint: disable=protected-access
 
 
 def _write_fault(fault, code, tag, call, use, seen):
@@ -106,7 +104,7 @@ def test_a_fault_word_raises_at_the_next_check(lib, code):
   with pytest.raises(RuntimeError) as err:
     distributed.check()
   message = str(err.value)
-  for part in ('call 2 of row (0, 1, 2, 3)', 'use 2 of its 16376-byte slot',
+  for part in ('call 2 of the (1 x 4) mesh', 'use 2 of its 16376-byte slot',
                'rank 1', kh.REMOTE_ERRORS[code]):
     assert part in message
   if code != 1:
@@ -123,7 +121,7 @@ def test_a_fault_raises_at_the_next_launch_without_waiting(lib):
   _launch()
   _write_fault(lib.fault, 3, tag=1, call=1, use=1, seen=0)
   lib.events_done = False  # a wait would not end
-  with pytest.raises(RuntimeError, match='call 1 of row'):
+  with pytest.raises(RuntimeError, match='call 1 of the'):
     _launch()
   assert len(lib.remote) == 1
 
@@ -157,10 +155,10 @@ def test_a_passed_deadline_raises_naming_the_last_call(lib, monkeypatch,
   with pytest.raises(RuntimeError) as err:
     kh.check()
   message = str(err.value)
-  assert message.startswith('K3 remote copy (call 2 of row (0, 1, 2, 3), '
+  assert message.startswith('K3 remote copy (call 2 of the (1 x 4) mesh, '
                             'use 2 of its 16376-byte slot, rank 1) '
                             f'{kh.REMOTE_ERRORS[want]} within 0.05 s')
-  assert 'the last call launched: K3 remote copy (call 3 of row' in message
+  assert 'the last call launched: K3 remote copy (call 3 of the' in message
 
 
 def test_a_stream_stalled_after_its_copies_raises(lib, monkeypatch):
@@ -177,7 +175,7 @@ def test_a_stream_stalled_after_its_copies_raises(lib, monkeypatch):
 
   monkeypatch.setattr(kh, '_record_event', lambda stream: _Passing(False))
   with pytest.raises(RuntimeError, match='did not finish within 0.02 s; the '
-                     r'last call launched: K3 remote copy \(call 1 of row'):
+                     r'last call launched: K3 remote copy \(call 1 of the'):
     kh.check()
 
 
@@ -212,7 +210,7 @@ def test_the_first_rank_of_a_plus_one_shift_receives_zeros(lib):
 
 
 def test_loopback_uses_the_own_slot_on_both_sides(lib):
-  kh._SLOTS[(kh.LOOPBACK_ROW, 16376)] = kh._Slot(OWN, {})  # pylint: disable=protected-access
+  kh._SLOTS[(kh.LOOPBACK, 16376)] = kh._Slot(OWN, {})  # pylint: disable=protected-access
   kh.loopback_shift(torch.zeros(2, 2047))
   args = lib.remote[-1]
   assert args[2:4] == (OWN, OWN) and args[5] == OWN and args[6] == 1
@@ -253,7 +251,7 @@ def test_a_save_checks_before_it_waits_for_the_device(lib, monkeypatch,
   state = types.SimpleNamespace(step=3, opt_state={})
   if stalled:
     with pytest.raises(RuntimeError, match='last call launched: K3 remote '
-                       r'copy \(call 1 of row'):
+                       r'copy \(call 1 of the'):
       Trainer.save(trainer, state, str(tmp_path))
     assert not list(tmp_path.iterdir())
   else:

@@ -241,3 +241,37 @@ def test_train_takes_report_loss_to_hypertune():
     params.append({k: v.detach().clone() for k, v in state.params.items()})
   for k, v in params[0].items():
     assert torch.equal(v, params[1][k]), k
+
+
+def test_list_presets_matches_jax():
+  """The port registers the JAX package's presets, by the same names."""
+  from ddsp_tpu.utils import list_presets as j_list_presets  # pylint: disable=g-import-not-at-top
+  from ddsp_torch.utils import list_presets
+  assert list_presets() == j_list_presets()
+
+
+# (n_freqs, window_size): no window, windows past the IR's 2 * (n_freqs - 1)
+# samples, and cropping windows of both parities.
+IR_GRID = [(n, w) for n in (2, 3, 9, 65, 257)
+           for w in (-1, 0, 1, 2, 3, 4, 7, 8, 63, 64, 127, 128, 512, 600)]
+
+
+def test_designed_ir_size_matches_jax_and_the_crop():
+  """designed_ir_size against the JAX function on the grid, and the length
+  of the IR that frequency_impulse_response makes there against the JAX
+  function's and designed_ir_size. A cropping window of one or two samples
+  keeps two in both packages, where designed_ir_size says one."""
+  # pylint: disable=g-import-not-at-top
+  from ddsp_tpu.ops import fftconv as j_fftconv
+  from ddsp_torch.ops import fftconv
+  for n_freqs, window_size in IR_GRID:
+    want = j_fftconv.designed_ir_size(n_freqs, window_size)
+    assert fftconv.designed_ir_size(n_freqs, window_size) == want
+    ir = fftconv.frequency_impulse_response(torch.ones(1, 2, n_freqs),
+                                            window_size=window_size)
+    j_ir = j_fftconv.frequency_impulse_response(np.ones((1, 2, n_freqs)),
+                                                window_size=window_size)
+    assert ir.shape == j_ir.shape, (n_freqs, window_size)
+    crops_to_one = 0 < window_size <= 2 and window_size < 2 * (n_freqs - 1)
+    assert ir.shape[-1] == (2 if crops_to_one else want), (n_freqs,
+                                                           window_size)
