@@ -45,6 +45,13 @@ Phases (any failed check exits non-zero before the result lines):
      T = 1, no exchange between CTAs) against its plain version at B in
      {1, 4, 40}
      and H in {64, 512, 1024} with a non-zero h0;
+  3d. the JAX package's public surface on the card, through the flat names
+     only: ddsp_torch.ops.harmonic_synthesis at the K1 phase's shapes
+     (B = 16, 64000 samples, 1000 frames, 60 harmonics) against K1f's
+     plain version, and a user's head on ddsp_torch.nn.OutputSplitsModule
+     (FastGRU(512) in bf16 at B = 16, T = 1000, a Dense to
+     solo_instrument's splits) against the same head on the plain
+     recurrence; K1f and K2f once each, nothing else;
   4. serve 4 requests of 4 s through the full-width solo_instrument
      autoencoder (AutoencoderInference on a params-format export), check the
      audio, and check that K1f and K2f carried the path;
@@ -989,6 +996,94 @@ def phase_k2(torch, dev):
                 f'K2b {what}: the serial pass within '
                 f"{K2_BWD_RTOL['bfloat16']} and the weight-gradient pass "
                 f'within {K2_WGRAD_RTOL} of their plain versions')
+
+
+# Phase 3d: the JAX package's public surface, as a user calls it.
+SURFACE_SPLITS = (('amps', 1), ('harmonic_distribution', N_HARMONICS),
+                  ('noise_magnitudes', N_NOISE))  # solo_instrument's head
+
+
+def phase_surface(torch, dev):
+  """ddsp_torch.ops.harmonic_synthesis at the K1 phase's shapes reaches
+  K1f, and a head built on ddsp_torch.nn.OutputSplitsModule (FastGRU(512)
+  in bf16, then a Dense to solo_instrument's splits) reaches K2f; each is
+  held against its plain version on the same inputs. Returns the launches
+  of the two calls."""
+  import ddsp_torch
+  from ddsp_torch import nn as dnn
+  from ddsp_torch import ops
+  from ddsp_torch.kernels import gru as kg
+  from ddsp_torch.kernels import harmonic as kh
+  from ddsp_torch.nn import layers as nn_layers
+  print('[3d] the public surface on the card: ops.harmonic_synthesis (K1f) '
+        'and a head on nn.OutputSplitsModule (K2f)', flush=True)
+  check(ddsp_torch.ops is ops and not isinstance(ops.resample, type(ops)),
+        'ddsp_torch.ops is the flat namespace, ops.resample its function')
+
+  class Head(dnn.OutputSplitsModule):
+    """A user's head: (ld_scaled, f0_scaled) -> GRU -> Dense -> splits."""
+
+    def __init__(self):
+      super().__init__(input_keys=('ld_scaled', 'f0_scaled'),
+                       output_splits=SURFACE_SPLITS)
+      self.gru = dnn.FastGRU(2, HIDDEN, compute_dtype='bfloat16')
+      self.dense_out = dnn.Dense(HIDDEN, self.n_out)
+
+    def compute_output(self, ld_scaled, f0_scaled):
+      return self.dense_out(self.gru(torch.cat([ld_scaled, f0_scaled], -1)))
+
+  g = torch.Generator(dev).manual_seed(21)
+  f0 = 80.0 * 20.0**torch.rand((BATCH, N_FRAMES, 1), generator=g, device=dev)
+  amps = torch.rand((BATCH, N_FRAMES, 1), generator=g, device=dev)
+  dist = torch.rand((BATCH, N_FRAMES, N_HARMONICS), generator=g, device=dev)
+  features = {k: torch.rand((BATCH, N_FRAMES, 1), generator=g, device=dev)
+              for k in ('ld_scaled', 'f0_scaled')}
+  torch.manual_seed(22)
+  head = Head().to(dev)
+  reset_launches()
+  audio = ops.harmonic_synthesis(f0, amps, harmonic_distribution=dist,
+                                 n_samples=N_SAMPLES, sample_rate=SR,
+                                 use_angular_cumsum=True)
+  with torch.no_grad():
+    out = head(features)
+  torch.cuda.synchronize()
+  launches = read_launches()
+  # The plain versions on the same inputs: the phase as the op builds it,
+  # and the head with the plain recurrence in place of K2f.
+  f0_env = ops.resample(f0, N_SAMPLES)
+  phase0 = ops.angular_cumsum(f0_env * (2.0 * np.pi) / float(SR))
+  ref = kh.harmonic_synthesis_plain(phase0[..., 0], f0_env[..., 0],
+                                    amps * dist, SR, 'window')
+  kernel_route = nn_layers.gru_sequence
+  nn_layers.gru_sequence = kg.gru_sequence_plain
+  try:
+    with torch.no_grad():
+      ref_out = head(features)
+  finally:
+    nn_layers.gru_sequence = kernel_route
+  torch.cuda.synchronize()
+  err_k1 = (audio - ref).abs().max().item()
+  err_k2 = max((out[k] - ref_out[k]).abs().max().item() for k in out)
+  print(f'  ops.harmonic_synthesis [{BATCH}, {N_SAMPLES}] from {N_FRAMES} '
+        f'frames x {N_HARMONICS} harmonics: max |err| {err_k1:.3e} (atol '
+        f'{K1_ATOL}); head {[(k, tuple(v.shape)) for k, v in out.items()]}: '
+        f"max |err| {err_k2:.3e} (atol {K2_ATOL['bfloat16']}); launches "
+        f'{launches}', flush=True)
+  check(audio.device == ref.device and tuple(audio.shape) == (
+      BATCH, N_SAMPLES) and torch.isfinite(audio).all().item() and
+        err_k1 <= K1_ATOL,
+        f'ops.harmonic_synthesis on the card within {K1_ATOL} of the plain '
+        'version')
+  check(list(out) == [k for k, _ in SURFACE_SPLITS] and all(
+      tuple(out[k].shape) == (BATCH, N_FRAMES, n) and
+      out[k].device == ref.device and torch.isfinite(out[k]).all().item()
+      for k, n in SURFACE_SPLITS) and err_k2 <= K2_ATOL['bfloat16'],
+        f"the OutputSplitsModule head within {K2_ATOL['bfloat16']} of its "
+        'plain route')
+  check(launches['K1f'] == 1 and launches['K2f'] == 1 and
+        sum(launches.values()) == 2,
+        'the flat names launched K1f once and K2f once, and nothing else')
+  return launches
 
 
 # Phase 3c: K2b's weight-gradient kernel (H, T, batches; H = 96 and 384
@@ -7136,6 +7231,7 @@ def main(argv=None):
     phase_k2(torch, dev)
     phase_gradients_reach_parameters(torch, dev)
     phase_k2_hopper(torch, dev)
+    launches['surface'] = phase_surface(torch, dev)
     with tempfile.TemporaryDirectory() as work_dir:
       write_export(torch, work_dir)
       port, reqs, launches['serve'] = phase_serve(torch, work_dir)

@@ -15,7 +15,7 @@ return tensors on that device.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -34,21 +34,41 @@ PARAMS_FILENAME = 'params.npz'
 _KEYS_WITHOUT_REVERB = ('decoder', 'encoder', 'preprocessor')
 
 
-def load_params(save_dir: str) -> Dict[str, np.ndarray]:
+def load_params(save_dir: str, target_params: Optional[Mapping[str, Any]] = None
+                ) -> Dict[str, np.ndarray]:
   """The flat {'a/b/c': array} params of a fmt='params' export, or of the
-  newest checkpoint of a port train directory."""
+  newest checkpoint of a port train directory.
+
+  target_params, where given, holds the keys and shapes to expect (a port
+  state_dict, 'a.b.c', or flat 'a/b/c' arrays): a key the artifact lacks
+  or a shape that differs raises ValueError, and the result holds the
+  target's keys, as the JAX function restores into its target.
+  """
   path = os.path.join(save_dir, PARAMS_FILENAME)
   if os.path.exists(path):
     with np.load(path) as data:
-      return {k: data[k] for k in data.files}
-  steps = checkpoints.checkpoint_steps(save_dir)
-  if not steps:
-    raise FileNotFoundError(f'Neither {PARAMS_FILENAME} nor a checkpoint '
-                            f'(ckpt-<step>.pt) in {save_dir!r}.')
-  restored = torch.load(checkpoints.checkpoint_path(save_dir, steps[-1]),
-                        map_location='cpu', weights_only=True)
-  return {k.replace('.', '/'): v.numpy()
-          for k, v in restored['params'].items()}
+      params = {k: data[k] for k in data.files}
+  else:
+    steps = checkpoints.checkpoint_steps(save_dir)
+    if not steps:
+      raise FileNotFoundError(f'Neither {PARAMS_FILENAME} nor a checkpoint '
+                              f'(ckpt-<step>.pt) in {save_dir!r}.')
+    restored = torch.load(checkpoints.checkpoint_path(save_dir, steps[-1]),
+                          map_location='cpu', weights_only=True)
+    params = {k.replace('.', '/'): v.numpy()
+              for k, v in restored['params'].items()}
+  if target_params is None:
+    return params
+  target = {k.replace('.', '/'): tuple(v.shape)
+            for k, v in target_params.items()}
+  missing = sorted(set(target) - set(params))
+  wrong = sorted(f'{k} {params[k].shape} (target {shape})'
+                 for k, shape in target.items()
+                 if k in params and tuple(params[k].shape) != shape)
+  if missing or wrong:
+    raise ValueError(f'The params in {save_dir!r} do not match the target: '
+                     f'missing {missing}, shapes differ {wrong}.')
+  return {k: params[k] for k in target}
 
 
 def refuse_audio_input(model: torch.nn.Module, save_dir: str) -> None:
@@ -234,6 +254,11 @@ class VSTStatelessPredictControls(_VSTBase):
   def initial_state(self) -> torch.Tensor:
     return torch.zeros((self.state_size,), device=self.device)
 
+  def reset(self):
+    """Zero the carried GRU state (the reference's Keras reset_states()).
+    The stateless call does not read it; VSTPredictControls carries it."""
+    self._state = self.initial_state()
+
   @torch.no_grad()
   def __call__(self, f0_scaled, pw_scaled, state):
     f0_scaled = self._tensor(f0_scaled).reshape(1, 1, 1)
@@ -259,9 +284,6 @@ class VSTPredictControls(VSTStatelessPredictControls):
   def __init__(self, save_dir: str, device: DeviceLike = None):
     super().__init__(save_dir, device)
     self.reset()
-
-  def reset(self):
-    self._state = self.initial_state()
 
   def __call__(self, f0_scaled, pw_scaled):
     amps, hd, noise, self._state = super().__call__(f0_scaled, pw_scaled,

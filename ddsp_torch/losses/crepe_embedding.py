@@ -108,7 +108,10 @@ class PretrainedCREPEEmbeddingLoss(EmbeddingLoss):
                model_capacity: str = 'tiny',
                activation_layer: str = 'classifier',
                weights_path: Optional[str] = None,
-               name: Optional[str] = None):
+               name: Optional[str] = None, scale: float = 1.0):
+    # `scale` is EmbeddingLoss's field, which the JAX class takes and then
+    # replaces by 20 x the layer's scale, as here.
+    del scale
     if activation_layer not in _LAYER_SCALES:
       raise ValueError(
           f'activation layer {activation_layer} not found, valid names are '

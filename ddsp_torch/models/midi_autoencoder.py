@@ -84,7 +84,7 @@ class MidiAutoencoder(Model):
     n_samples / sample_rate / reverb_length: The default group's sizes.
   """
 
-  def __init__(self, synthcoder: nn.Module,
+  def __init__(self, synthcoder: Optional[nn.Module] = None,
                midi_encoder: Optional[nn.Module] = None,
                midi_decoder: Optional[nn.Module] = None,
                sg_before_midiae: bool = True, reverb: bool = True,

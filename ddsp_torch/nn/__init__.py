@@ -16,15 +16,24 @@ from ddsp_torch.nn.encoders import (AggregateFeaturesEncoder,
 from ddsp_torch.nn.layers import (Dense, DictModule, Embedding, FastGRU, Fc,
                                   FcStack, FcStackOut, GRUCell, Identity,
                                   LayerNorm, Normalize, OptimizedLSTMCell,
-                                  Rnn, RnnFc, RnnSandwich, SingleGru,
-                                  StatelessRnn, ensure_4d, get_nonlinearity,
-                                  inv_ensure_4d, normalize_op, split_to_dict)
+                                  OutputSplitsModule, Rnn, RnnFc,
+                                  RnnSandwich, SingleGru, StatelessRnn,
+                                  ensure_4d, get_nonlinearity, inv_ensure_4d,
+                                  normalize_op, split_to_dict)
 from ddsp_torch.nn.preprocessing import (F0LoudnessPreprocessor,
                                          F0PowerPreprocessor,
-                                         OnlineF0PowerPreprocessor)
+                                         OnlineF0PowerPreprocessor,
+                                         inv_scale_db, inv_scale_f0_hz,
+                                         scale_db, scale_f0_hz)
 from ddsp_torch.nn.resnet import (ConditionalNorm, ConditionalScaleAndShift,
                                   NormReluConv, ResidualLayer, ResidualStack,
-                                  ResNet)
+                                  ResNet, get_norm)
+from ddsp_torch.nn.stops import (get_note_lengths, get_note_mask,
+                                 get_note_mask_from_onset, get_note_moments,
+                                 get_short_note_loss_mask, pool_over_notes,
+                                 straight_through_choice,
+                                 straight_through_int_quantization,
+                                 straight_through_softmax)
 from ddsp_torch.nn.vq import VectorQuantization
 
 __all__ = ['stops', 'DilatedConvDecoder', 'FcStackDecoder', 'MidiDecoder',
@@ -42,4 +51,9 @@ __all__ = ['stops', 'DilatedConvDecoder', 'FcStackDecoder', 'MidiDecoder',
            'F0LoudnessPreprocessor', 'F0PowerPreprocessor',
            'OnlineF0PowerPreprocessor', 'ConditionalNorm',
            'ConditionalScaleAndShift', 'NormReluConv', 'ResidualLayer',
-           'ResidualStack', 'ResNet']
+           'ResidualStack', 'ResNet', 'OutputSplitsModule', 'get_norm',
+           'scale_db', 'inv_scale_db', 'scale_f0_hz', 'inv_scale_f0_hz',
+           'get_note_lengths', 'get_note_mask', 'get_note_mask_from_onset',
+           'get_note_moments', 'get_short_note_loss_mask', 'pool_over_notes',
+           'straight_through_choice', 'straight_through_int_quantization',
+           'straight_through_softmax']

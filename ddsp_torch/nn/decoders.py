@@ -30,7 +30,8 @@ class RnnFcDecoder(nn_layers.DictModule):
       inference): adds 'state' [batch, rnn_channels] to the input and
       output keys.
     input_keys: One FC stack is created per input.
-    input_dims: Channels of each input (1 for the scaled f0 and loudness).
+    input_dims: Channels of each input (1 each by default: the scaled f0
+      and loudness; give z's width where 'z' is an input).
     output_splits: (name, n_channels) pairs the dense head is split into.
     compute_dtype: 'bfloat16' or 'float32' for the stacks and the GRU; the
       head is always float32.
@@ -39,7 +40,7 @@ class RnnFcDecoder(nn_layers.DictModule):
   def __init__(self, rnn_channels: int = 512, rnn_type: str = 'gru',
                ch: int = 512, layers_per_stack: int = 3,
                stateless: bool = False,
-               input_keys: Tuple[str, ...] = ('ld_scaled', 'f0_scaled'),
+               input_keys: Tuple[str, ...] = ('ld_scaled', 'f0_scaled', 'z'),
                input_dims: Optional[Sequence[int]] = None,
                output_splits: Tuple[Tuple[str, int], ...] = (
                    ('amps', 1), ('harmonic_distribution', 40)),
@@ -47,9 +48,7 @@ class RnnFcDecoder(nn_layers.DictModule):
     super().__init__()
     self.stateless = stateless
     self.output_splits = tuple(output_splits)
-    self.input_keys = tuple(input_keys) + (('state',) if stateless else ())
-    self.output_keys = tuple(v[0] for v in self.output_splits) + (
-        ('state',) if stateless else ())
+    self.input_keys = tuple(input_keys)
     self.dtype = nn_layers.compute_dtype_of(compute_dtype)
     self.n_stacks = len(input_keys)
     input_dims = tuple(input_dims or (1,) * self.n_stacks)
@@ -64,6 +63,13 @@ class RnnFcDecoder(nn_layers.DictModule):
                                        compute_dtype=compute_dtype)
     n_out = sum(v[1] for v in self.output_splits)
     self.dense_out = nn_layers.Dense(ch, n_out, dtype=torch.float32)
+
+  def _input_keys(self) -> Sequence[str]:
+    return list(self.input_keys) + (['state'] if self.stateless else [])
+
+  def _output_keys(self) -> Sequence[str]:
+    return [v[0] for v in self.output_splits] + (
+        ['state'] if self.stateless else [])
 
   def compute(self, *inputs):
     inputs = list(inputs)
@@ -101,11 +107,13 @@ class FcStackDecoder(nn_layers.DictModule):
     super().__init__()
     self.input_keys = tuple(input_keys)
     self.output_splits = tuple(output_splits)
-    self.output_keys = tuple(v[0] for v in self.output_splits)
     in_features = sum(input_dims or (1,) * len(self.input_keys))
     self.stack = nn_layers.FcStack(in_features, ch, layers_per_stack)
     self.dense_out = nn_layers.Dense(self.stack.out_features,
                                      sum(v[1] for v in self.output_splits))
+
+  def _output_keys(self) -> Sequence[str]:
+    return [v[0] for v in self.output_splits]
 
   def compute(self, *inputs):
     x = self.dense_out(self.stack(torch.cat(list(inputs), dim=-1)))
@@ -120,15 +128,18 @@ class _MidiNetDecoder(nn_layers.DictModule):
   of the reference).
   """
 
-  input_keys = ('z_pitch',)
-
-  def __init__(self, net: nn.Module, n_out: int, norm: bool = True):
+  def __init__(self, net: Optional[nn.Module], n_out: int, norm: bool,
+               input_keys: Tuple[str, ...]):
     super().__init__()
-    self.net = net
+    self.net = nn_layers.required_net(net, type(self).__name__)
     self.norm = norm
+    self.input_keys = tuple(input_keys)
     self.dense_out = nn_layers.Dense(net.out_features, n_out)
     if norm:
       self.norm_layer = nn_layers.Normalize(net.out_features, 'layer')
+
+  def _optional_input_keys(self) -> Sequence[str]:
+    return ('z_vel', 'z')
 
   def _features(self, z_pitch, z):
     x = self.net(z_pitch) if z is None else self.net(z_pitch, z)
@@ -141,13 +152,15 @@ class MidiDecoder(_MidiNetDecoder):
   """MIDI pitch (and velocity) -> f0 (MIDI) and loudness curves; loudness
   recentered to the usual dB range (x * 30 - 70)."""
 
-  output_keys = ('f0_midi', 'loudness')
-
-  def __init__(self, net: nn.Module, f0_residual: bool = True,
-               center_loudness: bool = True, norm: bool = True):
-    super().__init__(net, 2, norm)
+  def __init__(self, net: Optional[nn.Module] = None,
+               f0_residual: bool = True, center_loudness: bool = True,
+               norm: bool = True,
+               input_keys: Tuple[str, ...] = ('z_pitch',),
+               output_keys: Tuple[str, ...] = ('f0_midi', 'loudness')):
+    super().__init__(net, 2, norm, input_keys)
     self.f0_residual = f0_residual
     self.center_loudness = center_loudness
+    self.output_keys = tuple(output_keys)
 
   def compute(self, z_pitch, z_vel=None, z=None):
     del z_vel
@@ -165,18 +178,22 @@ class MidiToHarmonicDecoder(_MidiNetDecoder):
   f0 both in MIDI (residual on z_pitch) and in Hz ('f0_hz';
   midi_zero_silence maps MIDI 0 to 0 Hz)."""
 
-  def __init__(self, net: nn.Module, f0_residual: bool = True,
-               norm: bool = True,
+  def __init__(self, net: Optional[nn.Module] = None,
+               f0_residual: bool = True, norm: bool = True,
                output_splits: Tuple[Tuple[str, int], ...] = (
                    ('f0_midi', 1), ('amplitudes', 1),
                    ('harmonic_distribution', 60), ('magnitudes', 65)),
-               midi_zero_silence: bool = True):
+               midi_zero_silence: bool = True,
+               input_keys: Tuple[str, ...] = ('z_pitch',)):
     output_splits = tuple(output_splits)
-    super().__init__(net, sum(v[1] for v in output_splits), norm)
+    super().__init__(net, sum(v[1] for v in output_splits), norm,
+                     input_keys)
     self.f0_residual = f0_residual
     self.output_splits = output_splits
     self.midi_zero_silence = midi_zero_silence
-    self.output_keys = tuple(v[0] for v in output_splits) + ('f0_hz',)
+
+  def _output_keys(self) -> Sequence[str]:
+    return [v[0] for v in self.output_splits] + ['f0_hz']
 
   def compute(self, z_pitch, z_vel=None, z=None):
     del z_vel
@@ -215,7 +232,7 @@ class DilatedConvDecoder(nn_layers.DictModule):
                spectral_norm: bool = False, ortho_init: bool = False):
     super().__init__()
     conditioning_keys = tuple(conditioning_keys or ())
-    self.conditional = bool(conditioning_keys)
+    self.conditioning_keys = conditioning_keys
     if not self.conditional and precondition_stack is not None:
       raise ValueError('You must specify conditioning keys if you specify '
                        'a precondition stack.')
@@ -223,9 +240,8 @@ class DilatedConvDecoder(nn_layers.DictModule):
       raise ValueError('A conditional DilatedConvDecoder needs '
                        'conditioning_dims.')
     self.n_cond = len(conditioning_keys)
-    self.input_keys = tuple(input_keys) + conditioning_keys
+    self.input_keys = tuple(input_keys)
     self.output_splits = tuple(output_splits)
-    self.output_keys = tuple(v[0] for v in self.output_splits)
     self.precondition_stack = precondition_stack
     z_ch = None
     if self.conditional:
@@ -242,6 +258,16 @@ class DilatedConvDecoder(nn_layers.DictModule):
         conditional=self.conditional, z_ch=z_ch,
         spectral_norm=spectral_norm, ortho_init=ortho_init)
     self.dense_out = nn_layers.Dense(ch, sum(v[1] for v in self.output_splits))
+
+  @property
+  def conditional(self) -> bool:
+    return bool(self.conditioning_keys)
+
+  def _input_keys(self) -> Sequence[str]:
+    return list(self.input_keys) + list(self.conditioning_keys)
+
+  def _output_keys(self) -> Sequence[str]:
+    return [v[0] for v in self.output_splits]
 
   def compute(self, *inputs, training: bool = False):
     if self.conditional:

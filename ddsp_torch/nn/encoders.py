@@ -10,7 +10,7 @@ arguments here.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -40,7 +40,9 @@ class ZEncoder(nn_layers.DictModule):
   ('f0_scaled' by convention) only gives the number of time steps.
   """
 
-  output_keys = ('z',)
+  def __init__(self, output_keys: Tuple[str, ...] = ('z',)):
+    super().__init__()
+    self.output_keys = tuple(output_keys)
 
   def compute(self, *args):
     time_steps = int(args[-1].shape[1])
@@ -74,11 +76,12 @@ class MfccTimeDistributedRnnEncoder(ZEncoder):
   the card its FastGRU is kernel K2 at T = the MFCC frames.
   """
 
-  input_keys = ('audio', 'f0_scaled')
-
   def __init__(self, rnn_channels: int = 512, rnn_type: str = 'gru',
-               z_dims: int = 32, z_time_steps: int = 250):
-    super().__init__()
+               z_dims: int = 32, z_time_steps: int = 250,
+               input_keys: Tuple[str, ...] = ('audio', 'f0_scaled'),
+               output_keys: Tuple[str, ...] = ('z',)):
+    super().__init__(output_keys)
+    self.input_keys = tuple(input_keys)
     if z_time_steps not in _Z_AUDIO_SPEC:
       raise ValueError('`z_time_steps` currently limited to '
                        f'{sorted(_Z_AUDIO_SPEC)}')
@@ -99,10 +102,11 @@ class MfccTimeDistributedRnnEncoder(ZEncoder):
 class OneHotEncoder(ZEncoder):
   """An embedding of an integer instrument or class id as the latent z."""
 
-  input_keys = ('instrument_id', 'f0_scaled')
-
-  def __init__(self, vocab_size: int = 1, z_dims: int = 32):
-    super().__init__()
+  def __init__(self, vocab_size: int = 1, z_dims: int = 32,
+               input_keys: Tuple[str, ...] = ('instrument_id', 'f0_scaled'),
+               output_keys: Tuple[str, ...] = ('z',)):
+    super().__init__(output_keys)
+    self.input_keys = tuple(input_keys)
     self.embedding = nn_layers.Embed(vocab_size, z_dims)
 
   def compute_z(self, instrument_id: torch.Tensor) -> torch.Tensor:
@@ -115,10 +119,11 @@ class OneHotEncoder(ZEncoder):
 class AggregateFeaturesEncoder(ZEncoder):
   """The mean over time of a Dense (fc) of (f0, loudness)."""
 
-  input_keys = ('f0_scaled', 'ld_scaled')
-
-  def __init__(self, ch: int = 512, in_features: int = 2):
-    super().__init__()
+  def __init__(self, ch: int = 512, in_features: int = 2,
+               input_keys: Tuple[str, ...] = ('f0_scaled', 'ld_scaled'),
+               output_keys: Tuple[str, ...] = ('z',)):
+    super().__init__(output_keys)
+    self.input_keys = tuple(input_keys)
     self.fc = nn_layers.Dense(in_features, ch)
 
   def compute(self, *args):
@@ -134,12 +139,13 @@ class AggregateFeaturesEncoder(ZEncoder):
 class MfccEncoder(ZEncoder):
   """Instance-normalized MFCCs (several resolutions, concatenated) as z."""
 
-  input_keys = ('audio', 'f0_scaled')
-
   def __init__(self, fft_sizes: Sequence[int] = (1024,),
                mel_bins: Sequence[int] = (128,),
-               mfcc_bins: Sequence[int] = (30,), time_steps: int = 250):
-    super().__init__()
+               mfcc_bins: Sequence[int] = (30,), time_steps: int = 250,
+               input_keys: Tuple[str, ...] = ('audio', 'f0_scaled'),
+               output_keys: Tuple[str, ...] = ('z',)):
+    super().__init__(output_keys)
+    self.input_keys = tuple(input_keys)
     self.fft_sizes = tuple(fft_sizes)
     self.mel_bins = tuple(mel_bins)
     self.mfcc_bins = tuple(mfcc_bins)
@@ -162,11 +168,12 @@ class MfccRnnEncoder(ZEncoder):
   """MFCCs -> instance norm -> RNN -> Dense: one z for the whole clip (the
   last step, or the mean over time with mean_aggregate)."""
 
-  input_keys = ('audio', 'f0_scaled')
-
   def __init__(self, rnn_channels: int = 512, rnn_type: str = 'gru',
-               z_dims: int = 512, mean_aggregate: bool = False):
-    super().__init__()
+               z_dims: int = 512, mean_aggregate: bool = False,
+               input_keys: Tuple[str, ...] = ('audio', 'f0_scaled'),
+               output_keys: Tuple[str, ...] = ('z',)):
+    super().__init__(output_keys)
+    self.input_keys = tuple(input_keys)
     self.mean_aggregate = mean_aggregate
     self.norm_in = nn_layers.Normalize(_MFCC_BINS, 'instance')
     self.rnn = nn_layers.Rnn(_MFCC_BINS, rnn_channels, rnn_type,
@@ -187,12 +194,13 @@ class _MidiHead(nn_layers.DictModule):
   """net -> Normalize('layer') (norm) -> Dense to 2 (dense_out): (z_pitch,
   z_vel), z_pitch plus f0_midi with f0_residual."""
 
-  output_keys = ('z_pitch', 'z_vel')
-
-  def __init__(self, net: nn.Module, f0_residual: bool = True):
+  def __init__(self, net: Optional[nn.Module], f0_residual: bool,
+               input_keys: Tuple[str, ...], output_keys: Tuple[str, ...]):
     super().__init__()
-    self.net = net
+    self.net = nn_layers.required_net(net, type(self).__name__)
     self.f0_residual = f0_residual
+    self.input_keys = tuple(input_keys)
+    self.output_keys = tuple(output_keys)
     self.dense_out = nn_layers.Dense(net.out_features, 2)
     self.norm = nn_layers.Normalize(net.out_features, 'layer')
 
@@ -208,13 +216,22 @@ class _MidiHead(nn_layers.DictModule):
 class MidiEncoder(_MidiHead):
   """f0 and loudness curves -> (unquantized) MIDI pitch and velocity."""
 
-  input_keys = ('f0_midi', 'loudness')
+  def __init__(self, net: Optional[nn.Module] = None,
+               f0_residual: bool = True,
+               input_keys: Tuple[str, ...] = ('f0_midi', 'loudness'),
+               output_keys: Tuple[str, ...] = ('z_pitch', 'z_vel')):
+    super().__init__(net, f0_residual, input_keys, output_keys)
 
 
 class HarmonicToMidiEncoder(_MidiHead):
   """Harmonic synth parameters -> MIDI pitch and velocity."""
 
-  input_keys = ('f0_midi', 'amps', 'hd', 'noise')
+  def __init__(self, net: Optional[nn.Module] = None,
+               f0_residual: bool = True,
+               input_keys: Tuple[str, ...] = ('f0_midi', 'amps', 'hd',
+                                              'noise'),
+               output_keys: Tuple[str, ...] = ('z_pitch', 'z_vel')):
+    super().__init__(net, f0_residual, input_keys, output_keys)
 
 
 class ExpressionEncoder(ZEncoder):
@@ -227,12 +244,13 @@ class ExpressionEncoder(ZEncoder):
   audio).
   """
 
-  def __init__(self, net: nn.Module, z_dims: int = 128,
+  def __init__(self, net: Optional[nn.Module] = None, z_dims: int = 128,
                input_keys: Tuple[str, ...] = ('f0_scaled', 'ld_scaled'),
                mfcc_bins: int = 60, fft_size: int = 1024,
-               mel_bins: int = 128, pool_time: bool = True):
-    super().__init__()
-    self.net = net
+               mel_bins: int = 128, pool_time: bool = True,
+               output_keys: Tuple[str, ...] = ('z',)):
+    super().__init__(output_keys)
+    self.net = net = nn_layers.required_net(net, 'ExpressionEncoder')
     self.input_keys = tuple(input_keys)
     self.mfcc_bins = mfcc_bins
     self.fft_size = fft_size
@@ -270,14 +288,17 @@ class SinusoidalToHarmonicEncoder(nn_layers.DictModule):
   net, then Dense heads amp_out, hd_out and f0_out (frequencies_softmax
   over f0_depth bins); the distribution loses what lies above Nyquist."""
 
-  input_keys = ('sin_freqs', 'sin_amps')
-  output_keys = ('harm_amp', 'harm_dist', 'f0_hz')
-
-  def __init__(self, net: nn.Module, n_harmonics: int = 100,
-               f0_depth: int = 64, hz_min: float = 20.0,
-               hz_max: float = 1200.0, sample_rate: int = 16000):
+  def __init__(self, net: Optional[nn.Module] = None,
+               n_harmonics: int = 100, f0_depth: int = 64,
+               hz_min: float = 20.0, hz_max: float = 1200.0,
+               sample_rate: int = 16000,
+               input_keys: Tuple[str, ...] = ('sin_freqs', 'sin_amps'),
+               output_keys: Tuple[str, ...] = ('harm_amp', 'harm_dist',
+                                               'f0_hz')):
     super().__init__()
-    self.net = net
+    self.net = net = nn_layers.required_net(net, 'SinusoidalToHarmonicEncoder')
+    self.input_keys = tuple(input_keys)
+    self.output_keys = tuple(output_keys)
     self.f0_depth = f0_depth
     self.hz_min = hz_min
     self.hz_max = hz_max
@@ -305,14 +326,13 @@ class ResnetSinusoidalEncoder(nn_layers.DictModule):
   """Audio -> log mel (229 bins) -> ResNet -> one Dense head per output
   (dense_<name>): sinusoidal controls straight from audio."""
 
-  input_keys = ('audio',)
-
   def __init__(self, output_splits: Tuple[Tuple[str, int], ...] = (
       ('frequencies', 100 * 64), ('amplitudes', 100),
-      ('noise_magnitudes', 60)), size: str = 'tiny'):
+      ('noise_magnitudes', 60)), size: str = 'tiny',
+               input_keys: Tuple[str, ...] = ('audio',)):
     super().__init__()
     self.output_splits = tuple(output_splits)
-    self.output_keys = tuple(v[0] for v in self.output_splits)
+    self.input_keys = tuple(input_keys)
     # 'tiny' is the reference's small ResNet.
     self.resnet = ResNet(size='small' if size == 'tiny' else size)
     # 229 mel bins: /2 (stem) /2 (pool) and /2 /2 /2 (strides), rounded up.
@@ -339,4 +359,7 @@ class ResnetSinusoidalEncoder(nn_layers.DictModule):
     x = self.resnet(mag[:, :, :, None])
     x = x.reshape(x.shape[0], x.shape[1], -1)
     return {name: getattr(self, f'dense_{name}')(x)
-            for name in self.output_keys}
+            for name in self._output_keys()}
+
+  def _output_keys(self) -> Sequence[str]:
+    return [v[0] for v in self.output_splits]

@@ -65,23 +65,54 @@ def lecun_normal_(tensor: torch.Tensor, fan_in: int,
                                generator=generator)
 
 
+def required_net(net: Optional[nn.Module], owner: str) -> nn.Module:
+  """`net`, which the JAX field defaults to None but every call needs: the
+  port sizes the layers after it from its out_features, so None raises
+  here rather than at the first call."""
+  if net is None:
+    raise ValueError(f'{owner} needs a net (a module with out_features); '
+                     'it defaults to None only as the JAX field does.')
+  return net
+
+
 class DictModule(nn.Module):
   """Dict-in/dict-out module with explicitly declared keys.
 
-  Subclasses set `input_keys` / `output_keys` and implement
-  `compute(*tensors)` returning a tuple (matched to output_keys) or a dict.
-  Calling the module with a features dict looks the inputs up by key.
-  `training` reaches compute only where a subclass sets takes_training, as
-  the JAX modules take it (or drop it into **unused_kwargs).
+  Subclasses take `input_keys` / `output_keys` (constructor arguments where
+  the JAX module has them as fields, with its defaults) and implement
+  `compute(*tensors)` returning a tuple (matched to the output keys) or a
+  dict. Calling the module with a features dict looks the inputs up by key.
+  `_input_keys()` / `_output_keys()` are the keys read and written (a
+  subclass may add to them, e.g. 'state'); `_optional_input_keys()` those
+  that may be absent from the features (passed as None). `training` reaches
+  compute only where a subclass sets takes_training, as the JAX modules
+  take it (or drop it into **unused_kwargs).
   """
 
   input_keys: Tuple[str, ...] = ()
   output_keys: Tuple[str, ...] = ()
   takes_training = False
 
+  def _input_keys(self) -> Sequence[str]:
+    return self.input_keys
+
+  def _output_keys(self) -> Sequence[str]:
+    return self.output_keys
+
+  def _optional_input_keys(self) -> Sequence[str]:
+    return ()
+
   def forward(self, *args, training: bool = False) -> TensorDict:
     if len(args) == 1 and isinstance(args[0], dict):
-      inputs = [nested_lookup(k, args[0]) for k in self.input_keys]
+      optional = set(self._optional_input_keys())
+      inputs = []
+      for k in self._input_keys():
+        try:
+          inputs.append(nested_lookup(k, args[0]))
+        except KeyError:
+          if k not in optional:
+            raise
+          inputs.append(None)
     else:
       inputs = list(args)
     kwargs = {'training': training} if self.takes_training else {}
@@ -90,13 +121,45 @@ class DictModule(nn.Module):
       return outputs
     if not isinstance(outputs, (tuple, list)):
       outputs = (outputs,)
-    if len(self.output_keys) != len(outputs):
+    output_keys = list(self._output_keys())
+    if len(output_keys) != len(outputs):
       raise ValueError(
           f'Module {type(self).__name__} returned {len(outputs)} outputs '
-          f'but declares output_keys {list(self.output_keys)}.')
-    return dict(zip(self.output_keys, outputs))
+          f'but declares output_keys {output_keys}.')
+    return dict(zip(output_keys, outputs))
 
   def compute(self, *inputs):
+    raise NotImplementedError
+
+
+class OutputSplitsModule(DictModule):
+  """One network head split into a dict of named outputs (the reference's
+  OutputSplitsLayer, nn.py:249).
+
+  The base class of a custom head: a subclass implements
+  `compute_output(*inputs)` -> [batch, time, n_out], n_out the sum of the
+  output_splits' sizes, and the module returns it split into
+  {name: [batch, time, size]}.
+  """
+
+  def __init__(self, input_keys: Tuple[str, ...] = (),
+               output_splits: Tuple[Tuple[str, int], ...] = (('amps', 1),)):
+    super().__init__()
+    self.input_keys = tuple(input_keys)
+    self.output_splits = tuple(output_splits)
+
+  def _output_keys(self) -> Sequence[str]:
+    return [v[0] for v in self.output_splits]
+
+  @property
+  def n_out(self) -> int:
+    return sum(v[1] for v in self.output_splits)
+
+  def compute(self, *inputs, **kwargs) -> TensorDict:
+    return split_to_dict(self.compute_output(*inputs, **kwargs),
+                         self.output_splits)
+
+  def compute_output(self, *inputs, **kwargs) -> torch.Tensor:
     raise NotImplementedError
 
 

@@ -7,7 +7,7 @@ from ddsp_tpu/nn/preprocessing.py.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -66,23 +66,32 @@ class F0LoudnessPreprocessor(DictModule):
       using the dataset's 'loudness_db' (which may then be absent).
   """
 
-  input_keys = ('loudness_db', 'f0_hz', 'audio')
-  output_keys = ('f0_hz', 'loudness_db', 'f0_scaled', 'ld_scaled')
-
   def __init__(self, time_steps: int = 1000, frame_rate: int = 250,
-               sample_rate: int = 16000, compute_loudness_fresh: bool = True):
+               sample_rate: int = 16000, compute_loudness_fresh: bool = True,
+               input_keys: Tuple[str, ...] = ('loudness_db', 'f0_hz',
+                                              'audio'),
+               output_keys: Tuple[str, ...] = ('f0_hz', 'loudness_db',
+                                               'f0_scaled', 'ld_scaled')):
     super().__init__()
     self.time_steps = time_steps
     self.frame_rate = frame_rate
     self.sample_rate = sample_rate
     self.compute_loudness_fresh = compute_loudness_fresh
+    self.input_keys = tuple(input_keys)
+    self.output_keys = tuple(output_keys)
 
-  def forward(self, *args):
-    if len(args) == 1 and isinstance(args[0], dict):
-      features = args[0]
-      args = (features.get('loudness_db'), features['f0_hz'],
-              features.get('audio'))
-    return super().forward(*args)
+  def _input_keys(self) -> Sequence[str]:
+    if self.compute_loudness_fresh:
+      return self.input_keys
+    return self.input_keys[:2]
+
+  def _optional_input_keys(self) -> Sequence[str]:
+    # A fresh loudness makes the dataset's unnecessary. The JAX module
+    # looks 'audio' up strictly; here it is optional so that compute
+    # raises the ValueError that names it.
+    if self.compute_loudness_fresh:
+      return (self.input_keys[0], self.input_keys[2])
+    return (self.input_keys[0],)
 
   def compute(self, loudness_db, f0_hz, audio=None):
     if self.compute_loudness_fresh:
@@ -99,6 +108,12 @@ class F0LoudnessPreprocessor(DictModule):
     loudness_db = self.resample(loudness_db)
     return f0_hz, loudness_db, scale_f0_hz(f0_hz), scale_db(loudness_db)
 
+  @staticmethod
+  def invert_scaling(f0_scaled: torch.Tensor, ld_scaled: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scaled f0 and loudness back to Hz and dB."""
+    return inv_scale_f0_hz(f0_scaled), inv_scale_db(ld_scaled)
+
   def resample(self, x: torch.Tensor) -> torch.Tensor:
     return resample(at_least_3d(x), self.time_steps)
 
@@ -111,22 +126,21 @@ class F0PowerPreprocessor(F0LoudnessPreprocessor):
     frame_size: Frame size of the power computed from the audio.
   """
 
-  input_keys = ('f0_hz', 'power_db', 'audio')
-  output_keys = ('f0_hz', 'pw_db', 'f0_scaled', 'pw_scaled')
-
   def __init__(self, time_steps: int = 1000, frame_rate: int = 250,
                sample_rate: int = 16000, frame_size: int = 64,
-               compute_loudness_fresh: bool = True):
+               compute_loudness_fresh: bool = True,
+               input_keys: Tuple[str, ...] = ('f0_hz', 'power_db', 'audio'),
+               output_keys: Tuple[str, ...] = ('f0_hz', 'pw_db', 'f0_scaled',
+                                               'pw_scaled')):
     super().__init__(time_steps, frame_rate, sample_rate,
-                     compute_loudness_fresh)
+                     compute_loudness_fresh, input_keys, output_keys)
     self.frame_size = frame_size
 
-  def forward(self, *args):
-    if len(args) == 1 and isinstance(args[0], dict):
-      features = args[0]
-      args = (features['f0_hz'], features.get('power_db'),
-              features.get('audio'))
-    return DictModule.forward(self, *args)
+  def _input_keys(self) -> Sequence[str]:
+    return self.input_keys
+
+  def _optional_input_keys(self) -> Sequence[str]:
+    return self.input_keys[1:]
 
   def compute(self, f0_hz, power_db=None, audio=None):
     f0_hz = self.resample(f0_hz)
@@ -141,6 +155,12 @@ class F0PowerPreprocessor(F0LoudnessPreprocessor):
                        '"audio" keys to be provided in the dataset.')
     pw_db = self.resample(pw_db)
     return f0_hz, pw_db, scale_f0_hz(f0_hz), scale_db(pw_db)
+
+  @staticmethod
+  def invert_scaling(f0_scaled: torch.Tensor, pw_scaled: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scaled f0 and power back to Hz and dB."""
+    return inv_scale_f0_hz(f0_scaled), inv_scale_db(pw_scaled)
 
 
 class OnlineF0PowerPreprocessor(DictModule):
@@ -166,14 +186,16 @@ class OnlineF0PowerPreprocessor(DictModule):
   (spectral.get_framed_lengths); a mismatch raises.
   """
 
-  input_keys = ('audio', 'f0_hz', 'f0_confidence', 'audio_16k', 'power_db')
-  output_keys = ('f0_hz', 'pw_db', 'f0_scaled', 'pw_scaled', 'f0_confidence')
-
   def __init__(self, frame_rate: int = 250, frame_size: int = 1024,
                padding: str = 'center', compute_power: bool = True,
                compute_f0: bool = True, crepe_model_capacity: str = 'tiny',
                crepe_weights_path: Optional[str] = None,
-               viterbi: bool = False):
+               viterbi: bool = False,
+               input_keys: Tuple[str, ...] = ('audio', 'f0_hz',
+                                              'f0_confidence', 'audio_16k',
+                                              'power_db'),
+               output_keys: Tuple[str, ...] = ('f0_hz', 'pw_db', 'f0_scaled',
+                                               'pw_scaled', 'f0_confidence')):
     super().__init__()
     self.frame_rate = frame_rate
     self.frame_size = frame_size
@@ -181,17 +203,24 @@ class OnlineF0PowerPreprocessor(DictModule):
     self.compute_power = compute_power
     self.compute_f0 = compute_f0
     self.viterbi = viterbi
-    self.sample_rate = ONLINE_SAMPLE_RATE
-    self.hop_size = self.sample_rate // frame_rate
+    self.input_keys = tuple(input_keys)
+    self.output_keys = tuple(output_keys)
     # PretrainedCrepe is not a Module: no parameters, no state_dict keys.
     self.crepe = (PretrainedCrepe(
         model_capacity=crepe_model_capacity, weights_path=crepe_weights_path,
         hop_size=self.hop_size, device='cpu') if compute_f0 else None)
 
-  def forward(self, *args):
-    if len(args) == 1 and isinstance(args[0], dict):
-      args = tuple(args[0].get(k) for k in self.input_keys)
-    return super().forward(*args)
+  @property
+  def sample_rate(self) -> int:
+    """Features are computed at CREPE's rate."""
+    return ONLINE_SAMPLE_RATE
+
+  @property
+  def hop_size(self) -> int:
+    return self.sample_rate // self.frame_rate
+
+  def _optional_input_keys(self) -> Sequence[str]:
+    return self.input_keys[1:]
 
   def compute(self, audio, f0_hz=None, f0_confidence=None, audio_16k=None,
               power_db=None):

@@ -194,6 +194,20 @@ class ConditionalNorm(nn.Module):
     return self.ConditionalScaleAndShift_0(normalize_op(x, self.norm_type), z)
 
 
+def get_norm(norm_type: str, conditional: bool, shift_only: bool, *,
+             ch: int, z_ch: Optional[int] = None) -> nn.Module:
+  """Normalization layer: learned scale and shift (Normalize), or
+  FiLM-conditioned on z (ConditionalNorm).
+
+  The port's layers take their channel counts, which flax infers: ch those
+  of x, z_ch those of z (conditional only).
+  """
+  if conditional:
+    return ConditionalNorm(ch, z_ch, norm_type=norm_type,
+                           shift_only=shift_only)
+  return Normalize(ch, norm_type=norm_type)
+
+
 class NormReluConv(nn.Module):
   """Normalize_0 -> ReLU -> Conv_0 (k x k, stride (1, s))."""
 

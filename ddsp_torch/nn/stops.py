@@ -15,23 +15,24 @@ from ddsp_torch.ops.core import diff, safe_divide
 
 
 def straight_through_softmax(
-    logits: torch.Tensor, generator: Optional[torch.Generator] = None
+    logits: torch.Tensor, key: Optional[torch.Generator] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Straight-through estimator of a one-hot categorical distribution.
 
   Args:
     logits: Unnormalized log-probabilities, [..., n_classes].
-    generator: Generator of a categorical draw (the JAX function's key).
-      If None, takes the argmax (the mode) instead of sampling.
+    key: The torch.Generator of a categorical draw (where the JAX function
+      takes a PRNG key). If None, takes the argmax (the mode) instead of
+      sampling.
 
   Returns:
     (sample, probs): a one-hot sample with straight-through gradients into
     probs, and the softmax probabilities.
   """
   probs = torch.softmax(logits, dim=-1)
-  if generator is not None:
+  if key is not None:
     flat = probs.detach().reshape(-1, probs.shape[-1])
-    idx = torch.multinomial(flat, 1, generator=generator).reshape(
+    idx = torch.multinomial(flat, 1, generator=key).reshape(
         probs.shape[:-1])
   else:
     idx = torch.argmax(probs, dim=-1)
@@ -42,10 +43,10 @@ def straight_through_softmax(
 
 
 def straight_through_choice(logits: torch.Tensor, values: torch.Tensor,
-                            generator: Optional[torch.Generator] = None
+                            key: Optional[torch.Generator] = None
                             ) -> torch.Tensor:
   """Straight-through estimator of choosing a value by a one-hot mask."""
-  choice, _ = straight_through_softmax(logits, generator)
+  choice, _ = straight_through_softmax(logits, key)
   return torch.sum(choice * values, dim=-1, keepdim=True)
 
 

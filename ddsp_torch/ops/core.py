@@ -6,10 +6,25 @@ Port of ddsp_tpu/ops/core.py.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Sequence, Union
 
 import numpy as np
 import torch
+
+__all__ = [
+    'Array', 'Number', 'DB_RANGE', 'full_float32', 'torch_float32', 'f32',
+    'make_iterable', 'to_dict', 'nested_keys', 'nested_lookup', 'flatten',
+    'leaf_key', 'map_shape', 'pad_axis', 'diff', 'nan_to_num', 'safe_divide',
+    'safe_log', 'logb', 'log10', 'log_scale', 'soft_limit',
+    'gradient_reversal', 'amplitude_to_db', 'power_to_db', 'db_to_amplitude',
+    'db_to_power', 'midi_to_hz', 'hz_to_midi', 'unit_to_midi',
+    'midi_to_unit', 'unit_to_hz', 'hz_to_unit', 'hz_to_bark', 'bark_to_hz',
+    'hz_to_mel', 'mel_to_hz', 'hz_to_erb', 'exp_sigmoid', 'sym_exp_sigmoid',
+    'frequencies_softmax', 'frequencies_sigmoid', 'get_deviation_hz',
+    'frequencies_critical_bands']
+
+Array = torch.Tensor
+Number = Union[float, int, np.ndarray, Array]
 
 DB_RANGE = 80.0
 
@@ -32,6 +47,10 @@ def torch_float32(x: Any, device=None) -> torch.Tensor:
   if isinstance(x, torch.Tensor):
     return x.to(torch.float32)
   return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+# The JAX package's short alias (its f32 = jnp_float32).
+f32 = torch_float32
 
 
 def make_iterable(x: Any) -> Sequence[Any]:

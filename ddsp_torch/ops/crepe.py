@@ -203,10 +203,22 @@ def load_weights(path: str, model_capacity: str = 'tiny') -> Dict[str, Any]:
   """Read model-<size>.npz (numpy) or .h5 (h5py) into a flax-style
   variables dict {'params': ..., 'batch_stats': ...} of numpy arrays."""
   if path.endswith('.h5'):
-    flat = read_h5(path)
-  else:
-    with np.load(path) as data:
-      flat = {k: data[k] for k in data.files}
+    return load_weights_from_h5(path, model_capacity)
+  with np.load(path) as data:
+    return _variables({k: data[k] for k in data.files}, path, model_capacity)
+
+
+def load_weights_from_h5(path: str,
+                         model_capacity: str = 'tiny') -> Dict[str, Any]:
+  """Read a crepe pip-package model-<size>.h5 (h5py) into a flax-style
+  variables dict {'params': ..., 'batch_stats': ...} of numpy arrays."""
+  return _variables(read_h5(path), path, model_capacity)
+
+
+def _variables(flat: Dict[str, np.ndarray], path: str,
+               model_capacity: str) -> Dict[str, Any]:
+  """Flat 'collection/module/name' arrays as a variables dict, checked
+  against the capacity's conv1 width."""
   variables = {'params': {}, 'batch_stats': {}}
   for key, value in flat.items():
     collection, module, name = key.split('/')

@@ -20,28 +20,43 @@ def hann_window(window_size: int, device=None) -> torch.Tensor:
   return 0.5 - 0.5 * torch.cos(2.0 * np.pi * t / max(denom, 1))
 
 
-def get_fft_size(frame_size: int, ir_size: int) -> int:
-  """Next power of 2 that holds a frame convolved with an IR."""
-  return int(2**np.ceil(np.log2(ir_size + frame_size - 1)))
+def get_fft_size(frame_size: int, ir_size: int,
+                 power_of_2: bool = True) -> int:
+  """Size of an efficient FFT that holds a frame convolved with an IR: the
+  next power of 2, or with power_of_2=False the next 5-smooth size
+  (scipy's next_fast_len for a real transform, as the JAX package's
+  scipy.fftpack next_fast_len)."""
+  convolved_frame_size = ir_size + frame_size - 1
+  if power_of_2:
+    return int(2**np.ceil(np.log2(convolved_frame_size)))
+  import scipy.fft  # pylint: disable=g-import-not-at-top
+  return int(scipy.fft.next_fast_len(convolved_frame_size, real=True))
 
 
 def frame(signal: torch.Tensor, frame_length: int, frame_step: int,
-          pad_end: bool = True) -> torch.Tensor:
-  """Overlapping frames of the last axis, [..., n_frames, frame_length].
+          pad_end: bool = False, pad_value: float = 0.0,
+          axis: int = -1) -> torch.Tensor:
+  """Overlapping frames along `axis`: that axis becomes (n_frames,
+  frame_length), [..., n_frames, frame_length, ...].
 
-  tf.signal.frame: with pad_end=True the end is zero-padded so that
-  n_frames = ceil(T / frame_step); with pad_end=False
-  n_frames = 1 + (T - frame_length) // frame_step.
+  tf.signal.frame: with pad_end=True the end is padded with pad_value so
+  that n_frames = ceil(T / frame_step); with pad_end=False
+  n_frames = 1 + (T - frame_length) // frame_step (0 when T is shorter
+  than a frame).
   """
-  n = signal.shape[-1]
+  axis = axis % signal.ndim
+  n = signal.shape[axis]
   if pad_end:
     n_frames = -(-n // frame_step)
     pad_len = max(0, (n_frames - 1) * frame_step + frame_length - n)
     if pad_len:
-      signal = torch.nn.functional.pad(signal, (0, pad_len))
+      pads = (0, 0) * (signal.ndim - 1 - axis) + (0, pad_len)
+      signal = torch.nn.functional.pad(signal, pads, value=pad_value)
   elif n < frame_length:
-    return signal.new_zeros(tuple(signal.shape[:-1]) + (0, frame_length))
-  return signal.unfold(-1, frame_length, frame_step)
+    shape = list(signal.shape)
+    shape[axis:axis + 1] = [0, frame_length]
+    return signal.new_zeros(shape)
+  return signal.unfold(axis, frame_length, frame_step).movedim(-1, axis + 1)
 
 
 def overlap_and_add(frames: torch.Tensor, frame_step: int) -> torch.Tensor:
@@ -114,7 +129,7 @@ def fft_convolve(audio: torch.Tensor, impulse_response: torch.Tensor,
                      f'{padding}.')
 
   frame_size = int(np.ceil(audio_size / n_ir_frames))
-  audio_frames = frame(audio, frame_size, frame_size)
+  audio_frames = frame(audio, frame_size, frame_size, pad_end=True)
   n_audio_frames = int(audio_frames.shape[1])
   if n_audio_frames != n_ir_frames:
     raise ValueError(
@@ -151,13 +166,17 @@ def designed_ir_size(n_freqs: int, window_size: int) -> int:
 
 
 def apply_window_to_impulse_response(impulse_response: torch.Tensor,
-                                     window_size: int = 0) -> torch.Tensor:
+                                     window_size: int = 0,
+                                     causal: bool = False) -> torch.Tensor:
   """Hann-window zero-phase IRs [batch, n_frames, ir] and make them causal.
 
   window_size < 1 means the IR size; a smaller window crops the IR
-  (`designed_ir_size`).
+  (`designed_ir_size`). causal=True takes IRs already in causal form (the
+  peak in the middle) and shifts them to zero phase first.
   """
   impulse_response = torch_float32(impulse_response)
+  if causal:
+    impulse_response = torch.fft.fftshift(impulse_response, dim=-1)
   ir_size = int(impulse_response.shape[-1])
   window_size = _window_size(ir_size, window_size)
   window = hann_window(window_size, device=impulse_response.device)

@@ -107,9 +107,10 @@ def normalize_harmonics(harmonic_distribution: torch.Tensor,
 
 
 def oscillator_bank(frequency_envelopes, amplitude_envelopes,
-                    sample_rate: int = 16000,
+                    sample_rate: int = 16000, sum_sinusoids: bool = True,
                     use_angular_cumsum: bool = False) -> torch.Tensor:
-  """Sum over sinusoids of amp * sin(cumsum(2 pi f / sr)), [batch, n]."""
+  """amp * sin(cumsum(2 pi f / sr)) of each sinusoid: summed over them,
+  [batch, n], or with sum_sinusoids=False [batch, n, n_sinusoids]."""
   frequency_envelopes = torch_float32(frequency_envelopes)
   amplitude_envelopes = remove_above_nyquist(
       frequency_envelopes, amplitude_envelopes, sample_rate)
@@ -119,7 +120,7 @@ def oscillator_bank(frequency_envelopes, amplitude_envelopes,
   else:
     phases = phase_cumsum(omegas)
   audio = amplitude_envelopes * torch.sin(phases)
-  return torch.sum(audio, dim=-1)
+  return torch.sum(audio, dim=-1) if sum_sinusoids else audio
 
 
 def harmonic_oscillator_bank(

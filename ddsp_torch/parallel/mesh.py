@@ -323,8 +323,11 @@ def shard_batch(mesh: Mesh, batch: Dict[str, Any],
           for k, v in batch.items()}
 
 
-def replicate(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> None:
-  """Every rank's tensors overwritten with rank 0's (ddsp_tpu replicate:
-  parameters and optimizer state); nothing to do in one process."""
+def replicate(mesh: Mesh, tree):
+  """Every rank's tensors overwritten with rank 0's, in place (ddsp_tpu
+  replicate: parameters and optimizer state); nothing to do in one
+  process. `tree` is a sequence or a dict of tensors, and is returned."""
   if mesh.n_ranks > 1:
+    tensors = tree.values() if isinstance(tree, dict) else tree
     distributed.broadcast_(list(tensors))
+  return tree

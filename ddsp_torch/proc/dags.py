@@ -10,7 +10,7 @@ module's name, and 'out' aliases the final node's.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 from torch import nn
 
@@ -66,6 +66,14 @@ class DAGModule(nn.Module):
       self.node_names.append(name)
       self.node_input_keys.append(tuple(node[1]))
       self.node_output_keys.append(tuple(node[2]) if len(node) > 2 else None)
+
+  @property
+  def module_names(self) -> List[str]:
+    return list(self.node_names)
+
+  @property
+  def dag_modules(self) -> List[nn.Module]:
+    return [getattr(self, name) for name in self.node_names]
 
   def forward(self, inputs: TensorDict, **kwargs) -> TensorDict:
     return self.run_dag(inputs, **kwargs)

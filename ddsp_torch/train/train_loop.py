@@ -34,16 +34,19 @@ logger = logging.getLogger('ddsp_torch')
 
 
 class MetricsWriter:
-  """Scalar metrics -> JSONL file (<log_dir>/metrics.jsonl), plus
-  TensorBoard event files in log_dir where torch.utils.tensorboard imports
-  (it needs the tensorboard package; without it the writer is JSONL only,
-  as the JAX writer is without TensorFlow)."""
+  """Scalar metrics -> JSONL file (<log_dir>/metrics.jsonl), plus, with
+  use_tensorboard, TensorBoard event files in log_dir where
+  torch.utils.tensorboard imports (it needs the tensorboard package;
+  without it the writer is JSONL only, as the JAX writer is without
+  TensorFlow)."""
 
-  def __init__(self, log_dir: str):
+  def __init__(self, log_dir: str, use_tensorboard: bool = True):
     os.makedirs(log_dir, exist_ok=True)
     self._path = os.path.join(log_dir, 'metrics.jsonl')
     self._file = open(self._path, 'a')
     self._tb = None
+    if not use_tensorboard:
+      return
     try:
       from torch.utils.tensorboard import SummaryWriter  # pylint: disable=g-import-not-at-top
     except ImportError:

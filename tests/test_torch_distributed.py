@@ -809,8 +809,8 @@ def _jax_params():
   variables = jax.jit(lambda b: model.init(
       {'params': jax.random.PRNGKey(0), 'noise': jax.random.PRNGKey(1)}, b,
       training=True, return_losses=True))(_trainer_batch(2))
-  decoder_params = _sp_decoder(j_nn).init(jax.random.PRNGKey(0),
-                                          _sp_batch())['params']
+  decoder_params = jax.jit(_sp_decoder(j_nn).init)(jax.random.PRNGKey(0),
+                                                   _sp_batch())['params']
   to_np = lambda t: jax.tree_util.tree_map(np.array, t)
   params = to_np(variables['params'])
   # The node models share the decoder; Mix's decodes nine more outputs (a

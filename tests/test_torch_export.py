@@ -121,6 +121,16 @@ def ae(request, tmp_path_factory):
           'root': root}
 
 
+@pytest.fixture(scope='module')
+def default_program(ae, tmp_path_factory):
+  """ae's program as export_model writes it by default (the reverb
+  removed, as AutoencoderInference's default), exported once for the tests
+  that only read it."""
+  return t_export.export_model(
+      ae['port_dir'], str(tmp_path_factory.mktemp(f'program_{ae["dtype"]}')),
+      fmt='torch_export', length_seconds=LENGTH_SECONDS, device='cpu')
+
+
 def _stablehlo_and_noise(ae, features):
   """(audio of the JAX StableHLO artifact, the noise it drew)."""
   path = j_infer.export_model(ae['jax_dir'], str(ae['root'] / 'hlo'),
@@ -198,13 +208,14 @@ def test_autoencoder_program_matches_stablehlo(ae, tmp_path):
 
 
 @pytest.mark.parametrize('remove_reverb', [True, False])
-def test_autoencoder_program_is_deterministic(ae, tmp_path, remove_reverb):
+def test_autoencoder_program_is_deterministic(ae, default_program, tmp_path,
+                                             remove_reverb):
   """The noise is baked in: the same audio on a second call, after save and
-  load, and as AutoencoderInference renders it."""
-  path = t_export.export_model(ae['port_dir'], str(tmp_path),
-                               fmt='torch_export',
-                               length_seconds=LENGTH_SECONDS, device='cpu',
-                               remove_reverb=remove_reverb)
+  load, and as AutoencoderInference renders it. With the reverb removed
+  the program is the default export."""
+  path = default_program if remove_reverb else t_export.export_model(
+      ae['port_dir'], str(tmp_path), fmt='torch_export',
+      length_seconds=LENGTH_SECONDS, device='cpu', remove_reverb=False)
   program = t_export.load_program(path, device='cpu')
   features = {k: torch.from_numpy(v) for k, v in _features(3).items()}
   first = program(*features.values())
@@ -219,11 +230,8 @@ def test_autoencoder_program_is_deterministic(ae, tmp_path, remove_reverb):
                              atol=0)
 
 
-def test_autoencoder_program_holds_the_ops(ae, tmp_path):
-  path = t_export.export_model(ae['port_dir'], str(tmp_path),
-                               fmt='torch_export',
-                               length_seconds=LENGTH_SECONDS, device='cpu')
-  program = t_export.load_program(path, device='cpu').program
+def test_autoencoder_program_holds_the_ops(default_program):
+  program = t_export.load_program(default_program, device='cpu').program
   ops = _ops(program)
   assert ops['ddsp_torch.harmonic_fwd.default'] == 1
   assert ops['ddsp_torch.gru_fwd.default'] == 1

@@ -200,7 +200,7 @@ def test_fwd_route(dtype, seq_len, hidden):
 
 
 def _jax_fast_gru_params(jax_gru, x, rng):
-  params = jax.tree_util.tree_map(np.asarray, jax_gru.init(
+  params = jax.tree_util.tree_map(np.asarray, jax.jit(jax_gru.init)(
       jax.random.PRNGKey(0), jnp.asarray(x))['params'])
   params['bi'] = (rng.randn(*params['bi'].shape) * 0.1).astype(np.float32)
   params['bn'] = (rng.randn(*params['bn'].shape) * 0.1).astype(np.float32)

@@ -385,7 +385,7 @@ def test_solo_instrument_384_gru_matches_the_jax_fast_gru():
   rng = np.random.RandomState(26)
   x = rng.randn(2, 8, 1024).astype(np.float32)
   jax_gru = JaxFastGRU(dims=384, compute_dtype='bfloat16', use_pallas=True)
-  params = jax.tree_util.tree_map(np.asarray, jax_gru.init(
+  params = jax.tree_util.tree_map(np.asarray, jax.jit(jax_gru.init)(
       jax.random.PRNGKey(0), jnp.asarray(x))['params'])
   params['bi'] = (rng.randn(1152) * 0.1).astype(np.float32)
   params['bn'] = (rng.randn(384) * 0.1).astype(np.float32)

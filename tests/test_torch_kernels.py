@@ -125,7 +125,7 @@ def test_fast_gru_matches_jax_scan_f32():
   rng = np.random.RandomState(3)
   x = rng.randn(3, 40, 16).astype(np.float32)
   jax_gru = JaxFastGRU(dims=32, compute_dtype='float32', use_pallas=False)
-  variables = jax_gru.init(jax.random.PRNGKey(0), jnp.asarray(x))
+  variables = jax.jit(jax_gru.init)(jax.random.PRNGKey(0), jnp.asarray(x))
   params = jax.tree_util.tree_map(np.asarray, variables['params'])
   params['bi'] = rng.randn(96).astype(np.float32) * 0.1
   params['bn'] = rng.randn(32).astype(np.float32) * 0.1

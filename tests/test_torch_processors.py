@@ -224,7 +224,7 @@ def test_exp_decay_reverb_matches_jax(trainable):
     _processor(j_rev, t_rev, [audio, _x((2, 1), 24), _x((2, 1), 25, 0.5, 1.0)],
                rtol=1e-4, relative=True, t_kwargs={'noise': noise_t})
     return
-  variables = j_rev.init(jax.random.PRNGKey(0), jnp.asarray(audio))
+  variables = jax.jit(j_rev.init)(jax.random.PRNGKey(0), jnp.asarray(audio))
   assert jax.tree_util.tree_map(np.shape, variables['params']) == {
       'gain': (1,), 'decay': (1,)}
   np.testing.assert_array_equal(t_rev.gain.detach().numpy(), [2.0])

@@ -75,7 +75,7 @@ def jax_steps():
   decoder = j_nn.FcStackDecoder(
       ch=16, layers_per_stack=1, input_keys=('ld_scaled', 'f0_scaled'),
       output_splits=OUTPUT_SPLITS)
-  params = decoder.init(jax.random.PRNGKey(0), batch)['params']
+  params = jax.jit(decoder.init)(jax.random.PRNGKey(0), batch)['params']
   initial = jax.tree_util.tree_map(np.array, params)
   optimizer = optax.adam(1e-2)
   opt_state = optimizer.init(params)

@@ -84,11 +84,11 @@ def test_straight_through_softmax_and_choice_argmax():
 
 
 def test_straight_through_softmax_samples_one_hots():
-  """With a generator (the JAX key) it samples: one-hot rows, the draw's
+  """With a generator as the key it samples: one-hot rows, the draw's
   value in the forward, softmax gradients."""
   logits = torch.tensor([[0.0, 50.0, 0.0], [50.0, 0.0, 0.0]])
   sample, probs = t_stops.straight_through_softmax(
-      logits, generator=torch.Generator().manual_seed(3))
+      logits, key=torch.Generator().manual_seed(3))
   np.testing.assert_array_equal(sample.numpy(), [[0, 1, 0], [1, 0, 0]])
   _close(probs.sum(-1), np.ones(2))
 
